@@ -8,12 +8,19 @@ Phases, in order; any failure exits nonzero:
 2. build: the CUDA kernels of ``oadp_torch/csrc`` (nvcc, sm_90a), timed;
 3. kernels: each ported kernel at the main path's shapes against its plain
    PyTorch version on the card in bf16 (cosine >= 0.999), timed beside
-   its plain version, a PyTorch library yardstick and its bound;
-4. main path: the OAKE objects and globals CLIs (``oadp_torch.oake``) at
-   full ViT-B/32 width (random weights from seed 0, bf16) on synthetic
-   images with 1000 proposals each; checks every record, that the launch
-   counters show every kernel on the path, and that 8 crops re-encoded on
-   the CPU in fp32 agree with the card (cosine >= 0.99); images/s.
+   its plain version, a PyTorch library yardstick and its bound: kernels
+   1-2 at the objects dispatch (2048 crops), kernel 3 at the globals and
+   a production blocks batch, kernels 4-5 at the split path's 999 crops
+   and at 2048;
+4. main path, each part with the launch counts set to 0 just before it
+   and checked just after: the OAKE objects, globals and blocks CLIs
+   (``oadp_torch.oake``) at full ViT-B/32 width (random weights from seed
+   0, bf16) on synthetic images with 1000 proposals each, every record
+   checked; the surgery encoder's split wiring (``objects_step`` on 999
+   crops: kernels 4 and 5 only) against its fused wiring on the same
+   crops (cosine >= 0.99) and timed beside it; CPU fp32 re-encodes of
+   crops and blocks against the card (cosine >= 0.99); images/s of a
+   warm second run of each CLI.
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -34,6 +41,8 @@ import torch.nn.functional as F
 D, HEADS, HD = 768, 12, 64
 N_OBJ, N_GLOB = 197, 50
 OBJ_BATCH, GLOB_BATCH = 2048, 16  # crops per objects dispatch, images per globals
+BLOCKS_BATCH = 24 + 704  # wholes + flat blocks of a 24-image blocks dispatch
+SPLIT_BATCH = 999  # crops of the split-wiring objects_step (B % 8 != 0)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 N_IMAGES, N_PROPOSALS = 4, 1000
 SIZES = [(640, 480), (480, 640), (640, 427), (500, 375)]
@@ -197,29 +206,80 @@ def check_kernels(A, gen) -> dict:
         iters=50,
     )
 
-    # kernel 3: every layer of the stock encoder at the globals batch
-    b3, n3 = GLOB_BATCH, N_GLOB
-    x3 = r(b3, n3, D)
-    a3 = (x3, ln_s, ln_b, qkv_w, qkv_b, HEADS, HD ** -0.5)
+    # kernel 3: every layer of the stock encoder, at the globals batch and
+    # at a production blocks batch (24 wholes + 704 blocks)
+    n3 = N_GLOB
+    k3 = {}
+    for b3 in (GLOB_BATCH, BLOCKS_BATCH):
+        x3 = r(b3, n3, D)
+        a3 = (x3, ln_s, ln_b, qkv_w, qkv_b, HEADS, HD ** -0.5)
 
-    def lib_k3():
-        hx = F.layer_norm(x3, (D,), ln_s, ln_b)
-        q, k, v = (_split(t, b3, n3) for t in F.linear(hx, lib_w['qkv'], qkv_b).split(D, -1))
-        return _merge(F.scaled_dot_product_attention(q, k, v))
+        def lib_k3():
+            hx = F.layer_norm(x3, (D,), ln_s, ln_b)
+            q, k, v = (_split(t, b3, n3) for t in F.linear(hx, lib_w['qkv'], qkv_b).split(D, -1))
+            return _merge(F.scaled_dot_product_attention(q, k, v))
 
-    k3 = record(
-        'fused_ln_qkv_attention',
-        lambda: A.fused_ln_qkv_attention(*a3),
-        lambda: A.fused_ln_qkv_attention_plain(*a3),
-        lib_k3,
-        flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
-        nbytes=2 * 2 * x3.numel() + w_bytes,
-        iters=50,
-    )
+        k3[b3] = record(
+            f'fused_ln_qkv_attention(B={b3})',
+            lambda: A.fused_ln_qkv_attention(*a3),
+            lambda: A.fused_ln_qkv_attention_plain(*a3),
+            lib_k3,
+            flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
+            nbytes=2 * 2 * x3.numel() + w_bytes,
+            iters=50 if b3 == GLOB_BATCH else 10,
+        )
+        del x3, a3
+
+    # kernels 4 and 5: the split wiring's attention, on the packed qkv of
+    # a layer (K and V are column slices, row stride 3D) at the split
+    # path's batch and at the objects dispatch's
+    k4, k5 = {}, {}
+    for b in (SPLIT_BATCH, OBJ_BATCH):
+        n = N_OBJ
+        qkv, qkv_y = r(b, n, 3 * D), r(b, 3 * D)
+        mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
+        bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
+        q, k, v = qkv.split(D, -1)
+        qy, ky, vy = qkv_y.split(D, -1)
+        side_args = (k, v, qy, ky, vy, bias, HEADS)
+        lib_mask = bias[:, None, None, :].bfloat16()
+
+        def lib_k4():
+            return _merge(F.scaled_dot_product_attention(*(_split(t, b, n) for t in (q, k, v))))
+
+        def lib_k5():
+            heads_y = [t.reshape(b, HEADS, 1, HD) for t in (qy, ky, vy)]
+            kk, vv = (torch.cat([_split(t, b, n)[:, :, 1:], ty], 2)
+                      for t, ty in ((k, heads_y[1]), (v, heads_y[2])))
+            return F.scaled_dot_product_attention(heads_y[0], kk, vv, attn_mask=lib_mask)
+
+        k4[b] = record(
+            f'fused_mha_qkv(B={b})',
+            lambda: A.fused_mha_qkv(qkv, HEADS, HD ** -0.5),
+            lambda: A.fused_mha_qkv_plain(qkv, HEADS, HD ** -0.5),
+            lib_k4,
+            flops=4 * b * HEADS * n * n * HD,
+            nbytes=2 * 4 * b * n * D,  # q, k, v read, the output written
+            iters=5,
+        )
+        k5[b] = record(
+            f'fused_side_attention(B={b})',
+            lambda: A.fused_side_attention(*side_args),
+            lambda: A.fused_side_attention_plain(*side_args),
+            lib_k5,
+            flops=4 * b * n * D,
+            nbytes=2 * (2 * b * (n - 1) * D + 4 * b * D) + 4 * bias.numel(),
+            iters=20,
+        )
+        del qkv, qkv_y, bias, mask, q, k, v, qy, ky, vy, side_args, lib_mask
+        torch.cuda.empty_cache()
+
     results.update({
         'fused_surgery_layer': dict(k1, side_only=k1_side),
         'fused_ln_mlp_rows': k2,
-        'fused_ln_qkv_attention': k3,
+        'fused_ln_qkv_attention': dict(k3[GLOB_BATCH], blocks_batch=k3[BLOCKS_BATCH]),
+        'fused_mha_qkv': dict(k4[SPLIT_BATCH], objects_batch=k4[OBJ_BATCH]),
+        'fused_side_attention': dict(k5[SPLIT_BATCH], objects_batch=k5[OBJ_BATCH]),
     })
     return results
 
@@ -278,49 +338,91 @@ def write_config(base: str, root: pathlib.Path, data: dict, out: str) -> pathlib
     return path
 
 
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Milliseconds per call on the host clock, synchronised, after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _min_cos(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                       * np.linalg.norm(b, axis=-1))).min())
+
+
+def _unit_rows(name, emb, rows: int) -> None:
+    if emb.shape != (rows, 512) or emb.dtype != np.float16 or not np.isfinite(emb).all():
+        raise AssertionError(f'{name}: {emb.shape} {emb.dtype}')
+    if np.abs(np.linalg.norm(emb.astype(np.float32), axis=-1) - 1).max() > 1e-2:
+        raise AssertionError(f'{name}: not unit rows')
+
+
 def main_path(A, card: str) -> dict:
+    """The OAKE CLIs (objects, globals, blocks) and the split-wiring
+    objects step, each driven with every launch count set to 0 just before
+    it and read just after."""
+    from oadp_torch.oake import blocks as BL
     from oadp_torch.oake import encoders as E
     from oadp_torch.oake import globals as G
     from oadp_torch.oake import objects as O
+    from oadp_torch.oake.partitions import first_block_bbox, plan_blocks
     from oadp_torch.utils import load_pth
 
     repo = pathlib.Path(__file__).resolve().parent
-    calls = dict(objects=0, globals=0)
-    packed, glob = E.OakeSteps.objects_packed_step, E.OakeSteps.globals_step
+    steps_of = dict(objects='objects_packed_step', globals='globals_step',
+                    blocks='blocks_step')
+    calls = {name: 0 for name in steps_of}
+    originals = {name: getattr(E.OakeSteps, attr) for name, attr in steps_of.items()}
 
-    def count_packed(self, *a, **k):
-        calls['objects'] += 1
-        return packed(self, *a, **k)
+    def counted(name):
+        def step(self, *a, **k):
+            calls[name] += 1
+            return originals[name](self, *a, **k)
+        return step
 
-    def count_globals(self, *a, **k):
-        calls['globals'] += 1
-        return glob(self, *a, **k)
+    for name, attr in steps_of.items():
+        setattr(E.OakeSteps, attr, counted(name))
 
-    E.OakeSteps.objects_packed_step = count_packed
-    E.OakeSteps.globals_step = count_globals
+    def driven(label, fn, expect):
+        """``fn()`` with the launch counts from 0; checks them against
+        ``expect`` (every kernel not named there: 0 launches)."""
+        torch.cuda.synchronize()
+        A.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        want = {k: expect().get(k, 0) for k in launches}
+        log(json.dumps({'launches': {label: launches}, 'dispatches': dict(calls)}))
+        if launches != want or not all(expect().values()):
+            raise AssertionError(f'{label}: launch counts {launches} != expected {want}')
+        return out, launches
+
     with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
         root = pathlib.Path(tmp)
         data = make_data(root)
-        obj_cfg = write_config(str(repo / 'configs/oake/objects_coco.py'), root, data,
-                               str(root / 'objects'))
-        glob_cfg = write_config(str(repo / 'configs/oake/globals.py'), root, data,
-                                str(root / 'globals'))
+        cfgs = {name: write_config(str(repo / f'configs/oake/{base}.py'), root, data,
+                                   str(root / name))
+                for name, base in (('objects', 'objects_coco'), ('globals', 'globals'),
+                                   ('blocks', 'blocks'))}
         override = ['--override', ".model.device:'cuda'", ".model.dtype:'bfloat16'"]
 
-        A.reset_launches()
-        objects = O.main(['smoke_objects', str(obj_cfg), *override])
-        globals_ = G.main(['smoke_globals', str(glob_cfg), *override])
-        torch.cuda.synchronize()
-        launches, dispatches = dict(A.LAUNCHES), dict(calls)
-        log(json.dumps({'main_path_launches': launches, 'dispatches': dispatches}))
-
-        expect = {
-            'fused_surgery_layer': 12 * dispatches['objects'],
-            'fused_ln_mlp_rows': 12 * dispatches['objects'],
-            'fused_ln_qkv_attention': 12 * dispatches['globals'],
-        }
-        if launches != expect or not all(launches.values()):
-            raise AssertionError(f'launch counts {launches} != expected {expect}')
+        objects, l_obj = driven('objects', lambda: O.main(
+            ['smoke_objects', str(cfgs['objects']), *override]), lambda: {
+                'fused_surgery_layer': 12 * calls['objects'],
+                'fused_ln_mlp_rows': 12 * calls['objects']})
+        globals_, l_glob = driven('globals', lambda: G.main(
+            ['smoke_globals', str(cfgs['globals']), *override]), lambda: {
+                'fused_ln_qkv_attention': 12 * calls['globals']})
+        blocks, l_blocks = driven('blocks', lambda: BL.main(
+            ['smoke_blocks', str(cfgs['blocks']), *override]), lambda: {
+                'fused_ln_qkv_attention': 12 * calls['blocks']})
+        dispatches = dict(calls)
         cfg = objects.model.config
         if (cfg.width, cfg.layers, cfg.heads, objects.model.surgery_config.tokens) != (
                 768, 12, 12, 197):
@@ -329,56 +431,91 @@ def main_path(A, card: str) -> dict:
         for i, id_ in enumerate(data['ids']):
             rec = load_pth(root / 'objects' / f'{id_:012d}.pth')
             raw = data['raw'][i]
-            emb = rec['embeddings']
-            if emb.shape != (len(raw), 512) or emb.dtype != np.float16:
-                raise AssertionError(f'objects {id_}: {emb.shape} {emb.dtype}')
-            norms = np.linalg.norm(emb.astype(np.float32), axis=-1)
-            if not np.isfinite(emb).all() or np.abs(norms - 1).max() > 1e-2:
-                raise AssertionError(f'objects {id_}: not finite unit rows')
+            _unit_rows(f'objects {id_}', rec['embeddings'], len(raw))
             np.testing.assert_array_equal(rec['bboxes'], raw[:, :4].astype(np.float16))
             np.testing.assert_array_equal(rec['objectness'], raw[:, 4:].astype(np.float16))
             g = load_pth(root / 'globals' / f'{id_:012d}.pth')
-            if g.shape != (512,) or g.dtype != np.float16 or not np.isfinite(g).all():
-                raise AssertionError(f'globals {id_}: {g.shape} {g.dtype}')
-            if abs(float(np.linalg.norm(g.astype(np.float32))) - 1) > 1e-2:
-                raise AssertionError(f'globals {id_}: not unit norm')
+            _unit_rows(f'globals {id_}', g[None], 1)
+            w, h = SIZES[i]
+            plan = plan_blocks(w, h, blocks.block_size, blocks.max_stride, blocks.rescale)
+            rec = load_pth(root / 'blocks' / f'{id_:012d}.pth')
+            _unit_rows(f'blocks {id_}', rec['embeddings'], 1 + len(plan.blocks))
+            np.testing.assert_array_equal(rec['bboxes'], np.asarray(
+                [first_block_bbox(w, h)] + plan.bboxes, np.float32).astype(np.float16))
 
-        # 8 crops of the first image re-encoded on the CPU in fp32
-        cpu_model = E.load_clip(
-            objects.config.model.checkpoint, 'float32', device='cpu'
-        )
+        # the first image's first chunk of crops, as the objects CLI packs it
         item = dict(id=data['ids'][0], output=None, proposals=dict(
             (id_, p) for id_, p in zip(data['ids'], data['raw'])))
         item['image'] = objects._dataset.load(item['id'])
         item['height'], item['width'] = item['image'].shape[:2]
         prep = objects.prepare(item)
-        buf, rows, _ = prep['chunks'][0]
-        steps = E.OakeSteps(cpu_model, objects.pad, objects.pad)
-        n_img = objects.pad * objects.pad * 3
-        grid = cpu_model.grid
+        buf, rows, m = prep['chunks'][0]
+        n_img, grid = objects.pad * objects.pad * 3, objects.model.grid
         image = buf[:n_img].reshape(objects.pad, objects.pad, 3)
-        masks = buf[n_img:n_img + rows * grid * grid].reshape(rows, grid, grid)[:8]
-        meta = buf[n_img + rows * grid * grid:].view(np.float32).reshape(rows, 9)[:8]
-        emb_cpu = steps.objects_step(image, meta, masks, prep['k']).float().numpy()
+        masks = buf[n_img:n_img + rows * grid * grid].reshape(rows, grid, grid)[:m]
+        meta = buf[n_img + rows * grid * grid:].view(np.float32).reshape(rows, 9)[:m]
+        k_pad = prep['k']
+
+        # split path: objects_step on 999 crops (B % 8 != 0) against the
+        # fused wiring on the first 1000 of the same crops
+        card_steps = objects.steps
+        nb = SPLIT_BATCH
+        split, l_split = driven('split', lambda: card_steps.objects_step(
+            image, meta[:nb], masks[:nb], k_pad).float().cpu().numpy(), lambda: {
+                'fused_mha_qkv': 11, 'fused_side_attention': 12})
+        fused, _ = driven('fused', lambda: card_steps.objects_step(
+            image, meta[:nb + 1], masks[:nb + 1], k_pad).float().cpu().numpy(), lambda: {
+                'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12})
+        split_vs_fused = _min_cos(split, fused[:nb])
+        split_ms = _wall_ms(lambda: card_steps.objects_step(image, meta[:nb], masks[:nb], k_pad))
+        fused_ms = _wall_ms(
+            lambda: card_steps.objects_step(image, meta[:nb + 1], masks[:nb + 1], k_pad))
+
+        # CPU fp32 re-encodes: 8 crops (fused wiring on the CPU too) against
+        # the objects record, 7 crops (split) against the split step, and a
+        # whole image and 4 blocks against the blocks record
+        cpu_model = E.load_clip(objects.config.model.checkpoint, 'float32', device='cpu')
+        cpu_steps = E.OakeSteps(cpu_model, objects.pad, objects.pad)
+        emb_cpu = cpu_steps.objects_step(image, meta[:8], masks[:8], k_pad).float().numpy()
         emb_card = load_pth(root / 'objects' / f'{item["id"]:012d}.pth')['embeddings'][:8]
-        cos = float((emb_cpu * emb_card.astype(np.float32)).sum(-1).min())
-        log(json.dumps({'cpu_fp32_vs_card_bf16_min_cosine': cos}))
-        if cos < 0.99:
-            raise AssertionError(f'CPU fp32 re-encode cosine {cos} < 0.99')
+        cos = {'objects_fused_8': _min_cos(emb_cpu, emb_card)}
+        emb_cpu = cpu_steps.objects_step(image, meta[:7], masks[:7], k_pad).float().numpy()
+        cos['objects_split_7'] = _min_cos(emb_cpu, split[:7])
+        bprep = blocks.prepare(dict(item, output=None))
+        n_check = 4
+        coords = np.concatenate([np.zeros((n_check, 1), np.int32),
+                                 bprep['coords'][:n_check]], 1)
+        emb_cpu = cpu_steps.blocks_step(
+            bprep['image'][None], *([bprep[k].cpu()] for k in (
+                'level_wx', 'level_wy', 'whole_wx', 'whole_wy')), coords,
+        ).float().numpy()
+        emb_card = load_pth(root / 'blocks' / f'{item["id"]:012d}.pth')['embeddings']
+        cos['blocks_whole_and_4'] = _min_cos(emb_cpu, emb_card[:1 + n_check])
+        log(json.dumps({'cpu_fp32_vs_card_bf16_min_cosine': cos,
+                        'split_vs_fused_min_cosine': split_vs_fused}))
+        if min(cos.values()) < 0.99 or split_vs_fused < 0.99:
+            raise AssertionError(f'cosine below 0.99: {cos}, split vs fused {split_vs_fused}')
 
         # steady-state rate: the same pipelines again into fresh directories
         rates = {}
-        for name, pipe in (('objects', objects), ('globals', globals_)):
+        for name, pipe in (('objects', objects), ('globals', globals_), ('blocks', blocks)):
             pipe.config.val.dataloader.dataset.output_dir = str(root / f'{name}_timed')
             t0 = time.perf_counter()
             pipe.run()
             torch.cuda.synchronize()
             rates[name] = N_IMAGES / (time.perf_counter() - t0)
-    E.OakeSteps.objects_packed_step, E.OakeSteps.globals_step = packed, glob
+    for name, attr in steps_of.items():
+        setattr(E.OakeSteps, attr, originals[name])
+    launches = dict(l_obj)
+    for k in l_obj:
+        launches[k] = l_obj[k] + l_glob[k] + l_blocks[k] + l_split[k]
     res = dict(images=N_IMAGES, proposals_per_image=N_PROPOSALS,
                objects_img_s=rates['objects'], globals_img_s=rates['globals'],
-               cpu_fp32_min_cosine=cos, card=card, launches=launches,
-               dispatches=dispatches)
+               blocks_img_s=rates['blocks'], cpu_fp32_min_cosine=cos,
+               split_vs_fused_min_cosine=split_vs_fused,
+               split_dispatch_ms=split_ms, split_crops=nb,
+               fused_dispatch_ms=fused_ms, fused_crops=nb + 1, card=card,
+               launches=launches, dispatches=dict(dispatches, split=1))
     log(json.dumps({'main_path': res}))
     return res
 
@@ -402,31 +539,35 @@ def main() -> int:
     checks = check_kernels(A, gen)
     path = main_path(A, card)
 
-    sources = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
-    replaces = {
-        'fused_surgery_layer': 'oadp_tpu/ops/attention.py:425',
-        'fused_ln_mlp_rows': 'oadp_tpu/ops/attention.py:672',
-        'fused_ln_qkv_attention': 'oadp_tpu/ops/attention.py:218',
-    }
-    per_dispatch = {
-        'fused_surgery_layer': path['dispatches']['objects'],
-        'fused_ln_mlp_rows': path['dispatches']['objects'],
-        'fused_ln_qkv_attention': path['dispatches']['globals'],
+    both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
+    kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count
+        'fused_surgery_layer': ('oadp_tpu/ops/attention.py:425', both, ['objects']),
+        'fused_ln_mlp_rows': ('oadp_tpu/ops/attention.py:672',
+                              'oadp_torch/csrc/ln_gemm.cu', ['objects']),
+        'fused_ln_qkv_attention': ('oadp_tpu/ops/attention.py:218', both,
+                                   ['globals', 'blocks']),
+        'fused_mha_qkv': ('oadp_tpu/ops/attention.py:105',
+                          'oadp_torch/csrc/attention.cu', ['split']),
+        'fused_side_attention': ('oadp_tpu/ops/attention.py:587',
+                                 'oadp_torch/csrc/attention.cu', ['split']),
     }
     kernels = []
     for name, res in checks.items():
+        replaces, source, paths = kernel_info[name]
+        launches = path['launches'][name]
         entry = dict(
-            name=name, route='cuda', source=sources, replaces=replaces[name],
-            launches=path['launches'][name],
-            launches_per_dispatch=path['launches'][name] / per_dispatch[name],
+            name=name, route='cuda', source=source, replaces=replaces,
+            launches=launches,
+            launches_per_dispatch=launches / sum(path['dispatches'][d] for d in paths),
             max_abs_err=res['max_abs_err'], cosine=res['cosine'],
             ms=res['kernel_ms'], plain_ms=res['plain_ms'], bound_ms=res['bound_ms'],
             bound_by=res['bound_by'], library_ms=res['library_ms'],
         )
-        if 'side_only' in res:
-            entry['side_only'] = {k: res['side_only'][k] for k in (
-                'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-                'max_abs_err', 'cosine')}
+        for shape in ('side_only', 'blocks_batch', 'objects_batch'):
+            if shape in res:
+                entry[shape] = {k: res[shape][k] for k in (
+                    'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                    'max_abs_err', 'cosine')}
         kernels.append(entry)
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))

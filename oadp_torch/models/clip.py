@@ -4,12 +4,14 @@
 Parameters are a plain dict of tensors with the same keys as
 ``oadp_tpu``'s pytree: linear weights stay ``(in, out)``, so the fused
 layers of :mod:`oadp_torch.ops.attention` take them as the Pallas kernels
-do; only ``conv1`` keeps the OpenAI ``(D, 3, P, P)`` layout. Both
-encoders take the fused wiring of ``oadp_tpu``'s TPU branch on every
-device: the fused entry points run their CUDA kernels
-on the card and their plain versions on the CPU. The out-projection and
-the MLPs that ``oadp_tpu`` leaves to XLA are ``torch`` matmuls here, and
-the patch embedding is a block product (see :func:`_embed_patches`).
+do; only ``conv1`` keeps the OpenAI ``(D, 3, P, P)`` layout. The stock
+encoder takes the fused wiring of ``oadp_tpu``'s TPU branch; the surgery
+encoder picks its wiring by shape alone, as ``oadp_tpu``'s gates do on
+the TPU, on every device (see :func:`image_encoder_surgery`). The fused
+entry points run their CUDA kernels on the card and their plain
+versions on the CPU. The QKV and out-projections and the MLPs that
+``oadp_tpu`` leaves to XLA are ``torch`` matmuls here, and the patch
+embedding is a block product (see :func:`_embed_patches`).
 
 Images are ``(B, H, W, 3)`` (``oadp_tpu``'s layout) at the public
 functions.
@@ -277,6 +279,46 @@ def image_encoder(
     return x @ params['proj']
 
 
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    b, n, d = t.shape
+    return t.reshape(b, n, heads, d // heads).transpose(1, 2)
+
+
+def _sdpa(q, k, v) -> torch.Tensor:
+    """Unmasked softmax attention on ``(B, h, N, d)`` → ``(B, N, h*d)``
+    (``oadp_tpu``'s ``_sdpa``, for shapes its packed kernel refuses)."""
+    b, h, m, d = q.shape
+    logits = (q * (1.0 / math.sqrt(d))).float() @ k.float().transpose(-1, -2)
+    weights = torch.softmax(logits, -1).to(v.dtype)
+    return (weights @ v).transpose(1, 2).reshape(b, m, h * d)
+
+
+def _self_attention_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Unbiased self-attention from a packed ``(B, N, 3D)`` qkv →
+    ``(B, N, D)``: kernel 4 where its gate holds
+    (``oadp_tpu/models/clip.py:227-245``)."""
+    d = qkv.shape[-1] // 3
+    if A.fused_mha_qkv_supported(heads, d // heads):
+        return A.fused_mha_qkv(qkv, heads, 1.0 / math.sqrt(d // heads))
+    return _sdpa(*(_split_heads(t, heads) for t in qkv.split(d, -1)))
+
+
+def _side_logits_concat(k, v, qy, ky, vy, bias, heads: int) -> torch.Tensor:
+    """The side row where kernel 5's gate fails: softmax over the patch
+    logits with y's own logit appended (``oadp_tpu/models/clip.py:
+    527-552``) → ``(B, D)``."""
+    b, d = qy.shape
+    qh, kh, vh = (t.reshape(b, heads, 1, -1) for t in (qy, ky, vy))
+    kp, vp = (_split_heads(t[:, 1:], heads) for t in (k, v))
+    scale = 1.0 / math.sqrt(d // heads)
+    logits_p = (qh * scale).float() @ kp.float().transpose(-1, -2)
+    logit_y = (qh * scale * kh).sum(-1, keepdim=True).float()
+    logits = torch.cat([logits_p, logit_y], -1) + bias[:, None, None, :]
+    weights = torch.softmax(logits, -1).to(vp.dtype)
+    side = weights[..., :-1] @ vp + weights[..., -1:] * vh
+    return side.reshape(b, d)
+
+
 def image_encoder_surgery(
     params: Params,
     images: torch.Tensor,
@@ -284,8 +326,8 @@ def image_encoder_surgery(
     config: ViTConfig = ViTConfig(stride=16),
 ) -> torch.Tensor:
     """Masked attention-pool CLIP encoder (the OAKE-objects model),
-    ``oadp_tpu/models/clip.py:image_encoder_surgery`` with its fused
-    wiring (``:466-498``; reference ``oadp/oake/objects.py:198-266``).
+    ``oadp_tpu/models/clip.py:image_encoder_surgery`` (reference
+    ``oadp/oake/objects.py:198-266``).
 
     * the main stream ``x`` (CLS + patches) evolves through unmasked
       self-attention, as in the stock encoder;
@@ -295,42 +337,73 @@ def image_encoder_surgery(
     * the embedding is ``ln_post(y) @ proj``. In the last block only the
       side stream is computed: the final ``x`` is discarded.
 
+    The wiring follows ``oadp_tpu``'s gates on the TPU (``:448-454``), by
+    shape alone and the same on every device, because it decides where
+    bf16 rounds: the fused wiring (kernels 1 and 2) iff ``D % 128 == 0``
+    and the crop batch ``B % 8 == 0``; else the split wiring (``:499-557``)
+    with the QKV and out-projections as matmuls, the main stream through
+    kernel 4 and the side row through kernel 5 (or, where ``D % 128 !=
+    0``, the logits-concat softmax).
+
     Args:
         images: ``(B, H, W, 3)`` normalized crops.
         masks: ``(B, g, g)`` background masks, 1 = background.
     """
     x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
     b = x.shape[0]
+    d, heads = config.width, config.heads
     n_patches = config.grid * config.grid
     bias = torch.cat([
         masks.reshape(b, n_patches).float() * -100.0,
         torch.zeros((b, 1), dtype=torch.float32, device=x.device),
     ], dim=-1)  # (B, P+1): patch biases, then the side token's own zero
-    scale = 1.0 / math.sqrt(config.width // config.heads)
+    scale = 1.0 / math.sqrt(d // heads)
+    fused = (A.fused_surgery_layer_supported(heads, d // heads)
+             and A.fused_ln_mlp_rows_supported(b, d))
+    side_kernel = A.fused_side_attention_supported(heads, d // heads)
 
     y = x[:, 0].contiguous()
     last_block = len(params['blocks']) - 1
     for i, block in enumerate(params['blocks']):
-        attn = block['attn']
-        args = (
-            x, y, bias, block['ln_1']['scale'], block['ln_1']['bias'],
-            attn['qkv_w'], attn['qkv_b'], config.heads, scale,
-        )
-        if i == last_block:
-            side = A.fused_surgery_layer(*args, with_main=False)
-            y_row = y + (side @ attn['out_w'] + attn['out_b'])
-        else:
-            # out-projection and both residual adds happen in the layer
-            x, y_row = A.fused_surgery_layer(
-                *args, with_main=True,
-                out_w=attn['out_w'], out_b=attn['out_b'],
+        attn, mlp = block['attn'], block['mlp']
+        qkv_w, qkv_b = attn['qkv_w'], attn['qkv_b']
+        last = i == last_block
+        if fused:
+            args = (x, y, bias, block['ln_1']['scale'], block['ln_1']['bias'],
+                    qkv_w, qkv_b, heads, scale)
+            if last:
+                side = A.fused_surgery_layer(*args, with_main=False)
+                y_row = y + (side @ attn['out_w'] + attn['out_b'])
+            else:
+                # out-projection and both residual adds happen in the layer
+                x, y_row = A.fused_surgery_layer(
+                    *args, with_main=True,
+                    out_w=attn['out_w'], out_b=attn['out_b'],
+                )
+            y = A.fused_ln_mlp_rows(
+                y_row, block['ln_2']['scale'], block['ln_2']['bias'],
+                mlp['fc_w'], mlp['fc_b'], mlp['proj_w'], mlp['proj_b'],
             )
-        mlp = block['mlp']
-        y = A.fused_ln_mlp_rows(
-            y_row, block['ln_2']['scale'], block['ln_2']['bias'],
-            mlp['fc_w'], mlp['fc_b'], mlp['proj_w'], mlp['proj_b'],
-        )
-        if i != last_block:
+            if not last:
+                x = x + _mlp(_layer_norm(x, block['ln_2']), mlp)
+            continue
+        ln_x = _layer_norm(x, block['ln_1'])
+        if last:
+            # the final x is discarded: only K and V are projected
+            k, v = (ln_x @ qkv_w[:, d:] + qkv_b[d:]).split(d, -1)
+        else:
+            qkv = ln_x @ qkv_w + qkv_b  # (B, N, 3D)
+            _, k, v = qkv.split(d, -1)
+            main = _self_attention_packed(qkv, heads)
+            x = x + (main @ attn['out_w'] + attn['out_b'])
+        qy, ky, vy = (_layer_norm(y, block['ln_1']) @ qkv_w + qkv_b).split(d, -1)
+        if side_kernel:
+            side = A.fused_side_attention(k, v, qy, ky, vy, bias, heads)
+        else:
+            side = _side_logits_concat(k, v, qy, ky, vy, bias, heads)
+        y = y + (side @ attn['out_w'] + attn['out_b'])
+        y = y + _mlp(_layer_norm(y, block['ln_2']), mlp)
+        if not last:
             x = x + _mlp(_layer_norm(x, block['ln_2']), mlp)
     y = _layer_norm(y, params['ln_post'])
     return y @ params['proj']

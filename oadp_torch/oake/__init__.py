@@ -1,4 +1,4 @@
-"""OAKE: offline CLIP knowledge extraction (globals and objects).
+"""OAKE: offline CLIP knowledge extraction (globals, blocks and objects).
 
 Submodules are CLI entry points (``python -m oadp_torch.oake.<task>``) and
 are intentionally not imported here to keep ``runpy`` clean.

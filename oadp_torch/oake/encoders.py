@@ -1,5 +1,5 @@
-"""Device steps of the OAKE globals and objects pipelines (port of
-``oadp_tpu/oake/encoders.py``).
+"""Device steps of the OAKE globals, blocks and objects pipelines (port
+of ``oadp_tpu/oake/encoders.py``).
 
 Each step is preprocessing (crop/resize/normalize as matmuls, see
 ``ops/preprocess.py``) followed by the CLIP encoder and an L2 normalize
@@ -122,6 +122,22 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return (x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)).half()
 
 
+def _windows(levels: torch.Tensor, coords: torch.Tensor, size: int) -> torch.Tensor:
+    """``levels[i, l, y:y + size, x:x + size]`` for each row ``(i, l, y, x)``
+    of ``coords`` → ``(T, size, size, 3)``. Start indices are clamped into
+    bounds as ``jax.lax.dynamic_slice`` clamps them, so the zero padding
+    rows of ``coords`` give the top-left window of image 0's level 0."""
+    b, n_levels, ph, pw, _ = levels.shape
+    if ph < size or pw < size:
+        raise ValueError(f'levels of {ph}x{pw} are smaller than a {size} block')
+    i = coords[:, 0].clamp(0, b - 1)[:, None, None]
+    lv = coords[:, 1].clamp(0, n_levels - 1)[:, None, None]
+    r = torch.arange(size, device=levels.device)
+    ys = (coords[:, 2].clamp(0, ph - size)[:, None] + r)[:, :, None]
+    xs = (coords[:, 3].clamp(0, pw - size)[:, None] + r)[:, None, :]
+    return levels[i, lv, ys, xs]
+
+
 class OakeSteps:
     """Step functions of the pipelines for one model and pad size."""
 
@@ -134,10 +150,13 @@ class OakeSteps:
         self._cdt = torch.bfloat16 if model.dtype == torch.bfloat16 else None
 
     def _to_device(self, x, dtype=None) -> torch.Tensor:
-        """Host array, list of host arrays or tensor → tensor on the
-        model's device (pinned staging, non-blocking copy)."""
+        """Host array, tensor, or a list of either (stacked) → tensor on
+        the model's device (pinned staging, non-blocking copy)."""
         if isinstance(x, (list, tuple)):
-            x = np.stack([np.asarray(a) for a in x])
+            x = torch.stack([
+                a if isinstance(a, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(a)) for a in x
+            ])
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
         if dtype is not None:
@@ -165,6 +184,46 @@ class OakeSteps:
         crops = self._crops(
             self._to_device(images), self._to_device(meta, torch.float32),
             k_pad,
+        )
+        emb = C.image_encoder(self.model.params, crops, self.model.config)
+        return _l2_normalize(emb)
+
+    @torch.inference_mode()
+    def blocks_step(
+        self,
+        images,  # (B, PH, PW, 3) uint8, or a list of (PH, PW, 3)
+        level_wx,  # (B, L, PW, PW) level k -> k+1 horizontal, or a list
+        level_wy,  # (B, L, PH, PH), or a list
+        whole_wx,  # (B, 224, PW), or a list
+        whole_wy,  # (B, 224, PH), or a list
+        coords,  # (T, 4) int32: (image, level, y, x), flat over the batch
+    ) -> torch.Tensor:
+        """→ ``(B + T, output_dim)`` fp16 embeddings: the B whole-image
+        rows first, then the T flat block rows (``oadp_tpu``'s
+        ``_blocks_fn``).
+
+        Each image's pyramid is a chain of :func:`P.apply_resize_pair`
+        calls with an fp32 carry, each level kept as uint8 (every level is
+        ``round_u8``-ed, so the cast is lossless); the whole image is one
+        more resize; each block is a 224 x 224 window of a level. Per-image
+        arguments may be lists of host arrays or device tensors (the CLI
+        keeps its per-size constants on the device)."""
+        images = self._to_device(images)
+        lwx, lwy, wwx, wwy = (
+            self._to_device(a, torch.float32)
+            for a in (level_wx, level_wy, whole_wx, whole_wy)
+        )
+        imgf = images.float()
+        levels, carry = [images], imgf
+        for k in range(lwx.shape[1]):
+            carry = P.apply_resize_pair(carry, lwx[:, k], lwy[:, k],
+                                        compute_dtype=self._cdt)
+            levels.append(carry.to(torch.uint8))
+        wholes = P.apply_resize_pair(imgf, wwx, wwy, compute_dtype=self._cdt)
+        blocks = _windows(torch.stack(levels, 1), self._to_device(coords).long(),
+                          wholes.shape[1])
+        crops = P.normalize_clip(
+            torch.cat([wholes, blocks.to(wholes.dtype)]), self.model.dtype
         )
         emb = C.image_encoder(self.model.params, crops, self.model.config)
         return _l2_normalize(emb)

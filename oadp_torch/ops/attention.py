@@ -14,7 +14,9 @@ The kernels (``oadp_torch/csrc``) are two families:
   none, quick_gelu or a residual add;
 * ``attention``: one block per (crop, head), K and V of the head in
   shared memory, optional main rows and an optional side row (the OAKE
-  masked attention pool as query N+1 over ``[k[1:], ky]``).
+  masked attention pool as query N+1 over ``[k[1:], ky]``). Q, K, V and
+  the side row's qy, ky, vy each come with their own strides, so they
+  may be column slices of one packed qkv: no operand is copied.
 
 Both keep the TPU semantics: the softmax clamps logits at 80 and
 normalises after the PV product (``oadp_tpu/ops/attention.py:46-50``;
@@ -28,13 +30,23 @@ __all__ = [
     'LAUNCHES',
     'fused_ln_mlp_rows',
     'fused_ln_mlp_rows_plain',
+    'fused_ln_mlp_rows_supported',
     'fused_ln_qkv_attention',
     'fused_ln_qkv_attention_plain',
+    'fused_mha_qkv',
+    'fused_mha_qkv_plain',
+    'fused_mha_qkv_supported',
+    'fused_side_attention',
+    'fused_side_attention_plain',
+    'fused_side_attention_supported',
     'fused_surgery_layer',
     'fused_surgery_layer_plain',
+    'fused_surgery_layer_supported',
     'layer_norm',
     'reset_launches',
 ]
+
+import math
 
 import torch
 
@@ -49,6 +61,8 @@ LAUNCHES = {
     'fused_surgery_layer': 0,
     'fused_ln_mlp_rows': 0,
     'fused_ln_qkv_attention': 0,
+    'fused_mha_qkv': 0,
+    'fused_side_attention': 0,
 }
 
 _EPI_NONE, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
@@ -59,6 +73,30 @@ _MAX_TOKENS = 256
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Shape gates: the rules of oadp_tpu's ``*_supported`` (its TPU lane
+# rules), without its backend test. ``models/clip.py`` picks the surgery
+# encoder's wiring with them, by shape alone, on every device.
+# ---------------------------------------------------------------------------
+
+
+def fused_mha_qkv_supported(heads: int, head_dim: int) -> bool:
+    hpb = max(128 // head_dim, 1)  # heads per 128-lane block
+    return heads % hpb == 0 and (head_dim * hpb) % 128 == 0
+
+
+def fused_side_attention_supported(heads: int, head_dim: int) -> bool:
+    return (heads * head_dim) % 128 == 0
+
+
+def fused_surgery_layer_supported(heads: int, head_dim: int) -> bool:
+    return (heads * head_dim) % 128 == 0
+
+
+def fused_ln_mlp_rows_supported(rows: int, width: int) -> bool:
+    return width % 128 == 0 and rows % 8 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -101,21 +139,21 @@ def _main_attention(qkv: torch.Tensor, heads: int, scale: float):
     return _merge(o.to(qkv.dtype))
 
 
-def _side_attention(qkv, qkv_y, bias, heads: int, scale: float):
-    """One query per crop over keys ``[k[1:], ky]`` → ``(B, D)``."""
-    d = qkv.shape[-1] // 3
-    k, v = (_heads(t[:, 1:], heads) for t in qkv[..., d:].split(d, -1))
-    b = qkv_y.shape[0]
-    qy, ky, vy = (t.reshape(b, heads, -1) for t in qkv_y.split(d, -1))
-    s = (k.float() @ qy.float()[..., None])[..., 0] * scale  # (B, h, P)
+def _side_attention(k, v, qy, ky, vy, bias, heads: int, scale: float):
+    """One query per crop over keys ``[k[1:], ky]`` and values ``[v[1:],
+    vy]`` → ``(B, D)``; ``k``, ``v`` ``(B, N, D)``, the rest ``(B, D)``."""
+    b = qy.shape[0]
+    kp, vp = (_heads(t[:, 1:], heads) for t in (k, v))  # (B, h, P, hd)
+    qh, kh, vh = (t.reshape(b, heads, -1) for t in (qy, ky, vy))
+    s = (kp.float() @ qh.float()[..., None])[..., 0] * scale  # (B, h, P)
     s = s + bias[:, None, :-1]
-    sy = (qy.float() * ky.float()).sum(-1) * scale + bias[:, None, -1]
+    sy = (qh.float() * kh.float()).sum(-1) * scale + bias[:, None, -1]
     e = torch.exp(torch.clamp(s, max=LOGIT_CLAMP))
     ey = torch.exp(torch.clamp(sy, max=LOGIT_CLAMP))
-    o = (e.to(qkv.dtype).float()[:, :, None] @ v.float())[:, :, 0]
-    o = o + ey[..., None] * vy.float()
+    o = (e.to(k.dtype).float()[:, :, None] @ vp.float())[:, :, 0]
+    o = o + ey[..., None] * vh.float()
     o = o / (e.sum(-1) + ey)[..., None]
-    return o.to(qkv.dtype).reshape(o.shape[0], -1)
+    return o.to(k.dtype).reshape(b, -1)
 
 
 def fused_surgery_layer_plain(
@@ -131,7 +169,11 @@ def fused_surgery_layer_plain(
     ], 1)
     qkv_all = _proj(hy, qkv_w, qkv_b).to(x.dtype)
     qkv, qkv_y = qkv_all[:, :n], qkv_all[:, n]
-    side = _side_attention(qkv, qkv_y, bias.float(), heads, scale)
+    d = x.shape[-1]
+    side = _side_attention(
+        qkv[..., d:2 * d], qkv[..., 2 * d:], *qkv_y.split(d, -1), bias.float(),
+        heads, scale,
+    )
     if not with_main:
         return side
     main = _main_attention(qkv, heads, scale)
@@ -159,6 +201,17 @@ def fused_ln_qkv_attention_plain(
     return _main_attention(qkv, heads, scale)
 
 
+def fused_mha_qkv_plain(qkv, heads: int, scale: float):
+    """Plain version of :func:`fused_mha_qkv`."""
+    return _main_attention(qkv, heads, scale)
+
+
+def fused_side_attention_plain(k, v, qy, ky, vy, bias, heads: int):
+    """Plain version of :func:`fused_side_attention`."""
+    scale = 1.0 / math.sqrt(k.shape[-1] // heads)
+    return _side_attention(k, v, qy, ky, vy, bias.float(), heads, scale)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launchers
 # ---------------------------------------------------------------------------
@@ -174,6 +227,23 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f'{name}: tensors must be contiguous')
         if t.data_ptr() % 16:
             raise ValueError(f'{name}: tensors must be 16-byte aligned')
+
+
+def _strided(t: torch.Tensor | None) -> tuple:
+    """``(pointer, crop stride, row stride)`` of a bf16 CUDA operand of
+    ``attention``: ``(B, N, D)`` or ``(B, D)`` rows whose last dimension is
+    contiguous, such as a column slice of a packed qkv. The kernel reads
+    16 bytes at a time, so the pointer must be 16-byte aligned and every
+    stride a multiple of 8 elements; nothing is copied."""
+    if t is None:
+        return None, 0, 0
+    if t.device.type != 'cuda' or t.dtype != torch.bfloat16 or t.data_ptr() % 16:
+        raise ValueError('attention: operands must be 16-byte aligned bf16 on CUDA')
+    strides = t.stride()
+    if strides[-1] != 1 or any(s % 8 for s in strides[:-1]):
+        raise ValueError('attention: the last dimension must be contiguous and '
+                         f'the other strides multiples of 8, got {strides}')
+    return t.data_ptr(), strides[0], strides[-2]
 
 
 def _stream() -> int:
@@ -208,17 +278,28 @@ def _ln_gemm(a2d, w, bias, out, ln=None, epilogue=_EPI_NONE, residual=None,
     ), 'ln_gemm')
 
 
-def _attention(qkv, b: int, n: int, heads: int, ld: int, offs, scale: float,
-               out=None, qkv_y=None, bias=None, side=None):
-    if n > _MAX_TOKENS or b >= 65536:
-        raise ValueError(f'attention: unsupported shape B={b} N={n}')
+def _attention(q, k, v, heads: int, scale: float, out=None,
+               qy=None, ky=None, vy=None, bias=None, side=None):
+    """The ``attention`` kernel on ``(B, N, D)`` views ``q``, ``k``, ``v``
+    (``q`` and ``out`` for the main rows; ``qy``, ``ky``, ``vy``, ``bias``
+    and ``side`` for the side row)."""
+    b, n, d = k.shape
+    if n > _MAX_TOKENS or b >= 65536 or d != heads * _HEAD_DIM:
+        raise ValueError(f'attention: unsupported shape B={b} N={n} D={d}')
+    if (v.shape != k.shape or (out is not None and (q.shape != k.shape or out.shape != k.shape))
+            or (side is not None and not (
+                qy.shape == ky.shape == vy.shape == side.shape == (b, d)
+                and bias.shape == (b, n) and bias.dtype == torch.float32
+                and bias.is_contiguous() and bias.device == k.device))):
+        raise ValueError('attention: operand shapes or types do not match')
+    args = (
+        *_strided(q), *_strided(k), *_strided(v), *_strided(out),
+        *_strided(qy)[::2], *_strided(ky)[::2], *_strided(vy)[::2],
+        None if bias is None else bias.data_ptr(), *_strided(side)[::2],
+    )
     lib = cuda_lib.library()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    d = heads * _HEAD_DIM
-    cuda_lib.check(lib.oadp_attention(
-        qkv.data_ptr(), b, n, heads, ld, *offs, float(scale),
-        ptr(out), d, ptr(qkv_y), 3 * d, ptr(bias), ptr(side), d, _stream(),
-    ), 'attention')
+    cuda_lib.check(lib.oadp_attention(b, n, heads, float(scale), *args, _stream()),
+                   'attention')
 
 
 def _check_heads(name: str, d: int, heads: int) -> None:
@@ -282,18 +363,19 @@ def fused_surgery_layer(
     qkv_y = torch.empty((b, 3 * d), dtype=x.dtype, device=x.device)
     _ln_gemm(y, qkv_w, qkv_b, qkv_y, ln=ln)
     side = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    qy, ky, vy = qkv_y.split(d, -1)
     if not with_main:
-        kv = torch.empty((b * n, 2 * d), dtype=x.dtype, device=x.device)
-        _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, kv, ln=ln, col0=d)
-        _attention(kv, b, n, heads, 2 * d, (0, 0, d), scale,
-                   qkv_y=qkv_y, bias=bias, side=side)
+        kv = torch.empty((b, n, 2 * d), dtype=x.dtype, device=x.device)
+        _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, kv.view(b * n, 2 * d), ln=ln, col0=d)
+        _attention(None, *kv.split(d, -1), heads, scale,
+                   qy=qy, ky=ky, vy=vy, bias=bias, side=side)
         LAUNCHES[name] += 1
         return side
-    qkv = torch.empty((b * n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv, ln=ln)
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv.view(b * n, 3 * d), ln=ln)
     main = torch.empty_like(x)
-    _attention(qkv, b, n, heads, 3 * d, (0, d, 2 * d), scale,
-               out=main, qkv_y=qkv_y, bias=bias, side=side)
+    _attention(*qkv.split(d, -1), heads, scale,
+               out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
     if out_w is None:
         LAUNCHES[name] += 1
         return main, side
@@ -367,9 +449,63 @@ def fused_ln_qkv_attention(
     _check_heads(name, d, heads)
     if qkv_w.shape != (d, 3 * d) or qkv_b.shape != (3 * d,):
         raise ValueError(f'{name}: shape mismatch')
-    qkv = torch.empty((b * n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv, ln=(ln_scale, ln_bias))
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv.view(b * n, 3 * d), ln=(ln_scale, ln_bias))
     out = torch.empty_like(x)
-    _attention(qkv, b, n, heads, 3 * d, (0, d, 2 * d), scale, out=out)
+    _attention(*qkv.split(d, -1), heads, scale, out=out)
     LAUNCHES[name] += 1
     return out
+
+
+def fused_mha_qkv(
+    qkv: torch.Tensor,  # (B, N, 3D) packed projection output
+    heads: int,
+    scale: float,
+):
+    """Multi-head attention straight off the packed QKV projection →
+    ``(B, N, D)``; the heads are column slices, nothing is transposed.
+
+    Replaces ``oadp_tpu/ops/attention.py:fused_mha_qkv`` (kernel
+    ``_mha_packed_kernel``), the surgery encoder's main stream in its
+    split wiring. On the H100 (bf16): ``attention`` on the main rows, with
+    Q, K and V read in place from ``qkv`` (any view whose last dimension
+    is contiguous). It reads qkv and writes the output once, 4 x B x N x
+    D x 2 bytes (2.48 GB at 2048 crops of 197 tokens): bound by bytes at
+    about 0.74 ms, against 0.25 ms of tensor-core operations.
+    """
+    if qkv.device.type == 'cpu':
+        return fused_mha_qkv_plain(qkv, heads, scale)
+    b, n, d3 = qkv.shape
+    out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _attention(*qkv.split(d3 // 3, -1), heads, scale, out=out)
+    LAUNCHES['fused_mha_qkv'] += 1
+    return out
+
+
+def fused_side_attention(
+    k: torch.Tensor,  # (B, N, D) keys; row 0 (the main CLS) is excluded
+    v: torch.Tensor,  # (B, N, D)
+    qy: torch.Tensor,  # (B, D) side-stream query
+    ky: torch.Tensor,  # (B, D) side token's own key
+    vy: torch.Tensor,  # (B, D) side token's own value
+    bias: torch.Tensor,  # (B, N) fp32: [patch biases..., y bias]
+    heads: int,
+):
+    """One-query masked attention over ``[patches, y]`` → ``(B, D)``, at
+    scale ``1 / sqrt(D / heads)``.
+
+    Replaces ``oadp_tpu/ops/attention.py:fused_side_attention`` (kernel
+    ``_side_attn_kernel``), the surgery encoder's side row in its split
+    wiring. On the H100 (bf16): ``attention`` on the side row alone. ``k``
+    and ``v`` may be column slices of a packed qkv or kv (row stride 3D or
+    2D), read in place. It reads K and V once, 2 x B x N x D x 2 bytes
+    (1.24 GB at 2048 crops): bound by bytes at about 0.37 ms.
+    """
+    if k.device.type == 'cpu':
+        return fused_side_attention_plain(k, v, qy, ky, vy, bias, heads)
+    b, n, d = k.shape
+    side = torch.empty((b, d), dtype=k.dtype, device=k.device)
+    _attention(None, k, v, heads, 1.0 / math.sqrt(d // heads),
+               qy=qy, ky=ky, vy=vy, bias=bias.contiguous(), side=side)
+    LAUNCHES['fused_side_attention'] += 1
+    return side

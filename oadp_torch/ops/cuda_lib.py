@@ -105,9 +105,12 @@ def library() -> ctypes.CDLL:
                 p, i, i, p, p, p, p, i, p, i, p, p, p,
             ]
             lib.oadp_ln_gemm.restype = i
+            ll = ctypes.c_longlong
             lib.oadp_attention.argtypes = [
-                p, i, i, i, i, i, i, i, ctypes.c_float, p, i, p, i, p, p,
-                i, p,
+                i, i, i, ctypes.c_float,
+                p, ll, i, p, ll, i, p, ll, i, p, ll, i,  # q, k, v, out
+                p, i, p, i, p, i,  # qy, ky, vy
+                p, p, i, p,  # bias, side_out, stream
             ]
             lib.oadp_attention.restype = i
             lib.oadp_error_string.argtypes = [i]

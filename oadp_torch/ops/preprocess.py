@@ -35,6 +35,7 @@ __all__ = [
     'clip_transform_matrices',
     'clip_transform_coeffs',
     'clip_transform_meta',
+    'plain_resize_matrices',
     'device_coeffs',
     'coeff_ksize',
     'apply_resize_pair',
@@ -295,6 +296,21 @@ def clip_transform_meta(
     ).astype(np.float32)
 
 
+def plain_resize_matrices(
+    image_w: int,
+    image_h: int,
+    out_w: int,
+    out_h: int,
+    pad_w: int,
+    pad_h: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Weights for plain ``PIL.Image.resize((out_w, out_h))`` (pyramid levels,
+    reference ``oadp/oake/blocks.py:72-76``)."""
+    wx = resize_matrix(image_w, 0, image_w, out_w, pad_w)
+    wy = resize_matrix(image_h, 0, image_h, out_h, pad_h)
+    return wx, wy
+
+
 def _bicubic_t(x: torch.Tensor) -> torch.Tensor:
     a = -0.5
     ax = x.abs()
@@ -381,11 +397,61 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def _tap_sum(w: torch.Tensor, taps, interleaved: bool) -> torch.Tensor:
+    """``sum_p w[b, o, p] * taps(p)[b, o]`` over the nonzero window of each
+    row of ``w (B, O, P)``, in fp32 with a fused multiply-add per tap,
+    taken in the order of XLA's CPU dot: left to right in one sum, or
+    (``interleaved``) in two, over the even and the odd columns, added at
+    the end. ``taps(cols)`` gives the operand's values at the columns
+    ``cols (B, O)``: ``(B, O, ...)``. Zero taps inside a window add
+    exactly 0, so only the window's span is visited."""
+    p = w.shape[-1]
+    nz = w != 0
+    first = nz.to(torch.int8).argmax(-1)
+    last = p - 1 - nz.flip(-1).to(torch.int8).argmax(-1)
+    span = int(torch.where(nz.any(-1), last - first + 1, 0).max())
+    even = odd = torch.zeros_like(taps(first), dtype=torch.float32)
+    for k in range(span):
+        cols = (first + k).clamp(max=p - 1)
+        wk = torch.where(first + k < p, w.gather(-1, cols[..., None])[..., 0], 0.0)
+        xk = taps(cols)
+        shape = wk.shape + (1,) * (xk.dim() - wk.dim())
+        # fp32 FMA: the exact product (in fp64) and one rounding of the sum
+        prod = wk.reshape(shape).double() * xk.double()
+        if interleaved:
+            on_even = (cols % 2 == 0).reshape(shape)
+            even = torch.where(on_even, (even.double() + prod).float(), even)
+            odd = torch.where(on_even, odd, (odd.double() + prod).float())
+        else:
+            even = (even.double() + prod).float()
+    return even + odd
+
+
+def _resize_cpu_f32(image, wx, wy):
+    """The fp32 resize on the CPU with XLA's CPU sums (:func:`_tap_sum`),
+    so that a value within an ulp of a .5 tie rounds as in ``oadp_tpu``.
+    XLA's CPU dot takes the two interleaved sums when the product it
+    forms has ``N % 64 == 32`` columns and one sum otherwise (measured on
+    XLA's CPU backend for these products, not derived): N is ``B * OW``
+    for one image shared by the crops, ``OW`` for paired images, and
+    ``3 * OW`` for the vertical pass."""
+    b, ow = wx.shape[:2]
+    rows = torch.arange(b)[:, None]
+    if image.dim() == 3:  # (PH, PW, 3): columns of the shared image
+        t = _tap_sum(wx, lambda c: image[:, c].permute(1, 2, 0, 3), b * ow % 64 == 32)
+    else:  # (B, PH, PW, 3): columns of each crop's own image
+        t = _tap_sum(wx, lambda c: image[rows, :, c], ow % 64 == 32)
+    t = round_u8(t.transpose(1, 2))  # (B, PH, OW, 3)
+    return round_u8(_tap_sum(wy, lambda r: t[rows, r], 3 * ow % 64 == 32))
+
+
 def _resize(image, wx, wy, skip_round: bool, compute_dtype=None):
     """Two-pass resize: horizontal (contract image columns), round,
     vertical (contract image rows), round. ``image`` is ``(PH, PW, 3)``
     shared by all crops or ``(B, PH, PW, 3)`` paired with them; ``wx``
     and ``wy`` are ``(B, O, P)``. Returns ``(B, OH, OW, 3)``."""
+    if compute_dtype is None and not skip_round and image.device.type == 'cpu':
+        return _resize_cpu_f32(image.float(), wx.float(), wy.float())
     # bf16 path: pixel integers are exact in bf16 and only the resample
     # weights round (oadp_tpu's single-pass path for bf16 encoders);
     # the products accumulate in fp32 and are never rounded to bf16
@@ -427,9 +493,11 @@ def apply_resize_pair(
       (paired batches — the globals pipeline)
 
     Values are rounded to uint8 range per pass like PIL's 8-bit path
-    (unless ``skip_round``). The fp32 path is a plain fp32 product (the
-    PIL-exact ``Precision.HIGHEST`` path of ``oadp_tpu``); TF32 must be
-    off, which :func:`oadp_torch.oake.encoders.load_clip` ensures.
+    (unless ``skip_round``). The fp32 path is the PIL-exact
+    ``Precision.HIGHEST`` path of ``oadp_tpu``: on the CPU it sums the
+    taps in XLA's order and is bit-identical to ``oadp_tpu``'s; on the
+    card it is a plain fp32 product, with TF32 off, which
+    :func:`oadp_torch.oake.encoders.load_clip` ensures.
     ``compute_dtype=torch.bfloat16`` selects the single-pass path.
     """
     if (image.dim(), wx.dim()) not in ((3, 2), (3, 3), (4, 3)):

@@ -14,7 +14,11 @@ Prints JSON lines, each with the card's name and power limit:
   ``F.scaled_dot_product_attention`` on the main rows;
 * ``dispatch``: one objects dispatch (2 images x 1024 crops, full
   ViT-B/32, bf16, random weights from seed 0): its wall time and the
-  CUDA time by kernel from ``torch.profiler``.
+  CUDA time by kernel from ``torch.profiler``;
+* ``split_dispatch`` and ``fused_dispatch``: ``objects_step`` on 999
+  crops of one image (the surgery encoder's split wiring, kernels 4 and
+  5) and on the first 1000 of the same crops (the fused wiring, kernels 1
+  and 2), each broken down the same way.
 
 Needs one CUDA device; exits nonzero without one.
 """
@@ -40,6 +44,33 @@ def _timed(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _breakdown(step) -> dict:
+    """Wall time of ``step`` (host clock, synchronised, after two warm
+    calls) and the CUDA time by kernel of one more call from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # kernels only: an operator's row repeats the time of the kernels it ran
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return dict(wall_ms=wall_ms,
+                cuda_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
+                          calls=e.count) for e in events[:20]])
 
 
 def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
@@ -109,17 +140,18 @@ def main() -> int:
     bias = torch.zeros(b, n, device=dev)
     main = torch.empty(b, n, d, device=dev).bfloat16()
     side = torch.empty(b, d, device=dev).bfloat16()
-    args = (qkv, b, n, heads, 3 * d, (0, d, 2 * d), 0.125)
+    qq, kk, vv = qkv.view(b, n, 3 * d).split(d, -1)
+    side_args = dict(qy=qkv_y[:, :d], ky=qkv_y[:, d:2 * d], vy=qkv_y[:, 2 * d:],
+                     bias=bias, side=side)
     q, k, v = (t.reshape(b, n, heads, 64).transpose(1, 2).contiguous()
-               for t in qkv.view(b, n, 3 * d).split(d, -1))
+               for t in (qq, kk, vv))
     emit('attention', crops=b, heads=heads, tokens=n,
          main_and_side_ms=_timed(lambda: A._attention(
-             *args, out=main, qkv_y=qkv_y, bias=bias, side=side)),
-         main_ms=_timed(lambda: A._attention(*args, out=main)),
-         side_ms=_timed(lambda: A._attention(
-             *args, qkv_y=qkv_y, bias=bias, side=side)),
+             qq, kk, vv, heads, 0.125, out=main, **side_args)),
+         main_ms=_timed(lambda: A._attention(qq, kk, vv, heads, 0.125, out=main)),
+         side_ms=_timed(lambda: A._attention(None, kk, vv, heads, 0.125, **side_args)),
          sdpa_main_ms=_timed(lambda: F.scaled_dot_product_attention(q, k, v)))
-    del qkv, q, k, v, main
+    del qkv, qq, kk, vv, q, k, v, main
     torch.cuda.empty_cache()
 
     model = E.load_clip(None, 'bfloat16', device=dev)
@@ -134,27 +166,15 @@ def main() -> int:
     steps = E.OakeSteps(model, 640, 640)
     bufs = _dispatch_inputs(model)
     k_pad = 21
-    for _ in range(2):
-        steps.objects_packed_step(bufs, 1024, k_pad)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        steps.objects_packed_step(bufs, 1024, k_pad)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        steps.objects_packed_step(bufs, 1024, k_pad)
-        torch.cuda.synchronize()
-    # kernels only: an operator's row repeats the time of the kernels it ran
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    emit('dispatch', crops=2048, wall_ms=wall_ms, cuda_ms=total, top=[
-        dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count)
-        for e in events[:20]
-    ])
+    emit('dispatch', crops=2048,
+         **_breakdown(lambda: steps.objects_packed_step(bufs, 1024, k_pad)))
+    n_img, g = 640 * 640 * 3, model.grid
+    image = bufs[0, :n_img].reshape(640, 640, 3)
+    masks = bufs[0, n_img:n_img + 1024 * g * g].reshape(1024, g, g)
+    meta = bufs[0, n_img + 1024 * g * g:].view(np.float32).reshape(1024, 9)
+    for kind, crops in (('split_dispatch', 999), ('fused_dispatch', 1000)):
+        emit(kind, crops=crops, **_breakdown(
+            lambda: steps.objects_step(image, meta[:crops], masks[:crops], k_pad)))
     return 0
 
 

@@ -136,11 +136,113 @@ def test_bf16_plain_matches_pallas():
         assert (g == w).mean() > 0.98
 
 
+def _packed(rng, b, n, heads, w_scale=1.0):
+    """A packed ``(B, N, 3D)`` qkv and side rows ``(B, 3D)`` as the split
+    wiring makes them, with a ``(B, N)`` surgery bias."""
+    d = heads * 64
+    return dict(
+        qkv=(rng.standard_normal((b, n, 3 * d)) * w_scale).astype(np.float32),
+        qkv_y=(rng.standard_normal((b, 3 * d)) * w_scale).astype(np.float32),
+        bias=np.concatenate([
+            (rng.random((b, n - 1)) > 0.5).astype(np.float32) * -100.0,
+            np.zeros((b, 1), np.float32),
+        ], -1),
+    )
+
+
+@pytest.mark.parametrize('case', ['b3', 'b4', 'clamp', 'bf16'])
+def test_mha_qkv_plain_matches_pallas(case):
+    """Kernel 4: fp32 at a batch that takes 1 and 4 crops per Pallas grid
+    cell, a case where the clamp engages, and bf16."""
+    rng = np.random.default_rng(12)
+    heads, n = 2, 17
+    b = 3 if case == 'b3' else 4
+    qkv = _packed(rng, b, n, heads, w_scale=8.0 if case == 'clamp' else 1.0)['qkv']
+    scale = 1.0 / math.sqrt(64)
+    if case == 'clamp':
+        q, k = qkv[..., :64], qkv[..., 128:192]
+        assert (q @ k.transpose(0, 2, 1)).max() * scale > ta.LOGIT_CLAMP
+    if case == 'bf16':
+        want = ja.fused_mha_qkv(jnp.asarray(qkv, jnp.bfloat16), heads, scale, interpret=True)
+        got = ta.fused_mha_qkv(torch.from_numpy(qkv).bfloat16(), heads, scale)
+        g, w = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 2 ** -6 * max(1.0, np.abs(w).max())
+        assert (g == w).mean() > 0.98
+        return
+    want = ja.fused_mha_qkv(jnp.asarray(qkv), heads, scale, interpret=True)
+    got = ta.fused_mha_qkv(torch.from_numpy(qkv), heads, scale)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _side_args(p, conv, kv_only=False):
+    """``k, v, qy, ky, vy, bias`` as row-strided views: k and v are column
+    slices of the packed qkv (row stride 3D), or of a kv (row stride 2D)
+    as in the last split layer."""
+    d = p['qkv'].shape[-1] // 3
+    qkv, qkv_y = conv(p['qkv']), conv(p['qkv_y'])
+    kv = qkv[..., d:] if not kv_only else conv(np.ascontiguousarray(p['qkv'][..., d:]))
+    k, v = kv[..., :d], kv[..., d:]
+    return k, v, qkv_y[:, :d], qkv_y[:, d:2 * d], qkv_y[:, 2 * d:], conv(p['bias'])
+
+
+@pytest.mark.parametrize('case', ['qkv_views', 'kv_views', 'b16', 'clamp', 'bf16'])
+def test_side_attention_plain_matches_pallas(case):
+    """Kernel 5 on row-strided views of a packed qkv (or kv), at batches
+    of 1 and 8 crops per Pallas grid cell, with the clamp engaged, and in
+    bf16."""
+    rng = np.random.default_rng(13)
+    heads, n = 2, 17
+    b = 16 if case == 'b16' else 3
+    p = _packed(rng, b, n, heads, w_scale=8.0 if case == 'clamp' else 1.0)
+    kv_only = case == 'kv_views'
+    if case == 'bf16':
+        want = ja.fused_side_attention(*_side_args(p, lambda a: jnp.asarray(
+            a, jnp.float32 if a.shape == p['bias'].shape else jnp.bfloat16)), heads, interpret=True)
+        got = ta.fused_side_attention(*_side_args(p, lambda a: torch.from_numpy(a).to(
+            torch.float32 if a.shape == p['bias'].shape else torch.bfloat16)), heads)
+        g, w = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 2 ** -6 * max(1.0, np.abs(w).max())
+        assert (g == w).mean() > 0.98
+        return
+    want = ja.fused_side_attention(*_side_args(p, jnp.asarray, kv_only), heads, interpret=True)
+    args = _side_args(p, torch.from_numpy, kv_only)
+    assert args[0].stride(1) == (2 if kv_only else 3) * 128  # views, not copies
+    got = ta.fused_side_attention(*args, heads)
+    if case == 'clamp':
+        s = (args[0][:, 1:, :64] @ args[2][:, :64, None])[..., 0] / 8 + args[5][:, :-1]
+        assert float(s.max()) > ta.LOGIT_CLAMP
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gates_follow_oadp_tpu_rules(monkeypatch):
+    """The port's shape gates are ``oadp_tpu``'s with its backend test
+    taken as passed."""
+    monkeypatch.setattr(ja, 'supports_fused_mha', lambda: True)
+    for heads in (1, 2, 3, 4, 8, 12, 16):
+        for hd in (16, 32, 48, 64, 80, 96, 128, 256):
+            for name in ('fused_mha_qkv_supported', 'fused_side_attention_supported',
+                         'fused_surgery_layer_supported'):
+                assert getattr(ta, name)(heads, hd) == getattr(ja, name)(heads, hd), (
+                    name, heads, hd)
+    for rows in (1, 3, 7, 8, 12, 16, 999, 1000, 2048):
+        for width in (64, 128, 200, 256, 768):
+            assert ta.fused_ln_mlp_rows_supported(rows, width) == \
+                ja.fused_ln_mlp_rows_supported(rows, width), (rows, width)
+
+
 def test_launch_counters_only_count_cuda_launches():
     ta.reset_launches()
     rng = np.random.default_rng(10)
     p = _layer(rng, 2, 5, 2)
     _surgery(p, 2, ta, torch.from_numpy, with_main=False)
+    q = _packed(rng, 2, 5, 2)
+    ta.fused_mha_qkv(torch.from_numpy(q['qkv']), 2, 0.125)
+    ta.fused_side_attention(*_side_args(q, torch.from_numpy), 2)
+    assert set(ta.LAUNCHES) == {
+        'fused_surgery_layer', 'fused_ln_mlp_rows', 'fused_ln_qkv_attention',
+        'fused_mha_qkv', 'fused_side_attention'}
     assert ta.LAUNCHES == {k: 0 for k in ta.LAUNCHES}
 
 
@@ -153,6 +255,13 @@ def test_wrappers_refuse_non_bf16_on_other_devices():
         ta.fused_ln_qkv_attention(
             x, w[:, 0], w[:, 1], w, w[0], 2, 0.125
         )
+    qkv = torch.empty((2, 5, 384), device='meta', dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ta.fused_mha_qkv(qkv, 2, 0.125)
+    rows = torch.empty((2, 128), device='meta', dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ta.fused_side_attention(qkv[..., :128], qkv[..., 128:256], rows, rows, rows,
+                                torch.empty((2, 5), device='meta'), 2)
 
 
 @pytest.mark.cuda
@@ -173,6 +282,20 @@ def test_kernels_match_plain_on_card():
     kw = dict(out_w=conv(p['ow']), out_b=conv(p['ob']))
     got = ta.fused_surgery_layer(*args, heads, 0.125, **kw)
     want = ta.fused_surgery_layer_plain(*args, heads, 0.125, **kw)
+    pk = _packed(rng, b, n, heads)
+    qkv = torch.from_numpy(pk['qkv']).to(dev).bfloat16()
+    got += (ta.fused_mha_qkv(qkv, heads, 0.125),)
+    want += (ta.fused_mha_qkv_plain(qkv, heads, 0.125),)
+
+    def conv_side(a):
+        t = torch.from_numpy(a).to(dev)
+        return t if a.shape == (b, n) else t.bfloat16()
+
+    for kv_only in (False, True):
+        args = _side_args(pk, conv_side, kv_only)
+        got += (ta.fused_side_attention(*args, heads),)
+        want += (ta.fused_side_attention_plain(*args, heads),)
+    torch.cuda.synchronize()
     for g, w in zip(got, want):
         cos = torch.nn.functional.cosine_similarity(
             g.float().flatten(1), w.float().flatten(1)

@@ -104,3 +104,38 @@ def test_image_encoder_surgery_matches(models, interpret_fused):
         tup, torch.from_numpy(images), torch.from_numpy(masks), tc
     ).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize('b, wiring', [(3, 'split'), (8, 'fused')])
+def test_surgery_wiring_by_shape(models, monkeypatch, b, wiring):
+    """The surgery encoder picks its wiring by shape, as ``oadp_tpu``'s
+    gates do on the TPU: B=3 takes the split wiring (kernel 4 in every
+    layer but the last, kernel 5 in every layer), B=8 the fused one
+    (kernels 1 and 2). Both agree with ``oadp_tpu``'s same wiring."""
+    from oadp_torch.ops import attention as ta
+
+    state, jparams, jcfg, tcfg = models
+    jup, jc = jclip.upsample_vit_params(jparams, jcfg)
+    tup, tc = tclip.upsample_vit_params(tclip.load_openai_state_dict(state), tcfg)
+    rng = np.random.RandomState(4)
+    images = rng.randn(b, 64, 64, 3).astype(np.float32)
+    masks = (rng.rand(b, 8, 8) > 0.5).astype(np.uint8)
+    calls = {}
+    for name in ('fused_surgery_layer', 'fused_ln_mlp_rows', 'fused_mha_qkv',
+                 'fused_side_attention'):
+        def counted(*a, _fn=getattr(ta, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ta, name, counted)
+    got = tclip.image_encoder_surgery(
+        tup, torch.from_numpy(images), torch.from_numpy(masks), tc
+    ).numpy()
+    layers = tcfg.layers
+    assert calls == ({'fused_mha_qkv': layers - 1, 'fused_side_attention': layers}
+                     if wiring == 'split' else
+                     {'fused_surgery_layer': layers, 'fused_ln_mlp_rows': layers})
+    want = np.asarray(jclip.image_encoder_surgery(
+        jup, images, masks.astype(np.float32), jc,
+        interpret_fused=wiring == 'fused',
+    ))
+    np.testing.assert_allclose(got, want, **TOL)

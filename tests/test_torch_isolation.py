@@ -37,7 +37,7 @@ def test_cli_modules_import_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None; "
         "sys.modules['oadp_tpu'] = None; "
-        "import oadp_torch.oake.objects, oadp_torch.oake.globals, chip_smoke; "
+        "import oadp_torch.oake.objects, oadp_torch.oake.globals, oadp_torch.oake.blocks, chip_smoke; "
         "print('ok')"
     )
     out = subprocess.run(

@@ -1,4 +1,4 @@
-"""The port's OAKE objects and globals CLIs (``oadp_torch.oake``) against
+"""The port's OAKE objects, globals and blocks CLIs (``oadp_torch.oake``) against
 ``oadp_tpu.oake`` end to end, on ``tests/synthetic_data.py`` data and one
 shared saved checkpoint, fp32 on the CPU: the same file set, records
 that agree, equal boxes; plus resume, ``DRY_RUN`` and the refusal to run
@@ -54,7 +54,7 @@ mini_batch_size = 16
 """)
     setup = dict(root=root, data=data, cfg=cfg)
     for pkg in ('oadp_tpu', 'oadp_torch'):
-        for task in ('objects', 'globals'):
+        for task in ('objects', 'globals', 'blocks'):
             _run(setup, pkg, task, f'{pkg}_{task}')
     return setup
 
@@ -82,7 +82,7 @@ def _cos(a, b):
     )).min())
 
 
-@pytest.mark.parametrize('task', ['objects', 'globals'])
+@pytest.mark.parametrize('task', ['objects', 'globals', 'blocks'])
 def test_records_agree(setup, task):
     from oadp_tpu.utils import load_pth as jload
     from oadp_torch.utils import load_pth
@@ -105,8 +105,9 @@ def test_records_agree(setup, task):
         np.testing.assert_allclose(
             emb.astype(np.float32), ref_emb.astype(np.float32), atol=2e-3
         )
-        if task == 'objects':
+        if task != 'globals':
             np.testing.assert_array_equal(ours['bboxes'], ref['bboxes'])
+        if task == 'objects':
             np.testing.assert_array_equal(ours['objectness'], ref['objectness'])
 
 
@@ -184,3 +185,43 @@ def test_steps_match_oadp_tpu_on_shared_inputs(setup):
     np.testing.assert_array_equal(
         ts.objects_step(image, meta, masks, 49).numpy(), single
     )
+
+
+def test_blocks_step_matches_oadp_tpu(setup):
+    """``blocks_step`` gives ``oadp_tpu``'s rows on the same weights and
+    inputs: two images with their pyramids, the wholes first, then the
+    flat blocks, among them a zero padding row and a window that reaches
+    past the level's edge (its start is clamped, as ``dynamic_slice``
+    does)."""
+    import jax.numpy as jnp
+
+    from oadp_tpu.oake import encoders as J
+    from oadp_torch.oake import encoders as T
+    from oadp_torch.oake.partitions import plan_blocks
+    from oadp_torch.ops import preprocess as P
+
+    ckpt = str(setup['root'] / 'clip.pt')
+    jm = J.load_clip(ckpt, 'float32', vit=VIT)
+    tm = T.load_clip(ckpt, 'float32', vit=VIT, device='cpu')
+    js, ts = J.OakeSteps(jm, PAD, PAD), T.OakeSteps(tm, PAD, PAD)
+    rng = np.random.RandomState(5)
+    images, lwx, lwy, wwx, wwy, coords = [], [], [], [], [], []
+    for i, (w, h) in enumerate(((300, 250), (240, 320))):
+        img = np.zeros((PAD, PAD, 3), np.uint8)
+        img[:h, :w] = rng.randint(0, 256, (h, w, 3))
+        plan = plan_blocks(w, h)
+        mx = np.zeros((2, PAD, PAD), np.float32)
+        my = np.zeros((2, PAD, PAD), np.float32)
+        for k in range(len(plan.levels) - 1):
+            (w0, h0), (w1, h1) = plan.levels[k], plan.levels[k + 1]
+            mx[k, :w1], my[k, :h1] = P.plain_resize_matrices(w0, h0, w1, h1, PAD, PAD)
+        ww, wh = P.clip_transform_matrices(w, h, None, PAD, PAD)
+        images.append(img), lwx.append(mx), lwy.append(my), wwx.append(ww), wwy.append(wh)
+        coords += [(i, lv, y, x) for lv, x, y in plan.blocks]
+    coords += [(0, 1, 200, 150), (0, 0, 0, 0)]
+    coords = np.asarray(coords, np.int32)
+    ref = np.asarray(js.blocks_step(images, lwx, lwy, wwx, wwy, jnp.asarray(coords)))
+    got = ts.blocks_step(images, lwx, lwy, wwx, wwy, coords).numpy()
+    assert got.dtype == np.float16 and got.shape == ref.shape == (2 + len(coords), 32)
+    assert _cos(got, ref) > 0.9999
+    np.testing.assert_allclose(got.astype(np.float32), ref.astype(np.float32), atol=2e-3)
