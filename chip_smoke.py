@@ -11,7 +11,12 @@ Phases, in order; any failure exits nonzero:
    its plain version, a PyTorch library yardstick and its bound: kernels
    1-2 at the objects dispatch (2048 crops), kernel 3 at the globals and
    a production blocks batch, kernels 4-5 at the split path's 999 crops
-   and at 2048;
+   and at 2048. Each kernel gets its K-major weights and fp32 LayerNorm
+   parameters prepared once, as the encoders hold them, and the library
+   yardstick its transposed weights once. Two times per call for the
+   kernel and for the yardstick: CUDA events around back-to-back calls
+   (host launch overhead included) and the device time from
+   ``torch.profiler`` (the sum of the call's kernel durations);
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after: the OAKE objects, globals and blocks CLIs
    (``oadp_torch.oake``) at full ViT-B/32 width (random weights from seed
@@ -74,6 +79,25 @@ def timed(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Milliseconds of device time per call: the durations of the CUDA
+    kernels that ``iters`` calls launched, from ``torch.profiler``, after
+    a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError('torch.profiler recorded no device time')
+    return total_us / iters / 1e3
+
+
 def compare(got, want) -> tuple[float, float]:
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -119,8 +143,12 @@ def check_kernels(A, gen) -> dict:
     out_w, out_b = r(D, D, scale=D ** -0.5), r(D, scale=0.02)
     fc_w, fc_b = r(D, 4 * D, scale=D ** -0.5), r(4 * D, scale=0.02)
     proj_w, proj_b = r(4 * D, D, scale=(4 * D) ** -0.5), r(D, scale=0.02)
-    lib_w = {k: v.t().contiguous() for k, v in dict(
+    # K-major (out, in) copies, made once: the kernels' prepared weights
+    # (as models/clip.py:prepare_kernel_params makes them) and the library
+    # yardstick's F.linear weights are the same tensors
+    lib_w = {k: A.kmajor(v) for k, v in dict(
         qkv=qkv_w, out=out_w, fc=fc_w, proj=proj_w).items()}
+    ln32 = A.ln_fp32(ln_s, ln_b)
     w_bytes = 2 * (qkv_w.numel() + qkv_b.numel() + 2 * D)
     results = {}
 
@@ -135,6 +163,8 @@ def check_kernels(A, gen) -> dict:
             name=name, max_abs_err=err, cosine=cos,
             kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
             library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
+            kernel_device_ms=device_ms(kernel, iters),
+            library_device_ms=device_ms(library, iters),
             **extra,
         )
         log(json.dumps({'kernel_check': res}))
@@ -166,9 +196,10 @@ def check_kernels(A, gen) -> dict:
 
     act_bytes = 2 * (x.numel() + y.numel()) + 4 * bias.numel()
     fold = dict(out_w=out_w, out_b=out_b)
+    prep = dict(qkv_wt=lib_w['qkv'], ln32=ln32)
     k1 = record(
         'fused_surgery_layer',
-        lambda: A.fused_surgery_layer(*args, **fold),
+        lambda: A.fused_surgery_layer(*args, **fold, **prep, out_wt=lib_w['out']),
         lambda: A.fused_surgery_layer_plain(*args, **fold),
         lambda: lib_k1(True),
         flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
@@ -178,7 +209,7 @@ def check_kernels(A, gen) -> dict:
     )
     k1_side = record(
         'fused_surgery_layer(with_main=False)',
-        lambda: A.fused_surgery_layer(*args, with_main=False),
+        lambda: A.fused_surgery_layer(*args, with_main=False, **prep),
         lambda: A.fused_surgery_layer_plain(*args, with_main=False),
         lambda: lib_k1(False),
         flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
@@ -198,7 +229,8 @@ def check_kernels(A, gen) -> dict:
 
     k2 = record(
         'fused_ln_mlp_rows',
-        lambda: A.fused_ln_mlp_rows(*mlp),
+        lambda: A.fused_ln_mlp_rows(*mlp, fc_wt=lib_w['fc'], proj_wt=lib_w['proj'],
+                                    ln32=ln32),
         lambda: A.fused_ln_mlp_rows_plain(*mlp),
         lib_k2,
         flops=4 * OBJ_BATCH * D * 4 * D,
@@ -221,7 +253,7 @@ def check_kernels(A, gen) -> dict:
 
         k3[b3] = record(
             f'fused_ln_qkv_attention(B={b3})',
-            lambda: A.fused_ln_qkv_attention(*a3),
+            lambda: A.fused_ln_qkv_attention(*a3, **prep),
             lambda: A.fused_ln_qkv_attention_plain(*a3),
             lib_k3,
             flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
@@ -562,12 +594,13 @@ def main() -> int:
             max_abs_err=res['max_abs_err'], cosine=res['cosine'],
             ms=res['kernel_ms'], plain_ms=res['plain_ms'], bound_ms=res['bound_ms'],
             bound_by=res['bound_by'], library_ms=res['library_ms'],
+            device_ms=res['kernel_device_ms'], library_device_ms=res['library_device_ms'],
         )
         for shape in ('side_only', 'blocks_batch', 'objects_batch'):
             if shape in res:
                 entry[shape] = {k: res[shape][k] for k in (
                     'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-                    'max_abs_err', 'cosine')}
+                    'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine')}
         kernels.append(entry)
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))

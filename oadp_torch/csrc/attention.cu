@@ -25,39 +25,64 @@
 //
 // Bound on the H100: one (crop, head) is 2 x 197 x 197 x 64 x 2 = 10 MFLOP on
 // 75 KB of q/k/v, about 130 FLOP/byte, under the card's ridge; at the
-// objects batch the layer's attention is 0.24 TFLOP against 1.2 GB of qkv,
-// so reading qkv bounds it. The design reads each of q, k and v once: one
-// block per (crop, head) stages K and V of the head in shared memory with
-// cp.async (2 x 208 x 72 bf16 = 60 KB, three blocks an SM), each warp
-// takes 32 query rows at a time with Q loaded straight into registers,
-// and scores, exp weights and the output stay in registers (mma.sync
-// m16n8k16, ldmatrix for K and V). The side row alone (_side_attn_kernel)
-// is 4 x N x 64 FLOP a head against the head's K and V: reading K and V
-// (1.24 GB at 2048 crops) bounds it, and each is read once.
+// objects batch the main rows read 1.86 GB of q/k/v and write 0.62 GB, so
+// bytes bound them (0.74 ms at 2048 crops), with ~0.25 ms of exp (MUFU) and
+// ~0.25 ms of tensor-core work to hide under the loads.
+// Design: a persistent, warp-specialised block per SM walks the (crop, head)
+// items. One producer warp issues TMA loads of an item's Q, K and V (64
+// columns x the tokens rounded up to 16 rows, 128-byte swizzle; rows past N
+// arrive as zeros) through 3-D tensor maps over the strided column slices,
+// into one of two stages guarded by full/empty mbarriers, so the next item
+// loads while the current one is computed. Each consumer warp owns one
+// 16-row query tile (13 warps for N = 197, so no warp idles; for short
+// sequences a stage holds several items, e.g. 4 x 4 tiles at N = 50). A warp
+// reads its Q fragments from shared memory with ldmatrix, runs QK^T and PV
+// on mma.sync m16n8k16 with K and V fragments from ldmatrix (the swizzle
+// makes every ldmatrix conflict-free), writes its normalised rows back over
+// its own Q rows in shared memory and stores them with 16-byte coalesced
+// writes. The side row alone (_side_attn_kernel) is 4 x N x 64 FLOP a head
+// against the head's K and V: reading K and V (1.24 GB at 2048 crops)
+// bounds it; it runs on the consumer warps from the same staged K and V.
 #include "common.cuh"
 
 namespace oadp {
 namespace {
 
-constexpr int HD = 64;         // head width this kernel is written for
-constexpr int WARPS = 4;
-constexpr int KV_LD = HD + 8;  // padded shared-memory rows
+constexpr int HD = 64;             // head width this kernel is written for
+// consumer warps: with the producer, 16 warps, 4 to each SM sub-partition,
+// so a thread may hold 128 registers
+constexpr int MAX_CONSUMERS = 15;
+constexpr int MAX_TILES = 16;  // 16-row tiles per item (N <= 256)
+constexpr int STAGES = 2;
 
-__host__ __device__ inline int padded_tokens(int N) { return (N + 15) & ~15; }
+// Shared memory: STAGES x group x [Q,] K, V tiles of (16 * tiles) rows of
+// 128 bytes; STAGES x the side row's inputs (qy, ky, vy of the head and
+// the bias row); the side row's fp32 scratch; the full and empty barriers.
+struct Layout {
+  int tile, item, stage, side_in, side_stage, scratch, bars, total;
+};
 
-// K, V, then the side row's fp32 scratch
-__host__ __device__ inline int smem_bytes(int N) {
-  return 2 * padded_tokens(N) * KV_LD * (int)sizeof(bf16) +
-         (padded_tokens(N) + WARPS * HD + WARPS) * (int)sizeof(float);
+__host__ __device__ inline Layout layout(int tiles, int group, bool with_q) {
+  Layout l;
+  l.tile = tiles * 16 * 128;
+  l.item = (with_q ? 3 : 2) * l.tile;
+  l.stage = group * l.item;
+  l.side_in = STAGES * l.stage;
+  l.side_stage = 3 * HD * 2 + tiles * 16 * 4;
+  l.scratch = l.side_in + STAGES * l.side_stage;
+  // per stage: part[MAX_CONSUMERS][HD], psum[MAX_CONSUMERS]
+  l.bars = l.scratch + STAGES * 4 * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+  l.bars = (l.bars + 15) & ~15;  // mbarriers are 8-byte aligned
+  l.total = l.bars + 2 * STAGES * 8 + 1024;  // + slack to align to 1024 bytes
+  return l;
 }
 
-// Operands of one launch; strides are in elements.
 struct Args {
-  int N;
+  int B, N, heads;
+  int tiles;      // 16-row tiles per item
+  int group;      // items per stage
+  int consumers;  // consumer warps: min(tiles * group, MAX_CONSUMERS)
   float scale;
-  const bf16* q; long long q_bs; int q_ld;  // main queries (main rows only)
-  const bf16* k; long long k_bs; int k_ld;
-  const bf16* v; long long v_bs; int v_ld;
   bf16* out; long long out_bs; int out_ld;  // main rows, or nullptr
   const bf16* qy; int qy_ld;                // side row (with side_out)
   const bf16* ky; int ky_ld;
@@ -66,189 +91,281 @@ struct Args {
   bf16* side_out; int side_ld;              // side row, or nullptr
 };
 
-__global__ void __launch_bounds__(WARPS * 32) attention_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int N = a.N;
-  const int np = padded_tokens(N);
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// exp(min(x, 80)) as exp2 of the clamped logit in log2 units
+constexpr float LOG2E = 1.4426950408889634f;
 
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + np * KV_LD;
-
-  const bf16* kb = a.k + (size_t)b * a.k_bs + h * HD;
-  const bf16* vb = a.v + (size_t)b * a.v_bs + h * HD;
-  // Stage K and V of this head with every copy in flight at once; rows
-  // N..np-1 are zero-filled.
-  for (int c = tid; c < np * 8; c += WARPS * 32) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const size_t rr = r < N ? r : 0;
-    cp_async16(Ks + r * KV_LD + cc, kb + rr * a.k_ld + cc, r < N);
-    cp_async16(Vs + r * KV_LD + cc, vb + rr * a.v_ld + cc, r < N);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  if (a.out != nullptr) {
-    const bf16* qb = a.q + (size_t)b * a.q_bs + h * HD;
-    // Each warp takes 32 query rows at a time as two 16-row tiles that
-    // share every K and V fragment load: twice the independent MMAs per
-    // load, which is what the warp's latency hiding runs on.
-    const int g = lane >> 2, t = lane & 3;
-    for (int r0 = warp * 32; r0 < N; r0 += WARPS * 32) {
-      // Q fragments straight from global memory (the A operand layout):
-      // register j of k-step ks holds rows g (+8 for j odd) and columns
-      // ks*16 + 2t (+8 for j >= 2).
-      unsigned qf[2][HD / 16][4];
+// One chunk of KC keys (32, or 16 for the tail) of a warp's 16 query rows:
+// scores on mma.sync from Q fragments in registers and K fragments from
+// ldmatrix, exp weights (keys at or past `lim` weigh 0) rounded to bf16 as
+// the A operand of P V, and the PV product from ldmatrix.trans of V.
+template <int KC>
+__device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
+                                          const unsigned char* Ks, const unsigned char* Vs,
+                                          int k0, int lim, float scale_log2, int lane,
+                                          float (&o)[HD / 8][4], float (&sums)[2]) {
+  constexpr int NB = KC / 8;  // 8-key column blocks of the scores
+  const int t = lane & 3;
+  float s[NB][4];
 #pragma unroll
-      for (int tile = 0; tile < 2; ++tile) {
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = r0 + tile * 16 + g + (j & 1) * 8;
-          const bf16* src = qb + (size_t)row * a.q_ld + 2 * t + (j >> 1) * 8;
+  for (int ks = 0; ks < HD / 16; ++ks) {
 #pragma unroll
-          for (int ks = 0; ks < HD / 16; ++ks)
-            qf[tile][ks][j] = row < N ? *reinterpret_cast<const unsigned*>(src + ks * 16) : 0u;
-        }
-      }
-
-      float o[2][HD / 8][4];
-#pragma unroll
-      for (int tile = 0; tile < 2; ++tile)
-#pragma unroll
-        for (int i = 0; i < HD / 8; ++i) o[tile][i][0] = o[tile][i][1] = o[tile][i][2] = o[tile][i][3] = 0.f;
-      float sums[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [tile][rows g, g + 8]
-
-      for (int k0 = 0; k0 < np; k0 += 16) {
-        // scores of 16 keys: s[tile][j] covers keys k0 + 8j .. k0 + 8j + 7
-        float s[2][2][4];
-#pragma unroll
-        for (int tile = 0; tile < 2; ++tile)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) s[tile][j][0] = s[tile][j][1] = s[tile][j][2] = s[tile][j][3] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
-          unsigned kf[4];
-          ldmatrix_x4(kf, Ks + (k0 + (lane & 7) + ((lane >> 4) << 3)) * KV_LD + ks * 16 +
-                              ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int tile = 0; tile < 2; ++tile) {
-            mma_bf16(s[tile][0], qf[tile][ks], kf[0], kf[1]);
-            mma_bf16(s[tile][1], qf[tile][ks], kf[2], kf[3]);
-          }
-        }
-        // exp(min(s, 80)); padded keys weigh 0; the score fragments are
-        // the A operand of P V (keys as k)
-        unsigned pa[2][4];
-#pragma unroll
-        for (int tile = 0; tile < 2; ++tile) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = k0 + j * 8 + 2 * t + (e & 1);
-              const float w =
-                  key < N ? exp2f(fminf(s[tile][j][e] * a.scale, 80.f) * 1.4426950408889634f) : 0.f;
-              s[tile][j][e] = w;
-              sums[tile][e >> 1] += w;
-            }
-          }
-          pa[tile][0] = pack2(s[tile][0][0], s[tile][0][1]);
-          pa[tile][1] = pack2(s[tile][0][2], s[tile][0][3]);
-          pa[tile][2] = pack2(s[tile][1][0], s[tile][1][1]);
-          pa[tile][3] = pack2(s[tile][1][2], s[tile][1][3]);
-        }
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          unsigned vf[4];
-          ldmatrix_x4_trans(vf, Vs + (k0 + (lane & 15)) * KV_LD + dp * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int tile = 0; tile < 2; ++tile) {
-            mma_bf16(o[tile][2 * dp], pa[tile], vf[0], vf[1]);
-            mma_bf16(o[tile][2 * dp + 1], pa[tile], vf[2], vf[3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int tile = 0; tile < 2; ++tile) {
-        // each row's sum is spread over the four lanes of its quad
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          sums[tile][hh] += __shfl_xor_sync(0xffffffffu, sums[tile][hh], 1);
-          sums[tile][hh] += __shfl_xor_sync(0xffffffffu, sums[tile][hh], 2);
-        }
-        const int row = r0 + tile * 16 + g;
-        bf16* dst = a.out + (size_t)b * a.out_bs + (size_t)row * a.out_ld + h * HD + 2 * t;
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          if (row < N)
-            *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-                o[tile][n][0] / sums[tile][0], o[tile][n][1] / sums[tile][0]);
-          if (row + 8 < N)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * (size_t)a.out_ld + n * 8) =
-                __floats2bfloat162_rn(o[tile][n][2] / sums[tile][1], o[tile][n][3] / sums[tile][1]);
-        }
-      }
+    for (int jj = 0; jj < NB / 2; ++jj) {
+      unsigned kf[4];
+      ldmatrix_x4(kf, Ks + swz(k0 + jj * 16 + (lane & 7) + ((lane >> 4) << 3),
+                               ks * 2 + ((lane >> 3) & 1)));
+      mma_bf16(s[2 * jj], qf[ks], kf[0], kf[1]);
+      mma_bf16(s[2 * jj + 1], qf[ks], kf[2], kf[3]);
     }
   }
-
-  if (a.side_out != nullptr) {
-    // One query per crop: first one key per thread (index 0 stands for
-    // y's own key, index j >= 1 for patch key j), then one head-dim pair
-    // per lane with the keys split over the warps, then a sum over warps.
-    float* E = reinterpret_cast<float*>(Vs + np * KV_LD);  // [np]
-    float* part = E + np;                                // [WARPS][HD]
-    float* psum = part + WARPS * HD;                     // [WARPS]
-    const bf16* qy = a.qy + (size_t)b * a.qy_ld + h * HD;
-    const bf16* ky = a.ky + (size_t)b * a.ky_ld + h * HD;
-    const bf16* vy = a.vy + (size_t)b * a.vy_ld + h * HD;
-    const float* bb = a.bias + (size_t)b * N;
-    for (int j = tid; j < N; j += WARPS * 32) {
-      const bf16* kr = j == 0 ? ky : Ks + j * KV_LD;
-      float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; d += 8) {
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j * 8 + 2 * t + (e & 1);
+      const float w = key < lim ? exp2f(fminf(s[j][e] * scale_log2, 80.f * LOG2E)) : 0.f;
+      s[j][e] = w;
+      sums[e >> 1] += w;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    const unsigned pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+                            pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      unsigned vf[4];
+      ldmatrix_x4_trans(vf, Vs + swz(k0 + kk * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+      mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+    }
+  }
+}
+
+// One warp's 16 query rows of one (crop, head): Q, K, V staged tiles.
+__device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
+                                          const unsigned char* Ks, const unsigned char* Vs,
+                                          int r0, int b, int h, int lane) {
+  const int N = a.N, np = a.tiles * 16;
+  const int g = lane >> 2, t = lane & 3;
+  // Q fragments (the A operand layout): lanes 0-15 give rows r0..r0+15 of
+  // the low 8 columns of a k-step, lanes 16-31 the high 8
+  unsigned qf[HD / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+    ldmatrix_x4(qf[ks], Qs + swz(r0 + (lane & 15), ks * 2 + (lane >> 4)));
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float sums[2] = {0.f, 0.f};  // rows g, g + 8
+  const float scale_log2 = a.scale * LOG2E;
+  int k0 = 0;
+  for (; k0 + 32 <= np; k0 += 32) key_chunk<32>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+  if (k0 < np) key_chunk<16>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+
+  // each row's sum is spread over the four lanes of its quad
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 1);
+    sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 2);
+  }
+  // Stage the 16 x 64 output over this warp's own Q rows (its Q is in
+  // registers now), then write whole 128-byte rows, 16 bytes a lane.
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + g + 8 * hh, n) + 4 * t) =
+          __floats2bfloat162_rn(o[n][2 * hh] / sums[hh], o[n][2 * hh + 1] / sums[hh]);
+    }
+  }
+  __syncwarp();
+  bf16* dst = a.out + (size_t)b * a.out_bs + h * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + i * 4 + (lane >> 3), c = lane & 7;
+    if (row < N)
+      *reinterpret_cast<uint4*>(dst + (size_t)row * a.out_ld + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz(row, c));
+  }
+}
+
+// The side row of one (crop, head) over all consumer warps, from the
+// staged K and V and the staged inputs `in` (qy, ky, vy rows of the head,
+// then the bias row). Key index 0 stands for y's own key and value, index
+// j >= 1 for patch key j. Each warp takes 16 keys at a time: two lanes a
+// key for the logits (32 head dims each), then one head-dim pair a lane
+// for the weighted values; the warps' partial sums meet in shared memory
+// (double-buffered by stage, one barrier an item) and warp 0 adds them.
+__device__ __forceinline__ void side_row(const Args& a, const unsigned char* Ks,
+                                         const unsigned char* Vs, const unsigned char* in,
+                                         float* scratch, int b, int h, int warp, int lane) {
+  const int N = a.N;
+  float* part = scratch;                    // [MAX_CONSUMERS][HD]
+  float* psum = part + MAX_CONSUMERS * HD;  // [MAX_CONSUMERS]
+  const bf16* qy = reinterpret_cast<const bf16*>(in);
+  const bf16* ky = qy + HD;
+  const bf16* vy = ky + HD;
+  const float* bb = reinterpret_cast<const float*>(in + 3 * HD * 2);
+  float sum = 0.f, o0 = 0.f, o1 = 0.f;
+  for (int j0 = warp * 16; j0 < N; j0 += a.consumers * 16) {
+    const int j = j0 + (lane & 15), half = lane >> 4;
+    float acc = 0.f;
+    if (j < N) {
+#pragma unroll
+      for (int c = half * 4; c < half * 4 + 4; ++c) {
         float fq[8], fk[8];
-        unpack8(*reinterpret_cast<const uint4*>(qy + d), fq);
-        unpack8(*reinterpret_cast<const uint4*>(kr + d), fk);
+        unpack8(*reinterpret_cast<const uint4*>(qy + c * 8), fq);
+        unpack8(j == 0 ? *reinterpret_cast<const uint4*>(ky + c * 8)
+                       : *reinterpret_cast<const uint4*>(Ks + swz(j, c)),
+                fk);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc += fq[i] * fk[i];
       }
-      E[j] = expf(fminf(acc * a.scale + (j == 0 ? bb[N - 1] : bb[j - 1]), 80.f));
     }
-    __syncthreads();
-    float sum = 0.f, o0 = 0.f, o1 = 0.f;
-    for (int j = 1 + warp; j < N; j += WARPS) {
-      const float e = E[j];
-      sum += e;
-      const float eb = __bfloat162float(__float2bfloat16(e));  // P is bf16 in the product
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Vs + j * KV_LD + 2 * lane));
-      o0 += eb * v.x;
-      o1 += eb * v.y;
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    const float e =
+        j < N ? expf(fminf(acc * a.scale + (j == 0 ? bb[N - 1] : bb[j - 1]), 80.f)) : 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < 16; ++kk) {
+      const int jj = j0 + kk;
+      const float ek = __shfl_sync(0xffffffffu, e, kk);
+      if (jj >= N) break;
+      sum += ek;
+      // P is bf16 in the product for the patch keys; y's own weight is not
+      const float p = jj == 0 ? ek : __bfloat162float(__float2bfloat16(ek));
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          jj == 0 ? reinterpret_cast<const unsigned char*>(vy + 2 * lane)
+                  : Vs + swz(jj, lane >> 2) + 4 * (lane & 3)));
+      o0 += p * v.x;
+      o1 += p * v.y;
     }
-    part[warp * HD + 2 * lane] = o0;
-    part[warp * HD + 2 * lane + 1] = o1;
-    if (lane == 0) psum[warp] = sum;
-    __syncthreads();
-    if (warp == 0) {
-      o0 = o1 = sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        o0 += part[w * HD + 2 * lane];
-        o1 += part[w * HD + 2 * lane + 1];
-        sum += psum[w];
+  }
+  part[warp * HD + 2 * lane] = o0;
+  part[warp * HD + 2 * lane + 1] = o1;
+  if (lane == 0) psum[warp] = sum;
+  named_barrier(1, a.consumers * 32);
+  if (warp == 0) {
+    o0 = o1 = sum = 0.f;
+    for (int w = 0; w < a.consumers; ++w) {
+      o0 += part[w * HD + 2 * lane];
+      o1 += part[w * HD + 2 * lane + 1];
+      sum += psum[w];
+    }
+    *reinterpret_cast<__nv_bfloat162*>(a.side_out + (size_t)b * a.side_ld + h * HD + 2 * lane) =
+        __floats2bfloat162_rn(o0 / sum, o1 / sum);
+  }
+}
+
+__global__ void __launch_bounds__(32 * (MAX_CONSUMERS + 1), 1)
+attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
+                 __grid_constant__ const CUtensorMap tm_v, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const bool with_q = a.out != nullptr;
+  const Layout l = layout(a.tiles, a.group, with_q);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + l.bars);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool side = a.side_out != nullptr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], side ? 2 : 1);  // the TMA bytes' arrive [, the side inputs']
+      mbar_init(&empty[s], a.consumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int items = a.B * a.heads;
+  const int groups = (items + a.group - 1) / a.group;
+  if (warp == a.consumers) {
+    // producer: lane 0 loads a stage's items by TMA while the consumers
+    // work on the other stage; for the side row the lanes copy its inputs
+    // (one item a stage), read into registers one item ahead so that their
+    // latency is spent while the stage is still in use
+    uint4 row_chunk = make_uint4(0, 0, 0, 0);  // lanes 0-23: qy, ky, vy chunks
+    float bias_part[MAX_TILES / 2];            // bias[lane + 32 i]
+    auto fetch = [&](int item) {
+      const int b = item / a.heads, h = item % a.heads;
+      if (lane < 24) {
+        const int r = lane >> 3;
+        const bf16* src = r == 0 ? a.qy + (size_t)b * a.qy_ld
+                        : r == 1 ? a.ky + (size_t)b * a.ky_ld
+                                 : a.vy + (size_t)b * a.vy_ld;
+        row_chunk = *reinterpret_cast<const uint4*>(src + h * HD + (lane & 7) * 8);
       }
-      const float ey = E[0];
-      const float2 fy = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vy + 2 * lane));
-      o0 += ey * fy.x;
-      o1 += ey * fy.y;
-      const float z = sum + ey;
-      *reinterpret_cast<__nv_bfloat162*>(a.side_out + (size_t)b * a.side_ld + h * HD + 2 * lane) =
-          __floats2bfloat162_rn(o0 / z, o1 / z);
+#pragma unroll
+      for (int i = 0; i < MAX_TILES / 2; ++i) {
+        const int j = lane + 32 * i;
+        bias_part[i] = j < a.N ? a.bias[(size_t)b * a.N + j] : 0.f;
+      }
+    };
+    if (side && blockIdx.x < groups) fetch(blockIdx.x);
+    int it = 0;
+    for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // the first pass finds both free
+      const int first = grp * a.group;
+      const int n = items - first < a.group ? items - first : a.group;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], n * l.item);  // rows past N count, as zeros
+        unsigned char* dst = base + s * l.stage;
+        for (int i = 0; i < n; ++i) {
+          const int b = (first + i) / a.heads, h = (first + i) % a.heads;
+          unsigned char* d = dst + i * l.item;
+          if (with_q) {
+            tma_load_3d(d, &tm_q, &full[s], h * HD, 0, b);
+            d += l.tile;
+          }
+          tma_load_3d(d, &tm_k, &full[s], h * HD, 0, b);
+          tma_load_3d(d + l.tile, &tm_v, &full[s], h * HD, 0, b);
+        }
+      }
+      if (side) {
+        unsigned char* in = base + l.side_in + s * l.side_stage;
+        if (lane < 24) reinterpret_cast<uint4*>(in)[lane] = row_chunk;
+        float* bias = reinterpret_cast<float*>(in + 3 * HD * 2);
+#pragma unroll
+        for (int i = 0; i < MAX_TILES / 2; ++i)
+          if (lane + 32 * i < a.N) bias[lane + 32 * i] = bias_part[i];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);  // releases the lanes' writes
+        if (grp + gridDim.x < groups) fetch(grp + gridDim.x);
+      }
     }
+    return;
+  }
+
+  int it = 0;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    if (with_q) {
+      // a warp's 16-row tiles: slot (item of the stage) x tile
+      for (int tw = warp; tw < a.tiles * a.group; tw += a.consumers) {
+        const int slot = tw / a.tiles, item = grp * a.group + slot;
+        if (item >= items) break;
+        unsigned char* Qs = base + s * l.stage + slot * l.item;
+        main_rows(a, Qs, Qs + l.tile, Qs + 2 * l.tile, (tw % a.tiles) * 16, item / a.heads,
+                  item % a.heads, lane);
+      }
+    }
+    if (side) {  // one item a stage
+      const unsigned char* Ks = base + s * l.stage + (with_q ? l.tile : 0);
+      float* scratch = reinterpret_cast<float*>(base + l.scratch) +
+                       s * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+      side_row(a, Ks, Ks + l.tile, base + l.side_in + s * l.side_stage, scratch, grp / a.heads,
+               grp % a.heads, warp, lane);
+    }
+    // this warp's staged rows may be overwritten by the next TMA load
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 }
 
@@ -257,31 +374,51 @@ __global__ void __launch_bounds__(WARPS * 32) attention_kernel(const Args a) {
 
 extern "C" {
 
-// Checked by the Python wrapper: head width 64, N <= 256, B < 65536, every
-// pointer 16-byte aligned and every stride a multiple of 8 elements.
+// Checked by the Python wrapper: head width 64, N <= 256, every pointer
+// 16-byte aligned and every stride a multiple of 8 elements; the crop
+// stride of q, k and v at least N row strides.
 int oadp_attention(int B, int N, int heads, float scale, const void* q, long long q_bs,
                    int q_ld, const void* k, long long k_bs, int k_ld, const void* v,
                    long long v_bs, int v_ld, void* out, long long out_bs, int out_ld,
                    const void* qy, int qy_ld, const void* ky, int ky_ld, const void* vy,
                    int vy_ld, const float* bias, void* side_out, int side_ld, void* stream) {
   using namespace oadp;
-  const int smem = smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int tiles = (N + 15) / 16;
+  if (tiles > MAX_TILES || B <= 0) return cudaErrorInvalidValue;
+  const bool with_q = out != nullptr;
+  const int group = side_out != nullptr ? 1 : (MAX_CONSUMERS / tiles > 1 ? MAX_CONSUMERS / tiles : 1);
+  const int consumers = tiles * group < MAX_CONSUMERS ? tiles * group : MAX_CONSUMERS;
+  // the largest stage any shape takes, set once (occupancy follows each
+  // launch's own size)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      layout(MAX_TILES, 1, true).total);
+  cudaError_t e = attr;
   if (e != cudaSuccess) return e;
-  const Args a{N,
-               scale,
-               static_cast<const bf16*>(q), q_bs, q_ld,
-               static_cast<const bf16*>(k), k_bs, k_ld,
-               static_cast<const bf16*>(v), v_bs, v_ld,
+
+  // (D, N, B) tensor maps over the column slices; a box is one head's 64
+  // columns of every row, rounded up to whole 16-row tiles
+  CUtensorMap tm[3] = {};
+  const void* ptr[3] = {q, k, v};
+  const long long bs[3] = {q_bs, k_bs, v_bs};
+  const int ld[3] = {q_ld, k_ld, v_ld};
+  for (int i = with_q ? 0 : 1; i < 3; ++i) {
+    const uint64_t dims[3] = {(uint64_t)heads * HD, (uint64_t)N, (uint64_t)B};
+    const uint64_t strides[2] = {(uint64_t)ld[i] * 2, (uint64_t)bs[i] * 2};
+    const uint32_t box[3] = {HD, (uint32_t)tiles * 16, 1};
+    if ((e = make_tmap(&tm[i], ptr[i], 3, dims, strides, box)) != cudaSuccess) return e;
+  }
+  const Args a{B, N, heads, tiles, group, consumers, scale,
                static_cast<bf16*>(out), out_bs, out_ld,
                static_cast<const bf16*>(qy), qy_ld,
                static_cast<const bf16*>(ky), ky_ld,
                static_cast<const bf16*>(vy), vy_ld,
                bias,
                static_cast<bf16*>(side_out), side_ld};
-  dim3 grid(heads, B);
-  attention_kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const int groups = (B * heads + group - 1) / group;
+  const int grid = groups < sm_count() ? groups : sm_count();
+  attention_kernel<<<grid, 32 * (a.consumers + 1), layout(tiles, group, with_q).total,
+                     static_cast<cudaStream_t>(stream)>>>(tm[0], tm[1], tm[2], a);
   return cudaGetLastError();
 }
 

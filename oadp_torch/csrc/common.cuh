@@ -1,12 +1,15 @@
 // Shared helpers of the hand-written Hopper kernels (sm_90a).
 //
 // The kernels take bf16 activations and weights, accumulate in fp32 on the
-// tensor cores (mma.sync m16n8k16 fed by ldmatrix), and are bound to PyTorch through a
-// plain C interface loaded with ctypes (oadp_torch/ops/cuda_lib.py). Every
-// entry point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so the Python wrapper can raise.
+// tensor cores (wgmma in ln_gemm, mma.sync m16n8k16 fed by ldmatrix in
+// attention), load their tiles with TMA into 128-byte-swizzled shared
+// memory, and are bound to PyTorch through a plain C interface loaded with
+// ctypes (oadp_torch/ops/cuda_lib.py). Every entry point launches on the
+// caller's stream, allocates nothing, and returns a cudaError_t so the
+// Python wrapper can raise.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -14,6 +17,133 @@
 namespace oadp {
 
 using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// Host: TMA tensor maps and launch settings
+// ---------------------------------------------------------------------------
+
+// A bf16 tensor map over `rank` (2 or 3) dimensions, innermost first:
+// dims[i] elements, strides[i] bytes between consecutive indices of
+// dimension i + 1, a box of box[i] elements, 128-byte swizzle (box[0] must
+// be 64 bf16), zeros for elements outside the tensor. Returns the driver's
+// error as a cudaError_t (cudaErrorInvalidValue for any refusal).
+inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                             const uint64_t* strides, const uint32_t* box) {
+  const uint32_t ones[3] = {1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Multiprocessors of the current device, read once.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms > 0 ? sms : 1;
+  }();
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Device: mbarriers, TMA, fences
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Make the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. Real waits last
+// microseconds; one that spins 2^20 times (seconds: a failed try_wait
+// suspends for microseconds) is a fault, and the kernel traps (the launch
+// fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 20)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA tile loads; coordinates innermost first, completion on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA tile store from shared memory, tracked by the bulk async-group of
+// the issuing thread.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory accesses before later
+// async-proxy (TMA) writes to the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte
+// rows written by TMA with the 128-byte swizzle (tile 1024-byte aligned).
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -38,24 +168,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return w;
-}
-
-// 16-byte global -> shared copy that bypasses registers; pred == false
-// writes zeros (the source is not read).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of

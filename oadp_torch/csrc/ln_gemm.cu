@@ -1,15 +1,15 @@
 // ln_gemm: C = epilogue(LN?(A) @ W + bias), bf16 in and out, fp32 accumulate.
 //
-// One of the two kernel families behind the three ported Pallas kernels
+// One of the two kernel families behind the ported Pallas kernels
 // (oadp_tpu/ops/attention.py): it carries every product those kernels do
 // outside the per-head attention -- the QKV projection after LayerNorm
 // (_surgery_layer_kernel, _ln_qkv_attn_kernel), the folded out-projection
 // with its residual add (_surgery_layer_kernel with out_w), and both halves
 // of the row MLP (_row_mlp_kernel).
 //
-//   A (M, K) row-major, Wt (N, K) the weight transposed (the wrapper
-//   transposes the (K, N) slice it is given, a few MB a call), bias (N,),
-//   optional residual R (M, N), C (M, N).
+//   A (M, K) row-major; Wt (N, K) the weight K-major, as the OpenAI state
+//   dict holds it (the caller prepares it once, oadp_torch/models/clip.py);
+//   bias (N,); optional residual R (M, N); C (M, N).
 //   LN:        A row -> (a - mean) * rstd * gamma + beta in fp32, rounded to
 //              bf16 before the product (eps 1e-5; the Pallas kernels round the
 //              LN output to the activation type the same way).
@@ -18,33 +18,44 @@
 // Bound on the H100: the QKV GEMM of the objects encoder (M = 2048 x 197,
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
-// Design: Hopper's warpgroup MMA. 128x128x64 block tiles, two warpgroups
-// of 64 rows each issuing wgmma m64n128k16 straight from shared memory
-// (128-byte swizzled tiles; the no-swizzle core-matrix layout ran about a
-// third as fast), and a 3-stage cp.async ring (96 KB, two blocks an SM)
-// so two k-tiles load while one is multiplied. Keeping a wgmma group in
-// flight across iterations needs a 4th stage, and with it one block an
-// SM, which ran slower. The LN prologue is a one-warp-a-row pass that
-// writes LN(A) in bf16 (for the objects QKV: 0.62 GB written and read
-// again, ~0.4 ms at 3.35 TB/s); normalising each tile in shared memory
-// instead ran slower, because it sat on every k-tile's critical path
-// behind an extra barrier. The grid walks the N tiles fastest so the
-// blocks that read one A row-panel run together and A streams from device
-// memory about once. Rates against cuBLAS: oadp_torch/profile_kernels.py.
-// Not yet done: TMA loads, a producer warp and a persistent schedule.
+// Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
+// output tiles of 128 x BN (BN 256, 128 or 64, chosen per shape to fill the
+// SMs, see pick_tile_n), N tiles fastest so the blocks that read one A
+// row-panel run together. Its first warpgroup gives up registers
+// (setmaxnreg) and one thread of it issues TMA loads of the 128 x 64 A and
+// BN x 64 W k-tiles (128-byte swizzle) into a ring of 4-8 stages (192 KB),
+// each stage guarded by a full and an empty mbarrier. Two consumer
+// warpgroups of 64 rows each wait on the full barrier, issue wgmma
+// m64nBNk16 straight from shared memory, keep one wgmma group in flight
+// across k-tiles (wait_group 1) and release a stage as soon as the group
+// that read it has retired. The producer runs ahead into the next tile
+// while the consumers apply the epilogue from their accumulators, so loads,
+// products and stores overlap. The LN prologue stays a one-warp-a-row pass
+// that writes LN(A) in bf16: the wgmma A operand comes from shared memory
+// as TMA wrote it, and normalising each tile there would put a rewrite and
+// a barrier on every k-tile's critical path (slower in an earlier version).
+// Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include "common.cuh"
 
 namespace oadp {
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
-constexpr int THREADS = 256;  // two warpgroups, 64 rows each
-// A k-tile of R rows is stored K-major with the 128-byte swizzle: row r
-// (64 bf16 = 128 bytes) at byte r * 128, its 16-byte chunk c at chunk
-// slot c ^ (r % 8). Eight rows form one 1024-byte swizzle atom (SBO).
-constexpr int TILE_A = BM * BK;  // elements
-constexpr int TILE_B = BN * BK;
-constexpr int SMEM_BYTES = STAGES * (TILE_A + TILE_B) * (int)sizeof(bf16);
+constexpr int BM = 128, BK = 64;
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+// shared memory: the k-tile ring, then per consumer warpgroup two 64 x 64
+// bf16 staging tiles for the TMA stores of its output, then the barriers
+constexpr int RING_BYTES = 192 * 1024;
+constexpr int OUT_TILE = 64 * 64 * 2;
+
+template <int BN>
+struct Tile {
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE = A_BYTES + BN * BK * 2;
+  static constexpr int STAGES = RING_BYTES / STAGE > 8 ? 8 : RING_BYTES / STAGE;
+  static constexpr int OUT = STAGES * STAGE;       // staging tiles [2 consumers][2]
+  static constexpr int BARS = OUT + 4 * OUT_TILE;  // full and empty barriers
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;  // + slack to align to 1024
+};
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
@@ -91,27 +102,50 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ a, int M, int K,
   for (int i = 0; i < LN_CHUNKS; ++i) {
     const int c = lane + 32 * i;
     if (c < chunks) {
+      const float4* g4 = reinterpret_cast<const float4*>(gamma + c * 8);
+      const float4* b4 = reinterpret_cast<const float4*>(beta + c * 8);
+      const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        f[i][j] = (f[i][j] - mean) * rstd * gamma[c * 8 + j] + beta[c * 8 + j];
+      for (int j = 0; j < 8; ++j) f[i][j] = (f[i][j] - mean) * rstd * g[j] + b[j];
       q[c] = pack8(f[i]);
     }
   }
 }
 
-// d (64x128 fp32 per warpgroup) += A (64x16, shared, K-major) * B (128x16,
-// shared, K-major)^T. Warp w of the warpgroup holds rows 16w..16w+15 in the
-// mma.sync C layout, repeated for each of the 16 column groups of 8.
+// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B (64 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128 fp32 per warpgroup) += A (64 x 16, shared) * B (128 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -124,111 +158,252 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 256 fp32 per warpgroup) += A (64 x 16, shared) * B (256 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (BN == 256) wgmma_m64n256k16(d, desc_a, desc_b);
+  else if constexpr (BN == 128) wgmma_m64n128k16(d, desc_a, desc_b);
+  else wgmma_m64n64k16(d, desc_a, desc_b);
+}
+
 // Shared-memory matrix descriptor: start address, SBO 1024 B, 128-byte
 // swizzle (the leading offset is unused for swizzled K-major tiles).
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  const uint32_t addr = smem_u32(p);
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, int M, int K, const bf16* __restrict__ Wt, int N,
-            const bf16* __restrict__ bias, const bf16* __restrict__ R,
-            bf16* __restrict__ C) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][TILE_A]
-  bf16* Bs = As + STAGES * TILE_A;               // [STAGES][TILE_B]
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wg = tid >> 7, w = (tid >> 5) & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  // Each thread copies four 16-byte chunks of each operand per k-tile:
-  // chunk q is row q / 8, k elements 8 * (q % 8) .. + 7. Eight consecutive
-  // threads fill one row, so a warp's reads are whole 128-byte lines and
-  // its swizzled shared-memory writes hit every bank once.
-  auto issue = [&](int kt) {
-    const int k0 = kt * BK, stage = kt % STAGES;
-    unsigned char* a_s = reinterpret_cast<unsigned char*>(As + stage * TILE_A);
-    unsigned char* b_s = reinterpret_cast<unsigned char*>(Bs + stage * TILE_B);
+// Keep the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that writes them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = tid + i * THREADS;
-      const int r = q >> 3, c = q & 7;
-      const int off = r * 128 + ((c ^ (r & 7)) << 4);
-      const int m = m0 + r, n = n0 + r;
-      cp_async16(a_s + off, A + (size_t)(m < M ? m : 0) * K + k0 + c * 8, m < M);
-      cp_async16(b_s + off, Wt + (size_t)(n < N ? n : 0) * K + k0 + c * 8, n < N);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_w,
+            __grid_constant__ const CUtensorMap tm_c, int M, int N, int K,
+            const bf16* __restrict__ bias, const bf16* __restrict__ R) {
+  using T = Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
+  uint64_t* empty = full + T::STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-  };
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * tiles_n;
   const int KT = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) issue(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's part of k-tile kt has landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    __syncthreads();  // everyone's part; the products of tile kt-1 are done
-    if (kt + STAGES - 1 < KT) issue(kt + STAGES - 1);  // into the slot of tile kt-1
-    cp_async_commit();
 
-    const bf16* a_s = As + (kt % STAGES) * TILE_A + wg * 64 * BK;  // this warpgroup's rows
-    const bf16* b_s = Bs + (kt % STAGES) * TILE_B;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
-      wgmma_m64n128k16(acc, smem_desc(a_s + ks * 16), smem_desc(b_s + ks * 16));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  }
-  cp_async_wait<0>();
-
-  // Epilogue straight from the accumulators: a thread owns column pairs.
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + j * 8 + 2 * t;
-    if (n >= N) continue;
-    const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wg * 64 + w * 16 + g + h * 8;
-      if (m >= M) continue;
-      float v0 = acc[j * 4 + 2 * h] + bb.x;
-      float v1 = acc[j * 4 + 2 * h + 1] + bb.y;
-      if (EPI == EPI_GELU) {
-        v0 = v0 / (1.f + expf(-1.702f * v0));
-        v1 = v1 / (1.f + expf(-1.702f * v1));
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, through tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
+          unsigned char* dst = ring + stage * T::STAGE;
+          mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
+          tma_load_2d(dst, &tm_a, &full[stage], kt * BK, m0);
+          tma_load_2d(dst + T::A_BYTES, &tm_w, &full[stage], kt * BK, n0);
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      if (EPI == EPI_RESIDUAL) {
-        const float2 rr = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(R + (size_t)m * N + n));
-        v0 = rr.x + v0;
-        v1 = rr.y + v1;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(C + (size_t)m * N + n) = __floats2bfloat162_rn(v0, v1);
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* out_s = ring + T::OUT + cw * 2 * OUT_TILE;
+    float acc[BN / 2];
+    int stage = 0, stores = 0;
+    unsigned phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int held = -1;  // the stage the in-flight wgmma group reads
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+        const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
+        fence_acc<BN / 2>(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
+          wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the group of k-tile kt-1 has retired: its stage may be refilled
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc<BN / 2>(acc);
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc<BN / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[held]);
+
+      // Epilogue, 64 columns at a time: bias, quick_gelu or residual in
+      // fp32, one rounding to bf16 into a swizzled staging tile, then one
+      // TMA store of the 64 x 64 block (rows past M, columns past N are
+      // not written). Two staging tiles alternate; a tile is rewritten
+      // once the store issued from it two blocks earlier has read it.
+#pragma unroll
+      for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
+        unsigned char* buf = out_s + (stores & 1) * OUT_TILE;
+        if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        named_barrier(1 + cw, 128);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int j = cc * 8 + jn;
+          const int n = n0 + j * 8 + 2 * t;
+          const float2 bb = n < N ? __bfloat1622float2(
+                                        *reinterpret_cast<const __nv_bfloat162*>(bias + n))
+                                  : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = w * 16 + g + h * 8;  // row within the warpgroup's 64
+            float v0 = acc[j * 4 + 2 * h] + bb.x;
+            float v1 = acc[j * 4 + 2 * h + 1] + bb.y;
+            if (EPI == EPI_GELU) {
+              v0 = v0 / (1.f + expf(-1.702f * v0));
+              v1 = v1 / (1.f + expf(-1.702f * v1));
+            }
+            if (EPI == EPI_RESIDUAL) {
+              const int m = m0 + cw * 64 + r;
+              if (m < M && n < N) {
+                const float2 rr = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(R + (size_t)m * N + n));
+                v0 = rr.x + v0;
+                v1 = rr.y + v1;
+              }
+            }
+            *reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        }
+        fence_proxy_async();  // the staging writes, before the TMA store reads them
+        named_barrier(1 + cw, 128);
+        if (ctid == 0) {
+          tma_store_2d(&tm_c, buf, n0 + cc * 64, m0 + cw * 64);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      }
+    }
+    // the staging tiles must outlive the stores' reads of them
+    if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
-template <int EPI>
+template <int BN, int EPI>
 cudaError_t launch(const bf16* A, int M, int K, const bf16* Wt, int N, const bf16* bias,
                    const bf16* R, bf16* C, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  using T = Tile<BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+  cudaError_t e = attr;
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, THREADS, SMEM_BYTES, stream>>>(A, M, K, Wt, N, bias, R, C);
+  CUtensorMap tm_a, tm_w, tm_c;
+  const uint64_t k_bytes[1] = {(uint64_t)K * 2}, n_bytes[1] = {(uint64_t)N * 2};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_w[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t dims_c[2] = {(uint64_t)N, (uint64_t)M};
+  const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN}, box_c[2] = {64, 64};
+  if ((e = make_tmap(&tm_a, A, 2, dims_a, k_bytes, box_a)) != cudaSuccess) return e;
+  if ((e = make_tmap(&tm_w, Wt, 2, dims_w, k_bytes, box_w)) != cudaSuccess) return e;
+  if ((e = make_tmap(&tm_c, C, 2, dims_c, n_bytes, box_c)) != cudaSuccess) return e;
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(tm_a, tm_w, tm_c, M, N, K, bias, R);
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_epilogue(int epilogue, const bf16* A, int M, int K, const bf16* Wt, int N,
+                            const bf16* bias, const bf16* R, bf16* C, cudaStream_t s) {
+  switch (epilogue) {
+    case EPI_NONE: return launch<BN, EPI_NONE>(A, M, K, Wt, N, bias, R, C, s);
+    case EPI_GELU: return launch<BN, EPI_GELU>(A, M, K, Wt, N, bias, R, C, s);
+    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL>(A, M, K, Wt, N, bias, R, C, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The tile width whose last wave ends first: waves x BN, the time of one
+// block's tiles, is least (ties go to the wider tile, which does more
+// products per byte of shared memory read).
+int pick_tile_n(int M, int N) {
+  int best = 256;
+  long long best_cost = -1;
+  for (int bn = 256; bn >= 64; bn /= 2) {
+    const long long tiles = (long long)((M + BM - 1) / BM) * ((N + bn - 1) / bn);
+    const long long cost = (tiles + sm_count() - 1) / sm_count() * bn;
+    if (best_cost < 0 || cost < best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 }  // namespace
@@ -237,14 +412,14 @@ cudaError_t launch(const bf16* A, int M, int K, const bf16* Wt, int N, const bf1
 extern "C" {
 
 // Shapes are checked by the Python wrapper: K % 64 == 0 (and K <= 1024
-// with LN), N % 8 == 0, every pointer 16-byte aligned,
-// (M + 127) / 128 < 65536. The weight comes
-// transposed, Wt (N, K), so both operands are K-major. gamma == nullptr
-// means no LayerNorm; otherwise ln_out (M, K) receives LN(A) and the
-// product reads it.
+// with LN), N % 8 == 0, every pointer 16-byte aligned. Wt (N, K) is the
+// weight K-major (rows col0.. of a prepared weight for a column slice).
+// gamma == nullptr means no LayerNorm; otherwise ln_out (M, K) receives
+// LN(A) and the product reads it. tile_n: 64, 128 or 256, or 0 to pick
+// by shape.
 int oadp_ln_gemm(const void* A, int M, int K, const float* gamma, const float* beta,
                  void* ln_out, const void* Wt, int N, const void* bias, int epilogue,
-                 const void* R, void* C, void* stream) {
+                 const void* R, void* C, int tile_n, void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* a = static_cast<const bf16*>(A);
@@ -260,10 +435,10 @@ int oadp_ln_gemm(const void* A, int M, int K, const float* gamma, const float* b
   const bf16* b = static_cast<const bf16*>(bias);
   const bf16* r = static_cast<const bf16*>(R);
   bf16* c = static_cast<bf16*>(C);
-  switch (epilogue) {
-    case EPI_NONE: return launch<EPI_NONE>(a, M, K, w, N, b, r, c, s);
-    case EPI_GELU: return launch<EPI_GELU>(a, M, K, w, N, b, r, c, s);
-    case EPI_RESIDUAL: return launch<EPI_RESIDUAL>(a, M, K, w, N, b, r, c, s);
+  switch (tile_n == 0 ? pick_tile_n(M, N) : tile_n) {
+    case 64: return launch_epilogue<64>(epilogue, a, M, K, w, N, b, r, c, s);
+    case 128: return launch_epilogue<128>(epilogue, a, M, K, w, N, b, r, c, s);
+    case 256: return launch_epilogue<256>(epilogue, a, M, K, w, N, b, r, c, s);
   }
   return cudaErrorInvalidValue;
 }

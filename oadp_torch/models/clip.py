@@ -4,7 +4,11 @@
 Parameters are a plain dict of tensors with the same keys as
 ``oadp_tpu``'s pytree: linear weights stay ``(in, out)``, so the fused
 layers of :mod:`oadp_torch.ops.attention` take them as the Pallas kernels
-do; only ``conv1`` keeps the OpenAI ``(D, 3, P, P)`` layout. The stock
+do; only ``conv1`` keeps the OpenAI ``(D, 3, P, P)`` layout. For the CUDA
+kernels, :func:`prepare_kernel_params` adds to each block a ``'kernel'``
+entry once, where the parameters reach the card: the weights K-major
+``(out, in)`` (the OpenAI state dict's layout) and the LayerNorms in fp32;
+the encoders pass them to the fused layers explicitly. The stock
 encoder takes the fused wiring of ``oadp_tpu``'s TPU branch; the surgery
 encoder picks its wiring by shape alone, as ``oadp_tpu``'s gates do on
 the TPU, on every device (see :func:`image_encoder_surgery`). The fused
@@ -22,6 +26,7 @@ __all__ = [
     'init_vit_params',
     'load_openai_state_dict',
     'map_params',
+    'prepare_kernel_params',
     'from_jax_params',
     'image_encoder',
     'image_encoder_surgery',
@@ -199,6 +204,27 @@ def map_params(params: Any, fn) -> Any:
     return fn(params)
 
 
+def prepare_kernel_params(params: Params) -> Params:
+    """``params`` with a ``'kernel'`` entry in every block: the copies the
+    CUDA kernels read (``qkv_wt``, ``out_wt``, ``fc_wt``, ``proj_wt`` K-major
+    ``(out, in)``, and ``ln_1``, ``ln_2`` as fp32 ``(scale, bias)`` pairs),
+    made once on the parameters' device. The ``(in, out)`` weights stay for
+    the plain versions and the matmuls."""
+
+    def block(p):
+        attn, mlp = p['attn'], p['mlp']
+        return dict(p, kernel={
+            'qkv_wt': A.kmajor(attn['qkv_w']),
+            'out_wt': A.kmajor(attn['out_w']),
+            'fc_wt': A.kmajor(mlp['fc_w']),
+            'proj_wt': A.kmajor(mlp['proj_w']),
+            'ln_1': A.ln_fp32(p['ln_1']['scale'], p['ln_1']['bias']),
+            'ln_2': A.ln_fp32(p['ln_2']['scale'], p['ln_2']['bias']),
+        })
+
+    return dict(params, blocks=[block(p) for p in params['blocks']])
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -268,10 +294,11 @@ def image_encoder(
     x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
     scale = 1.0 / math.sqrt(config.width // config.heads)
     for block in params['blocks']:
-        attn = block['attn']
+        attn, kern = block['attn'], block.get('kernel', {})
         a = A.fused_ln_qkv_attention(
             x, block['ln_1']['scale'], block['ln_1']['bias'],
             attn['qkv_w'], attn['qkv_b'], config.heads, scale,
+            qkv_wt=kern.get('qkv_wt'), ln32=kern.get('ln_1'),
         )
         x = x + (a @ attn['out_w'] + attn['out_b'])
         x = x + _mlp(_layer_norm(x, block['ln_2']), block['mlp'])
@@ -369,20 +396,25 @@ def image_encoder_surgery(
         qkv_w, qkv_b = attn['qkv_w'], attn['qkv_b']
         last = i == last_block
         if fused:
+            kern = block.get('kernel', {})
             args = (x, y, bias, block['ln_1']['scale'], block['ln_1']['bias'],
                     qkv_w, qkv_b, heads, scale)
+            prepared = dict(qkv_wt=kern.get('qkv_wt'), ln32=kern.get('ln_1'))
             if last:
-                side = A.fused_surgery_layer(*args, with_main=False)
+                side = A.fused_surgery_layer(*args, with_main=False, **prepared)
                 y_row = y + (side @ attn['out_w'] + attn['out_b'])
             else:
                 # out-projection and both residual adds happen in the layer
                 x, y_row = A.fused_surgery_layer(
                     *args, with_main=True,
                     out_w=attn['out_w'], out_b=attn['out_b'],
+                    out_wt=kern.get('out_wt'), **prepared,
                 )
             y = A.fused_ln_mlp_rows(
                 y_row, block['ln_2']['scale'], block['ln_2']['bias'],
                 mlp['fc_w'], mlp['fc_b'], mlp['proj_w'], mlp['proj_b'],
+                fc_wt=kern.get('fc_wt'), proj_wt=kern.get('proj_wt'),
+                ln32=kern.get('ln_2'),
             )
             if not last:
                 x = x + _mlp(_layer_norm(x, block['ln_2']), mlp)

@@ -89,12 +89,13 @@ def load_clip(
         params, config, upsample
     )
 
-    def cast(t):
-        return t.to(device=device, dtype=tdtype)
+    def on_device(p):
+        p = C.map_params(p, lambda t: t.to(device=device, dtype=tdtype))
+        # the CUDA kernels' K-major weights and fp32 LayerNorms, made once
+        return C.prepare_kernel_params(p) if device.type == 'cuda' else p
 
     return ClipModel(
-        C.map_params(params, cast), config,
-        C.map_params(surgery_params, cast), surgery_config,
+        on_device(params), config, on_device(surgery_params), surgery_config,
         device, tdtype,
     )
 

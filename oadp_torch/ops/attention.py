@@ -7,16 +7,25 @@ weights ``(in, out)``, bias ``(B, N)`` fp32 ``[patch biases..., y bias]``).
 A tensor on the CPU takes the plain version, which sits beside the
 kernel in this module; a CUDA tensor launches the kernel or raises.
 
+The CUDA kernels read each weight K-major, ``(out, in)`` as the OpenAI
+state dict holds it, and the LayerNorm scale and bias in fp32. The
+caller makes those copies once (:func:`kmajor`, :func:`ln_fp32`;
+``models/clip.py:prepare_kernel_params`` for a whole encoder) and passes
+them by keyword (``qkv_wt``, ``out_wt``, ``fc_wt``, ``proj_wt``,
+``ln32``); an entry point called without them makes them itself, a copy
+per call.
+
 The kernels (``oadp_torch/csrc``) are two families:
 
 * ``ln_gemm``: rows x W + bias with fp32 accumulation, an optional
   LayerNorm prologue (fp32 statistics, eps 1e-5) and an epilogue of
-  none, quick_gelu or a residual add;
-* ``attention``: one block per (crop, head), K and V of the head in
-  shared memory, optional main rows and an optional side row (the OAKE
-  masked attention pool as query N+1 over ``[k[1:], ky]``). Q, K, V and
-  the side row's qy, ky, vy each come with their own strides, so they
-  may be column slices of one packed qkv: no operand is copied.
+  none, quick_gelu or a residual add; a persistent TMA + wgmma GEMM;
+* ``attention``: persistent blocks over the (crop, head) items, Q, K and
+  V of an item loaded by TMA while the previous item is computed,
+  optional main rows and an optional side row (the OAKE masked attention
+  pool as query N+1 over ``[k[1:], ky]``). Q, K, V and the side row's qy,
+  ky, vy each come with their own strides, so they may be column slices
+  of one packed qkv: no operand is copied.
 
 Both keep the TPU semantics: the softmax clamps logits at 80 and
 normalises after the PV product (``oadp_tpu/ops/attention.py:46-50``;
@@ -42,7 +51,9 @@ __all__ = [
     'fused_surgery_layer',
     'fused_surgery_layer_plain',
     'fused_surgery_layer_supported',
+    'kmajor',
     'layer_norm',
+    'ln_fp32',
     'reset_launches',
 ]
 
@@ -73,6 +84,18 @@ _MAX_TOKENS = 256
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """An ``(in, out)`` weight as the K-major ``(out, in)`` copy that the
+    CUDA kernels read."""
+    return w.t().contiguous()
+
+
+def ln_fp32(scale: torch.Tensor, bias: torch.Tensor) -> tuple:
+    """A LayerNorm's scale and bias as the fp32 pair the CUDA kernels
+    read."""
+    return scale.float().contiguous(), bias.float().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -217,16 +240,36 @@ def fused_side_attention_plain(k, v, qy, ky, vy, bias, heads: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
     for t in tensors:
         if t.device.type != 'cuda':
             raise ValueError(f'{name}: all tensors must be on one CUDA device')
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f'{name}: the CUDA kernel takes bfloat16, got {t.dtype}')
+        if t.dtype != dtype:
+            raise TypeError(f'{name}: the CUDA kernel takes {dtype}, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: tensors must be contiguous')
         if t.data_ptr() % 16:
             raise ValueError(f'{name}: tensors must be 16-byte aligned')
+
+
+def _prepared(name: str, w: torch.Tensor, wt: torch.Tensor | None) -> torch.Tensor:
+    """The K-major copy of ``w`` (in, out): ``wt`` checked, or made here."""
+    if wt is None:
+        wt = kmajor(w)
+    _check_cuda(name, wt)
+    if wt.shape != w.shape[::-1]:
+        raise ValueError(f'{name}: K-major weight {tuple(wt.shape)} does not match '
+                         f'{tuple(w.shape)}')
+    return wt
+
+
+def _prepared_ln(name: str, scale, bias, ln32) -> tuple:
+    if ln32 is None:
+        ln32 = ln_fp32(scale, bias)
+    _check_cuda(name, *ln32, dtype=torch.float32)
+    if ln32[0].shape != scale.shape or ln32[1].shape != bias.shape:
+        raise ValueError(f'{name}: fp32 LayerNorm parameters do not match')
+    return ln32
 
 
 def _strided(t: torch.Tensor | None) -> tuple:
@@ -250,31 +293,29 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _ln_gemm(a2d, w, bias, out, ln=None, epilogue=_EPI_NONE, residual=None,
-             col0: int = 0):
-    """``out = epilogue(LN?(a2d) @ w[:, col0:col0+N] + bias[col0:col0+N])``
-    with ``N = out.shape[1]``."""
+def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
+             col0: int = 0, tile_n: int = 0):
+    """``out = epilogue(LN?(a2d) @ wt[col0:col0+N].T + bias[col0:col0+N])``
+    with ``N = out.shape[1]``; ``wt`` is the K-major weight (out, in) and
+    ``ln32`` the fp32 LayerNorm pair. Nothing is copied: the row slice of
+    ``wt`` and the slice of ``bias`` are contiguous views. ``tile_n`` (64,
+    128, 256) overrides the kernel's choice of tile width."""
     m, k = a2d.shape
     n = out.shape[1]
-    if (k % 64 or n % 8 or col0 % 8 or (m + 127) // 128 >= 65536
-            or (ln is not None and k > 1024)
-            or w.shape[0] != k or col0 + n > w.shape[1] or out.shape[0] != m):
-        raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} w={tuple(w.shape)}')
+    if (m == 0 or k % 64 or n % 8 or col0 % 8 or (ln32 is not None and k > 1024)
+            or wt.shape[1] != k or col0 + n > wt.shape[0] or out.shape[0] != m
+            or tile_n not in (0, 64, 128, 256)):
+        raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} wt={tuple(wt.shape)}')
     lib = cuda_lib.library()
-    # both operands K-major for wgmma: the weight slice is transposed here
-    # (3.5 MB for the QKV weight, microseconds against a milliseconds GEMM)
-    wt = w[:, col0:col0 + n].t().contiguous()
-    bias = bias[col0:col0 + n].contiguous()
     gamma = beta = ln_out = None
-    if ln is not None:
-        gamma = ln[0].float().contiguous()
-        beta = ln[1].float().contiguous()
+    if ln32 is not None:
+        gamma, beta = ln32
         ln_out = torch.empty_like(a2d)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     cuda_lib.check(lib.oadp_ln_gemm(
         a2d.data_ptr(), m, k, ptr(gamma), ptr(beta), ptr(ln_out),
-        wt.data_ptr(), n, bias.data_ptr(), epilogue, ptr(residual),
-        out.data_ptr(), _stream(),
+        wt[col0:col0 + n].data_ptr(), n, bias[col0:col0 + n].data_ptr(), epilogue,
+        ptr(residual), out.data_ptr(), tile_n, _stream(),
     ), 'ln_gemm')
 
 
@@ -284,7 +325,7 @@ def _attention(q, k, v, heads: int, scale: float, out=None,
     (``q`` and ``out`` for the main rows; ``qy``, ``ky``, ``vy``, ``bias``
     and ``side`` for the side row)."""
     b, n, d = k.shape
-    if n > _MAX_TOKENS or b >= 65536 or d != heads * _HEAD_DIM:
+    if n > _MAX_TOKENS or b == 0 or d != heads * _HEAD_DIM:
         raise ValueError(f'attention: unsupported shape B={b} N={n} D={d}')
     if (v.shape != k.shape or (out is not None and (q.shape != k.shape or out.shape != k.shape))
             or (side is not None and not (
@@ -292,6 +333,8 @@ def _attention(q, k, v, heads: int, scale: float, out=None,
                 and bias.shape == (b, n) and bias.dtype == torch.float32
                 and bias.is_contiguous() and bias.device == k.device))):
         raise ValueError('attention: operand shapes or types do not match')
+    if any(t is not None and t.stride(0) < n * t.stride(1) for t in (q, k, v)):
+        raise ValueError('attention: a crop stride is shorter than its N rows')
     args = (
         *_strided(q), *_strided(k), *_strided(v), *_strided(out),
         *_strided(qy)[::2], *_strided(ky)[::2], *_strided(vy)[::2],
@@ -323,6 +366,10 @@ def fused_surgery_layer(
     with_main: bool = True,
     out_w=None,  # (D, D): fold the out-projection and both residuals
     out_b=None,
+    *,
+    qkv_wt=None,  # (3D, D) K-major copy of qkv_w (CUDA; made here if None)
+    out_wt=None,  # (D, D) K-major copy of out_w
+    ln32=None,  # fp32 (ln_scale, ln_bias)
 ):
     """One OAKE-surgery layer's attention: LN, QKV, the main stream's
     unmasked attention and the side stream's masked attention pool.
@@ -349,30 +396,31 @@ def fused_surgery_layer(
         )
     b, n, d = x.shape
     name = 'fused_surgery_layer'
-    tensors = [x, y, ln_scale, ln_bias, qkv_w, qkv_b]
+    tensors = [x, y, qkv_b]
     if out_w is not None:
-        tensors += [out_w, out_b]
+        tensors.append(out_b)
     _check_cuda(name, *tensors)
     _check_heads(name, d, heads)
     if (y.shape != (b, d) or bias.shape != (b, n) or bias.dtype != torch.float32
             or bias.device != x.device
             or qkv_w.shape != (d, 3 * d) or qkv_b.shape != (3 * d,)):
         raise ValueError(f'{name}: shape or dtype mismatch')
+    qkv_wt = _prepared(name, qkv_w, qkv_wt)
+    ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
     bias = bias.contiguous()
-    ln = (ln_scale, ln_bias)
     qkv_y = torch.empty((b, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(y, qkv_w, qkv_b, qkv_y, ln=ln)
+    _ln_gemm(y, qkv_wt, qkv_b, qkv_y, ln32=ln)
     side = torch.empty((b, d), dtype=x.dtype, device=x.device)
     qy, ky, vy = qkv_y.split(d, -1)
     if not with_main:
         kv = torch.empty((b, n, 2 * d), dtype=x.dtype, device=x.device)
-        _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, kv.view(b * n, 2 * d), ln=ln, col0=d)
+        _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, kv.view(b * n, 2 * d), ln32=ln, col0=d)
         _attention(None, *kv.split(d, -1), heads, scale,
                    qy=qy, ky=ky, vy=vy, bias=bias, side=side)
         LAUNCHES[name] += 1
         return side
     qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv.view(b * n, 3 * d), ln=ln)
+    _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln)
     main = torch.empty_like(x)
     _attention(*qkv.split(d, -1), heads, scale,
                out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
@@ -381,11 +429,12 @@ def fused_surgery_layer(
         return main, side
     if out_w.shape != (d, d) or out_b.shape != (d,):
         raise ValueError(f'{name}: out_w/out_b shape mismatch')
+    out_wt = _prepared(name, out_w, out_wt)
     x_out = torch.empty_like(x)
     y_out = torch.empty_like(y)
-    _ln_gemm(main.view(b * n, d), out_w, out_b, x_out.view(b * n, d),
+    _ln_gemm(main.view(b * n, d), out_wt, out_b, x_out.view(b * n, d),
              epilogue=_EPI_RESIDUAL, residual=x)
-    _ln_gemm(side, out_w, out_b, y_out, epilogue=_EPI_RESIDUAL, residual=y)
+    _ln_gemm(side, out_wt, out_b, y_out, epilogue=_EPI_RESIDUAL, residual=y)
     LAUNCHES[name] += 1
     return x_out, y_out
 
@@ -395,30 +444,37 @@ def fused_ln_mlp_rows(
     ln_scale, ln_bias,  # (D,)
     fc_w, fc_b,  # (D, 4D), (4D,)
     proj_w, proj_b,  # (4D, D), (D,)
+    *,
+    fc_wt=None,  # (4D, D) K-major copy of fc_w (CUDA; made here if None)
+    proj_wt=None,  # (D, 4D) K-major copy of proj_w
+    ln32=None,  # fp32 (ln_scale, ln_bias)
 ):
     """``y + proj(quick_gelu(fc(LN(y))))`` over a ``(B, D)`` row batch.
 
     Replaces ``oadp_tpu/ops/attention.py:fused_ln_mlp_rows`` (kernel
-    ``_row_mlp_kernel``). On the H100 (bf16): ``ln_gemm`` with the LN
-    prologue and the quick_gelu epilogue, then ``ln_gemm`` with the
-    residual epilogue. At 2048 rows it is 19.3 GFLOP on 14 MB of weights:
-    bound by operations at about 0.02 ms, so at this size the two launches
-    and the weight reads dominate.
+    ``_row_mlp_kernel``). On the H100 (bf16): three launches, the LN pass,
+    ``ln_gemm`` with the quick_gelu epilogue, ``ln_gemm`` with the residual
+    epilogue, with the prepared K-major weights and fp32 LN parameters (no
+    copy per call). At 2048 rows it is 19.3 GFLOP on 14 MB of weights:
+    bound by operations at about 0.02 ms.
     """
     if y.device.type == 'cpu':
         return fused_ln_mlp_rows_plain(
             y, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b
         )
     name = 'fused_ln_mlp_rows'
-    _check_cuda(name, y, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b)
+    _check_cuda(name, y, fc_b, proj_b)
     b, d = y.shape
     hidden = fc_w.shape[1]
     if fc_w.shape != (d, hidden) or proj_w.shape != (hidden, d):
         raise ValueError(f'{name}: shape mismatch')
+    fc_wt = _prepared(name, fc_w, fc_wt)
+    proj_wt = _prepared(name, proj_w, proj_wt)
+    ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
     h = torch.empty((b, hidden), dtype=y.dtype, device=y.device)
-    _ln_gemm(y, fc_w, fc_b, h, ln=(ln_scale, ln_bias), epilogue=_EPI_GELU)
+    _ln_gemm(y, fc_wt, fc_b, h, ln32=ln, epilogue=_EPI_GELU)
     out = torch.empty_like(y)
-    _ln_gemm(h, proj_w, proj_b, out, epilogue=_EPI_RESIDUAL, residual=y)
+    _ln_gemm(h, proj_wt, proj_b, out, epilogue=_EPI_RESIDUAL, residual=y)
     LAUNCHES[name] += 1
     return out
 
@@ -429,6 +485,9 @@ def fused_ln_qkv_attention(
     qkv_w, qkv_b,  # (D, 3D), (3D,)
     heads: int,
     scale: float,
+    *,
+    qkv_wt=None,  # (3D, D) K-major copy of qkv_w (CUDA; made here if None)
+    ln32=None,  # fp32 (ln_scale, ln_bias)
 ):
     """LayerNorm → QKV projection → softmax attention → ``(B, N, D)``,
     before the out-projection.
@@ -444,13 +503,15 @@ def fused_ln_qkv_attention(
             x, ln_scale, ln_bias, qkv_w, qkv_b, heads, scale
         )
     name = 'fused_ln_qkv_attention'
-    _check_cuda(name, x, ln_scale, ln_bias, qkv_w, qkv_b)
+    _check_cuda(name, x, qkv_b)
     b, n, d = x.shape
     _check_heads(name, d, heads)
     if qkv_w.shape != (d, 3 * d) or qkv_b.shape != (3 * d,):
         raise ValueError(f'{name}: shape mismatch')
+    qkv_wt = _prepared(name, qkv_w, qkv_wt)
+    ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
     qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_w, qkv_b, qkv.view(b * n, 3 * d), ln=(ln_scale, ln_bias))
+    _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln)
     out = torch.empty_like(x)
     _attention(*qkv.split(d, -1), heads, scale, out=out)
     LAUNCHES[name] += 1

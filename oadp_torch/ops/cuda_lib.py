@@ -5,8 +5,10 @@ use, every ``csrc/*.cu`` is compiled with ``nvcc`` (one process per source,
 all started together) and linked into one shared library under
 ``build/oadp_torch_kernels/`` in the checkout, named by a hash of the
 sources and flags: an unchanged tree loads the library it built before, a
-changed one builds anew. The library is loaded with ``ctypes``; nothing
-here runs at import time, so the CPU-only tests import the package freely.
+changed one builds anew. The library links the CUDA driver (``libcuda``,
+for the TMA tensor maps of ``cuTensorMapEncodeTiled``) and is loaded with
+``ctypes``; nothing here runs at import time, so the CPU-only tests import
+the package freely.
 """
 
 __all__ = ['library', 'check', 'build_dir']
@@ -83,8 +85,12 @@ def _build(target: pathlib.Path, sources: list[pathlib.Path]) -> None:
                 f'nvcc failed on {failed}:\n' + '\n'.join(log)
             )
         tmp_so = pathlib.Path(tmp) / target.name
+        # the toolkit's stub resolves the driver symbols at link time; the
+        # driver's own libcuda.so.1 is loaded at run time
+        stubs = pathlib.Path(nvcc).resolve().parents[1] / 'lib64' / 'stubs'
         subprocess.run(
-            [nvcc, *NVCC_FLAGS, '-shared', *objects, '-o', str(tmp_so)],
+            [nvcc, *NVCC_FLAGS, '-shared', *objects, '-o', str(tmp_so),
+             f'-L{stubs}', '-lcuda'],
             check=True,
         )
         os.replace(tmp_so, target)
@@ -102,7 +108,7 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.oadp_ln_gemm.argtypes = [
-                p, i, i, p, p, p, p, i, p, i, p, p, p,
+                p, i, i, p, p, p, p, i, p, i, p, p, i, p,
             ]
             lib.oadp_ln_gemm.restype = i
             ll = ctypes.c_longlong

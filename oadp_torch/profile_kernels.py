@@ -6,7 +6,9 @@ Prints JSON lines, each with the card's name and power limit:
 
 * ``gemm``: the ``ln_gemm`` product alone at the objects QKV shape
   (2048 x 197 rows, 768 -> 2304), with and without the LN pass, beside
-  ``torch.mm`` (cuBLAS) on the same operands;
+  ``torch.mm`` (cuBLAS) on the same operands; and at kernel 2's two
+  products (2048 rows, 768 -> 3072 and 3072 -> 768), each at every tile
+  width (``tile_n`` 256, 128, 64) beside the width the kernel picks;
 * ``patch_embed``: the surgery encoder's patch embedding at 2048 crops,
   the block product of ``models/clip.py`` beside ``F.conv2d``;
 * ``attention``: the ``attention`` kernel at 2048 crops x 12 heads x 197
@@ -120,21 +122,24 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b, n, d, heads = 2048, 197, 768, 12
     m = b * n
-    x = torch.randn(m, d, device=dev, generator=gen).bfloat16()
-    w = (torch.randn(d, 3 * d, device=dev, generator=gen) * d ** -0.5).bfloat16()
-    wb = torch.zeros(3 * d, device=dev).bfloat16()
-    ln = (torch.ones(d, device=dev).bfloat16(), torch.zeros(d, device=dev).bfloat16())
-    qkv = torch.empty(m, 3 * d, device=dev).bfloat16()
-    flops = 2 * m * d * 3 * d
-    gemm = {
-        'ln_gemm_ms': _timed(lambda: A._ln_gemm(x, w, wb, qkv)),
-        'ln_gemm_with_ln_ms': _timed(lambda: A._ln_gemm(x, w, wb, qkv, ln=ln)),
-        'torch_mm_ms': _timed(lambda: torch.mm(x, w)),
-    }
-    emit('gemm', shape=[m, d, 3 * d], **gemm,
-         ln_gemm_tflops=flops / gemm['ln_gemm_ms'] / 1e9,
-         torch_mm_tflops=flops / gemm['torch_mm_ms'] / 1e9)
-    del x
+    ln = A.ln_fp32(torch.ones(d, device=dev), torch.zeros(d, device=dev))
+    for rows, k_in, n_out, iters in ((m, d, 3 * d, 10), (b, d, 4 * d, 200),
+                                     (b, 4 * d, d, 200)):
+        x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
+        wt, wb = A.kmajor(w), torch.zeros(n_out, device=dev).bfloat16()
+        out = torch.empty(rows, n_out, device=dev).bfloat16()
+        flops = 2 * rows * k_in * n_out
+        gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
+            lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
+        gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
+        if k_in <= 1024:
+            gemm['ln_gemm_with_ln_ms'] = _timed(lambda: A._ln_gemm(x, wt, wb, out, ln32=ln), iters)
+        emit('gemm', shape=[rows, k_in, n_out], **gemm,
+             **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
+                if 'with_ln' not in k})
+        del x, out
+    qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
 
     qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()
     bias = torch.zeros(b, n, device=dev)

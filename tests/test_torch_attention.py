@@ -301,3 +301,105 @@ def test_kernels_match_plain_on_card():
             g.float().flatten(1), w.float().flatten(1)
         )
         assert float(cos.min()) > 0.999
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+    return torch.device('cuda')
+
+
+def _assert_close_on_card(got, want, atol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
+    assert float(cos.min()) > 0.999
+    assert float((got - want).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n, b, layout', [
+    (197, 5, 'qkv'), (50, 7, 'qkv'), (16, 3, 'qkv'), (197, 3, 'kv'), (50, 5, 'kv'),
+])
+def test_attention_main_rows_on_card(n, b, layout):
+    """The ``attention`` main rows against their plain version in bf16:
+    the objects (197), globals (50) and a one-tile (16) sequence, odd
+    crop counts, Q/K/V as column slices of a packed qkv (row stride 3D),
+    or Q on its own and K/V as slices of a kv (row stride 2D)."""
+    dev = _card()
+    heads = 4
+    d = heads * 64
+    rng = np.random.default_rng(20 + n + b)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * d)).astype(np.float32)).to(dev).bfloat16()
+    if layout == 'qkv':
+        q, k, v = qkv.split(d, -1)
+    else:
+        q = qkv[..., :d].contiguous()
+        k, v = qkv[..., d:].contiguous().split(d, -1)
+        assert k.stride(1) == 2 * d
+    out = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
+    ta._attention(q, k, v, heads, 0.125, out=out)
+    want = ta._main_attention(torch.cat([q, k, v], -1), heads, 0.125)
+    torch.cuda.synchronize()
+    _assert_close_on_card(out, want, atol=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [5, 8])
+def test_attention_main_and_side_rows_on_card(b):
+    """Main rows and the side row of one launch (kernel 1 without the
+    out-projection), from the same staged K and V, at N = 197."""
+    dev = _card()
+    heads, n = 12, 197
+    p = _layer(np.random.default_rng(30 + b), b, n, heads, w_scale=0.03)
+
+    def conv(a):
+        t = torch.from_numpy(a).to(dev)
+        return t if (a.ndim == 2 and a.shape == (b, n)) else t.bfloat16()
+
+    args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
+    got = ta.fused_surgery_layer(*args, heads, 0.125)
+    want = ta.fused_surgery_layer_plain(*args, heads, 0.125)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_close_on_card(g, w, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, k, n, epilogue, col0, ln, tile_n', [
+    (333, 768, 768, 0, 0, True, 0),
+    (333, 768, 3072, 1, 0, True, 0),
+    (333, 3072, 768, 2, 0, False, 0),
+    (2048, 768, 3072, 1, 0, True, 128),
+    (2048, 3072, 768, 2, 0, False, 64),
+    (1000, 768, 2304, 0, 0, True, 256),
+    (130, 768, 1536, 0, 768, True, 0),
+    (77, 768, 768, 2, 0, False, 64),
+])
+def test_ln_gemm_on_card(m, k, n, epilogue, col0, ln, tile_n):
+    """``ln_gemm`` against its plain version in bf16: M not a multiple of
+    the 128-row tile, N = 768 and 3072 with each epilogue, a column slice
+    (``col0``) of a prepared weight, and each tile width."""
+    dev = _card()
+    rng = np.random.default_rng(40 + m + n)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    x = r(m, k).bfloat16()
+    w = r(k, col0 + n, scale=k ** -0.5).bfloat16()
+    wb = r(col0 + n, scale=0.05).bfloat16()
+    res = r(m, n).bfloat16()
+    scale, shift = 1 + r(k, scale=0.1), r(k, scale=0.1)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(scale, shift) if ln else None,
+                epilogue=epilogue, residual=res if epilogue == 2 else None,
+                col0=col0, tile_n=tile_n)
+    h = ta.layer_norm(x, scale, shift) if ln else x
+    want = ta._proj(h, w[:, col0:], wb[col0:])
+    if epilogue == 1:
+        want = want * torch.sigmoid(1.702 * want)
+    if epilogue == 2:
+        want = res.float() + want
+    torch.cuda.synchronize()
+    _assert_close_on_card(out, want.bfloat16(), atol=0.05)
