@@ -26,66 +26,73 @@
 // Bound on the H100: one (crop, head) is 2 x 197 x 197 x 64 x 2 = 10 MFLOP on
 // 75 KB of q/k/v, about 130 FLOP/byte, under the card's ridge; at the
 // objects batch the main rows read 1.86 GB of q/k/v and write 0.62 GB, so
-// bytes bound them (0.74 ms at 2048 crops), with ~0.25 ms of exp (MUFU) and
-// ~0.25 ms of tensor-core work to hide under the loads.
+// bytes bound them (0.74 ms at 2048 crops), with ~1 G exps (MUFU) and the
+// tensor-core work to hide under the loads.
 // Design: a persistent, warp-specialised block per SM walks the (crop, head)
 // items. One producer warp issues TMA loads of an item's Q, K and V (64
 // columns x the tokens rounded up to 16 rows, 128-byte swizzle; rows past N
 // arrive as zeros) through 3-D tensor maps over the strided column slices,
-// into one of two stages guarded by full/empty mbarriers, so the next item
-// loads while the current one is computed. Each consumer warp owns one
+// into a ring of 2-4 stages guarded by full/empty mbarriers, so the next
+// items load while the current one is computed. Each consumer warp owns one
 // 16-row query tile (13 warps for N = 197, so no warp idles; for short
-// sequences a stage holds several items, e.g. 4 x 4 tiles at N = 50). A warp
-// reads its Q fragments from shared memory with ldmatrix, runs QK^T and PV
-// on mma.sync m16n8k16 with K and V fragments from ldmatrix (the swizzle
-// makes every ldmatrix conflict-free), writes its normalised rows back over
-// its own Q rows in shared memory and stores them with 16-byte coalesced
-// writes. The side row alone (_side_attn_kernel) is 4 x N x 64 FLOP a head
-// against the head's K and V: reading K and V (1.24 GB at 2048 crops)
-// bounds it; it runs on the consumer warps from the same staged K and V.
+// sequences a stage holds several items, e.g. 3 x 4 tiles at N = 50). A
+// warp reads its Q fragments from shared memory with ldmatrix, runs QK^T
+// and PV on mma.sync m16n8k16 with K and V fragments from ldmatrix (the
+// swizzle makes every ldmatrix conflict-free) in 32-key chunks, takes the
+// exps on ex2.approx with the key mask only in the chunk that reaches past
+// N, writes its normalised rows back over its own Q rows in shared memory
+// and stores them with 16-byte coalesced writes. wgmma for QK^T and PV (one
+// m64 query tile per consumer warpgroup, P from registers) ran slower: ptxas
+// serialises the wgmmas whose A operand, P, is computed between them (see
+// PERF.md). The side row alone (_side_attn_kernel) is 4 x N x 64 FLOP a
+// head against the head's K and V: reading K and V (1.24 GB at 2048
+// crops) bounds it; it runs on the consumer warps from the same staged K
+// and V, its small inputs (qy, ky, vy, the bias row) copied into the stage
+// by the producer warp's lanes from registers read one item ahead.
 #include "common.cuh"
 
 namespace oadp {
 namespace {
 
-constexpr int HD = 64;           // head width this kernel is written for
-constexpr int CONSUMERS = 8;     // two consumer warpgroups
-constexpr int MAX_TILES = 16;    // 16-row tiles per item (N <= 256)
-constexpr int UNITS = 4;         // m64 query tiles a stage holds at most
+constexpr int HD = 64;             // head width this kernel is written for
+// consumer warps: with the producer, 16 warps, 4 to each SM sub-partition,
+// so a thread may hold 128 registers
+constexpr int MAX_CONSUMERS = 15;
+constexpr int MAX_TILES = 16;  // 16-row tiles per item (N <= 256)
 constexpr int MAX_STAGES = 4;
 constexpr int RING_BYTES = 200 * 1024;  // the stages, at most
-constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory: stages x group x [Q (64-row tiles), K, V (16-row tiles)] of
-// 128-byte rows; stages x the side row's inputs (qy, ky, vy of the head and
+// Shared memory: stages x group x [Q,] K, V tiles of (16 * tiles) rows of
+// 128 bytes; stages x the side row's inputs (qy, ky, vy of the head and
 // the bias row); stages x the side row's fp32 partial sums; the full and
 // empty barriers.
 struct Layout {
-  int qtile, kvtile, item, stage, stages, side_in, side_stage, scratch, bars, total;
+  int tile, item, stage, stages, side_in, side_stage, scratch, bars, total;
 };
 
 // As many stages as fit in RING_BYTES (2 to 4): more loads in flight where
 // an item is small, as for the side row alone (K and V only).
 __host__ __device__ inline Layout layout(int tiles, int group, bool with_q) {
   Layout l;
-  l.qtile = with_q ? (tiles + 3) / 4 * 64 * 128 : 0;
-  l.kvtile = tiles * 16 * 128;
-  l.item = l.qtile + 2 * l.kvtile;
+  l.tile = tiles * 16 * 128;
+  l.item = (with_q ? 3 : 2) * l.tile;
   l.stage = group * l.item;
   l.stages = RING_BYTES / l.stage < MAX_STAGES ? RING_BYTES / l.stage : MAX_STAGES;
   l.side_in = l.stages * l.stage;
   l.side_stage = 3 * HD * 2 + tiles * 16 * 4;
   l.scratch = l.side_in + l.stages * l.side_stage;
-  // per stage: part[CONSUMERS][HD], psum[CONSUMERS]
-  l.bars = l.scratch + l.stages * 4 * (CONSUMERS * HD + CONSUMERS);
+  // per stage: part[MAX_CONSUMERS][HD], psum[MAX_CONSUMERS]
+  l.bars = l.scratch + l.stages * 4 * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+  l.bars = (l.bars + 15) & ~15;  // mbarriers are 8-byte aligned
   l.total = l.bars + 2 * l.stages * 8 + 1024;  // + slack to align to 1024 bytes
   return l;
 }
 
 struct Args {
   int B, N, heads;
-  int tiles;  // 16-row tiles per item (keys and values)
-  int group;  // items per stage
+  int tiles;      // 16-row tiles per item
+  int group;      // items per stage
+  int consumers;  // consumer warps: min(tiles * group, MAX_CONSUMERS)
   float scale;
   bf16* out; long long out_bs; int out_ld;  // main rows, or nullptr
   const bf16* qy; int qy_ld;                // side row (with side_out)
@@ -95,118 +102,83 @@ struct Args {
   bf16* side_out; int side_ld;              // side row, or nullptr
 };
 
-// exp(min(x * scale, 80)) of a warp's score fragment (rows g, g + 8 of its
-// 16; keys 8j + 2t, + 1), keys at or past `lim` weighing 0, summed into the
-// rows' fp32 sums and rounded to bf16 as the A fragments of P V: pa[kk]
-// holds keys 16kk .. 16kk + 15.
-template <int NB>
-__device__ __forceinline__ void softmax_weights(float* s, int lim, float scale_log2, int t,
-                                                float (&sums)[2], unsigned (*pa)[4]) {
+// exp(min(x, 80)) as exp2 of the clamped logit in log2 units
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One chunk of KC keys (32, or 16 for the tail) of a warp's 16 query rows:
+// scores on mma.sync from Q fragments in registers and K fragments from
+// ldmatrix, exp weights rounded to bf16 as the A operand of P V, and the
+// PV product from ldmatrix.trans of V. With MASK, keys at or past `lim`
+// weigh 0 (only a chunk that reaches past N needs it).
+template <int KC, bool MASK>
+__device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
+                                          const unsigned char* Ks, const unsigned char* Vs,
+                                          int k0, int lim, float scale_log2, int lane,
+                                          float (&o)[HD / 8][4], float (&sums)[2]) {
+  constexpr int NB = KC / 8;  // 8-key column blocks of the scores
+  const int t = lane & 3;
+  float s[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+    for (int jj = 0; jj < NB / 2; ++jj) {
+      unsigned kf[4];
+      ldmatrix_x4(kf, Ks + swz(k0 + jj * 16 + (lane & 7) + ((lane >> 4) << 3),
+                               ks * 2 + ((lane >> 3) & 1)));
+      mma_bf16(s[2 * jj], qf[ks], kf[0], kf[1]);
+      mma_bf16(s[2 * jj + 1], qf[ks], kf[2], kf[3]);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = j * 8 + 2 * t + (e & 1);
-      const float w =
-          key < lim ? exp2f(fminf(s[j * 4 + e] * scale_log2, 80.f * LOG2E)) : 0.f;
-      s[j * 4 + e] = w;
-      sums[e >> 1] += w;
+      const float w = ex2(fminf(s[j][e] * scale_log2, 80.f * LOG2E));
+      const bool keep = !MASK || j * 8 + 2 * t + (e & 1) < lim;
+      s[j][e] = keep ? w : 0.f;
+      sums[e >> 1] += s[j][e];
     }
   }
 #pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    pa[kk][0] = pack2(s[8 * kk], s[8 * kk + 1]);
-    pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7]);
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    const unsigned pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+                            pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      unsigned vf[4];
+      ldmatrix_x4_trans(vf, Vs + swz(k0 + kk * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+      mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+    }
   }
 }
 
-// One warpgroup's 64 query rows r0.. of one (crop, head), on wgmma. Keys go
-// in chunks of 64 (then 16): S = Q K^T from shared memory (m64n64k16), the
-// exp weights in registers, O += P V with P from registers and V from
-// shared memory (m64n64k16, V MN-major). The next chunk's S is issued
-// before this chunk's P V, so the exps of one chunk run while the tensor
-// cores work on the other. Warps whose 16 rows all lie past N skip the
-// exps (their P is zero). The normalised rows are staged over the
-// warpgroup's own Q rows and written with 16-byte stores.
+// One warp's 16 query rows of one (crop, head): Q, K, V staged tiles.
 __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
                                           const unsigned char* Ks, const unsigned char* Vs,
-                                          int r0, int b, int h, int w, int lane) {
-  const int N = a.N, np = a.tiles * 16, full = np / 64;
+                                          int r0, int b, int h, int lane) {
+  const int N = a.N, np = a.tiles * 16;
   const int g = lane >> 2, t = lane & 3;
-  const bool live = r0 + w * 16 < N;
-  const float scale_log2 = a.scale * LOG2E;
-  uint64_t qd[HD / 16];
+  // Q fragments (the A operand layout): lanes 0-15 give rows r0..r0+15 of
+  // the low 8 columns of a k-step, lanes 16-31 the high 8
+  unsigned qf[HD / 16][4];
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) qd[ks] = smem_desc(Qs + r0 * 128 + ks * 32);
+  for (int ks = 0; ks < HD / 16; ++ks)
+    ldmatrix_x4(qf[ks], Qs + swz(r0 + (lane & 15), ks * 2 + (lane >> 4)));
 
-  float o[32], s[32], sums[2] = {0.f, 0.f};
-  unsigned pa[2][4][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  auto scores = [&](int k0) {  // S of keys k0 .. k0 + 63 into s
-    fence_acc<32>(s);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      wgmma_m64n64k16_ss(s, qd[ks], smem_desc(Ks + k0 * 128 + ks * 32), ks);
-    wgmma_commit();
-  };
-  auto weights = [&](int k0, unsigned (*p)[4]) {
-    fence_acc<32>(s);
-    if (live) {
-      softmax_weights<8>(s, N - k0, scale_log2, t, sums, p);
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) p[kk][0] = p[kk][1] = p[kk][2] = p[kk][3] = 0u;
-    }
-  };
-  if (full > 0) {
-    scores(0);
-    wgmma_wait<0>();
-    weights(0, pa[0]);
-#pragma unroll
-    for (int c = 0; c < MAX_TILES / 4; ++c) {  // static, so pa[c & 1] stays in registers
-      if (c == full) break;
-      if (c + 1 < full) scores((c + 1) * 64);
-      fence_acc<32>(o);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_rs(o, pa[c & 1][kk], smem_desc(Vs + (c * 64 + kk * 16) * 128));
-      wgmma_commit();
-      if (c + 1 < full) {
-        wgmma_wait<1>();  // the scores of chunk c + 1 (and the P V of c - 1)
-        weights((c + 1) * 64, pa[(c + 1) & 1]);
-      }
-    }
-    wgmma_wait<0>();
-    fence_acc<32>(o);
-  }
-  for (int k0 = full * 64; k0 < np; k0 += 16) {  // the last keys, 16 at a time
-    float s16[8];
-    unsigned p16[1][4];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      wgmma_m64n16k16_ss(s16, qd[ks], smem_desc(Ks + k0 * 128 + ks * 32), ks);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc<8>(s16);
-    if (live) {
-      softmax_weights<2>(s16, N - k0, scale_log2, t, sums, p16);
-    } else {
-      p16[0][0] = p16[0][1] = p16[0][2] = p16[0][3] = 0u;
-    }
-    fence_acc<32>(o);
-    wgmma_fence();
-    wgmma_m64n64k16_rs(o, p16[0], smem_desc(Vs + k0 * 128));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc<32>(o);
-  }
-  if (!live) return;
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float sums[2] = {0.f, 0.f};  // rows g, g + 8
+  const float scale_log2 = a.scale * LOG2E;
+  int k0 = 0;
+  for (; k0 + 32 <= N; k0 += 32) key_chunk<32, false>(qf, Ks, Vs, k0, 0, scale_log2, lane, o, sums);
+  for (; k0 + 32 <= np; k0 += 32)
+    key_chunk<32, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+  if (k0 < np) key_chunk<16, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
 
   // each row's sum is spread over the four lanes of its quad
 #pragma unroll
@@ -214,23 +186,21 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
     sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 1);
     sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 2);
   }
-  // Stage this warp's 16 x 64 output over its own Q rows (the warpgroup's
-  // products that read them have completed), then write whole 128-byte
-  // rows, 16 bytes a lane.
-  const int rw = r0 + w * 16;
+  // Stage the 16 x 64 output over this warp's own Q rows (its Q is in
+  // registers now), then write whole 128-byte rows, 16 bytes a lane.
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      *reinterpret_cast<__nv_bfloat162*>(Qs + swz(rw + g + 8 * hh, n) + 4 * t) =
-          __floats2bfloat162_rn(o[n * 4 + 2 * hh] / sums[hh], o[n * 4 + 2 * hh + 1] / sums[hh]);
+      *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + g + 8 * hh, n) + 4 * t) =
+          __floats2bfloat162_rn(o[n][2 * hh] / sums[hh], o[n][2 * hh + 1] / sums[hh]);
     }
   }
   __syncwarp();
   bf16* dst = a.out + (size_t)b * a.out_bs + h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = rw + i * 4 + (lane >> 3), c = lane & 7;
+    const int row = r0 + i * 4 + (lane >> 3), c = lane & 7;
     if (row < N)
       *reinterpret_cast<uint4*>(dst + (size_t)row * a.out_ld + c * 8) =
           *reinterpret_cast<const uint4*>(Qs + swz(row, c));
@@ -248,14 +218,14 @@ __device__ __forceinline__ void side_row(const Args& a, const unsigned char* Ks,
                                          const unsigned char* Vs, const unsigned char* in,
                                          float* scratch, int b, int h, int warp, int lane) {
   const int N = a.N;
-  float* part = scratch;                // [CONSUMERS][HD]
-  float* psum = part + CONSUMERS * HD;  // [CONSUMERS]
+  float* part = scratch;                    // [MAX_CONSUMERS][HD]
+  float* psum = part + MAX_CONSUMERS * HD;  // [MAX_CONSUMERS]
   const bf16* qy = reinterpret_cast<const bf16*>(in);
   const bf16* ky = qy + HD;
   const bf16* vy = ky + HD;
   const float* bb = reinterpret_cast<const float*>(in + 3 * HD * 2);
   float sum = 0.f, o0 = 0.f, o1 = 0.f;
-  for (int j0 = warp * 16; j0 < N; j0 += CONSUMERS * 16) {
+  for (int j0 = warp * 16; j0 < N; j0 += a.consumers * 16) {
     const int j = j0 + (lane & 15), half = lane >> 4;
     float acc = 0.f;
     if (j < N) {
@@ -291,11 +261,10 @@ __device__ __forceinline__ void side_row(const Args& a, const unsigned char* Ks,
   part[warp * HD + 2 * lane] = o0;
   part[warp * HD + 2 * lane + 1] = o1;
   if (lane == 0) psum[warp] = sum;
-  named_barrier(1, CONSUMERS * 32);
+  named_barrier(1, a.consumers * 32);
   if (warp == 0) {
     o0 = o1 = sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < CONSUMERS; ++w) {
+    for (int w = 0; w < a.consumers; ++w) {
       o0 += part[w * HD + 2 * lane];
       o1 += part[w * HD + 2 * lane + 1];
       sum += psum[w];
@@ -305,7 +274,7 @@ __device__ __forceinline__ void side_row(const Args& a, const unsigned char* Ks,
   }
 }
 
-__global__ void __launch_bounds__(32 * (CONSUMERS + 1), 1)
+__global__ void __launch_bounds__(32 * (MAX_CONSUMERS + 1), 1)
 attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
                  __grid_constant__ const CUtensorMap tm_v, const Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -320,7 +289,7 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
   if (threadIdx.x == 0) {
     for (int s = 0; s < l.stages; ++s) {
       mbar_init(&full[s], side ? 2 : 1);  // the TMA bytes' arrive [, the side inputs']
-      mbar_init(&empty[s], CONSUMERS);
+      mbar_init(&empty[s], a.consumers);
     }
     mbar_init_fence();
   }
@@ -328,7 +297,7 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
 
   const int items = a.B * a.heads;
   const int groups = (items + a.group - 1) / a.group;
-  if (warp == CONSUMERS) {
+  if (warp == a.consumers) {
     // producer: lane 0 loads a stage's items by TMA while the consumers
     // work on the other stage; for the side row the lanes copy its inputs
     // (one item a stage), read into registers one item ahead so that their
@@ -363,9 +332,12 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
         for (int i = 0; i < n; ++i) {
           const int b = (first + i) / a.heads, h = (first + i) % a.heads;
           unsigned char* d = dst + i * l.item;
-          if (with_q) tma_load_3d(d, &tm_q, &full[s], h * HD, 0, b);
-          tma_load_3d(d + l.qtile, &tm_k, &full[s], h * HD, 0, b);
-          tma_load_3d(d + l.qtile + l.kvtile, &tm_v, &full[s], h * HD, 0, b);
+          if (with_q) {
+            tma_load_3d(d, &tm_q, &full[s], h * HD, 0, b);
+            d += l.tile;
+          }
+          tma_load_3d(d, &tm_k, &full[s], h * HD, 0, b);
+          tma_load_3d(d + l.tile, &tm_v, &full[s], h * HD, 0, b);
         }
       }
       if (side) {
@@ -388,20 +360,20 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
     const int s = it % l.stages;
     mbar_wait(&full[s], (it / l.stages) & 1);
     if (with_q) {
-      // a warpgroup's m64 query tiles: (item of the stage, tile) pairs
-      const int tiles64 = (a.tiles + 3) / 4;
-      for (int u = warp >> 2; u < a.group * tiles64; u += 2) {
-        const int slot = u / tiles64, item = grp * a.group + slot;
+      // a warp's 16-row tiles: slot (item of the stage) x tile
+      for (int tw = warp; tw < a.tiles * a.group; tw += a.consumers) {
+        const int slot = tw / a.tiles, item = grp * a.group + slot;
         if (item >= items) break;
         unsigned char* Qs = base + s * l.stage + slot * l.item;
-        main_rows(a, Qs, Qs + l.qtile, Qs + l.qtile + l.kvtile, (u % tiles64) * 64,
-                  item / a.heads, item % a.heads, warp & 3, lane);
+        main_rows(a, Qs, Qs + l.tile, Qs + 2 * l.tile, (tw % a.tiles) * 16, item / a.heads,
+                  item % a.heads, lane);
       }
     }
     if (side) {  // one item a stage
-      const unsigned char* Ks = base + s * l.stage + l.qtile;
-      float* scratch = reinterpret_cast<float*>(base + l.scratch) + s * (CONSUMERS * HD + CONSUMERS);
-      side_row(a, Ks, Ks + l.kvtile, base + l.side_in + s * l.side_stage, scratch, grp / a.heads,
+      const unsigned char* Ks = base + s * l.stage + (with_q ? l.tile : 0);
+      float* scratch = reinterpret_cast<float*>(base + l.scratch) +
+                       s * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+      side_row(a, Ks, Ks + l.tile, base + l.side_in + s * l.side_stage, scratch, grp / a.heads,
                grp % a.heads, warp, lane);
     }
     // this warp's staged rows may be overwritten by the next TMA load
@@ -428,12 +400,12 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   const int tiles = (N + 15) / 16;
   if (tiles > MAX_TILES || B <= 0) return cudaErrorInvalidValue;
   const bool with_q = out != nullptr;
-  const int tiles64 = (tiles + 3) / 4;
-  const int group = side_out != nullptr ? 1 : (UNITS / tiles64 > 1 ? UNITS / tiles64 : 1);
+  const int group = side_out != nullptr ? 1 : (MAX_CONSUMERS / tiles > 1 ? MAX_CONSUMERS / tiles : 1);
+  const int consumers = tiles * group < MAX_CONSUMERS ? tiles * group : MAX_CONSUMERS;
   // the most any shape takes, set once (occupancy follows each launch's
   // own size)
   constexpr int max_smem = RING_BYTES + MAX_STAGES * (3 * HD * 2 + MAX_TILES * 16 * 4) +
-                           MAX_STAGES * 4 * (CONSUMERS * HD + CONSUMERS) +
+                           MAX_STAGES * 4 * (MAX_CONSUMERS * HD + MAX_CONSUMERS) + 16 +
                            2 * MAX_STAGES * 8 + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
@@ -441,8 +413,7 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   if (e != cudaSuccess) return e;
 
   // (D, N, B) tensor maps over the column slices; a box is one head's 64
-  // columns of every row, rounded up to whole 64-row tiles for Q and
-  // 16-row tiles for K and V
+  // columns of every row, rounded up to whole 16-row tiles
   CUtensorMap tm[3] = {};
   const void* ptr[3] = {q, k, v};
   const long long bs[3] = {q_bs, k_bs, v_bs};
@@ -450,10 +421,10 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   for (int i = with_q ? 0 : 1; i < 3; ++i) {
     const uint64_t dims[3] = {(uint64_t)heads * HD, (uint64_t)N, (uint64_t)B};
     const uint64_t strides[2] = {(uint64_t)ld[i] * 2, (uint64_t)bs[i] * 2};
-    const uint32_t box[3] = {HD, (uint32_t)(i == 0 ? tiles64 * 64 : tiles * 16), 1};
+    const uint32_t box[3] = {HD, (uint32_t)tiles * 16, 1};
     if ((e = make_tmap(&tm[i], ptr[i], 3, dims, strides, box)) != cudaSuccess) return e;
   }
-  const Args a{B, N, heads, tiles, group, scale,
+  const Args a{B, N, heads, tiles, group, consumers, scale,
                static_cast<bf16*>(out), out_bs, out_ld,
                static_cast<const bf16*>(qy), qy_ld,
                static_cast<const bf16*>(ky), ky_ld,
@@ -462,7 +433,7 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
                static_cast<bf16*>(side_out), side_ld};
   const int groups = (B * heads + group - 1) / group;
   const int grid = groups < sm_count() ? groups : sm_count();
-  attention_kernel<<<grid, 32 * (CONSUMERS + 1), layout(tiles, group, with_q).total,
+  attention_kernel<<<grid, 32 * (a.consumers + 1), layout(tiles, group, with_q).total,
                      static_cast<cudaStream_t>(stream)>>>(tm[0], tm[1], tm[2], a);
   return cudaGetLastError();
 }

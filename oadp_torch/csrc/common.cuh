@@ -288,6 +288,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x on the special-function unit, subnormal results flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two floats as one bf16x2 register, the first in the low half.
 __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);

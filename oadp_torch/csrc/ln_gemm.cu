@@ -19,21 +19,26 @@
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
 // Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
-// output tiles of 128 x BN (BN 256, 128 or 64, chosen per shape to fill the
-// SMs, see pick_tile_n), N tiles fastest so the blocks that read one A
-// row-panel run together. Its first warpgroup gives up registers
-// (setmaxnreg) and one thread of it issues TMA loads of the 128 x 64 A and
-// BN x 64 W k-tiles (128-byte swizzle) into a ring of 4-8 stages (192 KB),
-// each stage guarded by a full and an empty mbarrier. Two consumer
-// warpgroups of 64 rows each wait on the full barrier, issue wgmma
-// m64nBNk16 straight from shared memory, keep one wgmma group in flight
-// across k-tiles (wait_group 1) and release a stage as soon as the group
-// that read it has retired. The producer runs ahead into the next tile
-// while the consumers apply the epilogue from their accumulators, so loads,
-// products and stores overlap. The LN prologue stays a one-warp-a-row pass
-// that writes LN(A) in bf16: the wgmma A operand comes from shared memory
-// as TMA wrote it, and normalising each tile there would put a rewrite and
-// a barrier on every k-tile's critical path (slower in an earlier version).
+// output tiles of 128 x BN (BN 256, 128 or 64, chosen per shape so that the
+// last wave of tiles ends first, see pick_tile_n), N tiles fastest so the
+// blocks that read one A row-panel run together. Its first warpgroup gives
+// up registers (setmaxnreg) and one thread of it issues TMA loads of the
+// 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a 192 KB ring
+// of 4-8 stages, each guarded by a full and an empty mbarrier; it runs
+// ahead into the next tile while the consumers finish the current one. Two
+// consumer warpgroups of 64 rows each wait on the full barrier, issue
+// wgmma m64nBNk16 straight from shared memory, keep one wgmma group in
+// flight across k-tiles (wait_group 1) and release a stage as soon as the
+// group that read it has retired. The epilogue adds bias, quick_gelu or the
+// residual in fp32 and rounds once to bf16 into a swizzled 64 x 64 staging
+// tile, which one TMA store writes out (two tiles alternate per
+// warpgroup). The wide tile and the TMA store matter most at the objects
+// QKV shape: 128 x 128 tiles read 22 GB through L2 for K = 768 and were
+// bound by it, and stores of bf16 pairs from registers added a third.
+// The LN prologue stays a one-warp-a-row pass that writes LN(A) in bf16:
+// the wgmma A operand comes from shared memory as TMA wrote it, and
+// normalising each tile there would put a rewrite and a barrier on every
+// k-tile's critical path (slower in an earlier version).
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include "common.cuh"
 
