@@ -49,18 +49,15 @@
 // crops) bounds it; it runs on the consumer warps from the same staged K
 // and V, its small inputs (qy, ky, vy, the bias row) copied into the stage
 // by the producer warp's lanes from registers read one item ahead.
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace oadp {
 namespace {
 
 constexpr int HD = 64;             // head width this kernel is written for
-// consumer warps: with the producer, 12 warps, 3 to each SM sub-partition,
-// so a thread may hold 168 registers
-constexpr int MAX_CONSUMERS = 11;
-constexpr int TW = 2;  // 16-row query tiles a warp takes, sharing every K and V fragment
+// consumer warps: with the producer, 16 warps, 4 to each SM sub-partition,
+// so a thread may hold 128 registers
+constexpr int MAX_CONSUMERS = 15;
 constexpr int MAX_TILES = 16;  // 16-row tiles per item (N <= 256)
 constexpr int MAX_STAGES = 4;
 constexpr int RING_BYTES = 200 * 1024;  // the stages, at most
@@ -70,16 +67,15 @@ constexpr int RING_BYTES = 200 * 1024;  // the stages, at most
 // the bias row); stages x the side row's fp32 partial sums; the full and
 // empty barriers.
 struct Layout {
-  int qtile, tile, item, stage, stages, side_in, side_stage, scratch, bars, total;
+  int tile, item, stage, stages, side_in, side_stage, scratch, bars, total;
 };
 
 // As many stages as fit in RING_BYTES (2 to 4): more loads in flight where
 // an item is small, as for the side row alone (K and V only).
 __host__ __device__ inline Layout layout(int tiles, int group, bool with_q) {
   Layout l;
-  l.tile = tiles * 16 * 128;  // K or V
-  l.qtile = with_q ? (tiles + TW - 1) / TW * TW * 16 * 128 : 0;  // whole warps' rows
-  l.item = l.qtile + 2 * l.tile;
+  l.tile = tiles * 16 * 128;
+  l.item = (with_q ? 3 : 2) * l.tile;
   l.stage = group * l.item;
   l.stages = RING_BYTES / l.stage < MAX_STAGES ? RING_BYTES / l.stage : MAX_STAGES;
   l.side_in = l.stages * l.stage;
@@ -109,65 +105,58 @@ struct Args {
 // exp(min(x, 80)) as exp2 of the clamped logit in log2 units
 constexpr float LOG2E = 1.4426950408889634f;
 
-// One chunk of 16 keys for a warp's TW 16-row query tiles: scores on
-// mma.sync from Q fragments in registers and K fragments from ldmatrix
-// (each K and V fragment serves all TW tiles), exp weights rounded to bf16
-// as the A operand of P V, and the PV product from ldmatrix.trans of V.
-// With MASK, keys at or past `lim` weigh 0 (only the chunk that reaches
-// past N needs it).
-template <bool MASK>
-__device__ __forceinline__ void key_chunk(const unsigned (&qf)[TW][HD / 16][4],
+// One chunk of KC keys (32, or 16 for the tail) of a warp's 16 query rows:
+// scores on mma.sync from Q fragments in registers and K fragments from
+// ldmatrix, exp weights rounded to bf16 as the A operand of P V, and the
+// PV product from ldmatrix.trans of V. With MASK, keys at or past `lim`
+// weigh 0 (only a chunk that reaches past N needs it).
+template <int KC, bool MASK>
+__device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
                                           const unsigned char* Ks, const unsigned char* Vs,
                                           int k0, int lim, float scale_log2, int lane,
-                                          float (&o)[TW][HD / 8][4], float (&sums)[TW][2]) {
+                                          float (&o)[HD / 8][4], float (&sums)[2]) {
+  constexpr int NB = KC / 8;  // 8-key column blocks of the scores
   const int t = lane & 3;
-  float s[TW][2][4];
+  float s[NB][4];
 #pragma unroll
-  for (int q = 0; q < TW; ++q)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) s[q][j][0] = s[q][j][1] = s[q][j][2] = s[q][j][3] = 0.f;
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
-    unsigned kf[4];
-    ldmatrix_x4(kf, Ks + swz(k0 + (lane & 7) + ((lane >> 4) << 3), ks * 2 + ((lane >> 3) & 1)));
 #pragma unroll
-    for (int q = 0; q < TW; ++q) {
-      mma_bf16(s[q][0], qf[q][ks], kf[0], kf[1]);
-      mma_bf16(s[q][1], qf[q][ks], kf[2], kf[3]);
+    for (int jj = 0; jj < NB / 2; ++jj) {
+      unsigned kf[4];
+      ldmatrix_x4(kf, Ks + swz(k0 + jj * 16 + (lane & 7) + ((lane >> 4) << 3),
+                               ks * 2 + ((lane >> 3) & 1)));
+      mma_bf16(s[2 * jj], qf[ks], kf[0], kf[1]);
+      mma_bf16(s[2 * jj + 1], qf[ks], kf[2], kf[3]);
     }
   }
-  unsigned pa[TW][4];
 #pragma unroll
-  for (int q = 0; q < TW; ++q) {
+  for (int j = 0; j < NB; ++j) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float w = ex2(fminf(s[q][j][e] * scale_log2, 80.f * LOG2E));
-        const bool keep = !MASK || j * 8 + 2 * t + (e & 1) < lim;
-        s[q][j][e] = keep ? w : 0.f;
-        sums[q][e >> 1] += s[q][j][e];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float w = ex2(fminf(s[j][e] * scale_log2, 80.f * LOG2E));
+      const bool keep = !MASK || j * 8 + 2 * t + (e & 1) < lim;
+      s[j][e] = keep ? w : 0.f;
+      sums[e >> 1] += s[j][e];
     }
-    pa[q][0] = pack2(s[q][0][0], s[q][0][1]);
-    pa[q][1] = pack2(s[q][0][2], s[q][0][3]);
-    pa[q][2] = pack2(s[q][1][0], s[q][1][1]);
-    pa[q][3] = pack2(s[q][1][2], s[q][1][3]);
   }
 #pragma unroll
-  for (int dp = 0; dp < HD / 16; ++dp) {
-    unsigned vf[4];
-    ldmatrix_x4_trans(vf, Vs + swz(k0 + (lane & 15), dp * 2 + (lane >> 4)));
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    const unsigned pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+                            pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-    for (int q = 0; q < TW; ++q) {
-      mma_bf16(o[q][2 * dp], pa[q], vf[0], vf[1]);
-      mma_bf16(o[q][2 * dp + 1], pa[q], vf[2], vf[3]);
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      unsigned vf[4];
+      ldmatrix_x4_trans(vf, Vs + swz(k0 + kk * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+      mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
     }
   }
 }
 
-// One warp's TW x 16 query rows r0.. of one (crop, head): Q, K, V staged
-// tiles (Q rows past N are zeros).
+// One warp's 16 query rows of one (crop, head): Q, K, V staged tiles.
 __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
                                           const unsigned char* Ks, const unsigned char* Vs,
                                           int r0, int b, int h, int lane) {
@@ -175,49 +164,42 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
   const int g = lane >> 2, t = lane & 3;
   // Q fragments (the A operand layout): lanes 0-15 give rows r0..r0+15 of
   // the low 8 columns of a k-step, lanes 16-31 the high 8
-  unsigned qf[TW][HD / 16][4];
+  unsigned qf[HD / 16][4];
 #pragma unroll
-  for (int q = 0; q < TW; ++q)
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      ldmatrix_x4(qf[q][ks], Qs + swz(r0 + q * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+  for (int ks = 0; ks < HD / 16; ++ks)
+    ldmatrix_x4(qf[ks], Qs + swz(r0 + (lane & 15), ks * 2 + (lane >> 4)));
 
-  float o[TW][HD / 8][4], sums[TW][2];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int q = 0; q < TW; ++q) {
-    sums[q][0] = sums[q][1] = 0.f;
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) o[q][i][0] = o[q][i][1] = o[q][i][2] = o[q][i][3] = 0.f;
-  }
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float sums[2] = {0.f, 0.f};  // rows g, g + 8
   const float scale_log2 = a.scale * LOG2E;
   int k0 = 0;
-  for (; k0 + 16 <= N; k0 += 16) key_chunk<false>(qf, Ks, Vs, k0, 0, scale_log2, lane, o, sums);
-  for (; k0 < np; k0 += 16) key_chunk<true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+  for (; k0 + 32 <= N; k0 += 32) key_chunk<32, false>(qf, Ks, Vs, k0, 0, scale_log2, lane, o, sums);
+  for (; k0 + 32 <= np; k0 += 32)
+    key_chunk<32, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+  if (k0 < np) key_chunk<16, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
 
-  // Stage the output over this warp's own Q rows (its Q is in registers
-  // now), then write whole 128-byte rows, 16 bytes a lane.
+  // each row's sum is spread over the four lanes of its quad
 #pragma unroll
-  for (int q = 0; q < TW; ++q) {
-    // each row's sum is spread over the four lanes of its quad
+  for (int hh = 0; hh < 2; ++hh) {
+    sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 1);
+    sums[hh] += __shfl_xor_sync(0xffffffffu, sums[hh], 2);
+  }
+  // Stage the 16 x 64 output over this warp's own Q rows (its Q is in
+  // registers now), then write whole 128-byte rows, 16 bytes a lane.
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      sums[q][hh] += __shfl_xor_sync(0xffffffffu, sums[q][hh], 1);
-      sums[q][hh] += __shfl_xor_sync(0xffffffffu, sums[q][hh], 2);
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + q * 16 + g + 8 * hh, n) + 4 * t) =
-            __floats2bfloat162_rn(o[q][n][2 * hh] / sums[q][hh],
-                                  o[q][n][2 * hh + 1] / sums[q][hh]);
-      }
+      *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + g + 8 * hh, n) + 4 * t) =
+          __floats2bfloat162_rn(o[n][2 * hh] / sums[hh], o[n][2 * hh + 1] / sums[hh]);
     }
   }
   __syncwarp();
   bf16* dst = a.out + (size_t)b * a.out_bs + h * HD;
 #pragma unroll
-  for (int i = 0; i < 4 * TW; ++i) {
+  for (int i = 0; i < 4; ++i) {
     const int row = r0 + i * 4 + (lane >> 3), c = lane & 7;
     if (row < N)
       *reinterpret_cast<uint4*>(dst + (size_t)row * a.out_ld + c * 8) =
@@ -350,9 +332,12 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
         for (int i = 0; i < n; ++i) {
           const int b = (first + i) / a.heads, h = (first + i) % a.heads;
           unsigned char* d = dst + i * l.item;
-          if (with_q) tma_load_3d(d, &tm_q, &full[s], h * HD, 0, b);
-          tma_load_3d(d + l.qtile, &tm_k, &full[s], h * HD, 0, b);
-          tma_load_3d(d + l.qtile + l.tile, &tm_v, &full[s], h * HD, 0, b);
+          if (with_q) {
+            tma_load_3d(d, &tm_q, &full[s], h * HD, 0, b);
+            d += l.tile;
+          }
+          tma_load_3d(d, &tm_k, &full[s], h * HD, 0, b);
+          tma_load_3d(d + l.tile, &tm_v, &full[s], h * HD, 0, b);
         }
       }
       if (side) {
@@ -375,18 +360,17 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
     const int s = it % l.stages;
     mbar_wait(&full[s], (it / l.stages) & 1);
     if (with_q) {
-      // a warp's TW x 16 rows: (item of the stage, unit) pairs
-      const int units = (a.tiles + TW - 1) / TW;
-      for (int u = warp; u < units * a.group; u += a.consumers) {
-        const int slot = u / units, item = grp * a.group + slot;
+      // a warp's 16-row tiles: slot (item of the stage) x tile
+      for (int tw = warp; tw < a.tiles * a.group; tw += a.consumers) {
+        const int slot = tw / a.tiles, item = grp * a.group + slot;
         if (item >= items) break;
         unsigned char* Qs = base + s * l.stage + slot * l.item;
-        main_rows(a, Qs, Qs + l.qtile, Qs + l.qtile + l.tile, (u % units) * TW * 16,
-                  item / a.heads, item % a.heads, lane);
+        main_rows(a, Qs, Qs + l.tile, Qs + 2 * l.tile, (tw % a.tiles) * 16, item / a.heads,
+                  item % a.heads, lane);
       }
     }
     if (side) {  // one item a stage
-      const unsigned char* Ks = base + s * l.stage + l.qtile;
+      const unsigned char* Ks = base + s * l.stage + (with_q ? l.tile : 0);
       float* scratch = reinterpret_cast<float*>(base + l.scratch) +
                        s * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
       side_row(a, Ks, Ks + l.tile, base + l.side_in + s * l.side_stage, scratch, grp / a.heads,
@@ -416,13 +400,8 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   const int tiles = (N + 15) / 16;
   if (tiles > MAX_TILES || B <= 0) return cudaErrorInvalidValue;
   const bool with_q = out != nullptr;
-  // items a stage: one with the side row, else as many as give each
-  // consumer warp its TW tiles, in at most half the ring
-  const int units = (tiles + TW - 1) / TW;
-  const int by_warps = MAX_CONSUMERS / units, by_bytes = RING_BYTES / 2 / layout(tiles, 1, with_q).item;
-  const int group = side_out != nullptr ? 1 : std::max(1, std::min(by_warps, by_bytes));
-  // at least 4 consumer warps, so the side row's keys spread
-  const int consumers = std::min(MAX_CONSUMERS, std::max(units * group, 4));
+  const int group = side_out != nullptr ? 1 : (MAX_CONSUMERS / tiles > 1 ? MAX_CONSUMERS / tiles : 1);
+  const int consumers = tiles * group < MAX_CONSUMERS ? tiles * group : MAX_CONSUMERS;
   // the most any shape takes, set once (occupancy follows each launch's
   // own size)
   constexpr int max_smem = RING_BYTES + MAX_STAGES * (3 * HD * 2 + MAX_TILES * 16 * 4) +
@@ -442,7 +421,7 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   for (int i = with_q ? 0 : 1; i < 3; ++i) {
     const uint64_t dims[3] = {(uint64_t)heads * HD, (uint64_t)N, (uint64_t)B};
     const uint64_t strides[2] = {(uint64_t)ld[i] * 2, (uint64_t)bs[i] * 2};
-    const uint32_t box[3] = {HD, (uint32_t)(i == 0 ? units * TW * 16 : tiles * 16), 1};
+    const uint32_t box[3] = {HD, (uint32_t)tiles * 16, 1};
     if ((e = make_tmap(&tm[i], ptr[i], 3, dims, strides, box)) != cudaSuccess) return e;
   }
   const Args a{B, N, heads, tiles, group, consumers, scale,
