@@ -1,8 +1,9 @@
 """Time the port's CUDA kernels and one objects dispatch on the GPU.
 
-    python -m oadp_torch.profile_kernels
+    python -m oadp_torch.profile_kernels [--only gemm,attention,...]
 
-Prints JSON lines, each with the card's name and power limit:
+Prints JSON lines, each with the card's name and power limit (``--only``
+keeps the named parts, default all):
 
 * ``gemm``: the ``ln_gemm`` product alone at the objects QKV shape
   (2048 x 197 rows, 768 -> 2304), with and without the LN pass, beside
@@ -102,7 +103,16 @@ def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
     return np.stack(bufs)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parts = ('gemm', 'attention', 'patch_embed', 'dispatch')
+    ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
+    ap.add_argument('--only', default=','.join(parts),
+                    help=f'comma-separated parts of {parts}')
+    only = set(ap.parse_args(argv).only.split(','))
+    if not only <= set(parts):
+        ap.error(f'--only takes parts of {parts}')
     if not torch.cuda.is_available():
         print('profile_kernels: torch sees no CUDA device', flush=True)
         return 1
@@ -122,64 +132,71 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b, n, d, heads = 2048, 197, 768, 12
     m = b * n
-    ln = A.ln_fp32(torch.ones(d, device=dev), torch.zeros(d, device=dev))
-    for rows, k_in, n_out, iters in ((m, d, 3 * d, 10), (b, d, 4 * d, 200),
-                                     (b, 4 * d, d, 200)):
-        x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
-        w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
-        wt, wb = A.kmajor(w), torch.zeros(n_out, device=dev).bfloat16()
-        out = torch.empty(rows, n_out, device=dev).bfloat16()
-        flops = 2 * rows * k_in * n_out
-        gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-            lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
-        gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
-        if k_in <= 1024:
-            gemm['ln_gemm_with_ln_ms'] = _timed(lambda: A._ln_gemm(x, wt, wb, out, ln32=ln), iters)
-        emit('gemm', shape=[rows, k_in, n_out], **gemm,
-             **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
-                if 'with_ln' not in k})
-        del x, out
-    qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
+    if 'gemm' in only:
+        ln = A.ln_fp32(torch.ones(d, device=dev), torch.zeros(d, device=dev))
+        for rows, k_in, n_out, iters in ((m, d, 3 * d, 10), (b, d, 4 * d, 200),
+                                         (b, 4 * d, d, 200)):
+            x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
+            w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
+            wt, wb = A.kmajor(w), torch.zeros(n_out, device=dev).bfloat16()
+            out = torch.empty(rows, n_out, device=dev).bfloat16()
+            flops = 2 * rows * k_in * n_out
+            gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
+                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
+            gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
+            if k_in <= 1024:
+                gemm['ln_gemm_with_ln_ms'] = _timed(
+                    lambda: A._ln_gemm(x, wt, wb, out, ln32=ln), iters)
+            emit('gemm', shape=[rows, k_in, n_out], **gemm,
+                 **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
+                    if 'with_ln' not in k})
+            del x, out
 
-    qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()
-    bias = torch.zeros(b, n, device=dev)
-    main = torch.empty(b, n, d, device=dev).bfloat16()
-    side = torch.empty(b, d, device=dev).bfloat16()
-    qq, kk, vv = qkv.view(b, n, 3 * d).split(d, -1)
-    side_args = dict(qy=qkv_y[:, :d], ky=qkv_y[:, d:2 * d], vy=qkv_y[:, 2 * d:],
-                     bias=bias, side=side)
-    q, k, v = (t.reshape(b, n, heads, 64).transpose(1, 2).contiguous()
-               for t in (qq, kk, vv))
-    emit('attention', crops=b, heads=heads, tokens=n,
-         main_and_side_ms=_timed(lambda: A._attention(
-             qq, kk, vv, heads, 0.125, out=main, **side_args)),
-         main_ms=_timed(lambda: A._attention(qq, kk, vv, heads, 0.125, out=main)),
-         side_ms=_timed(lambda: A._attention(None, kk, vv, heads, 0.125, **side_args)),
-         sdpa_main_ms=_timed(lambda: F.scaled_dot_product_attention(q, k, v)))
-    del qkv, qq, kk, vv, q, k, v, main
-    torch.cuda.empty_cache()
+    if 'attention' in only:
+        qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
+        qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()
+        bias = torch.zeros(b, n, device=dev)
+        main = torch.empty(b, n, d, device=dev).bfloat16()
+        side = torch.empty(b, d, device=dev).bfloat16()
+        qq, kk, vv = qkv.view(b, n, 3 * d).split(d, -1)
+        side_args = dict(qy=qkv_y[:, :d], ky=qkv_y[:, d:2 * d], vy=qkv_y[:, 2 * d:],
+                         bias=bias, side=side)
+        q, k, v = (t.reshape(b, n, heads, 64).transpose(1, 2).contiguous()
+                   for t in (qq, kk, vv))
+        emit('attention', crops=b, heads=heads, tokens=n,
+             main_and_side_ms=_timed(lambda: A._attention(
+                 qq, kk, vv, heads, 0.125, out=main, **side_args)),
+             main_ms=_timed(lambda: A._attention(qq, kk, vv, heads, 0.125, out=main)),
+             side_ms=_timed(lambda: A._attention(None, kk, vv, heads, 0.125, **side_args)),
+             sdpa_main_ms=_timed(lambda: F.scaled_dot_product_attention(q, k, v)))
+        del qkv, qq, kk, vv, q, k, v, main
+        torch.cuda.empty_cache()
 
+    if not only & {'patch_embed', 'dispatch'}:
+        return 0
     model = E.load_clip(None, 'bfloat16', device=dev)
-    crops = torch.randn(b, 224, 224, 3, device=dev, generator=gen).bfloat16()
-    cfg, params = model.surgery_config, model.surgery_params
-    emit('patch_embed', crops=b, stride=cfg.stride, patch=cfg.patch_size,
-         block_product_ms=_timed(lambda: C._embed_patches(crops, params, cfg)),
-         conv2d_ms=_timed(lambda: F.conv2d(
-             crops.permute(0, 3, 1, 2), params['conv1'], stride=cfg.stride,
-             padding=(cfg.patch_size - 1) // 2)))
-    del crops
-    steps = E.OakeSteps(model, 640, 640)
-    bufs = _dispatch_inputs(model)
-    k_pad = 21
-    emit('dispatch', crops=2048,
-         **_breakdown(lambda: steps.objects_packed_step(bufs, 1024, k_pad)))
-    n_img, g = 640 * 640 * 3, model.grid
-    image = bufs[0, :n_img].reshape(640, 640, 3)
-    masks = bufs[0, n_img:n_img + 1024 * g * g].reshape(1024, g, g)
-    meta = bufs[0, n_img + 1024 * g * g:].view(np.float32).reshape(1024, 9)
-    for kind, crops in (('split_dispatch', 999), ('fused_dispatch', 1000)):
-        emit(kind, crops=crops, **_breakdown(
-            lambda: steps.objects_step(image, meta[:crops], masks[:crops], k_pad)))
+    if 'patch_embed' in only:
+        crops = torch.randn(b, 224, 224, 3, device=dev, generator=gen).bfloat16()
+        cfg, params = model.surgery_config, model.surgery_params
+        emit('patch_embed', crops=b, stride=cfg.stride, patch=cfg.patch_size,
+             block_product_ms=_timed(lambda: C._embed_patches(crops, params, cfg)),
+             conv2d_ms=_timed(lambda: F.conv2d(
+                 crops.permute(0, 3, 1, 2), params['conv1'], stride=cfg.stride,
+                 padding=(cfg.patch_size - 1) // 2)))
+        del crops
+    if 'dispatch' in only:
+        steps = E.OakeSteps(model, 640, 640)
+        bufs = _dispatch_inputs(model)
+        k_pad = 21
+        emit('dispatch', crops=2048,
+             **_breakdown(lambda: steps.objects_packed_step(bufs, 1024, k_pad)))
+        n_img, g = 640 * 640 * 3, model.grid
+        image = bufs[0, :n_img].reshape(640, 640, 3)
+        masks = bufs[0, n_img:n_img + 1024 * g * g].reshape(1024, g, g)
+        meta = bufs[0, n_img + 1024 * g * g:].view(np.float32).reshape(1024, 9)
+        for kind, crops in (('split_dispatch', 999), ('fused_dispatch', 1000)):
+            emit(kind, crops=crops, **_breakdown(
+                lambda: steps.objects_step(image, meta[:crops], masks[:crops], k_pad)))
     return 0
 
 

@@ -139,3 +139,51 @@ def test_surgery_wiring_by_shape(models, monkeypatch, b, wiring):
         interpret_fused=wiring == 'fused',
     ))
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_prepared_kernel_params_are_kmajor_copies(models):
+    """``prepare_kernel_params`` adds, from the same arrays that
+    ``from_jax_params`` carries across, the K-major ``(out, in)`` weights
+    and fp32 LayerNorm pairs the CUDA kernels read, and leaves the
+    ``(in, out)`` tree as it was."""
+    _, jparams, _, _ = models
+    params = tclip.from_jax_params({k: v for k, v in jparams.items()})
+    before = {k: v.clone() for k, v in _leaves(params)}
+    prepared = tclip.prepare_kernel_params(params)
+    assert {k: v for k, v in _leaves(params)}.keys() == before.keys()
+    assert all(torch.equal(v, before[k]) for k, v in _leaves(params))
+    for i, (block, jblock) in enumerate(zip(prepared['blocks'], jparams['blocks'])):
+        kern = block['kernel']
+        for name, (group, key) in dict(qkv_wt=('attn', 'qkv_w'), out_wt=('attn', 'out_w'),
+                                       fc_wt=('mlp', 'fc_w'), proj_wt=('mlp', 'proj_w')).items():
+            assert kern[name].is_contiguous(), (i, name)
+            np.testing.assert_array_equal(kern[name].numpy(), np.asarray(jblock[group][key]).T)
+            np.testing.assert_array_equal(kern[name].numpy(), block[group][key].numpy().T)
+        for ln in ('ln_1', 'ln_2'):
+            scale, bias = kern[ln]
+            assert scale.dtype == bias.dtype == torch.float32
+            np.testing.assert_array_equal(scale.numpy(), np.asarray(jblock[ln]['scale']))
+            np.testing.assert_array_equal(bias.numpy(), np.asarray(jblock[ln]['bias']))
+
+
+@pytest.mark.parametrize('encoder', ['stock', 'surgery'])
+def test_encoders_with_prepared_params_match(models, encoder):
+    """The encoders given the prepared tree (as ``load_clip`` gives it on
+    the card) still match ``oadp_tpu`` on the same numpy parameters."""
+    state, jparams, jcfg, tcfg = models
+    rng = np.random.RandomState(5)
+    images = rng.randn(3, 64, 64, 3).astype(np.float32)
+    if encoder == 'stock':
+        want = np.asarray(jclip.image_encoder(jparams, images, jcfg))
+        got = tclip.image_encoder(
+            tclip.prepare_kernel_params(tclip.load_openai_state_dict(state)),
+            torch.from_numpy(images), tcfg)
+    else:
+        jup, jc = jclip.upsample_vit_params(jparams, jcfg)
+        tup, tc = tclip.upsample_vit_params(tclip.load_openai_state_dict(state), tcfg)
+        masks = (rng.rand(3, 8, 8) > 0.5).astype(np.uint8)
+        want = np.asarray(jclip.image_encoder_surgery(jup, images, masks.astype(np.float32), jc))
+        got = tclip.image_encoder_surgery(
+            tclip.prepare_kernel_params(tup), torch.from_numpy(images),
+            torch.from_numpy(masks), tc)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
