@@ -41,7 +41,10 @@
 // swizzle makes every ldmatrix conflict-free) in 32-key chunks, takes the
 // exps on ex2.approx with the key mask only in the chunk that reaches past
 // N, writes its normalised rows back over its own Q rows in shared memory
-// and stores them with 16-byte coalesced writes. wgmma for QK^T and PV (one
+// and stores them with 16-byte coalesced writes. The issue slots are the
+// scarce resource here: each lane's ldmatrix offsets are computed once
+// (chunks start at multiples of 16 rows, so the swizzle term is the
+// lane's own), and each row takes one reciprocal instead of 64 divisions. wgmma for QK^T and PV (one
 // m64 query tile per consumer warpgroup, P from registers) ran slower: ptxas
 // serialises the wgmmas whose A operand, P, is computed between them (see
 // PERF.md). The side row alone (_side_attn_kernel) is 4 x N x 64 FLOP a
@@ -105,16 +108,34 @@ struct Args {
 // exp(min(x, 80)) as exp2 of the clamped logit in log2 units
 constexpr float LOG2E = 1.4426950408889634f;
 
+// A lane's ldmatrix offsets into a swizzled K or V tile for a chunk that
+// starts at a multiple of 16 rows: the swizzle term (row & 7) is then the
+// lane's own, so a chunk only adds k0 * 128 (the offsets are computed once).
+struct Frag {
+  uint32_t k[HD / 16];  // K, k-step ks: rows (lane & 7) + 8 (lane >> 4), low/high 8 dims
+  uint32_t v[HD / 16];  // V transposed, dims 16 dp..: rows lane & 15
+};
+
+__device__ __forceinline__ Frag frag_offsets(int lane) {
+  Frag f;
+#pragma unroll
+  for (int i = 0; i < HD / 16; ++i) {
+    f.k[i] = swz((lane & 7) + ((lane >> 4) << 3), i * 2 + ((lane >> 3) & 1));
+    f.v[i] = swz(lane & 15, i * 2 + (lane >> 4));
+  }
+  return f;
+}
+
 // One chunk of KC keys (32, or 16 for the tail) of a warp's 16 query rows:
 // scores on mma.sync from Q fragments in registers and K fragments from
 // ldmatrix, exp weights rounded to bf16 as the A operand of P V, and the
 // PV product from ldmatrix.trans of V. With MASK, keys at or past `lim`
-// weigh 0 (only a chunk that reaches past N needs it).
+// weigh 0 (only a chunk that reaches past N needs it). Ks, Vs: the
+// chunk's first row (shared-memory addresses).
 template <int KC, bool MASK>
-__device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
-                                          const unsigned char* Ks, const unsigned char* Vs,
-                                          int k0, int lim, float scale_log2, int lane,
-                                          float (&o)[HD / 8][4], float (&sums)[2]) {
+__device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4], uint32_t Ks,
+                                          uint32_t Vs, const Frag& f, int lim, float scale_log2,
+                                          int lane, float (&o)[HD / 8][4], float (&sums)[2]) {
   constexpr int NB = KC / 8;  // 8-key column blocks of the scores
   const int t = lane & 3;
   float s[NB][4];
@@ -125,8 +146,7 @@ __device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
 #pragma unroll
     for (int jj = 0; jj < NB / 2; ++jj) {
       unsigned kf[4];
-      ldmatrix_x4(kf, Ks + swz(k0 + jj * 16 + (lane & 7) + ((lane >> 4) << 3),
-                               ks * 2 + ((lane >> 3) & 1)));
+      ldmatrix_x4(kf, Ks + jj * 16 * 128 + f.k[ks]);
       mma_bf16(s[2 * jj], qf[ks], kf[0], kf[1]);
       mma_bf16(s[2 * jj + 1], qf[ks], kf[2], kf[3]);
     }
@@ -149,7 +169,7 @@ __device__ __forceinline__ void key_chunk(const unsigned (&qf)[HD / 16][4],
 #pragma unroll
     for (int dp = 0; dp < HD / 16; ++dp) {
       unsigned vf[4];
-      ldmatrix_x4_trans(vf, Vs + swz(k0 + kk * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+      ldmatrix_x4_trans(vf, Vs + kk * 16 * 128 + f.v[dp]);
       mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
       mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
     }
@@ -174,11 +194,15 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
   for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float sums[2] = {0.f, 0.f};  // rows g, g + 8
   const float scale_log2 = a.scale * LOG2E;
+  const Frag f = frag_offsets(lane);
+  const uint32_t ks_ = smem_u32(Ks), vs_ = smem_u32(Vs);
   int k0 = 0;
-  for (; k0 + 32 <= N; k0 += 32) key_chunk<32, false>(qf, Ks, Vs, k0, 0, scale_log2, lane, o, sums);
+  for (; k0 + 32 <= N; k0 += 32)
+    key_chunk<32, false>(qf, ks_ + k0 * 128, vs_ + k0 * 128, f, 0, scale_log2, lane, o, sums);
   for (; k0 + 32 <= np; k0 += 32)
-    key_chunk<32, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
-  if (k0 < np) key_chunk<16, true>(qf, Ks, Vs, k0, N - k0, scale_log2, lane, o, sums);
+    key_chunk<32, true>(qf, ks_ + k0 * 128, vs_ + k0 * 128, f, N - k0, scale_log2, lane, o, sums);
+  if (k0 < np)
+    key_chunk<16, true>(qf, ks_ + k0 * 128, vs_ + k0 * 128, f, N - k0, scale_log2, lane, o, sums);
 
   // each row's sum is spread over the four lanes of its quad
 #pragma unroll
@@ -188,12 +212,13 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
   }
   // Stage the 16 x 64 output over this warp's own Q rows (its Q is in
   // registers now), then write whole 128-byte rows, 16 bytes a lane.
+  const float inv[2] = {1.f / sums[0], 1.f / sums[1]};
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + g + 8 * hh, n) + 4 * t) =
-          __floats2bfloat162_rn(o[n][2 * hh] / sums[hh], o[n][2 * hh + 1] / sums[hh]);
+          __floats2bfloat162_rn(o[n][2 * hh] * inv[hh], o[n][2 * hh + 1] * inv[hh]);
     }
   }
   __syncwarp();

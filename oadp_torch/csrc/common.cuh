@@ -277,6 +277,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem)
                : "memory");
 }
 
+// The same from a shared-memory address (smem_u32).
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, uint32_t s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, uint32_t s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
 // c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col). Fragment
 // layout, with g = lane / 4 and t = lane % 4: c[0..1] = row g, columns
 // 2t and 2t+1; c[2..3] = row g + 8, the same columns.
