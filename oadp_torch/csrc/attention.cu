@@ -52,6 +52,8 @@
 // crops) bounds it; it runs on the consumer warps from the same staged K
 // and V, its small inputs (qy, ky, vy, the bias row) copied into the stage
 // by the producer warp's lanes from registers read one item ahead.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace oadp {
@@ -187,7 +189,7 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
   unsigned qf[HD / 16][4];
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
-    ldmatrix_x4(qf[ks], Qs + swz(r0 + (lane & 15), ks * 2 + (lane >> 4)));
+    ldmatrix_x4(qf[ks], smem_u32(Qs) + swz(r0 + (lane & 15), ks * 2 + (lane >> 4)));
 
   float o[HD / 8][4];
 #pragma unroll
@@ -350,7 +352,7 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
       const int s = it % l.stages;
       mbar_wait(&empty[s], ((it / l.stages) & 1) ^ 1);  // the first pass finds all free
       const int first = grp * a.group;
-      const int n = items - first < a.group ? items - first : a.group;
+      const int n = min(items - first, a.group);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], n * l.item);  // rows past N count, as zeros
         unsigned char* dst = base + s * l.stage;
@@ -425,8 +427,9 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   const int tiles = (N + 15) / 16;
   if (tiles > MAX_TILES || B <= 0) return cudaErrorInvalidValue;
   const bool with_q = out != nullptr;
-  const int group = side_out != nullptr ? 1 : (MAX_CONSUMERS / tiles > 1 ? MAX_CONSUMERS / tiles : 1);
-  const int consumers = tiles * group < MAX_CONSUMERS ? tiles * group : MAX_CONSUMERS;
+  // items a stage: one with the side row, else enough for all consumers
+  const int group = side_out != nullptr ? 1 : std::max(1, MAX_CONSUMERS / tiles);
+  const int consumers = std::min(tiles * group, MAX_CONSUMERS);
   // the most any shape takes, set once (occupancy follows each launch's
   // own size)
   constexpr int max_smem = RING_BYTES + MAX_STAGES * (3 * HD * 2 + MAX_TILES * 16 * 4) +
@@ -457,7 +460,7 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
                bias,
                static_cast<bf16*>(side_out), side_ld};
   const int groups = (B * heads + group - 1) / group;
-  const int grid = groups < sm_count() ? groups : sm_count();
+  const int grid = std::min(groups, sm_count());
   attention_kernel<<<grid, 32 * (a.consumers + 1), layout(tiles, group, with_q).total,
                      static_cast<cudaStream_t>(stream)>>>(tm[0], tm[1], tm[2], a);
   return cudaGetLastError();

@@ -1,8 +1,8 @@
 // Shared helpers of the hand-written Hopper kernels (sm_90a).
 //
 // The kernels take bf16 activations and weights, accumulate in fp32 on the
-// tensor cores (wgmma in ln_gemm, mma.sync m16n8k16 fed by ldmatrix in
-// attention), load their tiles with TMA into 128-byte-swizzled shared
+// tensor cores (wgmma in ln_gemm.cu, mma.sync m16n8k16 fed by ldmatrix in
+// attention.cu), load their tiles with TMA into 128-byte-swizzled shared
 // memory, and are bound to PyTorch through a plain C interface loaded with
 // ctypes (oadp_torch/ops/cuda_lib.py). Every entry point launches on the
 // caller's stream, allocates nothing, and returns a cudaError_t so the
@@ -145,95 +145,6 @@ __device__ __forceinline__ int swz(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-// Shared-memory matrix descriptor of wgmma: start address, SBO 1024 bytes
-// (eight 128-byte rows), 128-byte swizzle. For a K-major operand the rows
-// are M or N and the leading offset is unused; for an MN-major operand
-// (64 columns of 128 bytes) the rows are K and the leading offset is
-// unused as well, the operand being one swizzle atom wide.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t addr = smem_u32(p);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed wgmma groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of accumulators across the
-// asynchronous wgmma that writes them.
-template <int R>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64 fp32 per warpgroup) (+)= A (64 x 16) * B (64 x 16)^T, both from
-// shared memory, K-major, 128-byte swizzle; scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                  int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 16 fp32 per warpgroup) (+)= A (64 x 16) * B (16 x 16)^T, both from
-// shared memory, K-major, 128-byte swizzle; scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n16k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                  int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64 fp32 per warpgroup) += A (64 x 16, registers: each warp's 16
-// rows in the mma.sync m16n8k16 A layout) * B (16 x 64, shared memory,
-// MN-major -- the 64 columns contiguous -- with the 128-byte swizzle).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const unsigned* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -259,25 +170,8 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return w;
 }
 
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row (l % 8) of matrix (l / 8).
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-// The same from a shared-memory address (smem_u32).
+// Four 8x8 b16 matrices from shared memory (a smem_u32 address); lane l
+// gives the address of row (l % 8) of matrix (l / 8).
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r, uint32_t s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

@@ -40,6 +40,8 @@
 // normalising each tile there would put a rewrite and a barrier on every
 // k-tile's critical path (slower in an earlier version).
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace oadp {
@@ -119,6 +121,56 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ a, int M, int K,
   }
 }
 
+// Shared-memory matrix descriptor of wgmma: start address, SBO 1024 bytes
+// (eight 128-byte rows), 128-byte swizzle (the leading offset is unused
+// for swizzled K-major tiles).
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t addr = smem_u32(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of accumulators across the
+// asynchronous wgmma that writes them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B (64 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 128 fp32 per warpgroup) += A (64 x 16, shared) * B (128 x 16, shared)^T,
 // both K-major with the 128-byte swizzle.
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b) {
@@ -185,7 +237,7 @@ template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t desc_b) {
   if constexpr (BN == 256) wgmma_m64n256k16(d, desc_a, desc_b);
   else if constexpr (BN == 128) wgmma_m64n128k16(d, desc_a, desc_b);
-  else wgmma_m64n64k16_ss(d, desc_a, desc_b, 1);
+  else wgmma_m64n64k16(d, desc_a, desc_b);
 }
 
 template <int BN, int EPI>
@@ -343,7 +395,7 @@ cudaError_t launch(const bf16* A, int M, int K, const bf16* Wt, int N, const bf1
   if ((e = make_tmap(&tm_w, Wt, 2, dims_w, k_bytes, box_w)) != cudaSuccess) return e;
   if ((e = make_tmap(&tm_c, C, 2, dims_c, n_bytes, box_c)) != cudaSuccess) return e;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
+  const int grid = std::min(tiles, sm_count());
   gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(tm_a, tm_w, tm_c, M, N, K, bias, R);
   return cudaGetLastError();
 }
