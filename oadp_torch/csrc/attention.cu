@@ -51,7 +51,7 @@
 // head against the head's K and V: reading K and V (1.24 GB at 2048
 // crops) bounds it; it runs on the consumer warps from the same staged K
 // and V, its small inputs (qy, ky, vy, the bias row) copied into the stage
-// by the producer warp's lanes from registers read one item ahead.
+// by the producer warp's lanes with cp.async, tracked by the same barrier.
 #include <algorithm>
 
 #include "common.cuh"
@@ -66,28 +66,34 @@ constexpr int MAX_CONSUMERS = 15;
 constexpr int MAX_TILES = 16;  // 16-row tiles per item (N <= 256)
 constexpr int MAX_STAGES = 4;
 constexpr int RING_BYTES = 200 * 1024;  // the stages, at most
+// The side row alone (K and V only) runs one item a block, in blocks of
+// SIDE_WARPS consumer warps and one stage, three blocks an SM (by shared
+// memory): three independent items in flight keep its loads at the rate
+// of loads alone.
+constexpr int SIDE_WARPS = 4;
 
 // Shared memory: stages x group x [Q,] K, V tiles of (16 * tiles) rows of
 // 128 bytes; stages x the side row's inputs (qy, ky, vy of the head and
-// the bias row); stages x the side row's fp32 partial sums; the full and
-// empty barriers.
+// the bias row); two sets of the side row's fp32 partial sums, one row per
+// consumer warp (items alternate); the full and empty barriers.
 struct Layout {
   int tile, item, stage, stages, side_in, side_stage, scratch, bars, total;
 };
 
 // As many stages as fit in RING_BYTES (2 to 4): more loads in flight where
 // an item is small, as for the side row alone (K and V only).
-__host__ __device__ inline Layout layout(int tiles, int group, bool with_q) {
+__host__ __device__ inline Layout layout(int tiles, int group, bool with_q, int max_stages,
+                                         int consumers) {
   Layout l;
   l.tile = tiles * 16 * 128;
   l.item = (with_q ? 3 : 2) * l.tile;
   l.stage = group * l.item;
-  l.stages = RING_BYTES / l.stage < MAX_STAGES ? RING_BYTES / l.stage : MAX_STAGES;
+  l.stages = RING_BYTES / l.stage < max_stages ? RING_BYTES / l.stage : max_stages;
   l.side_in = l.stages * l.stage;
   l.side_stage = 3 * HD * 2 + tiles * 16 * 4;
   l.scratch = l.side_in + l.stages * l.side_stage;
-  // per stage: part[MAX_CONSUMERS][HD], psum[MAX_CONSUMERS]
-  l.bars = l.scratch + l.stages * 4 * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+  // two of: part[consumers][HD], psum[consumers]
+  l.bars = l.scratch + 2 * 4 * consumers * (HD + 1);
   l.bars = (l.bars + 15) & ~15;  // mbarriers are 8-byte aligned
   l.total = l.bars + 2 * l.stages * 8 + 1024;  // + slack to align to 1024 bytes
   return l;
@@ -97,7 +103,8 @@ struct Args {
   int B, N, heads;
   int tiles;      // 16-row tiles per item
   int group;      // items per stage
-  int consumers;  // consumer warps: min(tiles * group, MAX_CONSUMERS)
+  int consumers;  // consumer warps
+  int max_stages;
   float scale;
   bf16* out; long long out_bs; int out_ld;  // main rows, or nullptr
   const bf16* qy; int qy_ld;                // side row (with side_out)
@@ -240,47 +247,54 @@ __device__ __forceinline__ void main_rows(const Args& a, unsigned char* Qs,
 // j >= 1 for patch key j. Each warp takes 16 keys at a time: two lanes a
 // key for the logits (32 head dims each), then one head-dim pair a lane
 // for the weighted values; the warps' partial sums meet in shared memory
-// (double-buffered by stage, one barrier an item) and warp 0 adds them.
+// (two sets, items alternating: one barrier an item) and warp 0 adds them.
 __device__ __forceinline__ void side_row(const Args& a, const unsigned char* Ks,
                                          const unsigned char* Vs, const unsigned char* in,
                                          float* scratch, int b, int h, int warp, int lane) {
   const int N = a.N;
-  float* part = scratch;                    // [MAX_CONSUMERS][HD]
-  float* psum = part + MAX_CONSUMERS * HD;  // [MAX_CONSUMERS]
+  float* part = scratch;                // [consumers][HD]
+  float* psum = part + a.consumers * HD;  // [consumers]
   const bf16* qy = reinterpret_cast<const bf16*>(in);
   const bf16* ky = qy + HD;
   const bf16* vy = ky + HD;
   const float* bb = reinterpret_cast<const float*>(in + 3 * HD * 2);
+  // this lane's 32 head dims of qy, for every key it takes
+  const int half = lane >> 4;
+  uint4 qh[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) qh[c] = *reinterpret_cast<const uint4*>(qy + (half * 4 + c) * 8);
   float sum = 0.f, o0 = 0.f, o1 = 0.f;
   for (int j0 = warp * 16; j0 < N; j0 += a.consumers * 16) {
-    const int j = j0 + (lane & 15), half = lane >> 4;
-    float acc = 0.f;
-    if (j < N) {
+    // chunks start at multiples of 16 rows: row j's swizzle term is lane & 7
+    const int j = j0 + (lane & 15);
+    float dot = 0.f;
 #pragma unroll
-      for (int c = half * 4; c < half * 4 + 4; ++c) {
-        float fq[8], fk[8];
-        unpack8(*reinterpret_cast<const uint4*>(qy + c * 8), fq);
-        unpack8(j == 0 ? *reinterpret_cast<const uint4*>(ky + c * 8)
-                       : *reinterpret_cast<const uint4*>(Ks + swz(j, c)),
-                fk);
+    for (int c = 0; c < 4; ++c) {
+      float fq[8], fk[8];
+      unpack8(qh[c], fq);
+      unpack8(j == 0 ? *reinterpret_cast<const uint4*>(ky + (half * 4 + c) * 8)
+                     : *reinterpret_cast<const uint4*>(Ks + swz(j, half * 4 + c)),
+              fk);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc += fq[i] * fk[i];
-      }
+      for (int i = 0; i < 8; ++i) dot += fq[i] * fk[i];
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 16);
+    // keys past N weigh 0, and their staged V rows are zeros
     const float e =
-        j < N ? expf(fminf(acc * a.scale + (j == 0 ? bb[N - 1] : bb[j - 1]), 80.f)) : 0.f;
-#pragma unroll 4
+        j < N ? expf(fminf(dot * a.scale + (j == 0 ? bb[N - 1] : bb[j - 1]), 80.f)) : 0.f;
+    const unsigned char* vrow = Vs + j0 * 128 + 4 * (lane & 3);
+#pragma unroll
     for (int kk = 0; kk < 16; ++kk) {
-      const int jj = j0 + kk;
       const float ek = __shfl_sync(0xffffffffu, e, kk);
-      if (jj >= N) break;
       sum += ek;
       // P is bf16 in the product for the patch keys; y's own weight is not
-      const float p = jj == 0 ? ek : __bfloat162float(__float2bfloat16(ek));
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          jj == 0 ? reinterpret_cast<const unsigned char*>(vy + 2 * lane)
-                  : Vs + swz(jj, lane >> 2) + 4 * (lane & 3)));
+      float p = __bfloat162float(__float2bfloat16(ek));
+      const unsigned char* src = vrow + kk * 128 + (((lane >> 2) ^ (kk & 7)) << 4);
+      if (kk == 0 && j0 == 0) {
+        p = ek;
+        src = reinterpret_cast<const unsigned char*>(vy + 2 * lane);
+      }
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
       o0 += p * v.x;
       o1 += p * v.y;
     }
@@ -308,14 +322,15 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const bool with_q = a.out != nullptr;
-  const Layout l = layout(a.tiles, a.group, with_q);
+  const Layout l = layout(a.tiles, a.group, with_q, a.max_stages, a.consumers);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + l.bars);
   uint64_t* empty = full + l.stages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool side = a.side_out != nullptr;
   if (threadIdx.x == 0) {
     for (int s = 0; s < l.stages; ++s) {
-      mbar_init(&full[s], side ? 2 : 1);  // the TMA bytes' arrive [, the side inputs']
+      // the TMA bytes' arrive [, one per producer lane for its side-input copies]
+      mbar_init(&full[s], side ? 33 : 1);
       mbar_init(&empty[s], a.consumers);
     }
     mbar_init_fence();
@@ -326,27 +341,9 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
   const int groups = (items + a.group - 1) / a.group;
   if (warp == a.consumers) {
     // producer: lane 0 loads a stage's items by TMA while the consumers
-    // work on the other stage; for the side row the lanes copy its inputs
-    // (one item a stage), read into registers one item ahead so that their
-    // latency is spent while the stage is still in use
-    uint4 row_chunk = make_uint4(0, 0, 0, 0);  // lanes 0-23: qy, ky, vy chunks
-    float bias_part[MAX_TILES / 2];            // bias[lane + 32 i]
-    auto fetch = [&](int item) {
-      const int b = item / a.heads, h = item % a.heads;
-      if (lane < 24) {
-        const int r = lane >> 3;
-        const bf16* src = r == 0 ? a.qy + (size_t)b * a.qy_ld
-                        : r == 1 ? a.ky + (size_t)b * a.ky_ld
-                                 : a.vy + (size_t)b * a.vy_ld;
-        row_chunk = *reinterpret_cast<const uint4*>(src + h * HD + (lane & 7) * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MAX_TILES / 2; ++i) {
-        const int j = lane + 32 * i;
-        bias_part[i] = j < a.N ? a.bias[(size_t)b * a.N + j] : 0.f;
-      }
-    };
-    if (side && blockIdx.x < groups) fetch(blockIdx.x);
+    // work on the other stages; for the side row (one item a stage) the
+    // lanes copy its small inputs with cp.async, which the full barrier
+    // tracks, so the producer never waits on a load
     int it = 0;
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
       const int s = it % l.stages;
@@ -368,15 +365,18 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
         }
       }
       if (side) {
+        const int b = grp / a.heads, h = grp % a.heads;
         unsigned char* in = base + l.side_in + s * l.side_stage;
-        if (lane < 24) reinterpret_cast<uint4*>(in)[lane] = row_chunk;
+        if (lane < 24) {  // 8 16-byte chunks each of qy, ky, vy
+          const int r = lane >> 3;
+          const bf16* src = r == 0 ? a.qy + (size_t)b * a.qy_ld
+                          : r == 1 ? a.ky + (size_t)b * a.ky_ld
+                                   : a.vy + (size_t)b * a.vy_ld;
+          cp_async16(in + lane * 16, src + h * HD + (lane & 7) * 8);
+        }
         float* bias = reinterpret_cast<float*>(in + 3 * HD * 2);
-#pragma unroll
-        for (int i = 0; i < MAX_TILES / 2; ++i)
-          if (lane + 32 * i < a.N) bias[lane + 32 * i] = bias_part[i];
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);  // releases the lanes' writes
-        if (grp + gridDim.x < groups) fetch(grp + gridDim.x);
+        for (int j = lane; j < a.N; j += 32) cp_async4(bias + j, a.bias + (size_t)b * a.N + j);
+        cp_async_arrive(&full[s]);
       }
     }
     return;
@@ -398,8 +398,7 @@ attention_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ con
     }
     if (side) {  // one item a stage
       const unsigned char* Ks = base + s * l.stage + (with_q ? l.tile : 0);
-      float* scratch = reinterpret_cast<float*>(base + l.scratch) +
-                       s * (MAX_CONSUMERS * HD + MAX_CONSUMERS);
+      float* scratch = reinterpret_cast<float*>(base + l.scratch) + (it & 1) * a.consumers * (HD + 1);
       side_row(a, Ks, Ks + l.tile, base + l.side_in + s * l.side_stage, scratch, grp / a.heads,
                grp % a.heads, warp, lane);
     }
@@ -427,14 +426,16 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
   const int tiles = (N + 15) / 16;
   if (tiles > MAX_TILES || B <= 0) return cudaErrorInvalidValue;
   const bool with_q = out != nullptr;
+  const bool side_only = !with_q;
   // items a stage: one with the side row, else enough for all consumers
   const int group = side_out != nullptr ? 1 : std::max(1, MAX_CONSUMERS / tiles);
-  const int consumers = std::min(tiles * group, MAX_CONSUMERS);
+  const int consumers = side_only ? SIDE_WARPS : std::min(tiles * group, MAX_CONSUMERS);
+  const int max_stages = side_only ? 1 : MAX_STAGES;
+  const Layout l = layout(tiles, group, with_q, max_stages, consumers);
   // the most any shape takes, set once (occupancy follows each launch's
   // own size)
   constexpr int max_smem = RING_BYTES + MAX_STAGES * (3 * HD * 2 + MAX_TILES * 16 * 4) +
-                           MAX_STAGES * 4 * (MAX_CONSUMERS * HD + MAX_CONSUMERS) + 16 +
-                           2 * MAX_STAGES * 8 + 1024;
+                           2 * 4 * MAX_CONSUMERS * (HD + 1) + 16 + 2 * MAX_STAGES * 8 + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   cudaError_t e = attr;
@@ -452,7 +453,7 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
     const uint32_t box[3] = {HD, (uint32_t)tiles * 16, 1};
     if ((e = make_tmap(&tm[i], ptr[i], 3, dims, strides, box)) != cudaSuccess) return e;
   }
-  const Args a{B, N, heads, tiles, group, consumers, scale,
+  const Args a{B, N, heads, tiles, group, consumers, max_stages, scale,
                static_cast<bf16*>(out), out_bs, out_ld,
                static_cast<const bf16*>(qy), qy_ld,
                static_cast<const bf16*>(ky), ky_ld,
@@ -460,8 +461,8 @@ int oadp_attention(int B, int N, int heads, float scale, const void* q, long lon
                bias,
                static_cast<bf16*>(side_out), side_ld};
   const int groups = (B * heads + group - 1) / group;
-  const int grid = std::min(groups, sm_count());
-  attention_kernel<<<grid, 32 * (a.consumers + 1), layout(tiles, group, with_q).total,
+  const int grid = side_only ? groups : std::min(groups, sm_count());
+  attention_kernel<<<grid, 32 * (consumers + 1), l.total,
                      static_cast<cudaStream_t>(stream)>>>(tm[0], tm[1], tm[2], a);
   return cudaGetLastError();
 }
