@@ -19,8 +19,8 @@
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
 // Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
-// output tiles of 128 x BN (BN 256, or 128 or 64 where 256-wide tiles are
-// too few to fill the SMs, see pick_tile_n), N tiles fastest so the
+// output tiles of 128 x BN (BN 256, or 128 or 64 where 256-wide tiles
+// leave the SMs idle, see pick_tile_n), N tiles fastest so the
 // blocks that read one A row-panel run together. Its first warpgroup gives
 // up registers (setmaxnreg) and one thread of it issues TMA loads of the
 // 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a 192 KB ring
@@ -411,19 +411,22 @@ cudaError_t launch_epilogue(int epilogue, const bf16* A, int M, int K, const bf1
   return cudaErrorInvalidValue;
 }
 
-// The tile width: 256, the most products per byte read through L2,
-// whenever its tiles fill the SMs at least once; for the few tiles of a
-// short product (kernel 2's rows), the width whose last wave ends first,
-// waves x BN being the time of one block's tiles (ties go to the wider).
+// The tile width whose last wave ends first: waves x BN / rate(BN), the
+// time of one block's tiles, with rate(BN) the width's products per second
+// relative to 256 at the objects QKV shape (1, 0.87, 0.51 for 256, 128, 64:
+// wider tiles read fewer bytes through L2 per product;
+// oadp_torch/profile_kernels.py, H100 at 700 W). Large products take 256;
+// a short one (kernel 2's 2048 rows) the width that fills the SMs.
 int pick_tile_n(int M, int N) {
-  const auto tiles = [&](int bn) { return (long long)((M + BM - 1) / BM) * ((N + bn - 1) / bn); };
-  if (tiles(256) >= sm_count()) return 256;
+  constexpr int widths[3] = {256, 128, 64};
+  constexpr double rate[3] = {1.0, 0.87, 0.51};
   int best = 256;
-  long long best_cost = -1;
-  for (int bn = 256; bn >= 64; bn /= 2) {
-    const long long cost = (tiles(bn) + sm_count() - 1) / sm_count() * bn;
-    if (best_cost < 0 || cost < best_cost) {
-      best = bn;
+  double best_cost = 0.0;
+  for (int i = 0; i < 3; ++i) {
+    const long long tiles = (long long)((M + BM - 1) / BM) * ((N + widths[i] - 1) / widths[i]);
+    const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
+    if (i == 0 || cost < best_cost) {
+      best = widths[i];
       best_cost = cost;
     }
   }
