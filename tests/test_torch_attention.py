@@ -3,7 +3,8 @@
 ``oadp_tpu.ops.attention`` run in interpret mode, on the same numpy
 inputs in fp32 (atol 1e-4, rtol 1e-3), and the wrappers' device routing.
 The CUDA kernels themselves are held against these plain versions on the
-card by ``chip_smoke.py`` and by the ``cuda``-marked test below."""
+card by ``chip_smoke.py`` and by the ``cuda``-marked tests below (edge
+shapes of both kernel families; they skip without a card)."""
 
 import math
 
