@@ -32,7 +32,7 @@
 // items. One producer warp issues TMA loads of an item's Q, K and V (64
 // columns x the tokens rounded up to 16 rows, 128-byte swizzle; rows past N
 // arrive as zeros) through 3-D tensor maps over the strided column slices,
-// into a ring of 2-4 stages guarded by full/empty mbarriers, so the next
+// into a ring of stages guarded by full/empty mbarriers, so the next
 // items load while the current one is computed. Each consumer warp owns one
 // 16-row query tile (13 warps for N = 197, so no warp idles; for short
 // sequences a stage holds several items, e.g. 3 x 4 tiles at N = 50). A
@@ -44,14 +44,15 @@
 // and stores them with 16-byte coalesced writes. The issue slots are the
 // scarce resource here: each lane's ldmatrix offsets are computed once
 // (chunks start at multiples of 16 rows, so the swizzle term is the
-// lane's own), and each row takes one reciprocal instead of 64 divisions. wgmma for QK^T and PV (one
-// m64 query tile per consumer warpgroup, P from registers) ran slower: ptxas
-// serialises the wgmmas whose A operand, P, is computed between them (see
-// PERF.md). The side row alone (_side_attn_kernel) is 4 x N x 64 FLOP a
-// head against the head's K and V: reading K and V (1.24 GB at 2048
-// crops) bounds it; it runs on the consumer warps from the same staged K
-// and V, its small inputs (qy, ky, vy, the bias row) copied into the stage
-// by the producer warp's lanes with cp.async, tracked by the same barrier.
+// lane's own), and each row takes one reciprocal instead of 64 divisions.
+// wgmma for QK^T and PV (one m64 query tile per consumer warpgroup, P from
+// registers) ran slower: ptxas serialises the wgmmas whose A operand, P,
+// is computed between them (see PERF.md). The side row alone
+// (_side_attn_kernel) is 4 x N x 64 FLOP a head against the head's K and
+// V: reading K and V (1.24 GB at 2048 crops) bounds it; it runs on the
+// consumer warps from the same staged K and V, its small inputs (qy, ky,
+// vy, the bias row) copied into the stage by the producer warp's lanes
+// with cp.async, tracked by the same barrier.
 #include <algorithm>
 
 #include "common.cuh"
@@ -80,8 +81,8 @@ struct Layout {
   int tile, item, stage, stages, side_in, side_stage, scratch, bars, total;
 };
 
-// As many stages as fit in RING_BYTES (2 to 4): more loads in flight where
-// an item is small, as for the side row alone (K and V only).
+// As many stages as fit in RING_BYTES, up to max_stages: more loads in
+// flight where an item is small.
 __host__ __device__ inline Layout layout(int tiles, int group, bool with_q, int max_stages,
                                          int consumers) {
   Layout l;
