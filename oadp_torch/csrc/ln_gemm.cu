@@ -9,7 +9,10 @@
 //
 //   A (M, K) row-major; Wt (N, K) the weight K-major, as the OpenAI state
 //   dict holds it (the caller prepares it once, oadp_torch/models/clip.py);
-//   bias (N,); optional residual R (M, N); C (M, N).
+//   bias (N,); optional residual R (M, N); C (M, N). One launch may carry
+//   two such row sets (segments) with the same K, W and epilogue, each with
+//   its own A, C, R, column slice of W and bias: the surgery layer's x rows
+//   and its y rows.
 //   LN:        A row -> (a - mean) * rstd * gamma + beta in fp32, rounded to
 //              bf16 before the product (eps 1e-5; the Pallas kernels round the
 //              LN output to the activation type the same way).
@@ -18,27 +21,41 @@
 // Bound on the H100: the QKV GEMM of the objects encoder (M = 2048 x 197,
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
+// The out-projection with its residual (N = 768) is 0.48 TFLOP against
+// 1.86 GB (A and R read, C written): 0.48 ms of operations, 0.56 ms of
+// bytes, so its epilogue's bytes matter as much as its products.
 // Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
 // output tiles of 128 x BN (BN 256, or 128 or 64 where 256-wide tiles
 // leave the SMs idle, see pick_tile_n), N tiles fastest so the
 // blocks that read one A row-panel run together. Its first warpgroup gives
 // up registers (setmaxnreg) and one thread of it issues TMA loads of the
-// 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a 192 KB ring
-// of 4-8 stages, each guarded by a full and an empty mbarrier; it runs
-// ahead into the next tile while the consumers finish the current one. Two
-// consumer warpgroups of 64 rows each wait on the full barrier, issue
-// wgmma m64nBNk16 straight from shared memory, keep one wgmma group in
-// flight across k-tiles (wait_group 1) and release a stage as soon as the
-// group that read it has retired. The epilogue adds bias, quick_gelu or the
-// residual in fp32 and rounds once to bf16 into a swizzled 64 x 64 staging
-// tile, which one TMA store writes out (two tiles alternate per
-// warpgroup). The wide tile and the TMA store matter most at the objects
-// QKV shape: 128 x 128 tiles read 22 GB through L2 for K = 768 and were
-// bound by it, and stores of bf16 pairs from registers added a third.
-// The LN prologue stays a one-warp-a-row pass that writes LN(A) in bf16:
-// the wgmma A operand comes from shared memory as TMA wrote it, and
-// normalising each tile there would put a rewrite and a barrier on every
-// k-tile's critical path (slower in an earlier version).
+// 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a ring of 3-8
+// stages, each guarded by a full and an empty mbarrier; it runs ahead into
+// the next tile while the consumers finish the current one. Two consumer
+// warpgroups of 64 rows each wait on the full barrier, issue wgmma
+// m64nBNk16 straight from shared memory, keep one wgmma group in flight
+// across k-tiles (wait_group 1) and release a stage as soon as the group
+// that read it has retired. The epilogue adds bias, quick_gelu or the
+// residual in fp32 and rounds once to bf16 into swizzled 64 x 64 staging
+// tiles, which TMA stores write out. The wide tile and the TMA store matter
+// most at the objects QKV shape: 128 x 128 tiles read 22 GB through L2 for
+// K = 768 and were bound by it, and stores of bf16 pairs from registers
+// added a third.
+// The residual comes by TMA as well: early in each tile's k-loop, the
+// consumer thread that issued the previous tile's stores waits until they
+// have read their staging tiles and loads the tile's R blocks into them
+// (one 64 x 64 block per 64 columns, on the warpgroup's own mbarrier), so
+// R is in shared memory when the epilogue starts and the epilogue adds it
+// in place, in the layout it writes, with no load from global memory.
+// LayerNorm never writes LN(A): a statistics pass (one warp a row, fp32,
+// two passes over the row in registers) writes each row's mean and rstd,
+// 8 bytes a row, and with LN the producer warpgroup's three other warps
+// rewrite each A k-tile in shared memory after TMA has landed it, as
+// (a - mean) * rstd * gamma + beta rounded to bf16, before the consumers
+// may read it (a third mbarrier per stage). The rewrite runs stages ahead
+// of the consumers, so it costs issue slots, not latency; A stays a
+// shared-memory wgmma operand, so no wgmma waits on registers computed
+// between them.
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
 
@@ -48,38 +65,64 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
-// shared memory: the k-tile ring, then per consumer warpgroup two 64 x 64
-// bf16 staging tiles for the TMA stores of its output, then the barriers
-constexpr int RING_BYTES = 192 * 1024;
+// producer warpgroup (a TMA thread, and with LN three rewriting warps) +
+// two consumer warpgroups
+constexpr int THREADS = 384;
+constexpr int TRANSFORM_WARPS = 3;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
-
-template <int BN>
-struct Tile {
-  static constexpr int A_BYTES = BM * BK * 2;
-  static constexpr int STAGE = A_BYTES + BN * BK * 2;
-  static constexpr int STAGES = RING_BYTES / STAGE > 8 ? 8 : RING_BYTES / STAGE;
-  static constexpr int OUT = STAGES * STAGE;       // staging tiles [2 consumers][2]
-  static constexpr int BARS = OUT + 4 * OUT_TILE;  // full and empty barriers
-  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;  // + slack to align to 1024
-};
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
-// One warp per row: LayerNorm of a (M, K) bf16 matrix with fp32 statistics
-// (two passes over the row held in registers, eps 1e-5), written back as
-// bf16 rows -- the rounding the Pallas kernels apply before their products.
-// K <= 32 * 8 * LN_CHUNKS, so each row is read from memory once.
+// Shared memory: the k-tile ring, then per consumer warpgroup its bf16
+// 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
+// per 64 columns, R lands there; the others alternate two), then the
+// barriers: full, empty and ready per stage, one R barrier per consumer.
+template <int BN, int EPI>
+struct Tile {
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE = A_BYTES + BN * BK * 2;
+  static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
+  static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
+  static constexpr int BAR_BYTES = (3 * 8 + 2) * 8;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;
+  static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
+  static constexpr int BARS = OUT + OUT_BYTES;
+  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
+  static_assert(STAGES >= 3, "the ring needs three stages");
+};
+
+// One row set of a launch. Its tiles are [first, first + m tiles x tiles_n)
+// of the launch's walk.
+struct Seg {
+  int M, N, tiles_n, first;
+  const bf16* bias;     // (N,): the segment's column slice
+  const float2* stats;  // (M,) mean and rstd of each A row, with LN
+};
+
+struct Params {
+  CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
+  Seg seg[2];
+  int segs, tiles, K;
+  int stagger;  // k-tiles the second consumer warpgroup starts after the first
+  const float* gamma;
+  const float* beta;
+};
+
+// Mean and rstd of each row of A0 (M0 rows), then of A1 (M1 rows), one
+// warp a row: fp32, two passes over the row held in registers, eps 1e-5,
+// as the Pallas kernels' ln. K <= 32 * 8 * LN_CHUNKS, so each row is read
+// from memory once.
 constexpr int LN_CHUNKS = 4;
 
-__global__ void layer_norm_kernel(const bf16* __restrict__ a, int M, int K,
-                                  const float* __restrict__ gamma,
-                                  const float* __restrict__ beta, bf16* __restrict__ out) {
+__global__ void row_stats_kernel(const bf16* __restrict__ a0, int M0, const bf16* __restrict__ a1,
+                                 int M1, int K, float2* __restrict__ stats) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const uint4* p = reinterpret_cast<const uint4*>(a + (size_t)row * K);
-  uint4* q = reinterpret_cast<uint4*>(out + (size_t)row * K);
+  if (row >= M0 + M1) return;
+  const uint4* p = reinterpret_cast<const uint4*>(
+      row < M0 ? a0 + (size_t)row * K : a1 + (size_t)(row - M0) * K);
   const int chunks = K / 8;
   float f[LN_CHUNKS][8];
   float s = 0.f;
@@ -105,20 +148,7 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ a, int M, int K,
     }
   }
   const float rstd = rsqrtf(warp_sum(v) / K + 1e-5f);
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane + 32 * i;
-    if (c < chunks) {
-      const float4* g4 = reinterpret_cast<const float4*>(gamma + c * 8);
-      const float4* b4 = reinterpret_cast<const float4*>(beta + c * 8);
-      const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[i][j] = (f[i][j] - mean) * rstd * g[j] + b[j];
-      q[c] = pack8(f[i]);
-    }
-  }
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
 }
 
 // Shared-memory matrix descriptor of wgmma: start address, SBO 1024 bytes
@@ -240,47 +270,102 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t d
   else wgmma_m64n64k16(d, desc_a, desc_b);
 }
 
-template <int BN, int EPI>
-__global__ void __launch_bounds__(THREADS, 1)
-gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_w,
-            __grid_constant__ const CUtensorMap tm_c, int M, int N, int K,
-            const bf16* __restrict__ bias, const bf16* __restrict__ R) {
-  using T = Tile<BN>;
+struct TileAt {
+  int s, m0, n0;  // segment, first row and column
+};
+
+template <int BN>
+__device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
+  const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
+  const int local = tile - p.seg[s].first;
+  return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
+}
+
+template <int BN, int EPI, bool LN>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
+  using T = Tile<BN, EPI>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
   uint64_t* empty = full + T::STAGES;
+  uint64_t* ready = empty + T::STAGES;  // with LN: the stage's A tile is normalised
+  uint64_t* rfull = ready + T::STAGES;  // residual: a consumer's R blocks have landed
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
+      mbar_init(&ready[s], TRANSFORM_WARPS);
     }
+    mbar_init(&rfull[0], 1);
+    mbar_init(&rfull[1], 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = ((M + BM - 1) / BM) * tiles_n;
-  const int KT = K / BK;
+  const int KT = p.K / BK;
 
   if (wg == 0) {
-    // producer: one thread keeps the ring full, through tile boundaries
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if constexpr (LN) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
     if (tid == 0) {
+      // producer: one thread keeps the ring full, through tile boundaries
       int stage = 0;
       unsigned phase = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
         for (int kt = 0; kt < KT; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
           unsigned char* dst = ring + stage * T::STAGE;
           mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
-          tma_load_2d(dst, &tm_a, &full[stage], kt * BK, m0);
-          tma_load_2d(dst + T::A_BYTES, &tm_w, &full[stage], kt * BK, n0);
+          tma_load_2d(dst, &p.a[at.s], &full[stage], kt * BK, at.m0);
+          tma_load_2d(dst + T::A_BYTES, &p.w[at.s], &full[stage], kt * BK, at.n0);
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (LN && tid >= 32) {
+      // LayerNorm of each landed A k-tile, in place: 1024 16-byte chunks
+      // (128 rows x 8) over the three warps, eight neighbouring chunks of
+      // a row to eight lanes (conflict-free under the swizzle)
+      const int tt = tid - 32, lane = tid & 31;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
+        const Seg& sg = p.seg[at.s];
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&full[stage], phase);
+          unsigned char* a_s = ring + stage * T::STAGE;
+          for (int idx = tt; idx < BM * 8; idx += 32 * TRANSFORM_WARPS) {
+            const int r = idx >> 3, c = idx & 7;
+            const int m = at.m0 + r;
+            // rows past M arrived as zeros and are never stored
+            const float2 st = m < sg.M ? sg.stats[m] : make_float2(0.f, 0.f);
+            const int col = kt * BK + c * 8;
+            const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
+            const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
+            const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+            const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+            uint4* q = reinterpret_cast<uint4*>(a_s + swz(r, c));
+            float f[8];
+            unpack8(*q, f);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * g[j] + b[j];
+            *q = pack8(f);
+          }
+          fence_proxy_async();  // the rewrite, before wgmma reads the tile
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&ready[stage]);
           if (++stage == T::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -289,21 +374,31 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CU
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (LN) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    }
     const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
-    unsigned char* out_s = ring + T::OUT + cw * 2 * OUT_TILE;
+    uint64_t* const landed = LN ? ready : full;
+    unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
     float acc[BN / 2];
     int stage = 0, stores = 0;
-    unsigned phase = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+    unsigned phase = 0, rphase = 0;
+    // the second warpgroup may start some k-tiles behind the first, so
+    // that their epilogues fall at different times
+    if (cw == 1 && p.stagger > 0) named_barrier(3, 256);
+    bool first = true;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const TileAt at = tile_at<BN>(p, tile);
+      const Seg& sg = p.seg[at.s];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
       for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(&full[stage], phase);
+        mbar_wait(&landed[stage], phase);
         const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
         const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
         fence_acc<BN / 2>(acc);
@@ -312,6 +407,17 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CU
         for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
           wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
         wgmma_commit();
+        if (cw == 0 && first && kt == p.stagger - 1)
+          asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+          // R of this tile into the staging tiles, once the stores of the
+          // previous tile have read them
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+          for (int cc = 0; cc < T::OUT_TILES; ++cc)
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                        at.m0 + cw * 64);
+        }
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
         fence_acc<BN / 2>(acc);
@@ -325,27 +431,37 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CU
       wgmma_wait<0>();
       fence_acc<BN / 2>(acc);
       if (lane == 0) mbar_arrive(&empty[held]);
+      first = false;
 
       // Epilogue, 64 columns at a time: bias, quick_gelu or residual in
       // fp32, one rounding to bf16 into a swizzled staging tile, then one
       // TMA store of the 64 x 64 block (rows past M, columns past N are
-      // not written). Two staging tiles alternate; a tile is rewritten
+      // not written). The residual epilogue reads R from the block's own
+      // staging tile, where it was loaded, and overwrites it in place;
+      // the others alternate two staging tiles, a tile being rewritten
       // once the store issued from it two blocks earlier has read it.
+      if (EPI == EPI_RESIDUAL) {
+        mbar_wait(&rfull[cw], rphase);
+        rphase ^= 1;
+      }
 #pragma unroll
       for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
-        unsigned char* buf = out_s + (stores & 1) * OUT_TILE;
-        if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-        named_barrier(1 + cw, 128);
+        unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
+        if (EPI != EPI_RESIDUAL) {
+          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          named_barrier(1 + cw, 128);
+        }
 #pragma unroll
         for (int jn = 0; jn < 8; ++jn) {
           const int j = cc * 8 + jn;
-          const int n = n0 + j * 8 + 2 * t;
-          const float2 bb = n < N ? __bfloat1622float2(
-                                        *reinterpret_cast<const __nv_bfloat162*>(bias + n))
-                                  : make_float2(0.f, 0.f);
+          const int n = at.n0 + j * 8 + 2 * t;
+          const float2 bb = n < sg.N ? __bfloat1622float2(
+                                           *reinterpret_cast<const __nv_bfloat162*>(sg.bias + n))
+                                     : make_float2(0.f, 0.f);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = w * 16 + g + h * 8;  // row within the warpgroup's 64
+            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t);
             float v0 = acc[j * 4 + 2 * h] + bb.x;
             float v1 = acc[j * 4 + 2 * h + 1] + bb.y;
             if (EPI == EPI_GELU) {
@@ -353,22 +469,17 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CU
               v1 = v1 / (1.f + expf(-1.702f * v1));
             }
             if (EPI == EPI_RESIDUAL) {
-              const int m = m0 + cw * 64 + r;
-              if (m < M && n < N) {
-                const float2 rr = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(R + (size_t)m * N + n));
-                v0 = rr.x + v0;
-                v1 = rr.y + v1;
-              }
+              const float2 rr = __bfloat1622float2(*dst);
+              v0 = rr.x + v0;
+              v1 = rr.y + v1;
             }
-            *reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t) =
-                __floats2bfloat162_rn(v0, v1);
+            *dst = __floats2bfloat162_rn(v0, v1);
           }
         }
         fence_proxy_async();  // the staging writes, before the TMA store reads them
         named_barrier(1 + cw, 128);
         if (ctid == 0) {
-          tma_store_2d(&tm_c, buf, n0 + cc * 64, m0 + cw * 64);
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
@@ -378,36 +489,72 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CU
   }
 }
 
-template <int BN, int EPI>
-cudaError_t launch(const bf16* A, int M, int K, const bf16* Wt, int N, const bf16* bias,
-                   const bf16* R, bf16* C, cudaStream_t stream) {
-  using T = Tile<BN>;
+// The host side of one segment.
+struct SegArgs {
+  const bf16* a;
+  int M, N, col0;
+  const bf16* r;
+  bf16* c;
+};
+
+template <int BN, int EPI, bool LN>
+cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
+                   const float* gamma, const float* beta, const float2* stats, int stagger,
+                   cudaStream_t stream) {
+  using T = Tile<BN, EPI>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+      gemm_kernel<BN, EPI, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
-  CUtensorMap tm_a, tm_w, tm_c;
-  const uint64_t k_bytes[1] = {(uint64_t)K * 2}, n_bytes[1] = {(uint64_t)N * 2};
-  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M}, dims_w[2] = {(uint64_t)K, (uint64_t)N};
-  const uint64_t dims_c[2] = {(uint64_t)N, (uint64_t)M};
+  Params p = {};
+  p.segs = nseg;
+  p.K = K;
+  p.stagger = std::min({stagger, K / BK, T::STAGES - 1});  // the first tiles fit the ring
+  p.gamma = gamma;
+  p.beta = beta;
+  const uint64_t k_bytes[1] = {(uint64_t)K * 2};
   const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN}, box_c[2] = {64, 64};
-  if ((e = make_tmap(&tm_a, A, 2, dims_a, k_bytes, box_a)) != cudaSuccess) return e;
-  if ((e = make_tmap(&tm_w, Wt, 2, dims_w, k_bytes, box_w)) != cudaSuccess) return e;
-  if ((e = make_tmap(&tm_c, C, 2, dims_c, n_bytes, box_c)) != cudaSuccess) return e;
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  int tiles = 0, row0 = 0;
+  for (int s = 0; s < nseg; ++s) {
+    const SegArgs& g = segs[s];
+    const uint64_t n_bytes[1] = {(uint64_t)g.N * 2};
+    const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)g.M}, dims_w[2] = {(uint64_t)K, (uint64_t)g.N};
+    const uint64_t dims_c[2] = {(uint64_t)g.N, (uint64_t)g.M};
+    if ((e = make_tmap(&p.a[s], g.a, 2, dims_a, k_bytes, box_a)) != cudaSuccess) return e;
+    if ((e = make_tmap(&p.w[s], Wt + (size_t)g.col0 * K, 2, dims_w, k_bytes, box_w)) !=
+        cudaSuccess)
+      return e;
+    if ((e = make_tmap(&p.c[s], g.c, 2, dims_c, n_bytes, box_c)) != cudaSuccess) return e;
+    if (EPI == EPI_RESIDUAL &&
+        (e = make_tmap(&p.r[s], g.r, 2, dims_c, n_bytes, box_c)) != cudaSuccess)
+      return e;
+    p.seg[s].M = g.M;
+    p.seg[s].N = g.N;
+    p.seg[s].tiles_n = (g.N + BN - 1) / BN;
+    p.seg[s].first = tiles;
+    p.seg[s].bias = bias + g.col0;
+    p.seg[s].stats = stats == nullptr ? nullptr : stats + row0;
+    tiles += ((g.M + BM - 1) / BM) * p.seg[s].tiles_n;
+    row0 += g.M;
+  }
+  p.tiles = tiles;
   const int grid = std::min(tiles, sm_count());
-  gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(tm_a, tm_w, tm_c, M, N, K, bias, R);
+  gemm_kernel<BN, EPI, LN><<<grid, THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int BN>
-cudaError_t launch_epilogue(int epilogue, const bf16* A, int M, int K, const bf16* Wt, int N,
-                            const bf16* bias, const bf16* R, bf16* C, cudaStream_t s) {
+cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
+                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
+                            const float2* stats, int stagger, cudaStream_t s) {
+#define OADP_LAUNCH(EPI, LN) \
+  launch<BN, EPI, LN>(K, Wt, bias, segs, nseg, gamma, beta, stats, stagger, s)
   switch (epilogue) {
-    case EPI_NONE: return launch<BN, EPI_NONE>(A, M, K, Wt, N, bias, R, C, s);
-    case EPI_GELU: return launch<BN, EPI_GELU>(A, M, K, Wt, N, bias, R, C, s);
-    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL>(A, M, K, Wt, N, bias, R, C, s);
+    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
+    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
+    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
   }
+#undef OADP_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -417,13 +564,15 @@ cudaError_t launch_epilogue(int epilogue, const bf16* A, int M, int K, const bf1
 // wider tiles read fewer bytes through L2 per product;
 // oadp_torch/profile_kernels.py, H100 at 700 W). Large products take 256;
 // a short one (kernel 2's 2048 rows) the width that fills the SMs.
-int pick_tile_n(int M, int N) {
+int pick_tile_n(const SegArgs* segs, int nseg) {
   constexpr int widths[3] = {256, 128, 64};
   constexpr double rate[3] = {1.0, 0.87, 0.51};
   int best = 256;
   double best_cost = 0.0;
   for (int i = 0; i < 3; ++i) {
-    const long long tiles = (long long)((M + BM - 1) / BM) * ((N + widths[i] - 1) / widths[i]);
+    long long tiles = 0;
+    for (int s = 0; s < nseg; ++s)
+      tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
     const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
     if (i == 0 || cost < best_cost) {
       best = widths[i];
@@ -439,33 +588,40 @@ int pick_tile_n(int M, int N) {
 extern "C" {
 
 // Shapes are checked by the Python wrapper: K % 64 == 0 (and K <= 1024
-// with LN), N % 8 == 0, every pointer 16-byte aligned. Wt (N, K) is the
-// weight K-major (rows col0.. of a prepared weight for a column slice).
-// gamma == nullptr means no LayerNorm; otherwise ln_out (M, K) receives
-// LN(A) and the product reads it. tile_n: 64, 128 or 256, or 0 to pick
-// by shape.
-int oadp_ln_gemm(const void* A, int M, int K, const float* gamma, const float* beta,
-                 void* ln_out, const void* Wt, int N, const void* bias, int epilogue,
-                 const void* R, void* C, int tile_n, void* stream) {
+// with LN), N % 8 == 0, every pointer 16-byte aligned. Wt (rows, K) is the
+// whole K-major weight; segment s reads its rows col0_s .. col0_s + N_s and
+// bias[col0_s ..]. The second segment is absent when A1 == nullptr.
+// gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
+// receives each row's mean and rstd and the product normalises A as it
+// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape; stagger: the
+// k-tiles by which the second consumer warpgroup trails the first.
+int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
+                 const void* bias, int epilogue, int tile_n, int stagger, const void* A0, int M0,
+                 int N0, int col00, const void* R0, void* C0, const void* A1, int M1, int N1,
+                 int col01, const void* R1, void* C1, void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* a = static_cast<const bf16*>(A);
-  if (gamma != nullptr) {
-    const int rows_per_block = 8;  // 256 threads, one warp a row
-    layer_norm_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
-        a, M, K, gamma, beta, static_cast<bf16*>(ln_out));
+  const SegArgs segs[2] = {
+      {static_cast<const bf16*>(A0), M0, N0, col00, static_cast<const bf16*>(R0),
+       static_cast<bf16*>(C0)},
+      {static_cast<const bf16*>(A1), M1, N1, col01, static_cast<const bf16*>(R1),
+       static_cast<bf16*>(C1)}};
+  const int nseg = A1 != nullptr ? 2 : 1;
+  const bool ln = gamma != nullptr;
+  float2* st = static_cast<float2*>(stats);
+  if (ln) {
+    const int rows = M0 + (nseg > 1 ? M1 : 0), rows_per_block = 8;  // 256 threads, a warp a row
+    row_stats_kernel<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
+        segs[0].a, M0, segs[1].a, nseg > 1 ? M1 : 0, K, st);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    a = static_cast<const bf16*>(ln_out);
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
-  const bf16* r = static_cast<const bf16*>(R);
-  bf16* c = static_cast<bf16*>(C);
-  switch (tile_n == 0 ? pick_tile_n(M, N) : tile_n) {
-    case 64: return launch_epilogue<64>(epilogue, a, M, K, w, N, b, r, c, s);
-    case 128: return launch_epilogue<128>(epilogue, a, M, K, w, N, b, r, c, s);
-    case 256: return launch_epilogue<256>(epilogue, a, M, K, w, N, b, r, c, s);
+  switch (tile_n == 0 ? pick_tile_n(segs, nseg) : tile_n) {
+    case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
+    case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
+    case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
   }
   return cudaErrorInvalidValue;
 }

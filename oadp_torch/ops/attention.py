@@ -294,28 +294,43 @@ def _stream() -> int:
 
 
 def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
-             col0: int = 0, tile_n: int = 0):
+             col0: int = 0, tile_n: int = 0, rows2=None, stagger: int = 0):
     """``out = epilogue(LN?(a2d) @ wt[col0:col0+N].T + bias[col0:col0+N])``
     with ``N = out.shape[1]``; ``wt`` is the K-major weight (out, in) and
-    ``ln32`` the fp32 LayerNorm pair. Nothing is copied: the row slice of
-    ``wt`` and the slice of ``bias`` are contiguous views. ``tile_n`` (64,
-    128, 256) overrides the kernel's choice of tile width."""
-    m, k = a2d.shape
-    n = out.shape[1]
-    if (m == 0 or k % 64 or n % 8 or col0 % 8 or (ln32 is not None and k > 1024)
-            or wt.shape[1] != k or col0 + n > wt.shape[0] or out.shape[0] != m
-            or tile_n not in (0, 64, 128, 256)):
-        raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} wt={tuple(wt.shape)}')
+    ``ln32`` the fp32 LayerNorm pair. ``rows2``, ``(a2d, out, residual,
+    col0)``, is a second row set of the same launch (same weight, K,
+    LayerNorm and epilogue). Nothing is copied: each row slice of ``wt``
+    and slice of ``bias`` is read in place; with LayerNorm the kernel
+    normalises the rows as it reads them, from an 8-byte-a-row statistics
+    buffer made here. ``tile_n`` (64, 128, 256) overrides the kernel's
+    choice of tile width, ``stagger`` the k-tiles by which its second
+    consumer warpgroup trails the first."""
+    k = a2d.shape[1]
+    sets = [(a2d, out, residual, col0)] + ([rows2] if rows2 is not None else [])
+    for a, o, r, c0 in sets:
+        m, n = a.shape[0], o.shape[1]
+        if (m == 0 or k % 64 or n % 8 or c0 % 8 or (ln32 is not None and k > 1024)
+                or a.shape[1] != k or wt.shape[1] != k or c0 + n > wt.shape[0]
+                or c0 + n > bias.shape[0]
+                or o.shape[0] != m or (r is not None and r.shape != o.shape)
+                or (r is None) != (epilogue != _EPI_RESIDUAL)
+                or tile_n not in (0, 64, 128, 256) or stagger < 0):
+            raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
+                             f'wt={tuple(wt.shape)}')
     lib = cuda_lib.library()
-    gamma = beta = ln_out = None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    gamma = beta = stats = None
     if ln32 is not None:
         gamma, beta = ln32
-        ln_out = torch.empty_like(a2d)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        stats = torch.empty((sum(s[0].shape[0] for s in sets), 2), dtype=torch.float32,
+                            device=a2d.device)
+    seg_args = []
+    for a, o, r, c0 in sets + [(None, None, None, 0)] * (2 - len(sets)):
+        seg_args += [ptr(a), 0 if a is None else a.shape[0], 0 if o is None else o.shape[1],
+                     c0, ptr(r), ptr(o)]
     cuda_lib.check(lib.oadp_ln_gemm(
-        a2d.data_ptr(), m, k, ptr(gamma), ptr(beta), ptr(ln_out),
-        wt[col0:col0 + n].data_ptr(), n, bias[col0:col0 + n].data_ptr(), epilogue,
-        ptr(residual), out.data_ptr(), tile_n, _stream(),
+        k, ptr(gamma), ptr(beta), ptr(stats), wt.data_ptr(), bias.data_ptr(), epilogue,
+        tile_n, stagger, *seg_args, _stream(),
     ), 'ln_gemm')
 
 
@@ -409,18 +424,19 @@ def fused_surgery_layer(
     ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
     bias = bias.contiguous()
     qkv_y = torch.empty((b, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(y, qkv_wt, qkv_b, qkv_y, ln32=ln)
+    y_rows = (y, qkv_y, None, 0)  # the y rows ride in the x rows' launches
     side = torch.empty((b, d), dtype=x.dtype, device=x.device)
     qy, ky, vy = qkv_y.split(d, -1)
     if not with_main:
         kv = torch.empty((b, n, 2 * d), dtype=x.dtype, device=x.device)
-        _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, kv.view(b * n, 2 * d), ln32=ln, col0=d)
+        _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, kv.view(b * n, 2 * d), ln32=ln, col0=d,
+                 rows2=y_rows)
         _attention(None, *kv.split(d, -1), heads, scale,
                    qy=qy, ky=ky, vy=vy, bias=bias, side=side)
         LAUNCHES[name] += 1
         return side
     qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln)
+    _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln, rows2=y_rows)
     main = torch.empty_like(x)
     _attention(*qkv.split(d, -1), heads, scale,
                out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
@@ -433,8 +449,8 @@ def fused_surgery_layer(
     x_out = torch.empty_like(x)
     y_out = torch.empty_like(y)
     _ln_gemm(main.view(b * n, d), out_wt, out_b, x_out.view(b * n, d),
-             epilogue=_EPI_RESIDUAL, residual=x)
-    _ln_gemm(side, out_wt, out_b, y_out, epilogue=_EPI_RESIDUAL, residual=y)
+             epilogue=_EPI_RESIDUAL, residual=x.view(b * n, d),
+             rows2=(side, y_out, y, 0))
     LAUNCHES[name] += 1
     return x_out, y_out
 

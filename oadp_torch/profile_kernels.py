@@ -151,6 +151,24 @@ def main(argv=None) -> int:
                  **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
                     if 'with_ln' not in k})
             del x, out
+        # kernel 1's out-projection with its residual (x_out = x + main @ W
+        # + b): bound by its bytes as much as by its products
+        main = torch.randn(m, d, device=dev, generator=gen).bfloat16()
+        res = torch.randn(m, d, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(d, d, device=dev, generator=gen) * d ** -0.5).bfloat16()
+        wt, wb = A.kmajor(w), torch.zeros(d, device=dev).bfloat16()
+        out = torch.empty(m, d, device=dev).bfloat16()
+        res_gemm = {f'ln_gemm_tile{t or "_auto"}_stagger{s}_ms': _timed(
+            lambda t=t, s=s: A._ln_gemm(main, wt, wb, out, epilogue=A._EPI_RESIDUAL,
+                                        residual=res, tile_n=t, stagger=s))
+            for t, s in ((0, 0), (256, 0), (128, 0), (64, 0), (256, 1), (128, 1), (128, 2),
+                         (128, 3), (64, 2), (64, 4))}
+        res_gemm['torch_addmm_add_ms'] = _timed(lambda: torch.addmm(wb, main, w).add_(res))
+        emit('gemm_residual', shape=[m, d, d], **res_gemm,
+             bound_ms=1e3 * max(2 * m * d * d / 989e12, 2 * 3 * m * d / 3.35e12),
+             **{k.replace('_ms', '_tflops'): 2 * m * d * d / v / 1e9
+                for k, v in res_gemm.items()})
+        del main, res, out
 
     if 'attention' in only:
         qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()

@@ -40,6 +40,19 @@ def _layer(rng, b, n, heads, hd=64, w_scale=0.05):
     )
 
 
+def _offset_rows(rng, rows, outliers=(3, 40, 77)):
+    """Rows as a CLIP residual stream carries them: a per-row offset in
+    [-50, 50] and a few columns at +-100."""
+    rows = rows + rng.uniform(-50, 50, rows.shape[:-1] + (1,)).astype(np.float32)
+    rows[..., list(outliers)] += np.float32(100) * np.sign(
+        rng.standard_normal(len(outliers))).astype(np.float32)
+    return rows
+
+
+def _large_mean(rng, p):
+    return dict(p, x=_offset_rows(rng, p['x']), y=_offset_rows(rng, p['y']))
+
+
 def _surgery(p, heads, mod, conv, **kw):
     args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
     extra = {}
@@ -52,15 +65,20 @@ def _surgery(p, heads, mod, conv, **kw):
     )
 
 
-@pytest.mark.parametrize('variant', ['fold_out', 'with_main', 'side_only'])
+@pytest.mark.parametrize('variant', ['fold_out', 'with_main', 'side_only', 'large_mean'])
 def test_surgery_layer_plain_matches_pallas(variant):
+    """Each variant of the layer, and the folded layer on rows with a
+    large per-row mean and outlier columns (fp32, atol 1e-4)."""
     rng = np.random.default_rng(5)
     heads = 2
     p = _layer(rng, 3, 17, heads)
+    if variant == 'large_mean':
+        p = _large_mean(rng, p)
     kw = dict(
         fold_out=dict(with_main=True, fold_out=True),
         with_main=dict(with_main=True),
         side_only=dict(with_main=False),
+        large_mean=dict(with_main=True, fold_out=True),
     )[variant]
     want = _surgery(p, heads, ja, jnp.asarray, **dict(kw))
     got = _surgery(p, heads, ta, torch.from_numpy, **dict(kw))
@@ -104,11 +122,16 @@ def test_ln_mlp_rows_plain_matches_pallas(rows):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize('b', [3, 4])
+@pytest.mark.parametrize('b', [3, 4, 'large_mean'])
 def test_ln_qkv_attention_plain_matches_pallas(b):
+    """Batches of 3 and 4, and rows with a large per-row mean and outlier
+    columns (fp32, atol 1e-4)."""
     rng = np.random.default_rng(8)
     heads, n = 2, 13
-    p = _layer(rng, b, n, heads)
+    large_mean = b == 'large_mean'
+    p = _layer(rng, 4 if large_mean else b, n, heads)
+    if large_mean:
+        p = _large_mean(rng, p)
     args = [p[k] for k in ('x', 's', 't', 'w', 'wb')]
     scale = 1.0 / math.sqrt(64)
     want = ja.fused_ln_qkv_attention(
@@ -404,3 +427,110 @@ def test_ln_gemm_on_card(m, k, n, epilogue, col0, ln, tile_n):
         want = res.float() + want
     torch.cuda.synchronize()
     _assert_close_on_card(out, want.bfloat16(), atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, n, col0, tile_n, stagger', [
+    (197 * 5 + 3, 768, 0, 0, 0),
+    (197 * 5 + 3, 768, 0, 256, 0),
+    (197 * 5 + 3, 768, 0, 128, 0),
+    (197 * 5 + 3, 768, 0, 64, 0),
+    (197 * 5 + 3, 2304, 0, 256, 0),
+    (197 * 5 + 3, 2304, 0, 128, 2),
+    (130, 768, 768, 0, 0),
+    (197 * 5 + 3, 768, 0, 256, 1),
+    (197 * 5 + 3, 768, 0, 64, 4),
+])
+def test_ln_gemm_residual_on_card(m, n, col0, tile_n, stagger):
+    """The residual epilogue, R loaded by TMA into the staging tiles and
+    added there, against its plain version in bf16: M off the 128-row tile,
+    N = 768 and 2304, a column slice (``col0``) of a prepared weight, each
+    tile width, and the second consumer warpgroup trailing the first."""
+    dev = _card()
+    rng = np.random.default_rng(60 + m + n + col0 + tile_n + stagger)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    x = r(m, 768).bfloat16()
+    w = r(768, col0 + n, scale=768 ** -0.5).bfloat16()
+    wb = r(col0 + n, scale=0.05).bfloat16()
+    res = r(m, n).bfloat16()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ta._ln_gemm(x, ta.kmajor(w), wb, out, epilogue=2, residual=res, col0=col0,
+                tile_n=tile_n, stagger=stagger)
+    want = (res.float() + ta._proj(x, w[:, col0:], wb[col0:])).bfloat16()
+    torch.cuda.synchronize()
+    _assert_close_on_card(out, want, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k, rows, epilogue, tile_n', [
+    (768, 'random', 0, 0),
+    (768, 'large_mean', 0, 0),
+    (1024, 'large_mean', 0, 0),
+    (768, 'large_mean', 1, 128),
+    (1024, 'random', 0, 64),
+    (768, 'large_mean', 0, 256),
+])
+def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, tile_n):
+    """LayerNorm on the product's A path (statistics pass, then each A
+    k-tile normalised in shared memory) against the plain LN and product
+    in bf16: K = 768 and 1024, rows with a per-row offset of +-50 and
+    +-100 outlier columns, each tile width, with and without quick_gelu."""
+    dev = _card()
+    m, n = 197 * 5 + 3, 2304
+    rng = np.random.default_rng(80 + k + tile_n + epilogue)
+    xs = rng.standard_normal((m, k)).astype(np.float32)
+    if rows == 'large_mean':
+        xs = _offset_rows(rng, xs)
+    x = torch.from_numpy(xs).to(dev).bfloat16()
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    w = r(k, n, scale=k ** -0.5).bfloat16()
+    wb = r(n, scale=0.05).bfloat16()
+    scale, shift = 1 + r(k, scale=0.1), r(k, scale=0.1)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(scale, shift), epilogue=epilogue,
+                tile_n=tile_n)
+    want = ta._proj(ta.layer_norm(x, scale, shift), w, wb)
+    if epilogue == 1:
+        want = want * torch.sigmoid(1.702 * want)
+    torch.cuda.synchronize()
+    _assert_close_on_card(out, want.bfloat16(), atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [5, 8])
+@pytest.mark.parametrize('rows', ['random', 'large_mean'])
+def test_surgery_layer_merged_rows_on_card(b, rows):
+    """Kernel 1 with the y rows riding in the x rows' launches (the QKV
+    product, and with ``out_w`` the out-projection), folded and side-only,
+    against its plain version in bf16, on random and large-mean rows."""
+    dev = _card()
+    heads, n = 12, 197
+    rng = np.random.default_rng(90 + b)
+    p = _layer(rng, b, n, heads, w_scale=0.03)
+    if rows == 'large_mean':
+        p = _large_mean(rng, p)
+
+    def conv(a):
+        t = torch.from_numpy(a).to(dev)
+        return t if (a.ndim == 2 and a.shape == (b, n)) else t.bfloat16()
+
+    args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
+    kw = dict(out_w=conv(p['ow']), out_b=conv(p['ob']))
+    ta.reset_launches()
+    got = ta.fused_surgery_layer(*args, heads, 0.125, **kw)
+    got += (ta.fused_surgery_layer(*args, heads, 0.125, with_main=False),)
+    assert ta.LAUNCHES['fused_surgery_layer'] == 2
+    want = ta.fused_surgery_layer_plain(*args, heads, 0.125, **kw)
+    want += (ta.fused_surgery_layer_plain(*args, heads, 0.125, with_main=False),)
+    torch.cuda.synchronize()
+    # the folded streams: a bf16 step at their magnitude (~4, or ~160 with
+    # the offsets); the side row is O(1)
+    step = 1.0 if rows == 'large_mean' else 0.0625
+    for g, w, atol in zip(got, want, (step, step, 0.05)):
+        _assert_close_on_card(g, w, atol=atol)
