@@ -75,22 +75,29 @@ constexpr int OUT_TILE = 64 * 64 * 2;
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
-// 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
-// per 64 columns, R lands there; the others alternate two), then the
-// barriers: full, empty and ready per stage, one R barrier per consumer.
-template <int BN, int EPI>
+// 64 x 64 staging tiles for the TMA stores (the residual epilogue and the
+// ping-pong schedule keep one per 64 x 64 block of the warpgroup's output,
+// R lands there; the others alternate two), then the barriers (full, empty
+// and ready per stage, one R barrier per consumer), then the row
+// statistics of the tile being normalised.
+template <int BN, int EPI, bool PP>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
-  static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
+  // 64 x 64 output blocks a consumer warpgroup writes per tile
+  static constexpr int BLOCKS = (PP ? BM / 64 : 1) * (BN / 64);
+  static constexpr int OUT_TILES = EPI == EPI_RESIDUAL || PP ? BLOCKS : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
   static constexpr int BAR_BYTES = (3 * 8 + 2) * 8;
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int STATS_BYTES = BM * 8;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - STATS_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int STATS = BARS + BAR_BYTES;
+  static constexpr int SMEM = STATS + STATS_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
+  static_assert(!PP || BN == 128, "ping-pong tiles are 128 x 128");
 };
 
 // One row set of a launch. Its tiles are [first, first + m tiles x tiles_n)
@@ -105,7 +112,6 @@ struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
   int segs, tiles, K;
-  int stagger;  // k-tiles the second consumer warpgroup starts after the first
   const float* gamma;
   const float* beta;
 };
@@ -281,9 +287,69 @@ __device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
   return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
 }
 
-template <int BN, int EPI, bool LN>
+// One 64 x 64 block of a consumer warpgroup's output, from the wgmma
+// fragments acc (acc[jn * 4 + 2h + e]: row w * 16 + g + 8h, column
+// jn * 8 + 2t + e): bias, quick_gelu or residual in fp32, rounded once to
+// bf16 into the swizzled staging tile buf. The residual is read from buf,
+// where TMA loaded it, each thread reading and overwriting its own pairs.
+// n0 is the block's first column; columns past N take no bias.
+template <int EPI>
+__device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* buf, int n0,
+                                               int N, const bf16* bias, int w, int g, int t) {
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const int n = n0 + jn * 8 + 2 * t;
+    const float2 bb = n < N ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n))
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w * 16 + g + h * 8;  // row within the block's 64
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t);
+      float v0 = acc[jn * 4 + 2 * h] + bb.x;
+      float v1 = acc[jn * 4 + 2 * h + 1] + bb.y;
+      if (EPI == EPI_GELU) {
+        v0 = v0 / (1.f + expf(-1.702f * v0));
+        v1 = v1 / (1.f + expf(-1.702f * v1));
+      }
+      if (EPI == EPI_RESIDUAL) {
+        const float2 rr = __bfloat1622float2(*dst);
+        v0 = rr.x + v0;
+        v1 = rr.y + v1;
+      }
+      *dst = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// The staging tile buf, once every thread of the warpgroup has written it,
+// stored by TMA at (n0, m0) by the warpgroup's first thread.
+__device__ __forceinline__ void store_block(const CUtensorMap* map, unsigned char* buf, int n0,
+                                            int m0, int cw, int ctid) {
+  fence_proxy_async();  // the staging writes, before the TMA store reads them
+  named_barrier(1 + cw, 128);
+  if (ctid == 0) {
+    tma_store_2d(map, buf, n0, m0);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// Two schedules for the consumer warpgroups (PP):
+//   cooperative: both work one 128 x BN tile, 64 rows each, and run their
+//     epilogues together; the producer meanwhile fills the next tile's
+//     stages. Fewest bytes through L2 per product (BN up to 256).
+//   ping-pong: each owns whole 128 x 128 tiles, every other tile of the
+//     block, as two m64n128 wgmmas per k-step; an ordered pair of named
+//     barriers lets only one main loop run at a time, so one warpgroup's
+//     epilogue runs under the other's main loop. Its 128-wide tiles read
+//     a third more through L2 than 128 x 256 ones, a price the residual
+//     out-projection (K = N = 768, bound by bytes as much as by
+//     operations) pays for an epilogue that no longer stalls the tensor
+//     cores. The order also keeps a warpgroup from waiting on a stage the
+//     producer fills two rounds ahead, which mbarrier parity cannot tell
+//     from the round before.
+template <int BN, int EPI, bool LN, bool PP>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  using T = Tile<BN, EPI>;
+  using T = Tile<BN, EPI, PP>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -296,8 +362,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
-      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+      mbar_init(&full[s], 1);               // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], PP ? 4 : 8);     // one arrive per warp that read the stage
       mbar_init(&ready[s], TRANSFORM_WARPS);
     }
     mbar_init(&rfull[0], 1);
@@ -333,34 +399,42 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         }
       }
     } else if (LN && tid >= 32) {
-      // LayerNorm of each landed A k-tile, in place: 1024 16-byte chunks
-      // (128 rows x 8) over the three warps, eight neighbouring chunks of
-      // a row to eight lanes (conflict-free under the swizzle)
+      // LayerNorm of each landed A k-tile, in place. Thread tt owns 16-byte
+      // chunk tt % 8 of rows tt / 8, tt / 8 + 12, ...: eight lanes cover a
+      // row's eight chunks (conflict-free under the swizzle), each lane's
+      // gamma and beta stay in registers for the k-tile, and the tile's
+      // row statistics are staged in shared memory once.
       const int tt = tid - 32, lane = tid & 31;
+      const int c = tt & 7, r0 = tt >> 3;
+      constexpr int ROW_STEP = 32 * TRANSFORM_WARPS / 8;
+      float2* row_stats = reinterpret_cast<float2*>(ring + T::STATS);
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
         const TileAt at = tile_at<BN>(p, tile);
-        const Seg& sg = p.seg[at.s];
+        const int M = p.seg[at.s].M;
+        const float2* stats = p.seg[at.s].stats;
+        named_barrier(6, 32 * TRANSFORM_WARPS);  // the last tile's statistics are read
+        for (int r = tt; r < BM; r += 32 * TRANSFORM_WARPS)  // rows past M are never stored
+          row_stats[r] = at.m0 + r < M ? stats[at.m0 + r] : make_float2(0.f, 0.f);
+        named_barrier(6, 32 * TRANSFORM_WARPS);
         for (int kt = 0; kt < KT; ++kt) {
+          const int col = kt * BK + c * 8;
+          const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
+          const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
+          const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
           mbar_wait(&full[stage], phase);
           unsigned char* a_s = ring + stage * T::STAGE;
-          for (int idx = tt; idx < BM * 8; idx += 32 * TRANSFORM_WARPS) {
-            const int r = idx >> 3, c = idx & 7;
-            const int m = at.m0 + r;
-            // rows past M arrived as zeros and are never stored
-            const float2 st = m < sg.M ? sg.stats[m] : make_float2(0.f, 0.f);
-            const int col = kt * BK + c * 8;
-            const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
-            const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
-            const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-            const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll 2
+          for (int r = r0; r < BM; r += ROW_STEP) {
             uint4* q = reinterpret_cast<uint4*>(a_s + swz(r, c));
+            const float2 st = row_stats[r];
             float f[8];
             unpack8(*q, f);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * g[j] + b[j];
+            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * gm[j] + bt[j];
             *q = pack8(f);
           }
           fence_proxy_async();  // the rewrite, before wgmma reads the tile
@@ -379,108 +453,138 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     }
-    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int cw = wg - 1;
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
     uint64_t* const landed = LN ? ready : full;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
-    float acc[BN / 2];
-    int stage = 0, stores = 0;
-    unsigned phase = 0, rphase = 0;
-    // the second warpgroup may start some k-tiles behind the first, so
-    // that their epilogues fall at different times
-    if (cw == 1 && p.stagger > 0) named_barrier(3, 256);
-    bool first = true;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const TileAt at = tile_at<BN>(p, tile);
-      const Seg& sg = p.seg[at.s];
+    unsigned rphase = 0;
+    if constexpr (PP) {
+      float acc[128];  // rows 0-63 of the tile in acc[0..63], rows 64-127 in acc[64..127]
+      for (int j = cw, tile = blockIdx.x + cw * gridDim.x; tile < p.tiles;
+           j += 2, tile += 2 * gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
+        const int N = p.seg[at.s].N;
+        const bf16* bias = p.seg[at.s].bias;
+        // the other warpgroup's main loop (tile j - 1) has ended
+        if (j > 0) named_barrier(4 + (cw ^ 1), 256);
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      int held = -1;  // the stage the in-flight wgmma group reads
-      for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(&landed[stage], phase);
-        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
-        const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
-        fence_acc<BN / 2>(acc);
-        wgmma_fence();
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+        int held = -1;
+        for (int kt = 0; kt < KT; ++kt) {
+          const int pos = j * KT + kt, stage = pos % T::STAGES;
+          mbar_wait(&landed[stage], (pos / T::STAGES) & 1);
+          const unsigned char* a_s = ring + stage * T::STAGE;
+          const unsigned char* b_s = a_s + T::A_BYTES;
+          fence_acc<128>(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
-          wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-        wgmma_commit();
-        if (cw == 0 && first && kt == p.stagger - 1)
-          asm volatile("bar.arrive 3, 256;\n" ::: "memory");
-        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-          // R of this tile into the staging tiles, once the stores of the
-          // previous tile have read them
-          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
-          for (int cc = 0; cc < T::OUT_TILES; ++cc)
-            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
-                        at.m0 + cw * 64);
+          for (int ks = 0; ks < BK / 16; ++ks) {
+            wgmma_tile<128>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+            wgmma_tile<128>(acc + 64, smem_desc(a_s + 64 * 128 + ks * 32),
+                            smem_desc(b_s + ks * 32));
+          }
+          wgmma_commit();
+          if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+            // R of this tile into the staging tiles, once the stores of
+            // this warpgroup's previous tile have read them
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+#pragma unroll
+            for (int b = 0; b < T::OUT_TILES; ++b)
+              tma_load_2d(out_s + b * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + (b & 1) * 64,
+                          at.m0 + (b >> 1) * 64);
+          }
+          wgmma_wait<1>();
+          fence_acc<128>(acc);
+          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+          held = stage;
         }
-        // the group of k-tile kt-1 has retired: its stage may be refilled
-        wgmma_wait<1>();
-        fence_acc<BN / 2>(acc);
-        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-        held = stage;
-        if (++stage == T::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc<BN / 2>(acc);
-      if (lane == 0) mbar_arrive(&empty[held]);
-      first = false;
+        wgmma_wait<0>();
+        fence_acc<128>(acc);
+        if (lane == 0) mbar_arrive(&empty[held]);
+        // the other warpgroup's next main loop may start
+        if (tile + gridDim.x < p.tiles) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + cw) : "memory");
 
-      // Epilogue, 64 columns at a time: bias, quick_gelu or residual in
-      // fp32, one rounding to bf16 into a swizzled staging tile, then one
-      // TMA store of the 64 x 64 block (rows past M, columns past N are
-      // not written). The residual epilogue reads R from the block's own
-      // staging tile, where it was loaded, and overwrites it in place;
-      // the others alternate two staging tiles, a tile being rewritten
-      // once the store issued from it two blocks earlier has read it.
-      if (EPI == EPI_RESIDUAL) {
-        mbar_wait(&rfull[cw], rphase);
-        rphase ^= 1;
-      }
-#pragma unroll
-      for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
-        unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
-        if (EPI != EPI_RESIDUAL) {
-          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        if (EPI == EPI_RESIDUAL) {
+          mbar_wait(&rfull[cw], rphase);
+          rphase ^= 1;
+        } else {
+          // the staging tiles are free once this warpgroup's last stores read them
+          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
           named_barrier(1 + cw, 128);
         }
 #pragma unroll
-        for (int jn = 0; jn < 8; ++jn) {
-          const int j = cc * 8 + jn;
-          const int n = at.n0 + j * 8 + 2 * t;
-          const float2 bb = n < sg.N ? __bfloat1622float2(
-                                           *reinterpret_cast<const __nv_bfloat162*>(sg.bias + n))
-                                     : make_float2(0.f, 0.f);
+        for (int b = 0; b < T::OUT_TILES; ++b) {
+          unsigned char* buf = out_s + b * OUT_TILE;
+          const int n0 = at.n0 + (b & 1) * 64;
+          epilogue_block<EPI>(acc + (b >> 1) * 64 + (b & 1) * 32, buf, n0, N, bias, w, g, t);
+          store_block(&p.c[at.s], buf, n0, at.m0 + (b >> 1) * 64, cw, ctid);
+        }
+      }
+    } else {
+      float acc[BN / 2];  // this warpgroup's 64 rows of the tile
+      int stage = 0, stores = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
+        const int N = p.seg[at.s].N;
+        const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = w * 16 + g + h * 8;  // row within the warpgroup's 64
-            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t);
-            float v0 = acc[j * 4 + 2 * h] + bb.x;
-            float v1 = acc[j * 4 + 2 * h + 1] + bb.y;
-            if (EPI == EPI_GELU) {
-              v0 = v0 / (1.f + expf(-1.702f * v0));
-              v1 = v1 / (1.f + expf(-1.702f * v1));
-            }
-            if (EPI == EPI_RESIDUAL) {
-              const float2 rr = __bfloat1622float2(*dst);
-              v0 = rr.x + v0;
-              v1 = rr.y + v1;
-            }
-            *dst = __floats2bfloat162_rn(v0, v1);
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        int held = -1;  // the stage the in-flight wgmma group reads
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&landed[stage], phase);
+          const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+          const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
+          fence_acc<BN / 2>(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
+            wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+          wgmma_commit();
+          if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+            // R of this tile into the staging tiles, once the stores of
+            // the previous tile have read them
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+#pragma unroll
+            for (int cc = 0; cc < T::OUT_TILES; ++cc)
+              tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                          at.m0 + cw * 64);
+          }
+          // the group of k-tile kt-1 has retired: its stage may be refilled
+          wgmma_wait<1>();
+          fence_acc<BN / 2>(acc);
+          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+          held = stage;
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
           }
         }
-        fence_proxy_async();  // the staging writes, before the TMA store reads them
-        named_barrier(1 + cw, 128);
-        if (ctid == 0) {
-          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
-          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        wgmma_wait<0>();
+        fence_acc<BN / 2>(acc);
+        if (lane == 0) mbar_arrive(&empty[held]);
+
+        // Epilogue, 64 columns at a time, each block stored by TMA as soon
+        // as it is staged (rows past M, columns past N are not written).
+        // The residual's blocks each have their own staging tile; the
+        // others alternate two, a tile being rewritten once the store
+        // issued from it two blocks earlier has read it.
+        if (EPI == EPI_RESIDUAL) {
+          mbar_wait(&rfull[cw], rphase);
+          rphase ^= 1;
+        }
+#pragma unroll
+        for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
+          unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
+          if (EPI != EPI_RESIDUAL) {
+            if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+            named_barrier(1 + cw, 128);
+          }
+          epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
+          store_block(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64, cw, ctid);
         }
       }
     }
@@ -497,19 +601,18 @@ struct SegArgs {
   bf16* c;
 };
 
-template <int BN, int EPI, bool LN>
+template <int BN, int EPI, bool LN, bool PP>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
-                   const float* gamma, const float* beta, const float2* stats, int stagger,
+                   const float* gamma, const float* beta, const float2* stats,
                    cudaStream_t stream) {
-  using T = Tile<BN, EPI>;
+  using T = Tile<BN, EPI, PP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BN, EPI, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+      gemm_kernel<BN, EPI, LN, PP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
   p.K = K;
-  p.stagger = std::min({stagger, K / BK, T::STAGES - 1});  // the first tiles fit the ring
   p.gamma = gamma;
   p.beta = beta;
   const uint64_t k_bytes[1] = {(uint64_t)K * 2};
@@ -539,23 +642,16 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   }
   p.tiles = tiles;
   const int grid = std::min(tiles, sm_count());
-  gemm_kernel<BN, EPI, LN><<<grid, THREADS, T::SMEM, stream>>>(p);
+  gemm_kernel<BN, EPI, LN, PP><<<grid, THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
-                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
-                            const float2* stats, int stagger, cudaStream_t s) {
-#define OADP_LAUNCH(EPI, LN) \
-  launch<BN, EPI, LN>(K, Wt, bias, segs, nseg, gamma, beta, stats, stagger, s)
-  switch (epilogue) {
-    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
-    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
-    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
-  }
-#undef OADP_LAUNCH
-  return cudaErrorInvalidValue;
+// Tiles of 128 x BN over the segments.
+long long count_tiles(const SegArgs* segs, int nseg, int bn) {
+  long long tiles = 0;
+  for (int s = 0; s < nseg; ++s)
+    tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + bn - 1) / bn);
+  return tiles;
 }
 
 // The tile width whose last wave ends first: waves x BN / rate(BN), the
@@ -570,9 +666,7 @@ int pick_tile_n(const SegArgs* segs, int nseg) {
   int best = 256;
   double best_cost = 0.0;
   for (int i = 0; i < 3; ++i) {
-    long long tiles = 0;
-    for (int s = 0; s < nseg; ++s)
-      tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
+    const long long tiles = count_tiles(segs, nseg, widths[i]);
     const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
     if (i == 0 || cost < best_cost) {
       best = widths[i];
@@ -580,6 +674,21 @@ int pick_tile_n(const SegArgs* segs, int nseg) {
     }
   }
   return best;
+}
+
+template <int BN>
+cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
+                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
+                            const float2* stats, cudaStream_t s) {
+#define OADP_LAUNCH(EPI, LN) \
+  launch<BN, EPI, LN, false>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
+  switch (epilogue) {
+    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
+    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
+    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
+  }
+#undef OADP_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -593,12 +702,14 @@ extern "C" {
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
 // gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
 // receives each row's mean and rstd and the product normalises A as it
-// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape; stagger: the
-// k-tiles by which the second consumer warpgroup trails the first.
+// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape. schedule: 1
+// cooperative, 2 ping-pong (128-wide tiles, no LayerNorm, no quick_gelu),
+// 0 to pick: ping-pong for the residual epilogue when every consumer
+// warpgroup gets a tile, else cooperative.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
-                 const void* bias, int epilogue, int tile_n, int stagger, const void* A0, int M0,
-                 int N0, int col00, const void* R0, void* C0, const void* A1, int M1, int N1,
-                 int col01, const void* R1, void* C1, void* stream) {
+                 const void* bias, int epilogue, int tile_n, int schedule, const void* A0,
+                 int M0, int N0, int col00, const void* R0, void* C0, const void* A1, int M1,
+                 int N1, int col01, const void* R1, void* C1, void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SegArgs segs[2] = {
@@ -618,10 +729,23 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, cons
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
+  if (schedule == 0)
+    schedule = epilogue == EPI_RESIDUAL && (tile_n == 0 || tile_n == 128) &&
+                       count_tiles(segs, nseg, 128) >= 2 * sm_count()
+                   ? 2
+                   : 1;
+  if (schedule == 2) {
+    if (ln || (tile_n != 0 && tile_n != 128)) return cudaErrorInvalidValue;
+    switch (epilogue) {
+      case EPI_NONE: return launch<128, EPI_NONE, false, true>(K, w, b, segs, nseg, nullptr, nullptr, nullptr, s);
+      case EPI_RESIDUAL: return launch<128, EPI_RESIDUAL, false, true>(K, w, b, segs, nseg, nullptr, nullptr, nullptr, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (tile_n == 0 ? pick_tile_n(segs, nseg) : tile_n) {
-    case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
-    case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
-    case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, stagger, s);
+    case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
+    case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
+    case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -430,24 +430,25 @@ def test_ln_gemm_on_card(m, k, n, epilogue, col0, ln, tile_n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m, n, col0, tile_n, stagger', [
+@pytest.mark.parametrize('m, n, col0, tile_n, schedule', [
     (197 * 5 + 3, 768, 0, 0, 0),
-    (197 * 5 + 3, 768, 0, 256, 0),
-    (197 * 5 + 3, 768, 0, 128, 0),
-    (197 * 5 + 3, 768, 0, 64, 0),
-    (197 * 5 + 3, 2304, 0, 256, 0),
+    (197 * 5 + 3, 768, 0, 256, 1),
+    (197 * 5 + 3, 768, 0, 128, 1),
+    (197 * 5 + 3, 768, 0, 64, 1),
+    (197 * 5 + 3, 768, 0, 128, 2),
+    (197 * 5 + 3, 2304, 0, 256, 1),
     (197 * 5 + 3, 2304, 0, 128, 2),
     (130, 768, 768, 0, 0),
-    (197 * 5 + 3, 768, 0, 256, 1),
-    (197 * 5 + 3, 768, 0, 64, 4),
+    (130, 768, 768, 128, 2),
+    (128 * 300 + 5, 768, 0, 0, 0),
 ])
-def test_ln_gemm_residual_on_card(m, n, col0, tile_n, stagger):
+def test_ln_gemm_residual_on_card(m, n, col0, tile_n, schedule):
     """The residual epilogue, R loaded by TMA into the staging tiles and
     added there, against its plain version in bf16: M off the 128-row tile,
     N = 768 and 2304, a column slice (``col0``) of a prepared weight, each
     tile width, and the second consumer warpgroup trailing the first."""
     dev = _card()
-    rng = np.random.default_rng(60 + m + n + col0 + tile_n + stagger)
+    rng = np.random.default_rng(60 + m + n + col0 + tile_n + schedule)
 
     def r(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
@@ -458,7 +459,7 @@ def test_ln_gemm_residual_on_card(m, n, col0, tile_n, stagger):
     res = r(m, n).bfloat16()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ta._ln_gemm(x, ta.kmajor(w), wb, out, epilogue=2, residual=res, col0=col0,
-                tile_n=tile_n, stagger=stagger)
+                tile_n=tile_n, schedule=schedule)
     want = (res.float() + ta._proj(x, w[:, col0:], wb[col0:])).bfloat16()
     torch.cuda.synchronize()
     _assert_close_on_card(out, want, atol=0.05)
