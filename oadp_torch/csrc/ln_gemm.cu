@@ -65,39 +65,29 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-// producer warpgroup (a TMA thread, and with LN three rewriting warps) +
-// two consumer warpgroups
-constexpr int THREADS = 384;
-constexpr int TRANSFORM_WARPS = 3;
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
-// 64 x 64 staging tiles for the TMA stores (the residual epilogue and the
-// ping-pong schedule keep one per 64 x 64 block of the warpgroup's output,
-// R lands there; the others alternate two), then the barriers (full, empty
-// and ready per stage, one R barrier per consumer), then the row
-// statistics of the tile being normalised.
-template <int BN, int EPI, bool PP>
+// 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
+// per 64 columns, R lands there; the others alternate two), then the
+// barriers: full and empty per stage, one R barrier per consumer.
+template <int BN, int EPI>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
-  // 64 x 64 output blocks a consumer warpgroup writes per tile
-  static constexpr int BLOCKS = (PP ? BM / 64 : 1) * (BN / 64);
-  static constexpr int OUT_TILES = EPI == EPI_RESIDUAL || PP ? BLOCKS : 2;
+  static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
-  static constexpr int BAR_BYTES = (3 * 8 + 2) * 8;
-  static constexpr int STATS_BYTES = BM * 8;
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - STATS_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int STATS = BARS + BAR_BYTES;
-  static constexpr int SMEM = STATS + STATS_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
-  static_assert(!PP || BN == 128, "ping-pong tiles are 128 x 128");
 };
 
 // One row set of a launch. Its tiles are [first, first + m tiles x tiles_n)
@@ -269,9 +259,41 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 192 fp32 per warpgroup) += A (64 x 16, shared) * B (192 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t desc_b) {
   if constexpr (BN == 256) wgmma_m64n256k16(d, desc_a, desc_b);
+  else if constexpr (BN == 192) wgmma_m64n192k16(d, desc_a, desc_b);
   else if constexpr (BN == 128) wgmma_m64n128k16(d, desc_a, desc_b);
   else wgmma_m64n64k16(d, desc_a, desc_b);
 }
@@ -285,6 +307,39 @@ __device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
   const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
   const int local = tile - p.seg[s].first;
   return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
+}
+
+// With LN, consumer thread ctid rewrites 16-byte chunk ctid % 8 of rows
+// ctid / 8 + 16 i (i < 4) of its warpgroup's 64 A rows: eight lanes cover
+// a row's eight chunks (conflict-free under the swizzle).
+constexpr int LN_ROWS = 4;
+
+// Row statistics of this thread's LN rows of the tile at m0 (rows past M,
+// which arrived as zeros and are never stored, take 0).
+__device__ __forceinline__ void load_row_stats(const Params& p, int tile, int cw, int ctid,
+                                               float2 (&st)[LN_ROWS]) {
+  if (tile >= p.tiles) return;
+  const TileAt at = tile_at<BM>(p, tile);  // rows only: any width gives the same m0
+  const int M = p.seg[at.s].M;
+  const float2* stats = p.seg[at.s].stats;
+#pragma unroll
+  for (int i = 0; i < LN_ROWS; ++i) {
+    const int m = at.m0 + cw * 64 + (ctid >> 3) + 16 * i;
+    st[i] = m < M ? stats[m] : make_float2(0.f, 0.f);
+  }
+}
+
+// gamma and beta of this thread's chunk of k-tile kt.
+__device__ __forceinline__ void load_ln_params(const Params& p, int kt, int ctid, float (&gm)[8],
+                                               float (&bt)[8]) {
+  const int col = kt * BK + (ctid & 7) * 8;
+  const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
+  const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
+  const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+  gm[0] = g0.x, gm[1] = g0.y, gm[2] = g0.z, gm[3] = g0.w;
+  gm[4] = g1.x, gm[5] = g1.y, gm[6] = g1.z, gm[7] = g1.w;
+  bt[0] = b0.x, bt[1] = b0.y, bt[2] = b0.z, bt[3] = b0.w;
+  bt[4] = b1.x, bt[5] = b1.y, bt[6] = b1.z, bt[7] = b1.w;
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -321,50 +376,22 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
   }
 }
 
-// The staging tile buf, once every thread of the warpgroup has written it,
-// stored by TMA at (n0, m0) by the warpgroup's first thread.
-__device__ __forceinline__ void store_block(const CUtensorMap* map, unsigned char* buf, int n0,
-                                            int m0, int cw, int ctid) {
-  fence_proxy_async();  // the staging writes, before the TMA store reads them
-  named_barrier(1 + cw, 128);
-  if (ctid == 0) {
-    tma_store_2d(map, buf, n0, m0);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  }
-}
-
-// Two schedules for the consumer warpgroups (PP):
-//   cooperative: both work one 128 x BN tile, 64 rows each, and run their
-//     epilogues together; the producer meanwhile fills the next tile's
-//     stages. Fewest bytes through L2 per product (BN up to 256).
-//   ping-pong: each owns whole 128 x 128 tiles, every other tile of the
-//     block, as two m64n128 wgmmas per k-step; an ordered pair of named
-//     barriers lets only one main loop run at a time, so one warpgroup's
-//     epilogue runs under the other's main loop. Its 128-wide tiles read
-//     a third more through L2 than 128 x 256 ones, a price the residual
-//     out-projection (K = N = 768, bound by bytes as much as by
-//     operations) pays for an epilogue that no longer stalls the tensor
-//     cores. The order also keeps a warpgroup from waiting on a stage the
-//     producer fills two rounds ahead, which mbarrier parity cannot tell
-//     from the round before.
-template <int BN, int EPI, bool LN, bool PP>
+template <int BN, int EPI, bool LN>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  using T = Tile<BN, EPI, PP>;
+  using T = Tile<BN, EPI>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
   uint64_t* empty = full + T::STAGES;
-  uint64_t* ready = empty + T::STAGES;  // with LN: the stage's A tile is normalised
-  uint64_t* rfull = ready + T::STAGES;  // residual: a consumer's R blocks have landed
+  uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);               // the producer's arrive, plus the TMA bytes
-      mbar_init(&empty[s], PP ? 4 : 8);     // one arrive per warp that read the stage
-      mbar_init(&ready[s], TRANSFORM_WARPS);
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
     mbar_init(&rfull[0], 1);
     mbar_init(&rfull[1], 1);
@@ -375,13 +402,9 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   const int KT = p.K / BK;
 
   if (wg == 0) {
-    if constexpr (LN) {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    } else {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    }
+    // producer: one thread keeps the ring full, through tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      // producer: one thread keeps the ring full, through tile boundaries
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -398,193 +421,105 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           }
         }
       }
-    } else if (LN && tid >= 32) {
-      // LayerNorm of each landed A k-tile, in place. Thread tt owns 16-byte
-      // chunk tt % 8 of rows tt / 8, tt / 8 + 12, ...: eight lanes cover a
-      // row's eight chunks (conflict-free under the swizzle), each lane's
-      // gamma and beta stay in registers for the k-tile, and the tile's
-      // row statistics are staged in shared memory once.
-      const int tt = tid - 32, lane = tid & 31;
-      const int c = tt & 7, r0 = tt >> 3;
-      constexpr int ROW_STEP = 32 * TRANSFORM_WARPS / 8;
-      float2* row_stats = reinterpret_cast<float2*>(ring + T::STATS);
-      int stage = 0;
-      unsigned phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const TileAt at = tile_at<BN>(p, tile);
-        const int M = p.seg[at.s].M;
-        const float2* stats = p.seg[at.s].stats;
-        named_barrier(6, 32 * TRANSFORM_WARPS);  // the last tile's statistics are read
-        for (int r = tt; r < BM; r += 32 * TRANSFORM_WARPS)  // rows past M are never stored
-          row_stats[r] = at.m0 + r < M ? stats[at.m0 + r] : make_float2(0.f, 0.f);
-        named_barrier(6, 32 * TRANSFORM_WARPS);
-        for (int kt = 0; kt < KT; ++kt) {
-          const int col = kt * BK + c * 8;
-          const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
-          const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
-          const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-          const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-          mbar_wait(&full[stage], phase);
-          unsigned char* a_s = ring + stage * T::STAGE;
-#pragma unroll 2
-          for (int r = r0; r < BM; r += ROW_STEP) {
-            uint4* q = reinterpret_cast<uint4*>(a_s + swz(r, c));
-            const float2 st = row_stats[r];
-            float f[8];
-            unpack8(*q, f);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * gm[j] + bt[j];
-            *q = pack8(f);
-          }
-          fence_proxy_async();  // the rewrite, before wgmma reads the tile
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&ready[stage]);
-          if (++stage == T::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
     }
   } else {
-    if constexpr (LN) {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    } else {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    }
-    const int cw = wg - 1;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
-    uint64_t* const landed = LN ? ready : full;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
-    unsigned rphase = 0;
-    if constexpr (PP) {
-      float acc[128];  // rows 0-63 of the tile in acc[0..63], rows 64-127 in acc[64..127]
-      for (int j = cw, tile = blockIdx.x + cw * gridDim.x; tile < p.tiles;
-           j += 2, tile += 2 * gridDim.x) {
-        const TileAt at = tile_at<BN>(p, tile);
-        const int N = p.seg[at.s].N;
-        const bf16* bias = p.seg[at.s].bias;
-        // the other warpgroup's main loop (tile j - 1) has ended
-        if (j > 0) named_barrier(4 + (cw ^ 1), 256);
+    float acc[BN / 2];
+    float2 st[LN_ROWS];
+    float gm[8], bt[8];
+    if (LN) {
+      load_row_stats(p, blockIdx.x, cw, ctid, st);
+      load_ln_params(p, 0, ctid, gm, bt);
+    }
+    int stage = 0, stores = 0;
+    unsigned phase = 0, rphase = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const TileAt at = tile_at<BN>(p, tile);
+      const int N = p.seg[at.s].N;
+      const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
-        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-        int held = -1;
-        for (int kt = 0; kt < KT; ++kt) {
-          const int pos = j * KT + kt, stage = pos % T::STAGES;
-          mbar_wait(&landed[stage], (pos / T::STAGES) & 1);
-          const unsigned char* a_s = ring + stage * T::STAGE;
-          const unsigned char* b_s = a_s + T::A_BYTES;
-          fence_acc<128>(acc);
-          wgmma_fence();
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int held = -1;  // the stage the in-flight wgmma group reads
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(&full[stage], phase);
+        unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+        const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
+        if (LN) {
+          // LayerNorm of this warpgroup's 64 A rows in place, while the
+          // previous k-tile's wgmma group runs
+          uint4 v[LN_ROWS];
 #pragma unroll
-          for (int ks = 0; ks < BK / 16; ++ks) {
-            wgmma_tile<128>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-            wgmma_tile<128>(acc + 64, smem_desc(a_s + 64 * 128 + ks * 32),
-                            smem_desc(b_s + ks * 32));
+          for (int i = 0; i < LN_ROWS; ++i)
+            v[i] = *reinterpret_cast<const uint4*>(a_s + swz((ctid >> 3) + 16 * i, ctid & 7));
+#pragma unroll
+          for (int i = 0; i < LN_ROWS; ++i) {
+            float f[8];
+            unpack8(v[i], f);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st[i].x) * st[i].y * gm[j] + bt[j];
+            *reinterpret_cast<uint4*>(a_s + swz((ctid >> 3) + 16 * i, ctid & 7)) = pack8(f);
           }
-          wgmma_commit();
-          if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-            // R of this tile into the staging tiles, once the stores of
-            // this warpgroup's previous tile have read them
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
-#pragma unroll
-            for (int b = 0; b < T::OUT_TILES; ++b)
-              tma_load_2d(out_s + b * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + (b & 1) * 64,
-                          at.m0 + (b >> 1) * 64);
-          }
-          wgmma_wait<1>();
-          fence_acc<128>(acc);
-          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-          held = stage;
-        }
-        wgmma_wait<0>();
-        fence_acc<128>(acc);
-        if (lane == 0) mbar_arrive(&empty[held]);
-        // the other warpgroup's next main loop may start
-        if (tile + gridDim.x < p.tiles) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + cw) : "memory");
-
-        if (EPI == EPI_RESIDUAL) {
-          mbar_wait(&rfull[cw], rphase);
-          rphase ^= 1;
-        } else {
-          // the staging tiles are free once this warpgroup's last stores read them
-          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          fence_proxy_async();  // the rewrite, before wgmma reads the tile
           named_barrier(1 + cw, 128);
+          load_ln_params(p, kt + 1 == KT ? 0 : kt + 1, ctid, gm, bt);
         }
+        fence_acc<BN / 2>(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int b = 0; b < T::OUT_TILES; ++b) {
-          unsigned char* buf = out_s + b * OUT_TILE;
-          const int n0 = at.n0 + (b & 1) * 64;
-          epilogue_block<EPI>(acc + (b >> 1) * 64 + (b & 1) * 32, buf, n0, N, bias, w, g, t);
-          store_block(&p.c[at.s], buf, n0, at.m0 + (b >> 1) * 64, cw, ctid);
+        for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
+          wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+        wgmma_commit();
+        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+          // R of this tile into the staging tiles, once the stores of the
+          // previous tile have read them
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+#pragma unroll
+          for (int cc = 0; cc < T::OUT_TILES; ++cc)
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                        at.m0 + cw * 64);
+        }
+        // the group of k-tile kt-1 has retired: its stage may be refilled
+        wgmma_wait<1>();
+        fence_acc<BN / 2>(acc);
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-    } else {
-      float acc[BN / 2];  // this warpgroup's 64 rows of the tile
-      int stage = 0, stores = 0;
-      unsigned phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const TileAt at = tile_at<BN>(p, tile);
-        const int N = p.seg[at.s].N;
-        const bf16* bias = p.seg[at.s].bias;
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-        int held = -1;  // the stage the in-flight wgmma group reads
-        for (int kt = 0; kt < KT; ++kt) {
-          mbar_wait(&landed[stage], phase);
-          const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
-          const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
-          fence_acc<BN / 2>(acc);
-          wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
-            wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-          wgmma_commit();
-          if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-            // R of this tile into the staging tiles, once the stores of
-            // the previous tile have read them
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
-#pragma unroll
-            for (int cc = 0; cc < T::OUT_TILES; ++cc)
-              tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
-                          at.m0 + cw * 64);
-          }
-          // the group of k-tile kt-1 has retired: its stage may be refilled
-          wgmma_wait<1>();
-          fence_acc<BN / 2>(acc);
-          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-          held = stage;
-          if (++stage == T::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-        wgmma_wait<0>();
-        fence_acc<BN / 2>(acc);
-        if (lane == 0) mbar_arrive(&empty[held]);
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[held]);
+      if (LN) load_row_stats(p, tile + gridDim.x, cw, ctid, st);  // lands during the epilogue
 
-        // Epilogue, 64 columns at a time, each block stored by TMA as soon
-        // as it is staged (rows past M, columns past N are not written).
-        // The residual's blocks each have their own staging tile; the
-        // others alternate two, a tile being rewritten once the store
-        // issued from it two blocks earlier has read it.
-        if (EPI == EPI_RESIDUAL) {
-          mbar_wait(&rfull[cw], rphase);
-          rphase ^= 1;
-        }
+      // Epilogue, 64 columns at a time, each block stored by TMA as soon
+      // as it is staged (rows past M, columns past N are not written).
+      // The residual's blocks each have their own staging tile; the
+      // others alternate two, a tile being rewritten once the store
+      // issued from it two blocks earlier has read it.
+      if (EPI == EPI_RESIDUAL) {
+        mbar_wait(&rfull[cw], rphase);
+        rphase ^= 1;
+      }
 #pragma unroll
-        for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
-          unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
-          if (EPI != EPI_RESIDUAL) {
-            if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-            named_barrier(1 + cw, 128);
-          }
-          epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
-          store_block(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64, cw, ctid);
+      for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
+        unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
+        if (EPI != EPI_RESIDUAL) {
+          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          named_barrier(1 + cw, 128);
+        }
+        epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
+        fence_proxy_async();  // the staging writes, before the TMA store reads them
+        named_barrier(1 + cw, 128);
+        if (ctid == 0) {
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
     }
@@ -601,13 +536,13 @@ struct SegArgs {
   bf16* c;
 };
 
-template <int BN, int EPI, bool LN, bool PP>
+template <int BN, int EPI, bool LN>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
                    const float* gamma, const float* beta, const float2* stats,
                    cudaStream_t stream) {
-  using T = Tile<BN, EPI, PP>;
+  using T = Tile<BN, EPI>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BN, EPI, LN, PP>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+      gemm_kernel<BN, EPI, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
   Params p = {};
@@ -642,16 +577,22 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   }
   p.tiles = tiles;
   const int grid = std::min(tiles, sm_count());
-  gemm_kernel<BN, EPI, LN, PP><<<grid, THREADS, T::SMEM, stream>>>(p);
+  gemm_kernel<BN, EPI, LN><<<grid, THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-// Tiles of 128 x BN over the segments.
-long long count_tiles(const SegArgs* segs, int nseg, int bn) {
-  long long tiles = 0;
-  for (int s = 0; s < nseg; ++s)
-    tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + bn - 1) / bn);
-  return tiles;
+template <int BN>
+cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
+                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
+                            const float2* stats, cudaStream_t s) {
+#define OADP_LAUNCH(EPI, LN) launch<BN, EPI, LN>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
+  switch (epilogue) {
+    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
+    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
+    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
+  }
+#undef OADP_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 // The tile width whose last wave ends first: waves x BN / rate(BN), the
@@ -666,7 +607,9 @@ int pick_tile_n(const SegArgs* segs, int nseg) {
   int best = 256;
   double best_cost = 0.0;
   for (int i = 0; i < 3; ++i) {
-    const long long tiles = count_tiles(segs, nseg, widths[i]);
+    long long tiles = 0;
+    for (int s = 0; s < nseg; ++s)
+      tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
     const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
     if (i == 0 || cost < best_cost) {
       best = widths[i];
@@ -674,21 +617,6 @@ int pick_tile_n(const SegArgs* segs, int nseg) {
     }
   }
   return best;
-}
-
-template <int BN>
-cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
-                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
-                            const float2* stats, cudaStream_t s) {
-#define OADP_LAUNCH(EPI, LN) \
-  launch<BN, EPI, LN, false>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
-  switch (epilogue) {
-    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
-    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
-    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
-  }
-#undef OADP_LAUNCH
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -702,14 +630,11 @@ extern "C" {
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
 // gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
 // receives each row's mean and rstd and the product normalises A as it
-// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape. schedule: 1
-// cooperative, 2 ping-pong (128-wide tiles, no LayerNorm, no quick_gelu),
-// 0 to pick: ping-pong for the residual epilogue when every consumer
-// warpgroup gets a tile, else cooperative.
+// reads it. tile_n: 64, 128, 192 or 256, or 0 to pick by shape.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
-                 const void* bias, int epilogue, int tile_n, int schedule, const void* A0,
-                 int M0, int N0, int col00, const void* R0, void* C0, const void* A1, int M1,
-                 int N1, int col01, const void* R1, void* C1, void* stream) {
+                 const void* bias, int epilogue, int tile_n, const void* A0, int M0, int N0,
+                 int col00, const void* R0, void* C0, const void* A1, int M1, int N1, int col01,
+                 const void* R1, void* C1, void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SegArgs segs[2] = {
@@ -729,22 +654,10 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, cons
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
-  if (schedule == 0)
-    schedule = epilogue == EPI_RESIDUAL && (tile_n == 0 || tile_n == 128) &&
-                       count_tiles(segs, nseg, 128) >= 2 * sm_count()
-                   ? 2
-                   : 1;
-  if (schedule == 2) {
-    if (ln || (tile_n != 0 && tile_n != 128)) return cudaErrorInvalidValue;
-    switch (epilogue) {
-      case EPI_NONE: return launch<128, EPI_NONE, false, true>(K, w, b, segs, nseg, nullptr, nullptr, nullptr, s);
-      case EPI_RESIDUAL: return launch<128, EPI_RESIDUAL, false, true>(K, w, b, segs, nseg, nullptr, nullptr, nullptr, s);
-    }
-    return cudaErrorInvalidValue;
-  }
   switch (tile_n == 0 ? pick_tile_n(segs, nseg) : tile_n) {
     case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
+    case 192: return launch_epilogue<192>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
   }
   return cudaErrorInvalidValue;

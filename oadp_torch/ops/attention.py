@@ -294,7 +294,7 @@ def _stream() -> int:
 
 
 def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
-             col0: int = 0, tile_n: int = 0, rows2=None, schedule: int = 0):
+             col0: int = 0, tile_n: int = 0, rows2=None):
     """``out = epilogue(LN?(a2d) @ wt[col0:col0+N].T + bias[col0:col0+N])``
     with ``N = out.shape[1]``; ``wt`` is the K-major weight (out, in) and
     ``ln32`` the fp32 LayerNorm pair. ``rows2``, ``(a2d, out, residual,
@@ -302,9 +302,8 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
     LayerNorm and epilogue). Nothing is copied: each row slice of ``wt``
     and slice of ``bias`` is read in place; with LayerNorm the kernel
     normalises the rows as it reads them, from an 8-byte-a-row statistics
-    buffer made here. ``tile_n`` (64, 128, 256) overrides the kernel's
-    choice of tile width, ``schedule`` its choice of consumer schedule (1
-    cooperative, 2 ping-pong: 128-wide tiles, no LayerNorm or quick_gelu)."""
+    buffer made here. ``tile_n`` (64, 128, 192, 256) overrides the
+    kernel's choice of tile width."""
     k = a2d.shape[1]
     sets = [(a2d, out, residual, col0)] + ([rows2] if rows2 is not None else [])
     for a, o, r, c0 in sets:
@@ -314,7 +313,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                 or c0 + n > bias.shape[0]
                 or o.shape[0] != m or (r is not None and r.shape != o.shape)
                 or (r is None) != (epilogue != _EPI_RESIDUAL)
-                or tile_n not in (0, 64, 128, 256) or schedule not in (0, 1, 2)):
+                or tile_n not in (0, 64, 128, 192, 256)):
             raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
                              f'wt={tuple(wt.shape)}')
     lib = cuda_lib.library()
@@ -330,7 +329,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                      c0, ptr(r), ptr(o)]
     cuda_lib.check(lib.oadp_ln_gemm(
         k, ptr(gamma), ptr(beta), ptr(stats), wt.data_ptr(), bias.data_ptr(), epilogue,
-        tile_n, schedule, *seg_args, _stream(),
+        tile_n, *seg_args, _stream(),
     ), 'ln_gemm')
 
 

@@ -142,9 +142,8 @@ def main(argv=None) -> int:
             out = torch.empty(rows, n_out, device=dev).bfloat16()
             flops = 2 * rows * k_in * n_out
             gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
-            gemm['ln_gemm_tile128_pingpong_ms'] = _timed(
-                lambda: A._ln_gemm(x, wt, wb, out, tile_n=128, schedule=2), iters)
+                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters)
+                for t in (0, 256, 192, 128, 64)}
             gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
             if k_in <= 1024:
                 gemm['ln_gemm_with_ln_ms'] = _timed(
@@ -160,11 +159,9 @@ def main(argv=None) -> int:
         w = (torch.randn(d, d, device=dev, generator=gen) * d ** -0.5).bfloat16()
         wt, wb = A.kmajor(w), torch.zeros(d, device=dev).bfloat16()
         out = torch.empty(m, d, device=dev).bfloat16()
-        res_gemm = {f'ln_gemm_tile{t or "_auto"}_{sched}_ms': _timed(
-            lambda t=t, s=s: A._ln_gemm(main, wt, wb, out, epilogue=A._EPI_RESIDUAL,
-                                        residual=res, tile_n=t, schedule=s))
-            for t, s, sched in ((0, 0, 'auto'), (256, 1, 'cooperative'), (128, 1, 'cooperative'),
-                                (64, 1, 'cooperative'), (128, 2, 'pingpong'))}
+        res_gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
+            lambda t=t: A._ln_gemm(main, wt, wb, out, epilogue=A._EPI_RESIDUAL, residual=res,
+                                   tile_n=t)) for t in (0, 256, 192, 128, 64)}
         res_gemm['torch_addmm_add_ms'] = _timed(lambda: torch.addmm(wb, main, w).add_(res))
         emit('gemm_residual', shape=[m, d, d], **res_gemm,
              bound_ms=1e3 * max(2 * m * d * d / 989e12, 2 * 3 * m * d / 3.35e12),

@@ -430,25 +430,24 @@ def test_ln_gemm_on_card(m, k, n, epilogue, col0, ln, tile_n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m, n, col0, tile_n, schedule', [
-    (197 * 5 + 3, 768, 0, 0, 0),
-    (197 * 5 + 3, 768, 0, 256, 1),
-    (197 * 5 + 3, 768, 0, 128, 1),
-    (197 * 5 + 3, 768, 0, 64, 1),
-    (197 * 5 + 3, 768, 0, 128, 2),
-    (197 * 5 + 3, 2304, 0, 256, 1),
-    (197 * 5 + 3, 2304, 0, 128, 2),
-    (130, 768, 768, 0, 0),
-    (130, 768, 768, 128, 2),
-    (128 * 300 + 5, 768, 0, 0, 0),
+@pytest.mark.parametrize('m, n, col0, tile_n', [
+    (197 * 5 + 3, 768, 0, 0),
+    (197 * 5 + 3, 768, 0, 256),
+    (197 * 5 + 3, 768, 0, 192),
+    (197 * 5 + 3, 768, 0, 128),
+    (197 * 5 + 3, 768, 0, 64),
+    (197 * 5 + 3, 2304, 0, 256),
+    (197 * 5 + 3, 2304, 0, 192),
+    (130, 768, 768, 0),
+    (130, 768, 768, 192),
 ])
-def test_ln_gemm_residual_on_card(m, n, col0, tile_n, schedule):
+def test_ln_gemm_residual_on_card(m, n, col0, tile_n):
     """The residual epilogue, R loaded by TMA into the staging tiles and
     added there, against its plain version in bf16: M off the 128-row tile,
-    N = 768 and 2304, a column slice (``col0``) of a prepared weight, each
-    tile width, and the second consumer warpgroup trailing the first."""
+    N = 768 and 2304, a column slice (``col0``) of a prepared weight, and
+    each tile width."""
     dev = _card()
-    rng = np.random.default_rng(60 + m + n + col0 + tile_n + schedule)
+    rng = np.random.default_rng(60 + m + n + col0 + tile_n)
 
     def r(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
@@ -459,7 +458,7 @@ def test_ln_gemm_residual_on_card(m, n, col0, tile_n, schedule):
     res = r(m, n).bfloat16()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ta._ln_gemm(x, ta.kmajor(w), wb, out, epilogue=2, residual=res, col0=col0,
-                tile_n=tile_n, schedule=schedule)
+                tile_n=tile_n)
     want = (res.float() + ta._proj(x, w[:, col0:], wb[col0:])).bfloat16()
     torch.cuda.synchronize()
     _assert_close_on_card(out, want, atol=0.05)
@@ -473,6 +472,7 @@ def test_ln_gemm_residual_on_card(m, n, col0, tile_n, schedule):
     (768, 'large_mean', 1, 128),
     (1024, 'random', 0, 64),
     (768, 'large_mean', 0, 256),
+    (768, 'large_mean', 0, 192),
 ])
 def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, tile_n):
     """LayerNorm on the product's A path (statistics pass, then each A
