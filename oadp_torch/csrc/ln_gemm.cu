@@ -58,6 +58,7 @@
 // between them.
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
+#include <cstdlib>
 
 #include "common.cuh"
 
@@ -65,7 +66,10 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+// the producer warpgroup (a TMA thread in warp 0; with LN, warps 1-3
+// normalise the A k-tiles) and two consumer warpgroups
+constexpr int THREADS = 384;
+constexpr int LN_WARPS = 3;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
@@ -74,19 +78,22 @@ enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
 // 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
 // per 64 columns, R lands there; the others alternate two), then the
-// barriers: full and empty per stage, one R barrier per consumer.
+// barriers (full, empty and ready per stage, one R barrier per consumer),
+// then the row statistics of the tile being normalised.
 template <int BN, int EPI>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
-  static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int BAR_BYTES = (3 * 8 + 2) * 8;
+  static constexpr int STATS_BYTES = BM * 8;  // with LN: the tile's row statistics
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - STATS_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int STATS = BARS + BAR_BYTES;
+  static constexpr int SMEM = STATS + STATS_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
@@ -102,6 +109,7 @@ struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
   int segs, tiles, K;
+  int debug;
   const float* gamma;
   const float* beta;
 };
@@ -259,41 +267,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d (64 x 192 fp32 per warpgroup) += A (64 x 16, shared) * B (192 x 16, shared)^T,
-// both K-major with the 128-byte swizzle.
-__device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t desc_b) {
   if constexpr (BN == 256) wgmma_m64n256k16(d, desc_a, desc_b);
-  else if constexpr (BN == 192) wgmma_m64n192k16(d, desc_a, desc_b);
   else if constexpr (BN == 128) wgmma_m64n128k16(d, desc_a, desc_b);
   else wgmma_m64n64k16(d, desc_a, desc_b);
 }
@@ -307,39 +283,6 @@ __device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
   const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
   const int local = tile - p.seg[s].first;
   return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
-}
-
-// With LN, consumer thread ctid rewrites 16-byte chunk ctid % 8 of rows
-// ctid / 8 + 16 i (i < 4) of its warpgroup's 64 A rows: eight lanes cover
-// a row's eight chunks (conflict-free under the swizzle).
-constexpr int LN_ROWS = 4;
-
-// Row statistics of this thread's LN rows of the tile at m0 (rows past M,
-// which arrived as zeros and are never stored, take 0).
-__device__ __forceinline__ void load_row_stats(const Params& p, int tile, int cw, int ctid,
-                                               float2 (&st)[LN_ROWS]) {
-  if (tile >= p.tiles) return;
-  const TileAt at = tile_at<BM>(p, tile);  // rows only: any width gives the same m0
-  const int M = p.seg[at.s].M;
-  const float2* stats = p.seg[at.s].stats;
-#pragma unroll
-  for (int i = 0; i < LN_ROWS; ++i) {
-    const int m = at.m0 + cw * 64 + (ctid >> 3) + 16 * i;
-    st[i] = m < M ? stats[m] : make_float2(0.f, 0.f);
-  }
-}
-
-// gamma and beta of this thread's chunk of k-tile kt.
-__device__ __forceinline__ void load_ln_params(const Params& p, int kt, int ctid, float (&gm)[8],
-                                               float (&bt)[8]) {
-  const int col = kt * BK + (ctid & 7) * 8;
-  const float4* g4 = reinterpret_cast<const float4*>(p.gamma + col);
-  const float4* b4 = reinterpret_cast<const float4*>(p.beta + col);
-  const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-  gm[0] = g0.x, gm[1] = g0.y, gm[2] = g0.z, gm[3] = g0.w;
-  gm[4] = g1.x, gm[5] = g1.y, gm[6] = g1.z, gm[7] = g1.w;
-  bt[0] = b0.x, bt[1] = b0.y, bt[2] = b0.z, bt[3] = b0.w;
-  bt[4] = b1.x, bt[5] = b1.y, bt[6] = b1.z, bt[7] = b1.w;
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -385,13 +328,15 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
   uint64_t* empty = full + T::STAGES;
-  uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
+  uint64_t* ready = empty + T::STAGES;  // with LN: the stage's A tile is normalised
+  uint64_t* rfull = ready + T::STAGES;  // residual: a consumer's R blocks have landed
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
+      mbar_init(&ready[s], LN_WARPS);  // one arrive per normalising warp
     }
     mbar_init(&rfull[0], 1);
     mbar_init(&rfull[1], 1);
@@ -400,11 +345,19 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   __syncthreads();
 
   const int KT = p.K / BK;
+  // consumers wait for the landed tile, or with LN for its normalised A
+  uint64_t* const landed = LN ? ready : full;
 
   if (wg == 0) {
-    // producer: one thread keeps the ring full, through tile boundaries
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // LN needs registers in warps 1-3; the consumers' code fits in 168
+    // (the 384-thread limit), so they give some of the spare ones up
+    if constexpr (LN) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
     if (tid == 0) {
+      // producer: one thread keeps the ring full, through tile boundaries
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -421,20 +374,70 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           }
         }
       }
+    } else if (LN && tid >= 32) {
+      // LayerNorm of each landed A k-tile in place. Thread tt owns 16-byte
+      // chunk tt % 8 of rows tt / 8 + 12 i: eight lanes cover a row's
+      // eight chunks (conflict-free under the swizzle), the lane's gamma
+      // and beta serve all its rows of a k-tile (loaded while the previous
+      // k-tile is rewritten), the tile's row statistics are staged in
+      // shared memory once, and rows go four at a time for independent
+      // work.
+      constexpr int ROW_STEP = 32 * LN_WARPS / 8;
+      const int tt = tid - 32, lane = tid & 31;
+      const int c = tt & 7, r0 = tt >> 3;
+      float2* row_stats = reinterpret_cast<float2*>(ring + T::STATS);
+      const float4* gamma4 = reinterpret_cast<const float4*>(p.gamma) + c * 2;
+      const float4* beta4 = reinterpret_cast<const float4*>(p.beta) + c * 2;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
+        const int M = p.seg[at.s].M;
+        const float2* stats = p.seg[at.s].stats;
+        named_barrier(6, 32 * LN_WARPS);  // the last tile's statistics are read
+        for (int r = tt; r < BM; r += 32 * LN_WARPS)  // rows past M are never stored
+          row_stats[r] = at.m0 + r < M ? stats[at.m0 + r] : make_float2(0.f, 0.f);
+        named_barrier(6, 32 * LN_WARPS);
+        for (int kt = 0; kt < KT; ++kt) {
+          const float4 g0 = gamma4[kt * (BK / 4)], g1 = gamma4[kt * (BK / 4) + 1];
+          const float4 b0 = beta4[kt * (BK / 4)], b1 = beta4[kt * (BK / 4) + 1];
+          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+          mbar_wait(&full[stage], phase);
+          unsigned char* a_s = ring + stage * T::STAGE;
+          if (p.debug != 1) {
+#pragma unroll 2
+            for (int r = r0; r < BM; r += ROW_STEP) {
+              uint4* q = reinterpret_cast<uint4*>(a_s + swz(r, c));
+              const float2 st = row_stats[r];
+              float f[8];
+              unpack8(*q, f);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * gm[j] + bt[j];
+              *q = pack8(f);
+            }
+          }
+          if (p.debug != 2) fence_proxy_async();  // the rewrite, before wgmma reads the tile
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&ready[stage]);
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (LN) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    }
     const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
     float acc[BN / 2];
-    float2 st[LN_ROWS];
-    float gm[8], bt[8];
-    if (LN) {
-      load_row_stats(p, blockIdx.x, cw, ctid, st);
-      load_ln_params(p, 0, ctid, gm, bt);
-    }
     int stage = 0, stores = 0;
     unsigned phase = 0, rphase = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -445,28 +448,9 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
       for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(&full[stage], phase);
-        unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+        mbar_wait(&landed[stage], phase);
+        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
         const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
-        if (LN) {
-          // LayerNorm of this warpgroup's 64 A rows in place, while the
-          // previous k-tile's wgmma group runs
-          uint4 v[LN_ROWS];
-#pragma unroll
-          for (int i = 0; i < LN_ROWS; ++i)
-            v[i] = *reinterpret_cast<const uint4*>(a_s + swz((ctid >> 3) + 16 * i, ctid & 7));
-#pragma unroll
-          for (int i = 0; i < LN_ROWS; ++i) {
-            float f[8];
-            unpack8(v[i], f);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) f[j] = (f[j] - st[i].x) * st[i].y * gm[j] + bt[j];
-            *reinterpret_cast<uint4*>(a_s + swz((ctid >> 3) + 16 * i, ctid & 7)) = pack8(f);
-          }
-          fence_proxy_async();  // the rewrite, before wgmma reads the tile
-          named_barrier(1 + cw, 128);
-          load_ln_params(p, kt + 1 == KT ? 0 : kt + 1, ctid, gm, bt);
-        }
         fence_acc<BN / 2>(acc);
         wgmma_fence();
 #pragma unroll
@@ -496,7 +480,6 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       wgmma_wait<0>();
       fence_acc<BN / 2>(acc);
       if (lane == 0) mbar_arrive(&empty[held]);
-      if (LN) load_row_stats(p, tile + gridDim.x, cw, ctid, st);  // lands during the epilogue
 
       // Epilogue, 64 columns at a time, each block stored by TMA as soon
       // as it is staged (rows past M, columns past N are not written).
@@ -547,6 +530,7 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
+  p.debug = getenv("OADP_LN_DEBUG") ? atoi(getenv("OADP_LN_DEBUG")) : 0;
   p.K = K;
   p.gamma = gamma;
   p.beta = beta;
@@ -630,7 +614,7 @@ extern "C" {
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
 // gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
 // receives each row's mean and rstd and the product normalises A as it
-// reads it. tile_n: 64, 128, 192 or 256, or 0 to pick by shape.
+// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
                  const void* bias, int epilogue, int tile_n, const void* A0, int M0, int N0,
                  int col00, const void* R0, void* C0, const void* A1, int M1, int N1, int col01,
@@ -657,7 +641,6 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, cons
   switch (tile_n == 0 ? pick_tile_n(segs, nseg) : tile_n) {
     case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
-    case 192: return launch_epilogue<192>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
   }
   return cudaErrorInvalidValue;

@@ -302,8 +302,8 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
     LayerNorm and epilogue). Nothing is copied: each row slice of ``wt``
     and slice of ``bias`` is read in place; with LayerNorm the kernel
     normalises the rows as it reads them, from an 8-byte-a-row statistics
-    buffer made here. ``tile_n`` (64, 128, 192, 256) overrides the
-    kernel's choice of tile width."""
+    buffer made here. ``tile_n`` (64, 128, 256) overrides the kernel's
+    choice of tile width."""
     k = a2d.shape[1]
     sets = [(a2d, out, residual, col0)] + ([rows2] if rows2 is not None else [])
     for a, o, r, c0 in sets:
@@ -313,7 +313,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                 or c0 + n > bias.shape[0]
                 or o.shape[0] != m or (r is not None and r.shape != o.shape)
                 or (r is None) != (epilogue != _EPI_RESIDUAL)
-                or tile_n not in (0, 64, 128, 192, 256)):
+                or tile_n not in (0, 64, 128, 256)):
             raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
                              f'wt={tuple(wt.shape)}')
     lib = cuda_lib.library()
