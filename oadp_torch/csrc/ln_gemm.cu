@@ -58,7 +58,6 @@
 // between them.
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
-#include <cstdlib>
 
 #include "common.cuh"
 
@@ -66,10 +65,7 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-// the producer warpgroup (a TMA thread in warp 0; with LN, warps 1-3
-// normalise the A k-tiles) and two consumer warpgroups
-constexpr int THREADS = 384;
-constexpr int LN_WARPS = 3;
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
@@ -78,22 +74,19 @@ enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
 // 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
 // per 64 columns, R lands there; the others alternate two), then the
-// barriers (full, empty and ready per stage, one R barrier per consumer),
-// then the row statistics of the tile being normalised.
+// barriers: full and empty per stage, one R barrier per consumer.
 template <int BN, int EPI>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
-  static constexpr int BAR_BYTES = (3 * 8 + 2) * 8;
-  static constexpr int STATS_BYTES = BM * 8;  // with LN: the tile's row statistics
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - STATS_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int STATS = BARS + BAR_BYTES;
-  static constexpr int SMEM = STATS + STATS_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
@@ -109,7 +102,6 @@ struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
   int segs, tiles, K;
-  int debug;
   const float* gamma;
   const float* beta;
 };
@@ -274,6 +266,97 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t d
   else wgmma_m64n64k16(d, desc_a, desc_b);
 }
 
+// d (64 x 64 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
+// the mma.sync m16n8k16 A layout per warp) * B (64 x 16, shared, K-major,
+// 128-byte swizzle)^T.
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const unsigned* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
+// the mma.sync m16n8k16 A layout per warp) * B (128 x 16, shared, K-major,
+// 128-byte swizzle)^T.
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const unsigned* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 256 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
+// the mma.sync m16n8k16 A layout per warp) * B (256 x 16, shared, K-major,
+// 128-byte swizzle)^T.
+__device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const unsigned* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float* d, const unsigned* a, uint64_t desc_b) {
+  if constexpr (BN == 256) wgmma_rs_m64n256k16(d, a, desc_b);
+  else if constexpr (BN == 128) wgmma_rs_m64n128k16(d, a, desc_b);
+  else wgmma_rs_m64n64k16(d, a, desc_b);
+}
+
 struct TileAt {
   int s, m0, n0;  // segment, first row and column
 };
@@ -319,6 +402,40 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
   }
 }
 
+// With LN, the statistics of a consumer thread's two A rows of the tile
+// (rows g and g + 8 of its warp's 16; rows past M, which arrive as zeros
+// and are never stored, take 0).
+__device__ __forceinline__ void load_row_stats(const Params& p, int tile, int row,
+                                               float2 (&st)[2]) {
+  if (tile >= p.tiles) return;
+  const TileAt at = tile_at<BM>(p, tile);  // the rows do not depend on the width
+  const int M = p.seg[at.s].M;
+  const float2* stats = p.seg[at.s].stats;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = at.m0 + row + 8 * h;
+    st[h] = m < M ? stats[m] : make_float2(0.f, 0.f);
+  }
+}
+
+// LayerNorm of one A fragment in place: a[0] row g, columns col, col + 1;
+// a[1] row g + 8, the same columns; a[2], a[3] the same rows at col + 8
+// (the wgmma A layout). fp32, rounded once to bf16.
+__device__ __forceinline__ void ln_fragment(unsigned (&a)[4], const float2 (&st)[2],
+                                            const float* gamma, const float* beta, int col) {
+#pragma unroll
+  for (int hc = 0; hc < 2; ++hc) {
+    const float2 gm = *reinterpret_cast<const float2*>(gamma + col + 8 * hc);
+    const float2 bt = *reinterpret_cast<const float2*>(beta + col + 8 * hc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned& r = a[2 * hc + h];
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+      r = pack2((v.x - st[h].x) * st[h].y * gm.x + bt.x, (v.y - st[h].x) * st[h].y * gm.y + bt.y);
+    }
+  }
+}
+
 template <int BN, int EPI, bool LN>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
   using T = Tile<BN, EPI>;
@@ -328,15 +445,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
   uint64_t* empty = full + T::STAGES;
-  uint64_t* ready = empty + T::STAGES;  // with LN: the stage's A tile is normalised
-  uint64_t* rfull = ready + T::STAGES;  // residual: a consumer's R blocks have landed
+  uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
-      mbar_init(&ready[s], LN_WARPS);  // one arrive per normalising warp
     }
     mbar_init(&rfull[0], 1);
     mbar_init(&rfull[1], 1);
@@ -345,19 +460,11 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   __syncthreads();
 
   const int KT = p.K / BK;
-  // consumers wait for the landed tile, or with LN for its normalised A
-  uint64_t* const landed = LN ? ready : full;
 
   if (wg == 0) {
-    // LN needs registers in warps 1-3; the consumers' code fits in 168
-    // (the 384-thread limit), so they give some of the spare ones up
-    if constexpr (LN) {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    } else {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    }
+    // producer: one thread keeps the ring full, through tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      // producer: one thread keeps the ring full, through tile boundaries
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -374,70 +481,16 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           }
         }
       }
-    } else if (LN && tid >= 32) {
-      // LayerNorm of each landed A k-tile in place. Thread tt owns 16-byte
-      // chunk tt % 8 of rows tt / 8 + 12 i: eight lanes cover a row's
-      // eight chunks (conflict-free under the swizzle), the lane's gamma
-      // and beta serve all its rows of a k-tile (loaded while the previous
-      // k-tile is rewritten), the tile's row statistics are staged in
-      // shared memory once, and rows go four at a time for independent
-      // work.
-      constexpr int ROW_STEP = 32 * LN_WARPS / 8;
-      const int tt = tid - 32, lane = tid & 31;
-      const int c = tt & 7, r0 = tt >> 3;
-      float2* row_stats = reinterpret_cast<float2*>(ring + T::STATS);
-      const float4* gamma4 = reinterpret_cast<const float4*>(p.gamma) + c * 2;
-      const float4* beta4 = reinterpret_cast<const float4*>(p.beta) + c * 2;
-      int stage = 0;
-      unsigned phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const TileAt at = tile_at<BN>(p, tile);
-        const int M = p.seg[at.s].M;
-        const float2* stats = p.seg[at.s].stats;
-        named_barrier(6, 32 * LN_WARPS);  // the last tile's statistics are read
-        for (int r = tt; r < BM; r += 32 * LN_WARPS)  // rows past M are never stored
-          row_stats[r] = at.m0 + r < M ? stats[at.m0 + r] : make_float2(0.f, 0.f);
-        named_barrier(6, 32 * LN_WARPS);
-        for (int kt = 0; kt < KT; ++kt) {
-          const float4 g0 = gamma4[kt * (BK / 4)], g1 = gamma4[kt * (BK / 4) + 1];
-          const float4 b0 = beta4[kt * (BK / 4)], b1 = beta4[kt * (BK / 4) + 1];
-          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-          const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-          mbar_wait(&full[stage], phase);
-          unsigned char* a_s = ring + stage * T::STAGE;
-          if (p.debug != 1) {
-#pragma unroll 2
-            for (int r = r0; r < BM; r += ROW_STEP) {
-              uint4* q = reinterpret_cast<uint4*>(a_s + swz(r, c));
-              const float2 st = row_stats[r];
-              float f[8];
-              unpack8(*q, f);
-#pragma unroll
-              for (int j = 0; j < 8; ++j) f[j] = (f[j] - st.x) * st.y * gm[j] + bt[j];
-              *q = pack8(f);
-            }
-          }
-          if (p.debug != 2) fence_proxy_async();  // the rewrite, before wgmma reads the tile
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&ready[stage]);
-          if (++stage == T::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
     }
   } else {
-    if constexpr (LN) {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    } else {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
     float acc[BN / 2];
+    float2 st[2];  // with LN: this thread's rows' mean and rstd
+    if (LN) load_row_stats(p, blockIdx.x, cw * 64 + w * 16 + g, st);
     int stage = 0, stores = 0;
     unsigned phase = 0, rphase = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -448,15 +501,42 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
       for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(&landed[stage], phase);
+        mbar_wait(&full[stage], phase);
         const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
         const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
-        fence_acc<BN / 2>(acc);
-        wgmma_fence();
+        if constexpr (LN) {
+          // A through registers: each 16-wide k-step's fragment from
+          // ldmatrix, normalised, then wgmma with A from registers, one
+          // group a k-step. The fragments alternate between two register
+          // sets, and a set is rewritten only after the group that read
+          // it has retired (wait_group 1), so no wgmma waits on the
+          // normalisation of the next.
+          unsigned af[2][4];
 #pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
-          wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-        wgmma_commit();
+          for (int ks = 0; ks < BK / 16; ++ks) {
+            unsigned (&a)[4] = af[ks & 1];
+            ldmatrix_x4(a, smem_u32(a_s) + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+            ln_fragment(a, st, p.gamma, p.beta, kt * BK + ks * 16 + 2 * t);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+            fence_acc<BN / 2>(acc);
+            wgmma_fence();
+            wgmma_rs<BN>(acc, a, smem_desc(b_s + ks * 32));
+            wgmma_commit();
+            // the previous k-step's group has retired; after this k-tile's
+            // first k-step, that was the last group reading stage `held`
+            wgmma_wait<1>();
+            fence_acc<BN / 2>(acc);
+            if (ks == 0 && held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+          }
+        } else {
+          fence_acc<BN / 2>(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
+            wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+          wgmma_commit();
+        }
         if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
           // R of this tile into the staging tiles, once the stores of the
           // previous tile have read them
@@ -467,10 +547,12 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
             tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
                         at.m0 + cw * 64);
         }
-        // the group of k-tile kt-1 has retired: its stage may be refilled
-        wgmma_wait<1>();
-        fence_acc<BN / 2>(acc);
-        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        if constexpr (!LN) {
+          // the group of k-tile kt-1 has retired: its stage may be refilled
+          wgmma_wait<1>();
+          fence_acc<BN / 2>(acc);
+          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        }
         held = stage;
         if (++stage == T::STAGES) {
           stage = 0;
@@ -480,6 +562,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       wgmma_wait<0>();
       fence_acc<BN / 2>(acc);
       if (lane == 0) mbar_arrive(&empty[held]);
+      // the next tile's row statistics land during the epilogue
+      if (LN) load_row_stats(p, tile + gridDim.x, cw * 64 + w * 16 + g, st);
 
       // Epilogue, 64 columns at a time, each block stored by TMA as soon
       // as it is staged (rows past M, columns past N are not written).
@@ -530,7 +614,6 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
-  p.debug = getenv("OADP_LN_DEBUG") ? atoi(getenv("OADP_LN_DEBUG")) : 0;
   p.K = K;
   p.gamma = gamma;
   p.beta = beta;
