@@ -58,6 +58,7 @@
 // between them.
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -65,7 +66,7 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int THREADS = 288;  // two consumer warpgroups + a producer warp
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
@@ -436,6 +437,10 @@ __device__ __forceinline__ void ln_fragment(unsigned (&a)[4], const float2 (&st)
   }
 }
 
+// Warps 0-7 are the two consumer warpgroups, warp 8 the producer: with no
+// producer warpgroup to give registers up, the 288 threads may hold 224
+// registers each, room for a 64 x 256 accumulator and two k-tiles of A
+// fragments.
 template <int BN, int EPI, bool LN>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
   using T = Tile<BN, EPI>;
@@ -461,10 +466,9 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 
   const int KT = p.K / BK;
 
-  if (wg == 0) {
+  if (wg == 2) {
     // producer: one thread keeps the ring full, through tile boundaries
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == 0) {
+    if (tid == 256) {
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -482,117 +486,146 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         }
       }
     }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
-    const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
-    float acc[BN / 2];
-    float2 st[2];  // with LN: this thread's rows' mean and rstd
-    if (LN) load_row_stats(p, blockIdx.x, cw * 64 + w * 16 + g, st);
-    int stage = 0, stores = 0;
-    unsigned phase = 0, rphase = 0;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const TileAt at = tile_at<BN>(p, tile);
-      const int N = p.seg[at.s].N;
-      const bf16* bias = p.seg[at.s].bias;
+    return;
+  }
+
+  const int cw = wg;  // this warpgroup's 64 rows of the tile
+  const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
+  float acc[BN / 2];
+  int stage = 0, stores = 0;
+  unsigned phase = 0, rphase = 0;
+  int held = -1;  // the stage the in-flight wgmma group reads
+
+  // the current stage's smem A (this warpgroup's 64 rows) and W
+  auto a_tile = [&]() { return ring + stage * T::STAGE + cw * 64 * 128; };
+  auto b_tile = [&]() { return ring + stage * T::STAGE + T::A_BYTES; };
+  // the group that read stage `held` has retired: release it; move on
+  auto next_stage = [&]() {
+    if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+    held = stage;
+    if (++stage == T::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  // R of the tile into the staging tiles, once the stores of the previous
+  // tile have read them (early in the k-loop, so it lands before the
+  // epilogue)
+  auto load_residual = [&](const TileAt& at, int kt) {
+    if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      int held = -1;  // the stage the in-flight wgmma group reads
+      for (int cc = 0; cc < T::OUT_TILES; ++cc)
+        tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                    at.m0 + cw * 64);
+    }
+  };
+
+  // With LN: A goes through registers. Each k-tile's four 16-wide
+  // fragments are read with ldmatrix and normalised while the previous
+  // k-tile's wgmma group runs, into one of two register sets; a set is
+  // rewritten only after the group that read it has retired (wait_group 1).
+  float2 st[2];  // this thread's two rows' mean and rstd
+  unsigned af[2][BK / 16][4];
+  const int ln_row = cw * 64 + w * 16 + g;
+  auto prepare_a = [&](auto set, int kt) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t a_s = smem_u32(a_tile());
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      unsigned (&a)[4] = af[decltype(set)::value][ks];
+      ldmatrix_x4(a, a_s + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      ln_fragment(a, st, p.gamma, p.beta, kt * BK + ks * 16 + 2 * t);
+    }
+  };
+  auto ln_k_tile = [&](auto set, const TileAt& at, int kt) {
+    constexpr int S = decltype(set)::value;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[S][ks][i])::"memory");
+    fence_acc<BN / 2>(acc);
+    wgmma_fence();
+    const unsigned char* b_s = b_tile();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_rs<BN>(acc, af[S][ks], smem_desc(b_s + ks * 32));
+    wgmma_commit();
+    // the group of k-tile kt-1 has retired: its stage and registers are free
+    wgmma_wait<1>();
+    fence_acc<BN / 2>(acc);
+    next_stage();
+    if (kt + 1 < KT) prepare_a(std::integral_constant<int, S ^ 1>(), kt + 1);
+  };
+
+  if (LN) load_row_stats(p, blockIdx.x, ln_row, st);
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const TileAt at = tile_at<BN>(p, tile);
+    const int N = p.seg[at.s].N;
+    const bf16* bias = p.seg[at.s].bias;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    if constexpr (LN) {
+      prepare_a(std::integral_constant<int, 0>(), 0);
+      for (int kt = 0; kt < KT; kt += 2) {
+        ln_k_tile(std::integral_constant<int, 0>(), at, kt);
+        if (kt + 1 < KT) ln_k_tile(std::integral_constant<int, 1>(), at, kt + 1);
+      }
+    } else {
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
-        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
-        const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
-        if constexpr (LN) {
-          // A through registers: each 16-wide k-step's fragment from
-          // ldmatrix, normalised, then wgmma with A from registers, one
-          // group a k-step. The fragments alternate between two register
-          // sets, and a set is rewritten only after the group that read
-          // it has retired (wait_group 1), so no wgmma waits on the
-          // normalisation of the next.
-          unsigned af[2][4];
+        const unsigned char* a_s = a_tile();
+        const unsigned char* b_s = b_tile();
+        fence_acc<BN / 2>(acc);
+        wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < BK / 16; ++ks) {
-            unsigned (&a)[4] = af[ks & 1];
-            ldmatrix_x4(a, smem_u32(a_s) + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
-            ln_fragment(a, st, p.gamma, p.beta, kt * BK + ks * 16 + 2 * t);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
-            fence_acc<BN / 2>(acc);
-            wgmma_fence();
-            wgmma_rs<BN>(acc, a, smem_desc(b_s + ks * 32));
-            wgmma_commit();
-            // the previous k-step's group has retired; after this k-tile's
-            // first k-step, that was the last group reading stage `held`
-            wgmma_wait<1>();
-            fence_acc<BN / 2>(acc);
-            if (ks == 0 && held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-          }
-        } else {
-          fence_acc<BN / 2>(acc);
-          wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
-            wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-          wgmma_commit();
-        }
-        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-          // R of this tile into the staging tiles, once the stores of the
-          // previous tile have read them
-          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
-#pragma unroll
-          for (int cc = 0; cc < T::OUT_TILES; ++cc)
-            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
-                        at.m0 + cw * 64);
-        }
-        if constexpr (!LN) {
-          // the group of k-tile kt-1 has retired: its stage may be refilled
-          wgmma_wait<1>();
-          fence_acc<BN / 2>(acc);
-          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-        }
-        held = stage;
-        if (++stage == T::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc<BN / 2>(acc);
-      if (lane == 0) mbar_arrive(&empty[held]);
-      // the next tile's row statistics land during the epilogue
-      if (LN) load_row_stats(p, tile + gridDim.x, cw * 64 + w * 16 + g, st);
-
-      // Epilogue, 64 columns at a time, each block stored by TMA as soon
-      // as it is staged (rows past M, columns past N are not written).
-      // The residual's blocks each have their own staging tile; the
-      // others alternate two, a tile being rewritten once the store
-      // issued from it two blocks earlier has read it.
-      if (EPI == EPI_RESIDUAL) {
-        mbar_wait(&rfull[cw], rphase);
-        rphase ^= 1;
-      }
-#pragma unroll
-      for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
-        unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
-        if (EPI != EPI_RESIDUAL) {
-          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-          named_barrier(1 + cw, 128);
-        }
-        epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
-        fence_proxy_async();  // the staging writes, before the TMA store reads them
-        named_barrier(1 + cw, 128);
-        if (ctid == 0) {
-          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
-          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        }
+        for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
+          wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
+        wgmma_commit();
+        load_residual(at, kt);
+        // the group of k-tile kt-1 has retired: its stage may be refilled
+        wgmma_wait<1>();
+        fence_acc<BN / 2>(acc);
+        next_stage();
       }
     }
-    // the staging tiles must outlive the stores' reads of them
-    if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    wgmma_wait<0>();
+    fence_acc<BN / 2>(acc);
+    if (lane == 0) mbar_arrive(&empty[held]);
+    held = -1;
+    // the next tile's row statistics land during the epilogue
+    if (LN) load_row_stats(p, tile + gridDim.x, ln_row, st);
+
+    // Epilogue, 64 columns at a time, each block stored by TMA as soon as
+    // it is staged (rows past M, columns past N are not written). The
+    // residual's blocks each have their own staging tile; the others
+    // alternate two, a tile being rewritten once the store issued from it
+    // two blocks earlier has read it.
+    if (EPI == EPI_RESIDUAL) {
+      mbar_wait(&rfull[cw], rphase);
+      rphase ^= 1;
+    }
+#pragma unroll
+    for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
+      unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
+      if (EPI != EPI_RESIDUAL) {
+        if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        named_barrier(1 + cw, 128);
+      }
+      epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
+      fence_proxy_async();  // the staging writes, before the TMA store reads them
+      named_barrier(1 + cw, 128);
+      if (ctid == 0) {
+        tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
   }
+  // the staging tiles must outlive the stores' reads of them
+  if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The host side of one segment.
