@@ -58,6 +58,7 @@
 // between them.
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
+#include <cstdlib>
 #include <type_traits>
 
 #include "common.cuh"
@@ -69,25 +70,29 @@ constexpr int BM = 128, BK = 64;
 constexpr int THREADS = 288;  // two consumer warpgroups + a producer warp
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
+constexpr int MAX_LN_K = 1024;  // the widest row LayerNorm takes (the statistics pass's limit)
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
 // 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
 // per 64 columns, R lands there; the others alternate two), then the
-// barriers: full and empty per stage, one R barrier per consumer.
-template <int BN, int EPI>
+// barriers (full and empty per stage, one R barrier per consumer), then
+// with LN its gamma and beta.
+template <int BN, int EPI, bool LN>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
   static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int LN_BYTES = LN ? 2 * MAX_LN_K * 4 : 0;  // gamma and beta, fp32
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - LN_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int LN_PARAMS = BARS + BAR_BYTES;
+  static constexpr int SMEM = LN_PARAMS + LN_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
@@ -103,6 +108,7 @@ struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
   int segs, tiles, K;
+  int debug;
   const float* gamma;
   const float* beta;
 };
@@ -443,7 +449,7 @@ __device__ __forceinline__ void ln_fragment(unsigned (&a)[4], const float2 (&st)
 // fragments.
 template <int BN, int EPI, bool LN>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  using T = Tile<BN, EPI>;
+  using T = Tile<BN, EPI, LN>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -461,6 +467,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     mbar_init(&rfull[0], 1);
     mbar_init(&rfull[1], 1);
     mbar_init_fence();
+  }
+  float* ln_gamma = reinterpret_cast<float*>(ring + T::LN_PARAMS);
+  float* ln_beta = ln_gamma + MAX_LN_K;
+  if (LN) {
+    for (int i = tid; i < p.K; i += THREADS) {
+      ln_gamma[i] = p.gamma[i];
+      ln_beta[i] = p.beta[i];
+    }
   }
   __syncthreads();
 
@@ -524,41 +538,44 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     }
   };
 
-  // With LN: A goes through registers. Each k-tile's four 16-wide
-  // fragments are read with ldmatrix and normalised while the previous
-  // k-tile's wgmma group runs, into one of two register sets; a set is
-  // rewritten only after the group that read it has retired (wait_group 1).
+  // With LN: A goes through registers. Each 16-wide k-step's fragment is
+  // read with ldmatrix, normalised, and multiplied by wgmma with A from
+  // registers, one group a k-step; the fragments alternate between two
+  // register sets, and a set is rewritten only after the group that read
+  // it has retired (wait_group 1), so the normalisation of one k-step runs
+  // under the products of the two before it.
   float2 st[2];  // this thread's two rows' mean and rstd
-  unsigned af[2][BK / 16][4];
+  unsigned af[2][4];
   const int ln_row = cw * 64 + w * 16 + g;
-  auto prepare_a = [&](auto set, int kt) {
+  auto ln_k_tile = [&](int kt) {
     mbar_wait(&full[stage], phase);
     const uint32_t a_s = smem_u32(a_tile());
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      unsigned (&a)[4] = af[decltype(set)::value][ks];
-      ldmatrix_x4(a, a_s + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
-      ln_fragment(a, st, p.gamma, p.beta, kt * BK + ks * 16 + 2 * t);
-    }
-  };
-  auto ln_k_tile = [&](auto set, const TileAt& at, int kt) {
-    constexpr int S = decltype(set)::value;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[S][ks][i])::"memory");
-    fence_acc<BN / 2>(acc);
-    wgmma_fence();
     const unsigned char* b_s = b_tile();
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks)
-      wgmma_rs<BN>(acc, af[S][ks], smem_desc(b_s + ks * 32));
-    wgmma_commit();
-    // the group of k-tile kt-1 has retired: its stage and registers are free
-    wgmma_wait<1>();
-    fence_acc<BN / 2>(acc);
-    next_stage();
-    if (kt + 1 < KT) prepare_a(std::integral_constant<int, S ^ 1>(), kt + 1);
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      unsigned (&a)[4] = af[ks & 1];
+      ldmatrix_x4(a, a_s + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      if (p.debug != 1) ln_fragment(a, st, ln_gamma, ln_beta, kt * BK + ks * 16 + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+      fence_acc<BN / 2>(acc);
+      wgmma_fence();
+      wgmma_rs<BN>(acc, a, smem_desc(b_s + ks * 32));
+      wgmma_commit();
+      // the previous k-step's group has retired; after the first k-step,
+      // that was the last group reading the previous k-tile's stage
+      wgmma_wait<1>();
+      fence_acc<BN / 2>(acc);
+      if (ks == 0) {
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = -1;
+      }
+    }
+    held = stage;
+    if (++stage == T::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
   };
 
   if (LN) load_row_stats(p, blockIdx.x, ln_row, st);
@@ -569,11 +586,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     if constexpr (LN) {
-      prepare_a(std::integral_constant<int, 0>(), 0);
-      for (int kt = 0; kt < KT; kt += 2) {
-        ln_k_tile(std::integral_constant<int, 0>(), at, kt);
-        if (kt + 1 < KT) ln_k_tile(std::integral_constant<int, 1>(), at, kt + 1);
-      }
+      for (int kt = 0; kt < KT; ++kt) ln_k_tile(kt);
     } else {
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -640,13 +653,14 @@ template <int BN, int EPI, bool LN>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
                    const float* gamma, const float* beta, const float2* stats,
                    cudaStream_t stream) {
-  using T = Tile<BN, EPI>;
+  using T = Tile<BN, EPI, LN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<BN, EPI, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
+  p.debug = getenv("OADP_LN_DEBUG") ? atoi(getenv("OADP_LN_DEBUG")) : 0;
   p.K = K;
   p.gamma = gamma;
   p.beta = beta;
@@ -686,12 +700,14 @@ cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const 
                             const SegArgs* segs, int nseg, const float* gamma, const float* beta,
                             const float2* stats, cudaStream_t s) {
 #define OADP_LAUNCH(EPI, LN) launch<BN, EPI, LN>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
+#define OADP_LAUNCH_LN(EPI) launch<BN, EPI, true>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
   switch (epilogue) {
-    case EPI_NONE: return ln ? OADP_LAUNCH(EPI_NONE, true) : OADP_LAUNCH(EPI_NONE, false);
-    case EPI_GELU: return ln ? OADP_LAUNCH(EPI_GELU, true) : OADP_LAUNCH(EPI_GELU, false);
+    case EPI_NONE: return ln ? OADP_LAUNCH_LN(EPI_NONE) : OADP_LAUNCH(EPI_NONE, false);
+    case EPI_GELU: return ln ? OADP_LAUNCH_LN(EPI_GELU) : OADP_LAUNCH(EPI_GELU, false);
     case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
   }
 #undef OADP_LAUNCH
+#undef OADP_LAUNCH_LN
   return cudaErrorInvalidValue;
 }
 
@@ -701,17 +717,17 @@ cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const 
 // wider tiles read fewer bytes through L2 per product;
 // oadp_torch/profile_kernels.py, H100 at 700 W). Large products take 256;
 // a short one (kernel 2's 2048 rows) the width that fills the SMs.
-int pick_tile_n(const SegArgs* segs, int nseg) {
+int pick_tile_n(const SegArgs* segs, int nseg, bool ln) {
   constexpr int widths[3] = {256, 128, 64};
   constexpr double rate[3] = {1.0, 0.87, 0.51};
-  int best = 256;
+  int best = 0;
   double best_cost = 0.0;
   for (int i = 0; i < 3; ++i) {
     long long tiles = 0;
     for (int s = 0; s < nseg; ++s)
       tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
     const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
-    if (i == 0 || cost < best_cost) {
+    if (best == 0 || cost < best_cost) {
       best = widths[i];
       best_cost = cost;
     }
@@ -730,7 +746,8 @@ extern "C" {
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
 // gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
 // receives each row's mean and rstd and the product normalises A as it
-// reads it. tile_n: 64, 128 or 256, or 0 to pick by shape.
+// reads it. tile_n: 64, 128 or 256 (with LN at most 128), or 0 to pick by
+// shape.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
                  const void* bias, int epilogue, int tile_n, const void* A0, int M0, int N0,
                  int col00, const void* R0, void* C0, const void* A1, int M1, int N1, int col01,
@@ -751,10 +768,11 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, cons
         segs[0].a, M0, segs[1].a, nseg > 1 ? M1 : 0, K, st);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
+    if (getenv("OADP_LN_DEBUG") && atoi(getenv("OADP_LN_DEBUG")) == 2) return cudaSuccess;
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
-  switch (tile_n == 0 ? pick_tile_n(segs, nseg) : tile_n) {
+  switch (tile_n == 0 ? pick_tile_n(segs, nseg, ln) : tile_n) {
     case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
     case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
