@@ -540,20 +540,22 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 
   // With LN: A goes through registers. Each 16-wide k-step's fragment is
   // read with ldmatrix, normalised, and multiplied by wgmma with A from
-  // registers, one group a k-step; the fragments alternate between two
-  // register sets, and a set is rewritten only after the group that read
-  // it has retired (wait_group 1), so the normalisation of one k-step runs
-  // under the products of the two before it.
+  // registers, one group a k-step. Two groups stay in flight (wait_group
+  // 2), so the normalisation of a k-step runs under the products of the
+  // two before it; the fragments rotate through three register sets, a
+  // set being rewritten only after the group that read it has retired.
   float2 st[2];  // this thread's two rows' mean and rstd
-  unsigned af[2][4];
+  unsigned af[3][4];
   const int ln_row = cw * 64 + w * 16 + g;
-  auto ln_k_tile = [&](int kt) {
+  // k-tile kt, its k-steps numbered from J * 4 (mod 3: the register set)
+  auto ln_k_tile = [&](auto j, int kt) {
+    constexpr int J = decltype(j)::value;
     mbar_wait(&full[stage], phase);
     const uint32_t a_s = smem_u32(a_tile());
     const unsigned char* b_s = b_tile();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      unsigned (&a)[4] = af[ks & 1];
+      unsigned (&a)[4] = af[(J * 4 + ks) % 3];
       ldmatrix_x4(a, a_s + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
       if (p.debug != 1) ln_fragment(a, st, ln_gamma, ln_beta, kt * BK + ks * 16 + 2 * t);
 #pragma unroll
@@ -562,11 +564,11 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       wgmma_fence();
       wgmma_rs<BN>(acc, a, smem_desc(b_s + ks * 32));
       wgmma_commit();
-      // the previous k-step's group has retired; after the first k-step,
-      // that was the last group reading the previous k-tile's stage
-      wgmma_wait<1>();
+      // the group of two k-steps back has retired; after the second
+      // k-step, that was the last group reading the previous k-tile's stage
+      wgmma_wait<2>();
       fence_acc<BN / 2>(acc);
-      if (ks == 0) {
+      if (ks == 1) {
         if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
         held = -1;
       }
@@ -586,7 +588,11 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     if constexpr (LN) {
-      for (int kt = 0; kt < KT; ++kt) ln_k_tile(kt);
+      for (int kt = 0; kt < KT; kt += 3) {
+        ln_k_tile(std::integral_constant<int, 0>(), kt);
+        if (kt + 1 < KT) ln_k_tile(std::integral_constant<int, 1>(), kt + 1);
+        if (kt + 2 < KT) ln_k_tile(std::integral_constant<int, 2>(), kt + 2);
+      }
     } else {
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
