@@ -16,7 +16,10 @@ Phases, in order; any failure exits nonzero:
    yardstick its transposed weights once. Two times per call for the
    kernel and for the yardstick: CUDA events around back-to-back calls
    (host launch overhead included) and the device time from
-   ``torch.profiler`` (the sum of the call's kernel durations);
+   ``torch.profiler`` (the sum of the call's kernel durations; for kernel
+   1 also by part: LN pass, QKV product, attention, out-projection).
+   Kernel 1 is also held to its plain version on rows with a large
+   per-row mean and outlier columns, as CLIP residual streams carry;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after: the OAKE objects, globals and blocks CLIs
    (``oadp_torch.oake``) at full ViT-B/32 width (random weights from seed
@@ -79,10 +82,11 @@ def timed(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, parts=None) -> float | tuple[float, dict]:
     """Milliseconds of device time per call: the durations of the CUDA
     kernels that ``iters`` calls launched, from ``torch.profiler``, after
-    a warm-up call."""
+    a warm-up call. With ``parts`` (name -> predicate on a kernel's name),
+    also each part's milliseconds per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -91,11 +95,33 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
         raise AssertionError('torch.profiler recorded no device time')
-    return total_us / iters / 1e3
+    if parts is None:
+        return total_us / iters / 1e3
+    split = {name: sum(e.self_device_time_total for e in events if match(e.key)) / iters / 1e3
+             for name, match in parts.items()}
+    return total_us / iters / 1e3, split
+
+
+def _k1_part(name: str) -> str:
+    """Kernel 1's part a kernel belongs to, by its (mangled or demangled)
+    name: the LN pass, the QKV product, attention, the out-projection (the
+    product with the residual epilogue, template argument 2)."""
+    if 'layer_norm' in name:
+        return 'ln'
+    if 'attention_kernel' in name:
+        return 'attention'
+    if 'gemm_kernel' in name:
+        return 'out_projection' if ('ELi2E' in name or ', 2>' in name) else 'qkv'
+    return 'other'
+
+
+K1_PARTS = {part: (lambda n, part=part: _k1_part(n) == part)
+            for part in ('ln', 'qkv', 'attention', 'out_projection', 'other')}
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -152,18 +178,21 @@ def check_kernels(A, gen) -> dict:
     w_bytes = 2 * (qkv_w.numel() + qkv_b.numel() + 2 * D)
     results = {}
 
-    def record(name, kernel, plain, library, flops, nbytes, iters, **extra):
+    def record(name, kernel, plain, library, flops, nbytes, iters, parts=None, **extra):
         got, want = kernel(), plain()
         err, cos = compare(got, want)
         del got, want
         if cos < 0.999:
             raise AssertionError(f'{name}: cosine {cos} < 0.999 against the plain version')
         b_ms, b_by = bound_ms(flops, nbytes)
+        dev = device_ms(kernel, iters, parts)
+        if parts is not None:
+            dev, extra['kernel_device_ms_by_part'] = dev
         res = dict(
             name=name, max_abs_err=err, cosine=cos,
             kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
             library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
-            kernel_device_ms=device_ms(kernel, iters),
+            kernel_device_ms=dev,
             library_device_ms=device_ms(library, iters),
             **extra,
         )
@@ -197,6 +226,17 @@ def check_kernels(A, gen) -> dict:
     act_bytes = 2 * (x.numel() + y.numel()) + 4 * bias.numel()
     fold = dict(out_w=out_w, out_b=out_b)
     prep = dict(qkv_wt=lib_w['qkv'], ln32=ln32)
+    # rows as a CLIP residual stream carries them: a per-row offset in
+    # [-50, 50] and a few columns at +-100, beside the random ones
+    offset = lambda t: (t.float() + torch.empty(*t.shape[:-1], 1, device=dev).uniform_(  # noqa: E731
+        -50, 50, generator=gen) + 100 * (torch.arange(D, device=dev) % 256 == 3)).bfloat16()
+    lm_args = (offset(x), offset(y), *args[2:])
+    lm_err, lm_cos = compare(
+        A.fused_surgery_layer(*lm_args, **fold, **prep, out_wt=lib_w['out']),
+        A.fused_surgery_layer_plain(*lm_args, **fold))
+    if lm_cos < 0.999:
+        raise AssertionError(f'fused_surgery_layer: cosine {lm_cos} < 0.999 on large-mean rows')
+    del lm_args
     k1 = record(
         'fused_surgery_layer',
         lambda: A.fused_surgery_layer(*args, **fold, **prep, out_wt=lib_w['out']),
@@ -205,7 +245,7 @@ def check_kernels(A, gen) -> dict:
         flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
         + 4 * b * HEADS * n * HD + 2 * b * (n + 1) * D * D,
         nbytes=2 * act_bytes - 4 * bias.numel() + w_bytes + 2 * (D * D + D),
-        iters=5,
+        iters=5, parts=K1_PARTS, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
     )
     k1_side = record(
         'fused_surgery_layer(with_main=False)',
@@ -214,7 +254,7 @@ def check_kernels(A, gen) -> dict:
         lambda: lib_k1(False),
         flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
         nbytes=act_bytes + 2 * y.numel() + w_bytes,
-        iters=5,
+        iters=5, parts=K1_PARTS,
     )
     del x, y, bias, mask, lib_mask, args
     torch.cuda.empty_cache()

@@ -9,10 +9,10 @@
 //
 //   A (M, K) row-major; Wt (N, K) the weight K-major, as the OpenAI state
 //   dict holds it (the caller prepares it once, oadp_torch/models/clip.py);
-//   bias (N,); optional residual R (M, N); C (M, N). One launch may carry
-//   two such row sets (segments) with the same K, W and epilogue, each with
-//   its own A, C, R, column slice of W and bias: the surgery layer's x rows
-//   and its y rows.
+//   bias (N,); optional residual R (M, N); C (M, N). One launch carries up
+//   to two such row sets (segments) with the same K, weight, LayerNorm and
+//   epilogue, each with its own A, R, C and column slice of the weight: the
+//   surgery layer's x rows and its y rows.
 //   LN:        A row -> (a - mean) * rstd * gamma + beta in fp32, rounded to
 //              bf16 before the product (eps 1e-5; the Pallas kernels round the
 //              LN output to the activation type the same way).
@@ -23,43 +23,37 @@
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
 // The out-projection with its residual (N = 768) is 0.48 TFLOP against
 // 1.86 GB (A and R read, C written): 0.48 ms of operations, 0.56 ms of
-// bytes, so its epilogue's bytes matter as much as its products.
+// bytes, so its epilogue's bytes weigh as much as its products.
 // Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
-// output tiles of 128 x BN (BN 256, or 128 or 64 where 256-wide tiles
-// leave the SMs idle, see pick_tile_n), N tiles fastest so the
-// blocks that read one A row-panel run together. Its first warpgroup gives
-// up registers (setmaxnreg) and one thread of it issues TMA loads of the
-// 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a ring of 3-8
-// stages, each guarded by a full and an empty mbarrier; it runs ahead into
-// the next tile while the consumers finish the current one. Two consumer
-// warpgroups of 64 rows each wait on the full barrier, issue wgmma
+// output tiles of 128 x BN (BN 256, 128 or 64 by shape and epilogue, see
+// pick_tile_n), N tiles fastest so the blocks that read one A row-panel run
+// together; a second segment's tiles follow the first's. Its first
+// warpgroup gives up registers (setmaxnreg) and one thread of it issues TMA
+// loads of the 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a
+// ring of 3-8 stages, each guarded by a full and an empty mbarrier; it runs
+// ahead into the next tile while the consumers finish the current one. Two
+// consumer warpgroups of 64 rows each wait on the full barrier, issue wgmma
 // m64nBNk16 straight from shared memory, keep one wgmma group in flight
 // across k-tiles (wait_group 1) and release a stage as soon as the group
 // that read it has retired. The epilogue adds bias, quick_gelu or the
 // residual in fp32 and rounds once to bf16 into swizzled 64 x 64 staging
-// tiles, which TMA stores write out. The wide tile and the TMA store matter
-// most at the objects QKV shape: 128 x 128 tiles read 22 GB through L2 for
-// K = 768 and were bound by it, and stores of bf16 pairs from registers
-// added a third.
-// The residual comes by TMA as well: early in each tile's k-loop, the
-// consumer thread that issued the previous tile's stores waits until they
-// have read their staging tiles and loads the tile's R blocks into them
-// (one 64 x 64 block per 64 columns, on the warpgroup's own mbarrier), so
-// R is in shared memory when the epilogue starts and the epilogue adds it
-// in place, in the layout it writes, with no load from global memory.
-// LayerNorm never writes LN(A): a statistics pass (one warp a row, fp32,
-// two passes over the row in registers) writes each row's mean and rstd,
-// 8 bytes a row, and with LN the producer warpgroup's three other warps
-// rewrite each A k-tile in shared memory after TMA has landed it, as
-// (a - mean) * rstd * gamma + beta rounded to bf16, before the consumers
-// may read it (a third mbarrier per stage). The rewrite runs stages ahead
-// of the consumers, so it costs issue slots, not latency; A stays a
-// shared-memory wgmma operand, so no wgmma waits on registers computed
-// between them.
+// tiles, which TMA stores write out. The residual comes by TMA as well:
+// early in each tile's k-loop, the consumer thread that issued the previous
+// tile's stores waits until they have read their staging tiles and loads
+// the tile's R blocks into them (one 64 x 64 block per 64 columns, on the
+// warpgroup's own mbarrier), so R is in shared memory when the epilogue
+// starts and is added in place, in the layout the epilogue writes, with no
+// load from global memory.
+// The LN prologue stays a one-warp-a-row pass that writes LN(A) in bf16
+// (both segments in one launch), which the product then reads: normalising
+// on the product's A path was measured slower in every form tried -- an
+// in-place rewrite of each landed A k-tile by spare warps, by the consumers,
+// or wgmma with A from registers normalised between k-steps -- because at
+// N = 2304 each A k-tile is normalised again for each of the nine column
+// tiles, and the read-only statistics pass those forms need costs most of
+// what the pass saves (PERF.md).
 // Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
-#include <cstdlib>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -67,32 +61,28 @@ namespace oadp {
 namespace {
 
 constexpr int BM = 128, BK = 64;
-constexpr int THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
-constexpr int MAX_LN_K = 1024;  // the widest row LayerNorm takes (the statistics pass's limit)
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
 // Shared memory: the k-tile ring, then per consumer warpgroup its bf16
 // 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
 // per 64 columns, R lands there; the others alternate two), then the
-// barriers (full and empty per stage, one R barrier per consumer), then
-// with LN its gamma and beta.
-template <int BN, int EPI, bool LN>
+// barriers: full and empty per stage, one R barrier per consumer.
+template <int BN, int EPI>
 struct Tile {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
   static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
-  static constexpr int LN_BYTES = LN ? 2 * MAX_LN_K * 4 : 0;  // gamma and beta, fp32
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - LN_BYTES - OUT_BYTES) / STAGE;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
-  static constexpr int LN_PARAMS = BARS + BAR_BYTES;
-  static constexpr int SMEM = LN_PARAMS + LN_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
@@ -100,32 +90,31 @@ struct Tile {
 // of the launch's walk.
 struct Seg {
   int M, N, tiles_n, first;
-  const bf16* bias;     // (N,): the segment's column slice
-  const float2* stats;  // (M,) mean and rstd of each A row, with LN
+  const bf16* bias;  // (N,): the segment's column slice
 };
 
 struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
   int segs, tiles, K;
-  int debug;
-  const float* gamma;
-  const float* beta;
 };
 
-// Mean and rstd of each row of A0 (M0 rows), then of A1 (M1 rows), one
-// warp a row: fp32, two passes over the row held in registers, eps 1e-5,
-// as the Pallas kernels' ln. K <= 32 * 8 * LN_CHUNKS, so each row is read
-// from memory once.
+// One warp per row: LayerNorm of the rows of a0 (M0 rows), then of a1 (M1
+// rows), each (rows, K) bf16, with fp32 statistics (two passes over the row
+// held in registers, eps 1e-5), written as bf16 rows to out (M0 + M1, K) --
+// the rounding the Pallas kernels apply before their products.
+// K <= 32 * 8 * LN_CHUNKS, so each row is read from memory once.
 constexpr int LN_CHUNKS = 4;
 
-__global__ void row_stats_kernel(const bf16* __restrict__ a0, int M0, const bf16* __restrict__ a1,
-                                 int M1, int K, float2* __restrict__ stats) {
+__global__ void layer_norm_kernel(const bf16* __restrict__ a0, int M0, const bf16* __restrict__ a1,
+                                  int M1, int K, const float* __restrict__ gamma,
+                                  const float* __restrict__ beta, bf16* __restrict__ out) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M0 + M1) return;
   const uint4* p = reinterpret_cast<const uint4*>(
       row < M0 ? a0 + (size_t)row * K : a1 + (size_t)(row - M0) * K);
+  uint4* q = reinterpret_cast<uint4*>(out + (size_t)row * K);
   const int chunks = K / 8;
   float f[LN_CHUNKS][8];
   float s = 0.f;
@@ -151,7 +140,20 @@ __global__ void row_stats_kernel(const bf16* __restrict__ a0, int M0, const bf16
     }
   }
   const float rstd = rsqrtf(warp_sum(v) / K + 1e-5f);
-  if (lane == 0) stats[row] = make_float2(mean, rstd);
+#pragma unroll
+  for (int i = 0; i < LN_CHUNKS; ++i) {
+    const int c = lane + 32 * i;
+    if (c < chunks) {
+      const float4* g4 = reinterpret_cast<const float4*>(gamma + c * 8);
+      const float4* b4 = reinterpret_cast<const float4*>(beta + c * 8);
+      const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[i][j] = (f[i][j] - mean) * rstd * g[j] + b[j];
+      q[c] = pack8(f[i]);
+    }
+  }
 }
 
 // Shared-memory matrix descriptor of wgmma: start address, SBO 1024 bytes
@@ -273,97 +275,6 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t d
   else wgmma_m64n64k16(d, desc_a, desc_b);
 }
 
-// d (64 x 64 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
-// the mma.sync m16n8k16 A layout per warp) * B (64 x 16, shared, K-major,
-// 128-byte swizzle)^T.
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const unsigned* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
-// the mma.sync m16n8k16 A layout per warp) * B (128 x 16, shared, K-major,
-// 128-byte swizzle)^T.
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const unsigned* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 256 fp32 per warpgroup) += A (64 x 16, bf16 fragments in registers,
-// the mma.sync m16n8k16 A layout per warp) * B (256 x 16, shared, K-major,
-// 128-byte swizzle)^T.
-__device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const unsigned* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_rs(float* d, const unsigned* a, uint64_t desc_b) {
-  if constexpr (BN == 256) wgmma_rs_m64n256k16(d, a, desc_b);
-  else if constexpr (BN == 128) wgmma_rs_m64n128k16(d, a, desc_b);
-  else wgmma_rs_m64n64k16(d, a, desc_b);
-}
-
 struct TileAt {
   int s, m0, n0;  // segment, first row and column
 };
@@ -409,47 +320,9 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
   }
 }
 
-// With LN, the statistics of a consumer thread's two A rows of the tile
-// (rows g and g + 8 of its warp's 16; rows past M, which arrive as zeros
-// and are never stored, take 0).
-__device__ __forceinline__ void load_row_stats(const Params& p, int tile, int row,
-                                               float2 (&st)[2]) {
-  if (tile >= p.tiles) return;
-  const TileAt at = tile_at<BM>(p, tile);  // the rows do not depend on the width
-  const int M = p.seg[at.s].M;
-  const float2* stats = p.seg[at.s].stats;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = at.m0 + row + 8 * h;
-    st[h] = m < M ? stats[m] : make_float2(0.f, 0.f);
-  }
-}
-
-// LayerNorm of one A fragment in place: a[0] row g, columns col, col + 1;
-// a[1] row g + 8, the same columns; a[2], a[3] the same rows at col + 8
-// (the wgmma A layout). fp32, rounded once to bf16.
-__device__ __forceinline__ void ln_fragment(unsigned (&a)[4], const float2 (&st)[2],
-                                            const float* gamma, const float* beta, int col) {
-#pragma unroll
-  for (int hc = 0; hc < 2; ++hc) {
-    const float2 gm = *reinterpret_cast<const float2*>(gamma + col + 8 * hc);
-    const float2 bt = *reinterpret_cast<const float2*>(beta + col + 8 * hc);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned& r = a[2 * hc + h];
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
-      r = pack2((v.x - st[h].x) * st[h].y * gm.x + bt.x, (v.y - st[h].x) * st[h].y * gm.y + bt.y);
-    }
-  }
-}
-
-// Warps 0-7 are the two consumer warpgroups, warp 8 the producer: with no
-// producer warpgroup to give registers up, the 288 threads may hold 224
-// registers each, room for a 64 x 256 accumulator and two k-tiles of A
-// fragments.
-template <int BN, int EPI, bool LN>
+template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  using T = Tile<BN, EPI, LN>;
+  using T = Tile<BN, EPI>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -468,21 +341,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     mbar_init(&rfull[1], 1);
     mbar_init_fence();
   }
-  float* ln_gamma = reinterpret_cast<float*>(ring + T::LN_PARAMS);
-  float* ln_beta = ln_gamma + MAX_LN_K;
-  if (LN) {
-    for (int i = tid; i < p.K; i += THREADS) {
-      ln_gamma[i] = p.gamma[i];
-      ln_beta[i] = p.beta[i];
-    }
-  }
   __syncthreads();
 
   const int KT = p.K / BK;
 
-  if (wg == 2) {
+  if (wg == 0) {
     // producer: one thread keeps the ring full, through tile boundaries
-    if (tid == 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
       int stage = 0;
       unsigned phase = 0;
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
@@ -500,151 +366,84 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         }
       }
     }
-    return;
-  }
-
-  const int cw = wg;  // this warpgroup's 64 rows of the tile
-  const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
-  float acc[BN / 2];
-  int stage = 0, stores = 0;
-  unsigned phase = 0, rphase = 0;
-  int held = -1;  // the stage the in-flight wgmma group reads
-
-  // the current stage's smem A (this warpgroup's 64 rows) and W
-  auto a_tile = [&]() { return ring + stage * T::STAGE + cw * 64 * 128; };
-  auto b_tile = [&]() { return ring + stage * T::STAGE + T::A_BYTES; };
-  // the group that read stage `held` has retired: release it; move on
-  auto next_stage = [&]() {
-    if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-    held = stage;
-    if (++stage == T::STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  };
-  // R of the tile into the staging tiles, once the stores of the previous
-  // tile have read them (early in the k-loop, so it lands before the
-  // epilogue)
-  auto load_residual = [&](const TileAt& at, int kt) {
-    if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
+    float acc[BN / 2];
+    int stage = 0, stores = 0;
+    unsigned phase = 0, rphase = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const TileAt at = tile_at<BN>(p, tile);
+      const int N = p.seg[at.s].N;
+      const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
-      for (int cc = 0; cc < T::OUT_TILES; ++cc)
-        tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
-                    at.m0 + cw * 64);
-    }
-  };
-
-  // With LN: A goes through registers. Each 16-wide k-step's fragment is
-  // read with ldmatrix, normalised, and multiplied by wgmma with A from
-  // registers, one group a k-step. Two groups stay in flight (wait_group
-  // 2), so the normalisation of a k-step runs under the products of the
-  // two before it; the fragments rotate through three register sets, a
-  // set being rewritten only after the group that read it has retired.
-  float2 st[2];  // this thread's two rows' mean and rstd
-  unsigned af[3][4];
-  const int ln_row = cw * 64 + w * 16 + g;
-  // k-tile kt, its k-steps numbered from J * 4 (mod 3: the register set)
-  auto ln_k_tile = [&](auto j, int kt) {
-    constexpr int J = decltype(j)::value;
-    mbar_wait(&full[stage], phase);
-    const uint32_t a_s = smem_u32(a_tile());
-    const unsigned char* b_s = b_tile();
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      unsigned (&a)[4] = af[(J * 4 + ks) % 3];
-      ldmatrix_x4(a, a_s + swz(w * 16 + (lane & 15), ks * 2 + (lane >> 4)));
-      if (p.debug != 1) ln_fragment(a, st, ln_gamma, ln_beta, kt * BK + ks * 16 + 2 * t);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
-      fence_acc<BN / 2>(acc);
-      wgmma_fence();
-      wgmma_rs<BN>(acc, a, smem_desc(b_s + ks * 32));
-      wgmma_commit();
-      // the group of two k-steps back has retired; after the second
-      // k-step, that was the last group reading the previous k-tile's stage
-      wgmma_wait<2>();
-      fence_acc<BN / 2>(acc);
-      if (ks == 1) {
-        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-        held = -1;
-      }
-    }
-    held = stage;
-    if (++stage == T::STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  };
-
-  if (LN) load_row_stats(p, blockIdx.x, ln_row, st);
-  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-    const TileAt at = tile_at<BN>(p, tile);
-    const int N = p.seg[at.s].N;
-    const bf16* bias = p.seg[at.s].bias;
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    if constexpr (LN) {
-      for (int kt = 0; kt < KT; kt += 3) {
-        ln_k_tile(std::integral_constant<int, 0>(), kt);
-        if (kt + 1 < KT) ln_k_tile(std::integral_constant<int, 1>(), kt + 1);
-        if (kt + 2 < KT) ln_k_tile(std::integral_constant<int, 2>(), kt + 2);
-      }
-    } else {
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int held = -1;  // the stage the in-flight wgmma group reads
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
-        const unsigned char* a_s = a_tile();
-        const unsigned char* b_s = b_tile();
+        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+        const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
         fence_acc<BN / 2>(acc);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
           wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
         wgmma_commit();
-        load_residual(at, kt);
+        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
+          // R of this tile into the staging tiles, once the stores of the
+          // previous tile have read them
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+#pragma unroll
+          for (int cc = 0; cc < T::OUT_TILES; ++cc)
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                        at.m0 + cw * 64);
+        }
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
         fence_acc<BN / 2>(acc);
-        next_stage();
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-    }
-    wgmma_wait<0>();
-    fence_acc<BN / 2>(acc);
-    if (lane == 0) mbar_arrive(&empty[held]);
-    held = -1;
-    // the next tile's row statistics land during the epilogue
-    if (LN) load_row_stats(p, tile + gridDim.x, ln_row, st);
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[held]);
 
-    // Epilogue, 64 columns at a time, each block stored by TMA as soon as
-    // it is staged (rows past M, columns past N are not written). The
-    // residual's blocks each have their own staging tile; the others
-    // alternate two, a tile being rewritten once the store issued from it
-    // two blocks earlier has read it.
-    if (EPI == EPI_RESIDUAL) {
-      mbar_wait(&rfull[cw], rphase);
-      rphase ^= 1;
-    }
+      // Epilogue, 64 columns at a time, each block stored by TMA as soon
+      // as it is staged (rows past M, columns past N are not written).
+      // The residual's blocks each have their own staging tile; the
+      // others alternate two, a tile being rewritten once the store
+      // issued from it two blocks earlier has read it.
+      if (EPI == EPI_RESIDUAL) {
+        mbar_wait(&rfull[cw], rphase);
+        rphase ^= 1;
+      }
 #pragma unroll
-    for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
-      unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
-      if (EPI != EPI_RESIDUAL) {
-        if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
+        unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
+        if (EPI != EPI_RESIDUAL) {
+          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          named_barrier(1 + cw, 128);
+        }
+        epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
+        fence_proxy_async();  // the staging writes, before the TMA store reads them
         named_barrier(1 + cw, 128);
-      }
-      epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
-      fence_proxy_async();  // the staging writes, before the TMA store reads them
-      named_barrier(1 + cw, 128);
-      if (ctid == 0) {
-        tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        if (ctid == 0) {
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
       }
     }
+    // the staging tiles must outlive the stores' reads of them
+    if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
-  // the staging tiles must outlive the stores' reads of them
-  if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The host side of one segment.
@@ -655,24 +454,20 @@ struct SegArgs {
   bf16* c;
 };
 
-template <int BN, int EPI, bool LN>
+template <int BN, int EPI>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
-                   const float* gamma, const float* beta, const float2* stats,
                    cudaStream_t stream) {
-  using T = Tile<BN, EPI, LN>;
+  using T = Tile<BN, EPI>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BN, EPI, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+      gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
-  p.debug = getenv("OADP_LN_DEBUG") ? atoi(getenv("OADP_LN_DEBUG")) : 0;
   p.K = K;
-  p.gamma = gamma;
-  p.beta = beta;
   const uint64_t k_bytes[1] = {(uint64_t)K * 2};
   const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN}, box_c[2] = {64, 64};
-  int tiles = 0, row0 = 0;
+  int tiles = 0;
   for (int s = 0; s < nseg; ++s) {
     const SegArgs& g = segs[s];
     const uint64_t n_bytes[1] = {(uint64_t)g.N * 2};
@@ -691,49 +486,45 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
     p.seg[s].tiles_n = (g.N + BN - 1) / BN;
     p.seg[s].first = tiles;
     p.seg[s].bias = bias + g.col0;
-    p.seg[s].stats = stats == nullptr ? nullptr : stats + row0;
     tiles += ((g.M + BM - 1) / BM) * p.seg[s].tiles_n;
-    row0 += g.M;
   }
   p.tiles = tiles;
   const int grid = std::min(tiles, sm_count());
-  gemm_kernel<BN, EPI, LN><<<grid, THREADS, T::SMEM, stream>>>(p);
+  gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int BN>
-cudaError_t launch_epilogue(int epilogue, bool ln, int K, const bf16* Wt, const bf16* bias,
-                            const SegArgs* segs, int nseg, const float* gamma, const float* beta,
-                            const float2* stats, cudaStream_t s) {
-#define OADP_LAUNCH(EPI, LN) launch<BN, EPI, LN>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
-#define OADP_LAUNCH_LN(EPI) launch<BN, EPI, true>(K, Wt, bias, segs, nseg, gamma, beta, stats, s)
+cudaError_t launch_epilogue(int epilogue, int K, const bf16* Wt, const bf16* bias,
+                            const SegArgs* segs, int nseg, cudaStream_t s) {
   switch (epilogue) {
-    case EPI_NONE: return ln ? OADP_LAUNCH_LN(EPI_NONE) : OADP_LAUNCH(EPI_NONE, false);
-    case EPI_GELU: return ln ? OADP_LAUNCH_LN(EPI_GELU) : OADP_LAUNCH(EPI_GELU, false);
-    case EPI_RESIDUAL: return ln ? cudaErrorInvalidValue : OADP_LAUNCH(EPI_RESIDUAL, false);
+    case EPI_NONE: return launch<BN, EPI_NONE>(K, Wt, bias, segs, nseg, s);
+    case EPI_GELU: return launch<BN, EPI_GELU>(K, Wt, bias, segs, nseg, s);
+    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL>(K, Wt, bias, segs, nseg, s);
   }
-#undef OADP_LAUNCH
-#undef OADP_LAUNCH_LN
   return cudaErrorInvalidValue;
 }
 
 // The tile width whose last wave ends first: waves x BN / rate(BN), the
 // time of one block's tiles, with rate(BN) the width's products per second
-// relative to 256 at the objects QKV shape (1, 0.87, 0.51 for 256, 128, 64:
-// wider tiles read fewer bytes through L2 per product;
-// oadp_torch/profile_kernels.py, H100 at 700 W). Large products take 256;
-// a short one (kernel 2's 2048 rows) the width that fills the SMs.
-int pick_tile_n(const SegArgs* segs, int nseg, bool ln) {
+// relative to the best width (oadp_torch/profile_kernels.py, H100 at 700 W):
+// without a residual at the objects QKV shape 1, 0.87, 0.51 for 256, 128,
+// 64 (wider tiles read fewer bytes through L2 per product); with it, at the
+// objects out-projection, 0.93, 1, 0.67 (its R staging leaves the 256-wide
+// tile three ring stages). Large products take the fastest width, a short
+// one (kernel 2's 2048 rows) the width that fills the SMs.
+int pick_tile_n(const SegArgs* segs, int nseg, int epilogue) {
   constexpr int widths[3] = {256, 128, 64};
-  constexpr double rate[3] = {1.0, 0.87, 0.51};
-  int best = 0;
+  constexpr double rate[2][3] = {{1.0, 0.87, 0.51}, {0.93, 1.0, 0.67}};
+  const double* r = rate[epilogue == EPI_RESIDUAL];
+  int best = 256;
   double best_cost = 0.0;
   for (int i = 0; i < 3; ++i) {
     long long tiles = 0;
     for (int s = 0; s < nseg; ++s)
       tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
-    const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / rate[i];
-    if (best == 0 || cost < best_cost) {
+    const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / r[i];
+    if (i == 0 || cost < best_cost) {
       best = widths[i];
       best_cost = cost;
     }
@@ -750,38 +541,37 @@ extern "C" {
 // with LN), N % 8 == 0, every pointer 16-byte aligned. Wt (rows, K) is the
 // whole K-major weight; segment s reads its rows col0_s .. col0_s + N_s and
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
-// gamma == nullptr means no LayerNorm; otherwise stats (M0 + M1 float2)
-// receives each row's mean and rstd and the product normalises A as it
-// reads it. tile_n: 64, 128 or 256 (with LN at most 128), or 0 to pick by
-// shape.
-int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* stats, const void* Wt,
+// gamma == nullptr means no LayerNorm; otherwise ln_out (M0 + M1, K)
+// receives LN of both segments' rows and the product reads it. tile_n: 64,
+// 128 or 256, or 0 to pick by shape.
+int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, const void* Wt,
                  const void* bias, int epilogue, int tile_n, const void* A0, int M0, int N0,
                  int col00, const void* R0, void* C0, const void* A1, int M1, int N1, int col01,
                  const void* R1, void* C1, void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SegArgs segs[2] = {
+  SegArgs segs[2] = {
       {static_cast<const bf16*>(A0), M0, N0, col00, static_cast<const bf16*>(R0),
        static_cast<bf16*>(C0)},
       {static_cast<const bf16*>(A1), M1, N1, col01, static_cast<const bf16*>(R1),
        static_cast<bf16*>(C1)}};
   const int nseg = A1 != nullptr ? 2 : 1;
-  const bool ln = gamma != nullptr;
-  float2* st = static_cast<float2*>(stats);
-  if (ln) {
+  if (gamma != nullptr) {
     const int rows = M0 + (nseg > 1 ? M1 : 0), rows_per_block = 8;  // 256 threads, a warp a row
-    row_stats_kernel<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
-        segs[0].a, M0, segs[1].a, nseg > 1 ? M1 : 0, K, st);
+    bf16* ln = static_cast<bf16*>(ln_out);
+    layer_norm_kernel<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
+        segs[0].a, M0, segs[1].a, nseg > 1 ? M1 : 0, K, gamma, beta, ln);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    if (getenv("OADP_LN_DEBUG") && atoi(getenv("OADP_LN_DEBUG")) == 2) return cudaSuccess;
+    segs[0].a = ln;
+    segs[1].a = ln + (size_t)M0 * K;
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
-  switch (tile_n == 0 ? pick_tile_n(segs, nseg, ln) : tile_n) {
-    case 64: return launch_epilogue<64>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
-    case 128: return launch_epilogue<128>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
-    case 256: return launch_epilogue<256>(epilogue, ln, K, w, b, segs, nseg, gamma, beta, st, s);
+  switch (tile_n == 0 ? pick_tile_n(segs, nseg, epilogue) : tile_n) {
+    case 64: return launch_epilogue<64>(epilogue, K, w, b, segs, nseg, s);
+    case 128: return launch_epilogue<128>(epilogue, K, w, b, segs, nseg, s);
+    case 256: return launch_epilogue<256>(epilogue, K, w, b, segs, nseg, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -19,7 +19,9 @@ The kernels (``oadp_torch/csrc``) are two families:
 
 * ``ln_gemm``: rows x W + bias with fp32 accumulation, an optional
   LayerNorm prologue (fp32 statistics, eps 1e-5) and an epilogue of
-  none, quick_gelu or a residual add; a persistent TMA + wgmma GEMM;
+  none, quick_gelu or a residual add (the residual loaded by TMA); a
+  persistent TMA + wgmma GEMM, which takes up to two row sets a launch
+  (the surgery layer's x rows and y rows);
 * ``attention``: persistent blocks over the (crop, head) items, Q, K and
   V of an item loaded by TMA while the previous item is computed,
   optional main rows and an optional side row (the OAKE masked attention
@@ -29,10 +31,13 @@ The kernels (``oadp_torch/csrc``) are two families:
 
 Both keep the TPU semantics: the softmax clamps logits at 80 and
 normalises after the PV product (``oadp_tpu/ops/attention.py:46-50``;
-``PARITY.md`` lists the clamp as a documented deviation). In this first
-version the qkv intermediate round-trips device memory between the two
-kernels (about 1.9 GB per layer at 2048 crops); keeping it on chip is
-later work. ``LAUNCHES`` counts each entry point's kernel launches.
+``PARITY.md`` lists the clamp as a documented deviation). The qkv
+intermediate round-trips device memory between the two kernels (about
+1.9 GB per layer at 2048 crops): that traffic sits under parts bound by
+something else (the QKV product by tensor-core operations, ``attention``
+by instruction issue), and a crop's LN(x), 198 x 768 bf16 = 304 KB, does
+not fit one SM's shared memory for a per-crop fused kernel.
+``LAUNCHES`` counts each entry point's kernel launches.
 """
 
 __all__ = [
@@ -298,37 +303,35 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
     """``out = epilogue(LN?(a2d) @ wt[col0:col0+N].T + bias[col0:col0+N])``
     with ``N = out.shape[1]``; ``wt`` is the K-major weight (out, in) and
     ``ln32`` the fp32 LayerNorm pair. ``rows2``, ``(a2d, out, residual,
-    col0)``, is a second row set of the same launch (same weight, K,
+    col0)``, is a second row set of the same launches (same weight, K,
     LayerNorm and epilogue). Nothing is copied: each row slice of ``wt``
-    and slice of ``bias`` is read in place; with LayerNorm the kernel
-    normalises the rows as it reads them, from an 8-byte-a-row statistics
-    buffer made here. ``tile_n`` (64, 128, 256) overrides the kernel's
-    choice of tile width."""
+    and slice of ``bias`` is read in place. ``tile_n`` (64, 128, 256)
+    overrides the kernel's choice of tile width."""
     k = a2d.shape[1]
     sets = [(a2d, out, residual, col0)] + ([rows2] if rows2 is not None else [])
     for a, o, r, c0 in sets:
         m, n = a.shape[0], o.shape[1]
         if (m == 0 or k % 64 or n % 8 or c0 % 8 or (ln32 is not None and k > 1024)
                 or a.shape[1] != k or wt.shape[1] != k or c0 + n > wt.shape[0]
-                or c0 + n > bias.shape[0]
-                or o.shape[0] != m or (r is not None and r.shape != o.shape)
+                or c0 + n > bias.shape[0] or o.shape[0] != m
+                or (r is not None and r.shape != o.shape)
                 or (r is None) != (epilogue != _EPI_RESIDUAL)
                 or tile_n not in (0, 64, 128, 256)):
             raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
                              f'wt={tuple(wt.shape)}')
     lib = cuda_lib.library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    gamma = beta = stats = None
+    gamma = beta = ln_out = None
     if ln32 is not None:
         gamma, beta = ln32
-        stats = torch.empty((sum(s[0].shape[0] for s in sets), 2), dtype=torch.float32,
-                            device=a2d.device)
+        ln_out = torch.empty((sum(s[0].shape[0] for s in sets), k), dtype=a2d.dtype,
+                             device=a2d.device)
     seg_args = []
     for a, o, r, c0 in sets + [(None, None, None, 0)] * (2 - len(sets)):
         seg_args += [ptr(a), 0 if a is None else a.shape[0], 0 if o is None else o.shape[1],
                      c0, ptr(r), ptr(o)]
     cuda_lib.check(lib.oadp_ln_gemm(
-        k, ptr(gamma), ptr(beta), ptr(stats), wt.data_ptr(), bias.data_ptr(), epilogue,
+        k, ptr(gamma), ptr(beta), ptr(ln_out), wt.data_ptr(), bias.data_ptr(), epilogue,
         tile_n, *seg_args, _stream(),
     ), 'ln_gemm')
 
@@ -394,10 +397,12 @@ def fused_surgery_layer(
     post-residual streams ``(x + attn @ out_w + out_b, y + side @ out_w +
     out_b)``.
 
-    On the H100 (bf16): ``ln_gemm`` with the LN prologue over the x rows
-    and over the y rows, then ``attention`` for main and side rows, then
-    ``ln_gemm`` with the residual epilogue for the out-projection of both.
-    At 2048 crops the layer is 2.16 TFLOP, bound by tensor-core operations
+    On the H100 (bf16), four launches: the LN pass over the x rows and
+    the y rows together; one ``ln_gemm`` for the QKV product of both row
+    sets (the y rows as extra tiles of the x rows' launch); ``attention``
+    for main and side rows; one ``ln_gemm`` with the residual epilogue
+    for the out-projection of both, its residual tiles loaded by TMA. At
+    2048 crops the layer is 2.16 TFLOP, bound by tensor-core operations
     (about 2.2 ms at 989 TFLOP/s). With ``with_main=False`` only the K and
     V columns of the x rows are projected, since no main query is needed.
     """

@@ -9,7 +9,10 @@ keeps the named parts, default all):
   (2048 x 197 rows, 768 -> 2304), with and without the LN pass, beside
   ``torch.mm`` (cuBLAS) on the same operands; and at kernel 2's two
   products (2048 rows, 768 -> 3072 and 3072 -> 768), each at every tile
-  width (``tile_n`` 256, 128, 64) beside the width the kernel picks;
+  width (``tile_n`` 256, 128, 64) beside the width the kernel picks; and
+  (``gemm_residual``) kernel 1's out-projection with its residual (2048 x
+  197 rows, 768 -> 768, x + main @ W + b) at every width beside
+  ``torch.addmm`` plus the add, with its bound;
 * ``patch_embed``: the surgery encoder's patch embedding at 2048 crops,
   the block product of ``models/clip.py`` beside ``F.conv2d``;
 * ``attention``: the ``attention`` kernel at 2048 crops x 12 heads x 197
@@ -142,8 +145,7 @@ def main(argv=None) -> int:
             out = torch.empty(rows, n_out, device=dev).bfloat16()
             flops = 2 * rows * k_in * n_out
             gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters)
-                for t in (0, 256, 128, 64)}
+                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
             gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
             if k_in <= 1024:
                 gemm['ln_gemm_with_ln_ms'] = _timed(

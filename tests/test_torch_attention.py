@@ -474,10 +474,10 @@ def test_ln_gemm_residual_on_card(m, n, col0, tile_n):
     (1024, 'large_mean', 1, 256),
 ])
 def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, tile_n):
-    """LayerNorm on the product's A path (statistics pass, then each A
-    k-tile normalised in shared memory) against the plain LN and product
-    in bf16: K = 768 and 1024, rows with a per-row offset of +-50 and
-    +-100 outlier columns, each tile width, with and without quick_gelu."""
+    """``ln_gemm`` with LayerNorm against the plain LN and product in bf16:
+    K = 768 and 1024, rows with a per-row offset of +-50 and +-100 outlier
+    columns (a CLIP residual stream), each tile width, with and without
+    quick_gelu."""
     dev = _card()
     m, n = 197 * 5 + 3, 2304
     rng = np.random.default_rng(80 + k + tile_n + epilogue)
