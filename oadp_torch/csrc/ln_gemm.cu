@@ -86,18 +86,17 @@ struct Tile {
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
-// One row set of a launch. Its tile pairs are [first, first + m pairs x
-// tiles_n) of the launch's walk; a pair is two 128-row tiles (rows 256 i
-// and 256 i + 128) of one column tile, one for each block of a cluster.
+// One row set of a launch. Its tiles are [first, first + m tiles x tiles_n)
+// of the launch's walk.
 struct Seg {
   int M, N, tiles_n, first;
   const bf16* bias;  // (N,): the segment's column slice
 };
 
 struct Params {
-  CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice (box BN / 2 rows), C, R
+  CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
   Seg seg[2];
-  int segs, pairs, K;
+  int segs, tiles, K;
 };
 
 // One warp per row: LayerNorm of the rows of a0 (M0 rows), then of a1 (M1
@@ -178,35 +177,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// The two blocks of a cluster: a barrier over all their threads, an arrive
-// on the mbarrier at `bar`'s offset in block `peer`, and a TMA load that
-// lands at `dst`'s offset in every block of `mask` and completes bytes on
-// the mbarrier at `bar`'s offset in each.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, unsigned peer) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(peer)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
-                                                      uint64_t* bar, int c0, int c1,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
-      : "memory");
 }
 
 // Keep the compiler from moving accesses of accumulators across the
@@ -309,14 +279,11 @@ struct TileAt {
   int s, m0, n0;  // segment, first row and column
 };
 
-// The tile of block `rank` of a cluster in tile pair `pair`; its rows may
-// lie wholly past M (the second tile of a segment's last pair), and then
-// its loads bring zeros and its stores write nothing.
 template <int BN>
-__device__ __forceinline__ TileAt tile_at(const Params& p, int pair, int rank) {
-  const int s = p.segs > 1 && pair >= p.seg[1].first ? 1 : 0;
-  const int local = pair - p.seg[s].first;
-  return {s, (2 * (local / p.seg[s].tiles_n) + rank) * BM, (local % p.seg[s].tiles_n) * BN};
+__device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
+  const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
+  const int local = tile - p.seg[s].first;
+  return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -365,17 +332,16 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int rank = blockIdx.x & 1, peer = rank ^ 1;  // the block's place in its cluster
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);    // the producer's arrive, plus the TMA bytes
-      mbar_init(&empty[s], 16);  // one arrive per consumer warp of either block
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
     mbar_init(&rfull[0], 1);
     mbar_init(&rfull[1], 1);
     mbar_init_fence();
   }
-  cluster_sync();  // both blocks' barriers are ready before either loads
+  __syncthreads();
 
   const int KT = p.K / BK;
 
@@ -385,16 +351,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     if (tid == 0) {
       int stage = 0;
       unsigned phase = 0;
-      for (int pair = blockIdx.x >> 1; pair < p.pairs; pair += gridDim.x >> 1) {
-        const TileAt at = tile_at<BN>(p, pair, rank);
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<BN>(p, tile);
         for (int kt = 0; kt < KT; ++kt) {
-          // the stage is free in both blocks: this block's W half lands in both
           mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
           unsigned char* dst = ring + stage * T::STAGE;
           mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
           tma_load_2d(dst, &p.a[at.s], &full[stage], kt * BK, at.m0);
-          tma_load_2d_multicast(dst + T::A_BYTES + rank * (BN / 2) * 128, &p.w[at.s],
-                                &full[stage], kt * BK, at.n0 + rank * (BN / 2), 0x3);
+          tma_load_2d(dst + T::A_BYTES, &p.w[at.s], &full[stage], kt * BK, at.n0);
           if (++stage == T::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -411,8 +375,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     float acc[BN / 2];
     int stage = 0, stores = 0;
     unsigned phase = 0, rphase = 0;
-    for (int pair = blockIdx.x >> 1; pair < p.pairs; pair += gridDim.x >> 1) {
-      const TileAt at = tile_at<BN>(p, pair, rank);
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const TileAt at = tile_at<BN>(p, tile);
       const int N = p.seg[at.s].N;
       const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
@@ -441,10 +405,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
         fence_acc<BN / 2>(acc);
-        if (held >= 0 && lane == 0) {
-          mbar_arrive(&empty[held]);
-          mbar_arrive_peer(&empty[held], peer);
-        }
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
         held = stage;
         if (++stage == T::STAGES) {
           stage = 0;
@@ -453,10 +414,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
       }
       wgmma_wait<0>();
       fence_acc<BN / 2>(acc);
-      if (lane == 0) {
-        mbar_arrive(&empty[held]);
-        mbar_arrive_peer(&empty[held], peer);
-      }
+      if (lane == 0) mbar_arrive(&empty[held]);
 
       // Epilogue, 64 columns at a time, each block stored by TMA as soon
       // as it is staged (rows past M, columns past N are not written).
@@ -486,7 +444,6 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     // the staging tiles must outlive the stores' reads of them
     if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
-  cluster_sync();  // no block leaves while the other may still signal its barriers
 }
 
 // The host side of one segment.
@@ -509,8 +466,8 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   p.segs = nseg;
   p.K = K;
   const uint64_t k_bytes[1] = {(uint64_t)K * 2};
-  const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN / 2}, box_c[2] = {64, 64};
-  int pairs = 0;
+  const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN}, box_c[2] = {64, 64};
+  int tiles = 0;
   for (int s = 0; s < nseg; ++s) {
     const SegArgs& g = segs[s];
     const uint64_t n_bytes[1] = {(uint64_t)g.N * 2};
@@ -527,31 +484,13 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
     p.seg[s].M = g.M;
     p.seg[s].N = g.N;
     p.seg[s].tiles_n = (g.N + BN - 1) / BN;
-    p.seg[s].first = pairs;
+    p.seg[s].first = tiles;
     p.seg[s].bias = bias + g.col0;
-    pairs += ((g.M + 2 * BM - 1) / (2 * BM)) * p.seg[s].tiles_n;
+    tiles += ((g.M + BM - 1) / BM) * p.seg[s].tiles_n;
   }
-  p.pairs = pairs;
-  // clusters of two blocks, as many as can be resident at once
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 2;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = stream;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  static const int resident = [&] {  // once
-    int n = 0;
-    return cudaOccupancyMaxActiveClusters(&n, gemm_kernel<BN, EPI>, &cfg) == cudaSuccess ? n : 0;
-  }();
-  if (resident <= 0) return cudaErrorInvalidConfiguration;
-  cfg.gridDim = dim3(2 * std::min(pairs, resident));
-  if ((e = cudaLaunchKernelEx(&cfg, gemm_kernel<BN, EPI>, p)) != cudaSuccess) return e;
+  p.tiles = tiles;
+  const int grid = std::min(tiles, sm_count());
+  gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
