@@ -145,7 +145,8 @@ def main(argv=None) -> int:
             out = torch.empty(rows, n_out, device=dev).bfloat16()
             flops = 2 * rows * k_in * n_out
             gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters) for t in (0, 256, 128, 64)}
+                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters)
+                for t in (0, 256, 128, 64)}
             gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
             if k_in <= 1024:
                 gemm['ln_gemm_with_ln_ms'] = _timed(
