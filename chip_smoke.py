@@ -82,11 +82,11 @@ def timed(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, parts=None) -> float | tuple[float, dict]:
+def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
     """Milliseconds of device time per call: the durations of the CUDA
     kernels that ``iters`` calls launched, from ``torch.profiler``, after
-    a warm-up call. With ``parts`` (name -> predicate on a kernel's name),
-    also each part's milliseconds per call."""
+    a warm-up call. With ``part_of`` (a kernel's name -> the part it
+    belongs to), also each part's milliseconds per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -100,10 +100,12 @@ def device_ms(fn, iters: int, parts=None) -> float | tuple[float, dict]:
     total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
         raise AssertionError('torch.profiler recorded no device time')
-    if parts is None:
+    if part_of is None:
         return total_us / iters / 1e3
-    split = {name: sum(e.self_device_time_total for e in events if match(e.key)) / iters / 1e3
-             for name, match in parts.items()}
+    split = {}
+    for e in events:
+        part = part_of(e.key)
+        split[part] = split.get(part, 0.0) + e.self_device_time_total / iters / 1e3
     return total_us / iters / 1e3, split
 
 
@@ -118,10 +120,6 @@ def _k1_part(name: str) -> str:
     if 'gemm_kernel' in name:
         return 'out_projection' if ('ELi2E' in name or ', 2>' in name) else 'qkv'
     return 'other'
-
-
-K1_PARTS = {part: (lambda n, part=part: _k1_part(n) == part)
-            for part in ('ln', 'qkv', 'attention', 'out_projection', 'other')}
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -178,15 +176,15 @@ def check_kernels(A, gen) -> dict:
     w_bytes = 2 * (qkv_w.numel() + qkv_b.numel() + 2 * D)
     results = {}
 
-    def record(name, kernel, plain, library, flops, nbytes, iters, parts=None, **extra):
+    def record(name, kernel, plain, library, flops, nbytes, iters, part_of=None, **extra):
         got, want = kernel(), plain()
         err, cos = compare(got, want)
         del got, want
         if cos < 0.999:
             raise AssertionError(f'{name}: cosine {cos} < 0.999 against the plain version')
         b_ms, b_by = bound_ms(flops, nbytes)
-        dev = device_ms(kernel, iters, parts)
-        if parts is not None:
+        dev = device_ms(kernel, iters, part_of)
+        if part_of is not None:
             dev, extra['kernel_device_ms_by_part'] = dev
         res = dict(
             name=name, max_abs_err=err, cosine=cos,
@@ -245,7 +243,7 @@ def check_kernels(A, gen) -> dict:
         flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
         + 4 * b * HEADS * n * HD + 2 * b * (n + 1) * D * D,
         nbytes=2 * act_bytes - 4 * bias.numel() + w_bytes + 2 * (D * D + D),
-        iters=5, parts=K1_PARTS, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
+        iters=5, part_of=_k1_part, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
     )
     k1_side = record(
         'fused_surgery_layer(with_main=False)',
@@ -254,7 +252,7 @@ def check_kernels(A, gen) -> dict:
         lambda: lib_k1(False),
         flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
         nbytes=act_bytes + 2 * y.numel() + w_bytes,
-        iters=5, parts=K1_PARTS,
+        iters=5, part_of=_k1_part,
     )
     del x, y, bias, mask, lib_mask, args
     torch.cuda.empty_cache()
