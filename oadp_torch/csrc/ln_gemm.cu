@@ -377,6 +377,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     unsigned phase = 0, rphase = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const TileAt at = tile_at<BN>(p, tile);
+      const int N = p.seg[at.s].N;
+      const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
@@ -423,8 +425,6 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         mbar_wait(&rfull[cw], rphase);
         rphase ^= 1;
       }
-      const int N = p.seg[at.s].N;  // read here, not held in registers through the k-loop
-      const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
       for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
         unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
