@@ -279,19 +279,11 @@ struct TileAt {
   int s, m0, n0;  // segment, first row and column
 };
 
-// Segment s's value of a parameter: both read at fixed offsets of the
-// parameter block, then selected (no load at a computed offset).
-template <class V>
-__device__ __forceinline__ V of_seg(int s, V v0, V v1) {
-  return s ? v1 : v0;
-}
-
 template <int BN>
 __device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
   const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
-  const int local = tile - of_seg(s, p.seg[0].first, p.seg[1].first);
-  const int tiles_n = of_seg(s, p.seg[0].tiles_n, p.seg[1].tiles_n);
-  return {s, (local / tiles_n) * BM, (local % tiles_n) * BN};
+  const int local = tile - p.seg[s].first;
+  return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -365,9 +357,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
           unsigned char* dst = ring + stage * T::STAGE;
           mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
-          tma_load_2d(dst, of_seg(at.s, &p.a[0], &p.a[1]), &full[stage], kt * BK, at.m0);
-          tma_load_2d(dst + T::A_BYTES, of_seg(at.s, &p.w[0], &p.w[1]), &full[stage], kt * BK,
-                      at.n0);
+          tma_load_2d(dst, &p.a[at.s], &full[stage], kt * BK, at.m0);
+          tma_load_2d(dst + T::A_BYTES, &p.w[at.s], &full[stage], kt * BK, at.n0);
           if (++stage == T::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -386,8 +377,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     unsigned phase = 0, rphase = 0;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const TileAt at = tile_at<BN>(p, tile);
-      const int N = of_seg(at.s, p.seg[0].N, p.seg[1].N);
-      const bf16* bias = of_seg(at.s, p.seg[0].bias, p.seg[1].bias);
+      const int N = p.seg[at.s].N;
+      const bf16* bias = p.seg[at.s].bias;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
@@ -408,8 +399,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
 #pragma unroll
           for (int cc = 0; cc < T::OUT_TILES; ++cc)
-            tma_load_2d(out_s + cc * OUT_TILE, of_seg(at.s, &p.r[0], &p.r[1]), &rfull[cw],
-                        at.n0 + cc * 64, at.m0 + cw * 64);
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
+                        at.m0 + cw * 64);
         }
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
@@ -445,7 +436,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         fence_proxy_async();  // the staging writes, before the TMA store reads them
         named_barrier(1 + cw, 128);
         if (ctid == 0) {
-          tma_store_2d(of_seg(at.s, &p.c[0], &p.c[1]), buf, at.n0 + cc * 64, at.m0 + cw * 64);
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
