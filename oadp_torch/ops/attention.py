@@ -316,7 +316,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                 or c0 + n > bias.shape[0] or o.shape[0] != m
                 or (r is not None and r.shape != o.shape)
                 or (r is None) != (epilogue != _EPI_RESIDUAL)
-                or tile_n not in (0, 64, 128, 192, 256)):
+                or tile_n not in (0, 64, 128, 256)):
             raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
                              f'wt={tuple(wt.shape)}')
     lib = cuda_lib.library()

@@ -146,7 +146,7 @@ def main(argv=None) -> int:
             flops = 2 * rows * k_in * n_out
             gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
                 lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters)
-                for t in (0, 256, 192, 128, 64)}
+                for t in (0, 256, 128, 64)}
             gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
             if k_in <= 1024:
                 gemm['ln_gemm_with_ln_ms'] = _timed(
@@ -164,7 +164,7 @@ def main(argv=None) -> int:
         out = torch.empty(m, d, device=dev).bfloat16()
         res_gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
             lambda t=t: A._ln_gemm(main, wt, wb, out, epilogue=A._EPI_RESIDUAL, residual=res,
-                                   tile_n=t)) for t in (0, 256, 192, 128, 64)}
+                                   tile_n=t)) for t in (0, 256, 128, 64)}
         res_gemm['torch_addmm_add_ms'] = _timed(lambda: torch.addmm(wb, main, w).add_(res))
         emit('gemm_residual', shape=[m, d, d], **res_gemm,
              bound_ms=1e3 * max(2 * m * d * d / 989e12, 2 * 3 * m * d / 3.35e12),
