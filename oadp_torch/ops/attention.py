@@ -15,7 +15,7 @@ them by keyword (``qkv_wt``, ``out_wt``, ``fc_wt``, ``proj_wt``,
 ``ln32``); an entry point called without them makes them itself, a copy
 per call.
 
-The kernels (``oadp_torch/csrc``) are two families:
+The kernels (``oadp_torch/csrc``) are two families and one fused kernel:
 
 * ``ln_gemm``: rows x W + bias with fp32 accumulation, an optional
   LayerNorm prologue (fp32 statistics, eps 1e-5) and an epilogue of
@@ -27,16 +27,22 @@ The kernels (``oadp_torch/csrc``) are two families:
   optional main rows and an optional side row (the OAKE masked attention
   pool as query N+1 over ``[k[1:], ky]``). Q, K, V and the side row's qy,
   ky, vy each come with their own strides, so they may be column slices
-  of one packed qkv: no operand is copied.
+  of one packed qkv: no operand is copied;
+* ``ln_qkv_attention``: kernel 3 for short sequences (the stock encoder's
+  N = 50): an LN pass, then one kernel whose blocks each own a head and a
+  range of crops, run the head's QKV product on wgmma and keep its q, k
+  and v in shared memory, where warps of the same block attend each crop
+  as soon as its rows are in. The qkv tensor never reaches device memory.
 
-Both keep the TPU semantics: the softmax clamps logits at 80 and
+All keep the TPU semantics: the softmax clamps logits at 80 and
 normalises after the PV product (``oadp_tpu/ops/attention.py:46-50``;
-``PARITY.md`` lists the clamp as a documented deviation). The qkv
-intermediate round-trips device memory between the two kernels (about
-1.9 GB per layer at 2048 crops): that traffic sits under parts bound by
+``PARITY.md`` lists the clamp as a documented deviation). Between the two
+families the qkv intermediate round-trips device memory (about 1.9 GB per
+layer at 2048 crops of 197 tokens): that traffic sits under parts bound by
 something else (the QKV product by tensor-core operations, ``attention``
-by instruction issue), and a crop's LN(x), 198 x 768 bf16 = 304 KB, does
-not fit one SM's shared memory for a per-crop fused kernel.
+by instruction issue), and at N = 197 the crops a 128-row tile touches
+take more shared memory than is left beside the product's ring
+(:func:`ln_qkv_attention_fits`), so kernel 1 keeps the two families.
 ``LAUNCHES`` counts each entry point's kernel launches.
 """
 
@@ -59,6 +65,7 @@ __all__ = [
     'kmajor',
     'layer_norm',
     'ln_fp32',
+    'ln_qkv_attention_fits',
     'reset_launches',
 ]
 
@@ -125,6 +132,25 @@ def fused_surgery_layer_supported(heads: int, head_dim: int) -> bool:
 
 def fused_ln_mlp_rows_supported(rows: int, width: int) -> bool:
     return width % 128 == 0 and rows % 8 == 0
+
+
+# ``csrc/ln_qkv_attention.cu``'s shared memory (its ``layout``): a ring of
+# at least two 40 KB stages (a 128 x 64 LN k-tile, a head's 192 x 64
+# weight k-tile) beside a q, k and v tile of N rows rounded up to 16 for
+# every crop one 128-row tile can touch.
+_SMEM_LIMIT = 232448
+_QKV_STAGE = 128 * 64 * 2 + 3 * _HEAD_DIM * 64 * 2
+_QKV_FIXED = 1024 + 3 * _HEAD_DIM * 4 + 10 * 8  # alignment, bias, barriers
+
+
+def ln_qkv_attention_fits(n: int, d: int) -> bool:
+    """Whether the fused kernel 3 takes ``N`` tokens of width ``D``
+    (``D = heads x 64``): N = 50 does (218 KB), N = 197 does not."""
+    if n <= 0 or d > 1024:
+        return False
+    slots = 127 // n + 2
+    slot_bytes = 3 * -(-n // 16) * 16 * 128
+    return (_SMEM_LIMIT - _QKV_FIXED - slots * slot_bytes) // _QKV_STAGE >= 2
 
 
 # ---------------------------------------------------------------------------
@@ -513,10 +539,15 @@ def fused_ln_qkv_attention(
     before the out-projection.
 
     Replaces ``oadp_tpu/ops/attention.py:fused_ln_qkv_attention`` (kernel
-    ``_ln_qkv_attn_kernel``). On the H100 (bf16): ``ln_gemm`` with the LN
-    prologue, then ``attention`` on the main rows. At the globals batch
-    (16 images of 50 tokens) it is about 3 GFLOP, a few microseconds of
-    tensor-core time, so launch latency and the 3.5 MB weight read bound it.
+    ``_ln_qkv_attn_kernel``). On the H100 (bf16), routed by shape alone:
+    where :func:`ln_qkv_attention_fits` (N = 50 of the stock encoder), two
+    launches of ``csrc/ln_qkv_attention.cu``, the LN pass and the fused
+    QKV product and attention, which keeps q, k and v in shared memory
+    and writes no qkv tensor; else (N = 197) ``ln_gemm`` with the LN
+    prologue, then ``attention`` on the main rows of the packed qkv it
+    wrote. At the blocks batch (728 crops of 50 tokens) it is 134 GFLOP,
+    bound by operations at 0.136 ms; at the globals batch (16 images) 3
+    GFLOP, where launch latency and the 3.5 MB weight read bound it.
     """
     if x.device.type == 'cpu':
         return fused_ln_qkv_attention_plain(
@@ -530,10 +561,19 @@ def fused_ln_qkv_attention(
         raise ValueError(f'{name}: shape mismatch')
     qkv_wt = _prepared(name, qkv_w, qkv_wt)
     ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
-    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
-    _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln)
     out = torch.empty_like(x)
-    _attention(*qkv.split(d, -1), heads, scale, out=out)
+    if ln_qkv_attention_fits(n, d):
+        if b == 0:
+            raise ValueError(f'{name}: empty batch')
+        ln_out = torch.empty_like(x)
+        cuda_lib.check(cuda_lib.library().oadp_ln_qkv_attention(
+            b, n, heads, float(scale), x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
+            ln_out.data_ptr(), qkv_wt.data_ptr(), qkv_b.data_ptr(), out.data_ptr(), _stream(),
+        ), 'ln_qkv_attention')
+    else:
+        qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+        _ln_gemm(x.view(b * n, d), qkv_wt, qkv_b, qkv.view(b * n, 3 * d), ln32=ln)
+        _attention(*qkv.split(d, -1), heads, scale, out=out)
     LAUNCHES[name] += 1
     return out
 

@@ -122,6 +122,12 @@ def library() -> ctypes.CDLL:
                 p, p, i, p,  # bias, side_out, stream
             ]
             lib.oadp_attention.restype = i
+            lib.oadp_ln_qkv_attention.argtypes = [
+                i, i, i, ctypes.c_float,  # B, N, heads, scale
+                p, p, p, p, p, p, p,  # x, gamma, beta, ln_out, Wt, bias, out
+                p,  # stream
+            ]
+            lib.oadp_ln_qkv_attention.restype = i
             lib.oadp_error_string.argtypes = [i]
             lib.oadp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -122,23 +122,57 @@ def test_ln_mlp_rows_plain_matches_pallas(rows):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize('b', [3, 4, 'large_mean'])
-def test_ln_qkv_attention_plain_matches_pallas(b):
-    """Batches of 3 and 4, and rows with a large per-row mean and outlier
-    columns (fp32, atol 1e-4)."""
-    rng = np.random.default_rng(8)
-    heads, n = 2, 13
-    large_mean = b == 'large_mean'
-    p = _layer(rng, 4 if large_mean else b, n, heads)
-    if large_mean:
-        p = _large_mean(rng, p)
+def _ln_qkv_case(p, heads):
+    """Kernel 3, Pallas in interpret mode and the port, on the same fp32
+    inputs (atol 1e-4)."""
     args = [p[k] for k in ('x', 's', 't', 'w', 'wb')]
     scale = 1.0 / math.sqrt(64)
     want = ja.fused_ln_qkv_attention(
         *map(jnp.asarray, args), heads, scale, interpret=True
     )
     got = ta.fused_ln_qkv_attention(*map(torch.from_numpy, args), heads, scale)
+    assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize('b', [3, 4, 'large_mean', 'n50', 'n50_b6'])
+def test_ln_qkv_attention_plain_matches_pallas(b):
+    """Batches of 3 and 4, rows with a large per-row mean and outlier
+    columns, and the stock encoder's N = 50 at 2 crops and at 6 (five
+    crops and a ragged one, as the fused kernel's 128-row tiles cut them)
+    (fp32, atol 1e-4)."""
+    rng = np.random.default_rng(8)
+    heads = 2
+    shape = {'large_mean': (4, 13), 'n50': (2, 50), 'n50_b6': (6, 50)}.get(b, (b, 13))
+    p = _layer(rng, *shape, heads)
+    if b == 'large_mean':
+        p = _large_mean(rng, p)
+    _ln_qkv_case(p, heads)
+
+
+def test_ln_qkv_attention_clamp_engages():
+    """Kernel 3: logits above 80 saturate instead of overflowing, in both."""
+    rng = np.random.default_rng(14)
+    heads = 2
+    p = _layer(rng, 2, 9, heads, w_scale=1.5)
+    x = torch.from_numpy(p['x'])
+    qkv = ta._proj(ta.layer_norm(x, torch.from_numpy(p['s']), torch.from_numpy(p['t'])),
+                   torch.from_numpy(p['w']), torch.from_numpy(p['wb']))
+    q, k = qkv[..., :64], qkv[..., 128:192]
+    assert float((q @ k.transpose(-1, -2)).max()) / 8 > ta.LOGIT_CLAMP
+    _ln_qkv_case(p, heads)
+
+
+@pytest.mark.parametrize('n, d, fits', [
+    (50, 768, True), (17, 768, True), (6, 768, True), (64, 256, True), (192, 768, True),
+    (197, 768, False), (5, 768, False), (50, 1088, False), (0, 768, False),
+])
+def test_ln_qkv_attention_route_by_shape(n, d, fits):
+    """The fused kernel 3 takes the stock encoder's N = 50 and the
+    sequences whose crop slots (127 // N + 2 of them) fit beside two ring
+    stages; N = 197 (the objects crops), N < 6 and widths past the LN
+    pass's 1024 take the two families."""
+    assert ta.ln_qkv_attention_fits(n, d) is fits
 
 
 def test_bf16_plain_matches_pallas():
@@ -534,3 +568,75 @@ def test_surgery_layer_merged_rows_on_card(b, rows):
     step = 1.0 if rows == 'large_mean' else 0.0625
     for g, w, atol in zip(got, want, (step, step, 0.05)):
         _assert_close_on_card(g, w, atol=atol)
+
+
+def _k3_on_card(dev, b, n, heads, rng, w_scale=0.03, large_mean=False):
+    """Kernel 3's inputs on the card (bf16; fp32 LN parameters prepared
+    as the encoders hold them) and its output beside the plain version's."""
+    p = _layer(rng, b, n, heads, w_scale=w_scale)
+    if large_mean:
+        p = _large_mean(rng, p)
+    x, s, t, w, wb = (torch.from_numpy(p[k]).to(dev).bfloat16()
+                      for k in ('x', 's', 't', 'w', 'wb'))
+    got = ta.fused_ln_qkv_attention(x, s, t, w, wb, heads, 0.125, qkv_wt=ta.kmajor(w),
+                                    ln32=ta.ln_fp32(s, t))
+    want = ta.fused_ln_qkv_attention_plain(x, s, t, w, wb, heads, 0.125)
+    torch.cuda.synchronize()
+    return got, want, (x, s, t, w, wb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [50, 17])
+@pytest.mark.parametrize('b', [1, 5, 6, 16, 728])
+def test_ln_qkv_attention_on_card(b, n):
+    """The fused kernel 3 against its plain version in bf16: one crop,
+    five, a ragged sixth, the globals batch and the blocks batch, at the
+    stock encoder's N = 50 and at a short N = 17 (nine crop slots)."""
+    dev = _card()
+    got, want, _ = _k3_on_card(dev, b, n, 12, np.random.default_rng(100 + b + n))
+    # one bf16 step at the outputs' magnitude (2-4)
+    _assert_close_on_card(got, want, atol=2 ** -5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['large_mean', 'clamp'])
+def test_ln_qkv_attention_edge_rows_on_card(case):
+    """The fused kernel 3 on rows with a per-row offset of +-50 and +-100
+    outlier columns (a CLIP residual stream), and with logits past the
+    clamp of 80."""
+    dev = _card()
+    rng = np.random.default_rng(120)
+    if case == 'large_mean':
+        got, want, _ = _k3_on_card(dev, 16, 50, 12, rng, large_mean=True)
+        _assert_close_on_card(got, want, atol=0.03)
+        return
+    got, want, (x, s, t, w, wb) = _k3_on_card(dev, 6, 50, 4, rng, w_scale=0.5)
+    qkv = ta._proj(ta.layer_norm(x, s, t), w, wb)
+    q, k = qkv[..., :64], qkv[..., 256:320]
+    assert float((q @ k.transpose(-1, -2)).max()) / 8 > ta.LOGIT_CLAMP
+    # a bf16 step at the outputs' magnitude (the values of v, ~10)
+    _assert_close_on_card(got, want, atol=float(want.float().abs().max()) * 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [50, 197])
+def test_ln_qkv_attention_route_on_card(n):
+    """By shape: N = 50 launches the LN pass and the fused kernel and no
+    product or attention kernel of the two families; N = 197 launches
+    those instead. Both match the plain version, and each call counts one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    rng = np.random.default_rng(130 + n)
+    _k3_on_card(dev, 3, n, 12, rng)  # build and warm up
+    ta.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, want, _ = _k3_on_card(dev, 3, n, 12, rng)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    fused = any('ln_qkv_attention_kernel' in k for k in names)
+    families = any('gemm_kernel' in k or ('attention_kernel' in k and 'ln_qkv' not in k)
+                   for k in names)
+    assert (fused, families) == ((True, False) if n == 50 else (False, True)), names
+    assert ta.LAUNCHES['fused_ln_qkv_attention'] == 1
+    _assert_close_on_card(got, want, atol=0.03)
