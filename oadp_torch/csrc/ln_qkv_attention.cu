@@ -61,9 +61,11 @@ namespace {
 constexpr int HD = 64;                   // head width
 constexpr int BM = 128, BK = 64;         // rows of a tile, k of a stage
 constexpr int BN = 3 * HD;               // a head's q, k, v columns
-constexpr int THREADS = 384;             // warp 0 producer, warps 1-3 attention, 2 consumer warpgroups
-constexpr int ATTN_WARPS = 3;
+constexpr int THREADS = 384;             // producer warpgroup (one thread), 2 consumer warpgroups
 constexpr int CONSUMERS = 256;
+constexpr int MAX_N = 64;                // a crop's tokens: one wgmma M and N
+constexpr int PART = MAX_N * 128;        // a slot's Q, K or V^T tile
+constexpr int SLOT = 3 * PART;
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory a block may take
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int STAGE = A_BYTES + BN * BK * 2;
@@ -71,26 +73,22 @@ constexpr int MAX_STAGES = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory: the ring of stages (A k-tile, then the 192-row weight
-// k-tile), the crop slots (each a q, a k and a v tile of np rows of 128
-// bytes), the head's bias in fp32, the barriers (full and empty per stage;
-// `ready`: a tile's q, k, v are in the slots; `done`: its crops are
-// attended). stages < 2 means the shape does not fit.
+// k-tile), the crop slots, the head's bias in fp32, the full and empty
+// barriers of the stages. stages < 2 means the shape does not fit.
 struct Layout {
-  int np, slots, part, stages, slot0, bias, bars, total;
+  int slots, stages, slot0, bias, bars, total;
 };
 
 __host__ __device__ inline Layout layout(int N) {
   Layout l;
-  l.np = (N + 15) / 16 * 16;
   l.slots = (BM - 1) / N + 2;  // crops one 128-row tile can touch
-  l.part = l.np * 128;
-  const int fixed = 1024 + BN * 4 + (2 * MAX_STAGES + 2) * 8;
-  const int room = SMEM_LIMIT - fixed - l.slots * 3 * l.part;
-  l.stages = room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES;
+  const int fixed = 1024 + BN * 4 + 2 * MAX_STAGES * 8;
+  const int room = SMEM_LIMIT - fixed - l.slots * SLOT;
+  l.stages = N > MAX_N ? 0 : room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES;
   l.slot0 = l.stages * STAGE;
-  l.bias = l.slot0 + l.slots * 3 * l.part;
+  l.bias = l.slot0 + l.slots * SLOT;
   l.bars = l.bias + BN * 4;
-  l.total = l.bars + (2 * l.stages + 2) * 8 + 1024;  // + slack to align to 1024
+  l.total = l.bars + 2 * l.stages * 8 + 1024;  // + slack to align to 1024
   return l;
 }
 
@@ -218,136 +216,95 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// ---------------------------------------------------------------------------
-// Attention of one crop's 16 query rows (as in attention.cu)
-// ---------------------------------------------------------------------------
-
-// A lane's ldmatrix offsets into a swizzled K or V tile for a chunk that
-// starts at a multiple of 16 rows (the swizzle term is then the lane's own).
-struct Frag {
-  uint32_t k[HD / 16];
-  uint32_t v[HD / 16];
-};
-
-__device__ __forceinline__ Frag frag_offsets(int lane) {
-  Frag f;
-#pragma unroll
-  for (int i = 0; i < HD / 16; ++i) {
-    f.k[i] = swz((lane & 7) + ((lane >> 4) << 3), i * 2 + ((lane >> 3) & 1));
-    f.v[i] = swz(lane & 15, i * 2 + (lane >> 4));
-  }
-  return f;
+// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B (64 x 16, shared)^T,
+// both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// One chunk of 16 keys for QT 16-row query tiles of a warp: scores on
-// mma.sync from Q fragments in registers and K fragments from ldmatrix
-// (read once for all QT tiles), exp weights rounded to bf16 as the A operand
-// of P V, and the PV product from ldmatrix.trans of V. With MASK, keys at or
-// past `lim` weigh 0.
-template <int QT, bool MASK>
-__device__ __forceinline__ void key_chunk(const unsigned (&qf)[QT][HD / 16][4], uint32_t Ks,
-                                          uint32_t Vs, const Frag& f, int lim, float scale_log2,
-                                          int lane, float (&o)[QT][HD / 8][4],
-                                          float (&sums)[QT][2]) {
-  const int t = lane & 3;
-  float s[QT][2][4];
-#pragma unroll
-  for (int q = 0; q < QT; ++q)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[q][j >> 2][j & 3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    unsigned kf[4];
-    ldmatrix_x4(kf, Ks + f.k[ks]);
-#pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      mma_bf16(s[q][0], qf[q][ks], kf[0], kf[1]);
-      mma_bf16(s[q][1], qf[q][ks], kf[2], kf[3]);
-    }
-  }
-  unsigned pa[QT][4];
-#pragma unroll
-  for (int q = 0; q < QT; ++q) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float w = ex2(fminf(s[q][j][e] * scale_log2, 80.f * LOG2E));
-        const bool keep = !MASK || j * 8 + 2 * t + (e & 1) < lim;
-        s[q][j][e] = keep ? w : 0.f;
-        sums[q][e >> 1] += s[q][j][e];
-      }
-      pa[q][2 * j] = pack2(s[q][j][0], s[q][j][1]);
-      pa[q][2 * j + 1] = pack2(s[q][j][2], s[q][j][3]);
-    }
-  }
-#pragma unroll
-  for (int dp = 0; dp < HD / 16; ++dp) {
-    unsigned vf[4];
-    ldmatrix_x4_trans(vf, Vs + f.v[dp]);
-#pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      mma_bf16(o[q][2 * dp], pa[q], vf[0], vf[1]);
-      mma_bf16(o[q][2 * dp + 1], pa[q], vf[2], vf[3]);
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// Attention of one crop by one consumer warpgroup
+// ---------------------------------------------------------------------------
 
-// Query rows r0..r0+16*QT-1 of one crop's slot (Q, K, V tiles of np rows):
-// the normalised rows are staged over the warp's own Q rows, then written
-// to dst (the crop's head columns, row stride ld) 16 bytes a lane.
-template <int QT>
-__device__ __forceinline__ void attend_rows(int N, int np, float scale_log2, unsigned char* Qs,
-                                            const unsigned char* Ks, const unsigned char* Vs,
-                                            int r0, bf16* dst, int ld, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  unsigned qf[QT][HD / 16][4];
-  float o[QT][HD / 8][4];
-  float sums[QT][2];
+// The crop's slot holds Q (64 query rows x 64 dims), K (64 key rows x 64
+// dims) and V^T (64 dims x 64 keys), each 64 rows of 128 bytes with the
+// 128-byte swizzle, K-major for wgmma; rows and keys past N are zero. S =
+// Q K^T on wgmma m64n64k16 from shared memory; the exp weights (keys past N
+// weigh 0) are rounded to bf16 into P over Q, which S no longer needs; O = P
+// V on wgmma from shared memory, so no A operand comes from registers (a
+// register A computed between wgmmas serialises them); rows are normalised
+// by their fp32 sums and rows < N written to dst (row stride ld). Thread:
+// warp w of the warpgroup, g = lane / 4, tq = lane % 4; barrier `bar` is
+// the warpgroup's own.
+__device__ __forceinline__ void attend_crop(unsigned char* slot, int N, float scale_log2, bf16* dst,
+                                            int ld, int bar, int w, int g, int tq) {
+  unsigned char* Qs = slot;
+  const unsigned char* Ks = slot + PART;
+  const unsigned char* Vt = slot + 2 * PART;
+  float s[32];
 #pragma unroll
-  for (int q = 0; q < QT; ++q) {
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      ldmatrix_x4(qf[q][ks], smem_u32(Qs) + swz(r0 + 16 * q + (lane & 15), ks * 2 + (lane >> 4)));
+  for (int ks = 0; ks < HD / 16; ++ks)
+    wgmma_m64n64k16(s, smem_desc(Qs + ks * 32), smem_desc(Ks + ks * 32));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(s);
+  named_barrier(bar, 128);  // every warp's product has read Q: P goes over it
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) o[q][i][0] = o[q][i][1] = o[q][i][2] = o[q][i][3] = 0.f;
-    sums[q][0] = sums[q][1] = 0.f;
-  }
-  const Frag f = frag_offsets(lane);
-  const uint32_t ks_ = smem_u32(Ks), vs_ = smem_u32(Vs);
-  int k0 = 0;
-  for (; k0 + 16 <= N; k0 += 16)
-    key_chunk<QT, false>(qf, ks_ + k0 * 128, vs_ + k0 * 128, f, 0, scale_log2, lane, o, sums);
-  for (; k0 < np; k0 += 16)
-    key_chunk<QT, true>(qf, ks_ + k0 * 128, vs_ + k0 * 128, f, N - k0, scale_log2, lane, o, sums);
-#pragma unroll
-  for (int q = 0; q < QT; ++q) {
-    float inv[2];
+  for (int jn = 0; jn < 8; ++jn) {
+    const int key = jn * 8 + 2 * tq;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      float sum = sums[q][hh];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      inv[hh] = 1.f / sum;
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        *reinterpret_cast<__nv_bfloat162*>(Qs + swz(r0 + 16 * q + g + 8 * hh, n) + 4 * t) =
-            __floats2bfloat162_rn(o[q][n][2 * hh] * inv[hh], o[q][n][2 * hh + 1] * inv[hh]);
-      }
+      const float p0 = key < N ? ex2(fminf(s[jn * 4 + 2 * hh] * scale_log2, 80.f * LOG2E)) : 0.f;
+      const float p1 =
+          key + 1 < N ? ex2(fminf(s[jn * 4 + 2 * hh + 1] * scale_log2, 80.f * LOG2E)) : 0.f;
+      sum[hh] += p0 + p1;
+      *reinterpret_cast<__nv_bfloat162*>(Qs + swz(w * 16 + g + 8 * hh, jn) + 4 * tq) =
+          __floats2bfloat162_rn(p0, p1);
     }
   }
-  __syncwarp();
+  fence_proxy_async();  // P, before the product reads it
+  named_barrier(bar, 128);
+  float o[32];
 #pragma unroll
-  for (int i = 0; i < 4 * QT; ++i) {
-    const int row = r0 + i * 4 + (lane >> 3), c = lane & 7;
-    if (row < N)
-      *reinterpret_cast<uint4*>(dst + (size_t)row * ld + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz(row, c));
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_m64n64k16(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 32));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(o);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float total = sum[hh];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    const float inv = 1.f / total;
+    const int row = w * 16 + g + 8 * hh;
+    if (row < N) {
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * ld + jn * 8 + 2 * tq) =
+            __floats2bfloat162_rn(o[jn * 4 + 2 * hh] * inv, o[jn * 4 + 2 * hh + 1] * inv);
+    }
   }
-  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -365,8 +322,6 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
   float* bias_s = reinterpret_cast<float*>(base + l.bias);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + l.bars);
   uint64_t* empty = full + l.stages;
-  uint64_t* ready = empty + l.stages;
-  uint64_t* done = ready + 1;
 
   const int N = a.N, D = a.heads * HD, KT = D / BK;
   const int h = blockIdx.x % a.heads, range = blockIdx.x / a.heads;
@@ -375,9 +330,9 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int rows = (c1 - c0) * N, tiles = (rows + BM - 1) / BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // rows N..np-1 of every slot stay zero: masked keys, and V rows that
-  // weigh 0 must be finite
-  for (int i = tid; i < l.slots * 3 * l.part / 16; i += THREADS)
+  // rows and keys past N stay zero in every slot: the keys weigh 0 and
+  // their V^T columns must be finite
+  for (int i = tid; i < l.slots * SLOT / 16; i += THREADS)
     reinterpret_cast<uint4*>(slots)[i] = make_uint4(0, 0, 0, 0);
   for (int c = tid; c < BN; c += THREADS)
     bias_s[c] = __bfloat162float(a.bias[(c / HD) * D + h * HD + c % HD]);
@@ -386,16 +341,16 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-    mbar_init(ready, CONSUMERS);
-    mbar_init(done, ATTN_WARPS * 32);
     mbar_init_fence();
   }
+  fence_proxy_async();  // the zeroed slots, before wgmma reads them
   __syncthreads();
 
-  if (warp == 0) {
+  if (warp < 4) {
     // producer: the LN k-tile of the tile's rows and the head's q, k and v
     // weight k-tiles (rows past B x N arrive as zeros)
-    if (lane == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
       int stage = 0;
       unsigned phase = 0;
       for (int t = 0; t < tiles; ++t) {
@@ -417,44 +372,20 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     }
     return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
-  if (warp <= ATTN_WARPS) {
-    // attention: after each tile, the crops it completed, one 16-row query
-    // tile a task
-    const int qtiles = l.np / 16, pairs = (qtiles + 1) / 2;  // tasks a crop
-    int next = 0;  // the first crop not yet attended
-    for (int t = 0; t < tiles; ++t) {
-      mbar_wait(ready, t & 1);
-      const int last = min((t + 1) * BM, rows) / N;  // crops [next, last) are complete
-      for (int task = warp - 1; !(a.probe & 1) && task < (last - next) * pairs; task += ATTN_WARPS) {
-        const int cr = next + task / pairs, qt = 2 * (task % pairs);
-        unsigned char* Qs = slots + (cr % l.slots) * 3 * l.part;
-        bf16* dst = a.out + (size_t)(c0 + cr) * N * D + h * HD;
-        if (qt + 1 < qtiles)
-          attend_rows<2>(N, l.np, a.scale_log2, Qs, Qs + l.part, Qs + 2 * l.part, qt * 16, dst, D,
-                         lane);
-        else
-          attend_rows<1>(N, l.np, a.scale_log2, Qs, Qs + l.part, Qs + 2 * l.part, qt * 16, dst, D,
-                         lane);
-      }
-      next = last;
-      mbar_arrive(done);
-    }
-    return;
-  }
-
-  // consumers: 64 rows of each tile a warpgroup
+  // consumers: 64 rows of each tile a warpgroup, then the attention of the
+  // crops the tile completed, alternating between the warpgroups
   const int cw = (tid >> 7) - 1;
   const int w = (tid & 127) >> 5, g = lane >> 2, tq = lane & 3;
   float acc[BN / 2];
-  int stage = 0;
+  int stage = 0, next = 0;  // next: the first crop not yet attended
   unsigned phase = 0;
   for (int t = 0; t < tiles; ++t) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int held = -1;  // the stage the in-flight wgmma group reads
     for (int kt = 0; kt < KT; ++kt) {
-      if (t == 0 && kt == 0 && cw == 1 && (a.probe >> 3)) named_barrier(1, 256);
       mbar_wait(&full[stage], phase);
       const unsigned char* a_s = base + stage * STAGE + cw * 64 * 128;
       const unsigned char* b_s = base + stage * STAGE + A_BYTES;
@@ -469,8 +400,6 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
       wgmma_wait<1>();
       fence_acc<BN / 2>(acc);
       if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-      if (t == 0 && cw == 0 && kt == (a.probe >> 3) - 1)
-        asm volatile("bar.arrive 1, 256;\n" ::: "memory");
       held = stage;
       if (++stage == l.stages) {
         stage = 0;
@@ -481,26 +410,41 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     fence_acc<BN / 2>(acc);
     if (lane == 0) mbar_arrive(&empty[held]);
 
-    // the previous tile's crops are attended: no slot written here is read
-    if (t > 0) mbar_wait(done, (t - 1) & 1);
+    // both warpgroups are past the previous tile's attention: no slot
+    // written here is still read
+    named_barrier(1, CONSUMERS);
     // fragments acc[jn * 4 + 2hh + e]: row w * 16 + g + 8hh, column
-    // jn * 8 + 2tq + e of q | k | v; bias in fp32, one rounding to bf16
+    // jn * 8 + 2tq + e of q | k | v; bias in fp32, one rounding to bf16; v
+    // goes in transposed (a row per head dimension)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = t * BM + cw * 64 + w * 16 + g + 8 * hh;  // row of the range
       if (r < rows && !(a.probe & 2)) {
         const int cr = r / N, rr = r - cr * N;
-        unsigned char* slot = slots + (cr % l.slots) * 3 * l.part;
+        unsigned char* slot = slots + (cr % l.slots) * SLOT;
 #pragma unroll
         for (int jn = 0; jn < BN / 8; ++jn) {
           const float2 bb = *reinterpret_cast<const float2*>(bias_s + jn * 8 + 2 * tq);
-          *reinterpret_cast<__nv_bfloat162*>(slot + (jn >> 3) * l.part + swz(rr, jn & 7) +
-                                             4 * tq) =
-              __floats2bfloat162_rn(acc[jn * 4 + 2 * hh] + bb.x, acc[jn * 4 + 2 * hh + 1] + bb.y);
+          const float v0 = acc[jn * 4 + 2 * hh] + bb.x, v1 = acc[jn * 4 + 2 * hh + 1] + bb.y;
+          if (jn < 16) {
+            *reinterpret_cast<__nv_bfloat162*>(slot + (jn >> 3) * PART + swz(rr, jn & 7) +
+                                               4 * tq) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            const int d = (jn - 16) * 8 + 2 * tq;
+            unsigned char* vt = slot + 2 * PART + (rr & 7) * 2;
+            *reinterpret_cast<bf16*>(vt + swz(d, rr >> 3)) = __float2bfloat16_rn(v0);
+            *reinterpret_cast<bf16*>(vt + swz(d + 1, rr >> 3)) = __float2bfloat16_rn(v1);
+          }
         }
       }
     }
-    mbar_arrive(ready);
+    fence_proxy_async();  // the slots' writes, before wgmma reads them
+    named_barrier(1, CONSUMERS);
+    const int last = min((t + 1) * BM, rows) / N;  // crops [next, last) are complete
+    for (int cr = next + cw; !(a.probe & 1) && cr < last; cr += 2)
+      attend_crop(slots + (cr % l.slots) * SLOT, N, a.scale_log2,
+                  a.out + (size_t)(c0 + cr) * N * D + h * HD, D, 2 + cw, w, g, tq);
+    next = last;
   }
 }
 

@@ -136,21 +136,22 @@ def fused_ln_mlp_rows_supported(rows: int, width: int) -> bool:
 
 # ``csrc/ln_qkv_attention.cu``'s shared memory (its ``layout``): a ring of
 # at least two 40 KB stages (a 128 x 64 LN k-tile, a head's 192 x 64
-# weight k-tile) beside a q, k and v tile of N rows rounded up to 16 for
+# weight k-tile) beside a 24 KB slot (q, k and v^T tiles of 64 x 64) for
 # every crop one 128-row tile can touch.
 _SMEM_LIMIT = 232448
 _QKV_STAGE = 128 * 64 * 2 + 3 * _HEAD_DIM * 64 * 2
-_QKV_FIXED = 1024 + 3 * _HEAD_DIM * 4 + 10 * 8  # alignment, bias, barriers
+_QKV_SLOT = 3 * 64 * 128
+_QKV_FIXED = 1024 + 3 * _HEAD_DIM * 4 + 8 * 8  # alignment, bias, barriers
 
 
 def ln_qkv_attention_fits(n: int, d: int) -> bool:
     """Whether the fused kernel 3 takes ``N`` tokens of width ``D``
-    (``D = heads x 64``): N = 50 does (218 KB), N = 197 does not."""
-    if n <= 0 or d > 1024:
+    (``D = heads x 64``): 26 <= N <= 64 and D <= 1024, so the stock
+    encoder's N = 50 does (218 KB) and the objects crops' N = 197 do not."""
+    if not 0 < n <= 64 or d > 1024:
         return False
     slots = 127 // n + 2
-    slot_bytes = 3 * -(-n // 16) * 16 * 128
-    return (_SMEM_LIMIT - _QKV_FIXED - slots * slot_bytes) // _QKV_STAGE >= 2
+    return (_SMEM_LIMIT - _QKV_FIXED - slots * _QKV_SLOT) // _QKV_STAGE >= 2
 
 
 # ---------------------------------------------------------------------------

@@ -164,14 +164,15 @@ def test_ln_qkv_attention_clamp_engages():
 
 
 @pytest.mark.parametrize('n, d, fits', [
-    (50, 768, True), (17, 768, True), (6, 768, True), (64, 256, True), (192, 768, True),
-    (197, 768, False), (5, 768, False), (50, 1088, False), (0, 768, False),
+    (50, 768, True), (26, 768, True), (64, 256, True), (32, 1024, True),
+    (197, 768, False), (65, 768, False), (25, 768, False), (17, 768, False),
+    (50, 1088, False), (0, 768, False),
 ])
 def test_ln_qkv_attention_route_by_shape(n, d, fits):
     """The fused kernel 3 takes the stock encoder's N = 50 and the
-    sequences whose crop slots (127 // N + 2 of them) fit beside two ring
-    stages; N = 197 (the objects crops), N < 6 and widths past the LN
-    pass's 1024 take the two families."""
+    sequences of at most 64 tokens whose crop slots (127 // N + 2 of them)
+    fit beside two ring stages; N = 197 (the objects crops), N < 26 and
+    widths past the LN pass's 1024 take the two families."""
     assert ta.ln_qkv_attention_fits(n, d) is fits
 
 
@@ -586,12 +587,13 @@ def _k3_on_card(dev, b, n, heads, rng, w_scale=0.03, large_mean=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [50, 17])
+@pytest.mark.parametrize('n', [50, 32])
 @pytest.mark.parametrize('b', [1, 5, 6, 16, 728])
 def test_ln_qkv_attention_on_card(b, n):
     """The fused kernel 3 against its plain version in bf16: one crop,
     five, a ragged sixth, the globals batch and the blocks batch, at the
-    stock encoder's N = 50 and at a short N = 17 (nine crop slots)."""
+    stock encoder's N = 50 and at a short N = 32 (five crop slots, two ring
+    stages)."""
     dev = _card()
     got, want, _ = _k3_on_card(dev, b, n, 12, np.random.default_rng(100 + b + n))
     # one bf16 step at the outputs' magnitude (2-4)
@@ -619,24 +621,28 @@ def test_ln_qkv_attention_edge_rows_on_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [50, 197])
+@pytest.mark.parametrize('n', [50, 17, 197])
 def test_ln_qkv_attention_route_on_card(n):
     """By shape: N = 50 launches the LN pass and the fused kernel and no
-    product or attention kernel of the two families; N = 197 launches
-    those instead. Both match the plain version, and each call counts one."""
+    product or attention kernel of the two families; N = 17 and N = 197
+    launch those instead. Each matches the plain version and counts one."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = _card()
-    rng = np.random.default_rng(130 + n)
-    _k3_on_card(dev, 3, n, 12, rng)  # build and warm up
+    got, want, (x, s, t, w, wb) = _k3_on_card(dev, 3, n, 12, np.random.default_rng(130 + n))
+    _assert_close_on_card(got, want, atol=0.03)
+    prepared = dict(qkv_wt=ta.kmajor(w), ln32=ta.ln_fp32(s, t))
+    torch.cuda.synchronize()
     ta.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got, want, _ = _k3_on_card(dev, 3, n, 12, rng)
+        ta.fused_ln_qkv_attention(x, s, t, w, wb, 12, 0.125, **prepared)
+        torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA}
     fused = any('ln_qkv_attention_kernel' in k for k in names)
     families = any('gemm_kernel' in k or ('attention_kernel' in k and 'ln_qkv' not in k)
                    for k in names)
-    assert (fused, families) == ((True, False) if n == 50 else (False, True)), names
+    fits = ta.ln_qkv_attention_fits(n, 768)
+    assert fits == (n == 50)
+    assert (fused, families) == (fits, not fits), names
     assert ta.LAUNCHES['fused_ln_qkv_attention'] == 1
-    _assert_close_on_card(got, want, atol=0.03)
