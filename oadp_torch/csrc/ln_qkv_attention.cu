@@ -55,13 +55,22 @@
 
 #include "common.cuh"
 
+#ifndef K3_V_MN_MAJOR
+#define K3_V_MN_MAJOR 0
+#endif
+#ifndef K3_STAGGER
+#define K3_STAGGER 0
+#endif
+
 namespace oadp {
 namespace {
 
 constexpr int HD = 64;                   // head width
 constexpr int BM = 128, BK = 64;         // rows of a tile, k of a stage
 constexpr int BN = 3 * HD;               // a head's q, k, v columns
-constexpr int THREADS = 384;             // producer warpgroup (one thread), 2 consumer warpgroups
+// warpgroup 0: the producer (one thread); 1-2: the product's consumers;
+// 3: attention
+constexpr int THREADS = 512;
 constexpr int CONSUMERS = 256;
 constexpr int MAX_N = 64;                // a crop's tokens: one wgmma M and N
 constexpr int PART = MAX_N * 128;        // a slot's Q, K or V^T tile
@@ -73,8 +82,9 @@ constexpr int MAX_STAGES = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory: the ring of stages (A k-tile, then the 192-row weight
-// k-tile), the crop slots, the head's bias in fp32, the full and empty
-// barriers of the stages. stages < 2 means the shape does not fit.
+// k-tile), the crop slots, the head's bias in fp32, the barriers (full and
+// empty per stage; `ready`: a tile's q, k, v are in the slots; `done`: the
+// crops it completed are attended). stages < 2: the shape does not fit.
 struct Layout {
   int slots, stages, slot0, bias, bars, total;
 };
@@ -82,13 +92,13 @@ struct Layout {
 __host__ __device__ inline Layout layout(int N) {
   Layout l;
   l.slots = (BM - 1) / N + 2;  // crops one 128-row tile can touch
-  const int fixed = 1024 + BN * 4 + 2 * MAX_STAGES * 8;
+  const int fixed = 1024 + BN * 4 + (2 * MAX_STAGES + 2) * 8;
   const int room = SMEM_LIMIT - fixed - l.slots * SLOT;
   l.stages = N > MAX_N ? 0 : room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES;
   l.slot0 = l.stages * STAGE;
   l.bias = l.slot0 + l.slots * SLOT;
   l.bars = l.bias + BN * 4;
-  l.total = l.bars + 2 * l.stages * 8 + 1024;  // + slack to align to 1024
+  l.total = l.bars + (2 * l.stages + 2) * 8 + 1024;  // + slack to align to 1024
   return l;
 }
 
@@ -218,6 +228,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
 
 // d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B (64 x 16, shared)^T,
 // both K-major with the 128-byte swizzle.
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -226,13 +237,13 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint6
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
 // ---------------------------------------------------------------------------
@@ -260,7 +271,7 @@ __device__ __forceinline__ void attend_crop(unsigned char* slot, int N, float sc
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
-    wgmma_m64n64k16(s, smem_desc(Qs + ks * 32), smem_desc(Ks + ks * 32));
+    wgmma_m64n64k16<0>(s, smem_desc(Qs + ks * 32), smem_desc(Ks + ks * 32));
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc<32>(s);
@@ -287,7 +298,11 @@ __device__ __forceinline__ void attend_crop(unsigned char* slot, int N, float sc
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    wgmma_m64n64k16(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 32));
+#if K3_V_MN_MAJOR
+    wgmma_m64n64k16<1>(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 2048));
+#else
+    wgmma_m64n64k16<0>(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 32));
+#endif
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc<32>(o);
@@ -322,6 +337,8 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
   float* bias_s = reinterpret_cast<float*>(base + l.bias);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + l.bars);
   uint64_t* empty = full + l.stages;
+  uint64_t* ready = empty + l.stages;
+  uint64_t* done = ready + 1;
 
   const int N = a.N, D = a.heads * HD, KT = D / BK;
   const int h = blockIdx.x % a.heads, range = blockIdx.x / a.heads;
@@ -341,6 +358,8 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
+    mbar_init(ready, CONSUMERS);
+    mbar_init(done, 128);
     mbar_init_fence();
   }
   fence_proxy_async();  // the zeroed slots, before wgmma reads them
@@ -349,7 +368,6 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
   if (warp < 4) {
     // producer: the LN k-tile of the tile's rows and the head's q, k and v
     // weight k-tiles (rows past B x N arrive as zeros)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
       int stage = 0;
       unsigned phase = 0;
@@ -372,34 +390,51 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
-  // consumers: 64 rows of each tile a warpgroup, then the attention of the
-  // crops the tile completed, alternating between the warpgroups
-  const int cw = (tid >> 7) - 1;
   const int w = (tid & 127) >> 5, g = lane >> 2, tq = lane & 3;
+  if (warp >= 12) {
+    // attention: after each tile, the crops it completed
+    int next = 0;  // the first crop not yet attended
+    for (int t = 0; t < tiles; ++t) {
+      mbar_wait(ready, t & 1);
+      const int last = min((t + 1) * BM, rows) / N;  // crops [next, last) are complete
+      for (int cr = next; !(a.probe & 1) && cr < last; ++cr)
+        attend_crop(slots + (cr % l.slots) * SLOT, N, a.scale_log2,
+                    a.out + (size_t)(c0 + cr) * N * D + h * HD, D, 2, w, g, tq);
+      next = last;
+      mbar_arrive(done);
+    }
+    return;
+  }
+
+  // consumers: 64 rows of each tile a warpgroup
+  const int cw = (tid >> 7) - 1;
   float acc[BN / 2];
-  int stage = 0, next = 0;  // next: the first crop not yet attended
+  int stage = 0;
   unsigned phase = 0;
   for (int t = 0; t < tiles; ++t) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int held = -1;  // the stage the in-flight wgmma group reads
     for (int kt = 0; kt < KT; ++kt) {
+#if K3_STAGGER
+      if (t == 0 && kt == 0 && cw == 1) named_barrier(1, CONSUMERS);
+#endif
       mbar_wait(&full[stage], phase);
       const unsigned char* a_s = base + stage * STAGE + cw * 64 * 128;
       const unsigned char* b_s = base + stage * STAGE + A_BYTES;
       fence_acc<BN / 2>(acc);
       wgmma_fence();
-      if (!(a.probe & 4)) {
 #pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks)
-          wgmma_m64n192k16(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
-      }
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_m64n192k16(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
       wgmma_commit();
       wgmma_wait<1>();
       fence_acc<BN / 2>(acc);
       if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+#if K3_STAGGER
+      if (t == 0 && cw == 0 && kt == K3_STAGGER - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+#endif
       held = stage;
       if (++stage == l.stages) {
         stage = 0;
@@ -410,9 +445,8 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     fence_acc<BN / 2>(acc);
     if (lane == 0) mbar_arrive(&empty[held]);
 
-    // both warpgroups are past the previous tile's attention: no slot
-    // written here is still read
-    named_barrier(1, CONSUMERS);
+    // the previous tile's crops are attended: no slot written here is read
+    if (t > 0) mbar_wait(done, (t - 1) & 1);
     // fragments acc[jn * 4 + 2hh + e]: row w * 16 + g + 8hh, column
     // jn * 8 + 2tq + e of q | k | v; bias in fp32, one rounding to bf16; v
     // goes in transposed (a row per head dimension)
@@ -426,7 +460,7 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
         for (int jn = 0; jn < BN / 8; ++jn) {
           const float2 bb = *reinterpret_cast<const float2*>(bias_s + jn * 8 + 2 * tq);
           const float v0 = acc[jn * 4 + 2 * hh] + bb.x, v1 = acc[jn * 4 + 2 * hh + 1] + bb.y;
-          if (jn < 16) {
+          if (jn < 16 || K3_V_MN_MAJOR) {
             *reinterpret_cast<__nv_bfloat162*>(slot + (jn >> 3) * PART + swz(rr, jn & 7) +
                                                4 * tq) = __floats2bfloat162_rn(v0, v1);
           } else {
@@ -439,12 +473,7 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
       }
     }
     fence_proxy_async();  // the slots' writes, before wgmma reads them
-    named_barrier(1, CONSUMERS);
-    const int last = min((t + 1) * BM, rows) / N;  // crops [next, last) are complete
-    for (int cr = next + cw; !(a.probe & 1) && cr < last; cr += 2)
-      attend_crop(slots + (cr % l.slots) * SLOT, N, a.scale_log2,
-                  a.out + (size_t)(c0 + cr) * N * D + h * HD, D, 2 + cw, w, g, tq);
-    next = last;
+    mbar_arrive(ready);
   }
 }
 

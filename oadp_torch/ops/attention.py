@@ -141,7 +141,7 @@ def fused_ln_mlp_rows_supported(rows: int, width: int) -> bool:
 _SMEM_LIMIT = 232448
 _QKV_STAGE = 128 * 64 * 2 + 3 * _HEAD_DIM * 64 * 2
 _QKV_SLOT = 3 * 64 * 128
-_QKV_FIXED = 1024 + 3 * _HEAD_DIM * 4 + 8 * 8  # alignment, bias, barriers
+_QKV_FIXED = 1024 + 3 * _HEAD_DIM * 4 + 10 * 8  # alignment, bias, barriers
 
 
 def ln_qkv_attention_fits(n: int, d: int) -> bool:
