@@ -16,10 +16,12 @@ Phases, in order; any failure exits nonzero:
    yardstick its transposed weights once. Two times per call for the
    kernel and for the yardstick: CUDA events around back-to-back calls
    (host launch overhead included) and the device time from
-   ``torch.profiler`` (the sum of the call's kernel durations; for kernel
-   1 also by part: LN pass, QKV product, attention, out-projection).
-   Kernel 1 is also held to its plain version on rows with a large
-   per-row mean and outlier columns, as CLIP residual streams carry;
+   ``torch.profiler`` (the sum of the call's kernel durations; for
+   kernel 1 also by part: LN pass, QKV product, attention,
+   out-projection; for kernel 3: LN pass, fused QKV product and
+   attention). Kernels 1 and 3 are also held to their plain versions on
+   rows with a large per-row mean and outlier columns, as CLIP residual
+   streams carry;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after: the OAKE objects, globals and blocks CLIs
    (``oadp_torch.oake``) at full ViT-B/32 width (random weights from seed
@@ -27,8 +29,8 @@ Phases, in order; any failure exits nonzero:
    checked; the surgery encoder's split wiring (``objects_step`` on 999
    crops: kernels 4 and 5 only) against its fused wiring on the same
    crops (cosine >= 0.99) and timed beside it; CPU fp32 re-encodes of
-   crops and blocks against the card (cosine >= 0.99); images/s of a
-   warm second run of each CLI.
+   crops, a whole image (globals) and blocks against the card (cosine
+   >= 0.99); images/s of a warm second run of each CLI.
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -109,10 +111,13 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
     return total_us / iters / 1e3, split
 
 
-def _k1_part(name: str) -> str:
-    """Kernel 1's part a kernel belongs to, by its (mangled or demangled)
-    name: the LN pass, the QKV product, attention, the out-projection (the
-    product with the residual epilogue, template argument 2)."""
+def _part(name: str) -> str:
+    """The part of kernel 1 or 3 a kernel belongs to, by its (mangled or
+    demangled) name: the LN pass, kernel 3's fused QKV product and
+    attention, the QKV product, attention, the out-projection (the product
+    with the residual epilogue, template argument 2)."""
+    if 'ln_qkv_attention_kernel' in name:
+        return 'qkv_attention'
     if 'layer_norm' in name:
         return 'ln'
     if 'attention_kernel' in name:
@@ -176,6 +181,12 @@ def check_kernels(A, gen) -> dict:
     w_bytes = 2 * (qkv_w.numel() + qkv_b.numel() + 2 * D)
     results = {}
 
+    def offset(t):
+        """Rows as a CLIP residual stream carries them: a per-row offset in
+        [-50, 50] and a few columns at +-100, beside the random ones."""
+        return (t.float() + torch.empty(*t.shape[:-1], 1, device=dev).uniform_(
+            -50, 50, generator=gen) + 100 * (torch.arange(D, device=dev) % 256 == 3)).bfloat16()
+
     def record(name, kernel, plain, library, flops, nbytes, iters, part_of=None, **extra):
         got, want = kernel(), plain()
         err, cos = compare(got, want)
@@ -224,10 +235,6 @@ def check_kernels(A, gen) -> dict:
     act_bytes = 2 * (x.numel() + y.numel()) + 4 * bias.numel()
     fold = dict(out_w=out_w, out_b=out_b)
     prep = dict(qkv_wt=lib_w['qkv'], ln32=ln32)
-    # rows as a CLIP residual stream carries them: a per-row offset in
-    # [-50, 50] and a few columns at +-100, beside the random ones
-    offset = lambda t: (t.float() + torch.empty(*t.shape[:-1], 1, device=dev).uniform_(  # noqa: E731
-        -50, 50, generator=gen) + 100 * (torch.arange(D, device=dev) % 256 == 3)).bfloat16()
     lm_args = (offset(x), offset(y), *args[2:])
     lm_err, lm_cos = compare(
         A.fused_surgery_layer(*lm_args, **fold, **prep, out_wt=lib_w['out']),
@@ -243,7 +250,7 @@ def check_kernels(A, gen) -> dict:
         flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
         + 4 * b * HEADS * n * HD + 2 * b * (n + 1) * D * D,
         nbytes=2 * act_bytes - 4 * bias.numel() + w_bytes + 2 * (D * D + D),
-        iters=5, part_of=_k1_part, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
+        iters=5, part_of=_part, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
     )
     k1_side = record(
         'fused_surgery_layer(with_main=False)',
@@ -252,7 +259,7 @@ def check_kernels(A, gen) -> dict:
         lambda: lib_k1(False),
         flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
         nbytes=act_bytes + 2 * y.numel() + w_bytes,
-        iters=5, part_of=_k1_part,
+        iters=5, part_of=_part,
     )
     del x, y, bias, mask, lib_mask, args
     torch.cuda.empty_cache()
@@ -289,6 +296,13 @@ def check_kernels(A, gen) -> dict:
             q, k, v = (_split(t, b3, n3) for t in F.linear(hx, lib_w['qkv'], qkv_b).split(D, -1))
             return _merge(F.scaled_dot_product_attention(q, k, v))
 
+        lm3 = (offset(x3), *a3[1:])
+        lm_err, lm_cos = compare(A.fused_ln_qkv_attention(*lm3, **prep),
+                                 A.fused_ln_qkv_attention_plain(*lm3))
+        if lm_cos < 0.999:
+            raise AssertionError(
+                f'fused_ln_qkv_attention(B={b3}): cosine {lm_cos} < 0.999 on large-mean rows')
+        del lm3
         k3[b3] = record(
             f'fused_ln_qkv_attention(B={b3})',
             lambda: A.fused_ln_qkv_attention(*a3, **prep),
@@ -296,7 +310,8 @@ def check_kernels(A, gen) -> dict:
             lib_k3,
             flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
             nbytes=2 * 2 * x3.numel() + w_bytes,
-            iters=50 if b3 == GLOB_BATCH else 10,
+            iters=50 if b3 == GLOB_BATCH else 10, part_of=_part,
+            large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
         )
         del x3, a3
 
@@ -441,6 +456,7 @@ def main_path(A, card: str) -> dict:
     from oadp_torch.oake import encoders as E
     from oadp_torch.oake import globals as G
     from oadp_torch.oake import objects as O
+    from oadp_torch.oake.base import bucket
     from oadp_torch.oake.partitions import first_block_bbox, plan_blocks
     from oadp_torch.utils import load_pth
 
@@ -561,6 +577,16 @@ def main_path(A, card: str) -> dict:
         ).float().numpy()
         emb_card = load_pth(root / 'blocks' / f'{item["id"]:012d}.pth')['embeddings']
         cos['blocks_whole_and_4'] = _min_cos(emb_cpu, emb_card[:1 + n_check])
+        # the first image's whole-image embedding, with the resize taps the
+        # globals CLI's batch used (the largest of its images')
+        gpreps = [globals_.prepare(dict(
+            id=id_, output=None, image=(im := objects._dataset.load(id_)),
+            height=im.shape[0], width=im.shape[1])) for id_ in data['ids']]
+        k_glob = bucket(max(p['ksize'] for p in gpreps), (5, 9, 13, 21))
+        emb_cpu = cpu_steps.globals_step(
+            [gpreps[0]['image']], gpreps[0]['meta'][None], k_glob).float().numpy()
+        emb_card = load_pth(root / 'globals' / f'{data["ids"][0]:012d}.pth')[None]
+        cos['globals_1'] = _min_cos(emb_cpu, emb_card)
         log(json.dumps({'cpu_fp32_vs_card_bf16_min_cosine': cos,
                         'split_vs_fused_min_cosine': split_vs_fused}))
         if min(cos.values()) < 0.99 or split_vs_fused < 0.99:
@@ -614,7 +640,8 @@ def main() -> int:
         'fused_surgery_layer': ('oadp_tpu/ops/attention.py:425', both, ['objects']),
         'fused_ln_mlp_rows': ('oadp_tpu/ops/attention.py:672',
                               'oadp_torch/csrc/ln_gemm.cu', ['objects']),
-        'fused_ln_qkv_attention': ('oadp_tpu/ops/attention.py:218', both,
+        'fused_ln_qkv_attention': ('oadp_tpu/ops/attention.py:218',
+                                   'oadp_torch/csrc/ln_qkv_attention.cu',
                                    ['globals', 'blocks']),
         'fused_mha_qkv': ('oadp_tpu/ops/attention.py:105',
                           'oadp_torch/csrc/attention.cu', ['split']),
@@ -634,11 +661,14 @@ def main() -> int:
             bound_by=res['bound_by'], library_ms=res['library_ms'],
             device_ms=res['kernel_device_ms'], library_device_ms=res['library_device_ms'],
         )
+        if 'kernel_device_ms_by_part' in res:
+            entry['device_ms_by_part'] = res['kernel_device_ms_by_part']
         for shape in ('side_only', 'blocks_batch', 'objects_batch'):
             if shape in res:
                 entry[shape] = {k: res[shape][k] for k in (
                     'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-                    'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine')}
+                    'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
+                    'kernel_device_ms_by_part') if k in res[shape]}
         kernels.append(entry)
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))

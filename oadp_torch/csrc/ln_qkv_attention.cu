@@ -24,43 +24,39 @@
 //
 // Design: two launches, the LN pass (one warp a row, LN(x) written in bf16)
 // and the fused kernel, one block per (head, crop range): the B crops are
-// cut into `ranges` contiguous ranges, ranges x heads ~ the SMs, so every
-// block runs at once and the blocks of one range read its LN rows from L2
-// together. A block walks its range's rows in 128-row tiles that ignore the
-// crop boundaries (no row of a tile is wasted on padding but the range's
-// last, 4% at B = 728). Per tile, one producer thread (warp 0) issues TMA
-// loads of the 128 x 64 LN k-tile and of the head's three 64 x 64 weight
-// k-tiles (one 192-row B operand) into a ring of 128-byte-swizzled stages on
-// full/empty mbarriers. Two consumer warpgroups of 64 rows run wgmma
-// m64n192k16 from shared memory with a group in flight; their epilogue adds
-// the bias in fp32 and writes q, k and v as bf16 straight from the
-// accumulators into crop slots in shared memory (each crop's rows at the
-// start of its own 16-row-aligned, swizzled q, k and v tiles; rows past N
-// stay zero). Three attention warps (warps 1-3, which the producer warp's
-// warpgroup would leave idle) take each crop as soon as a tile completes it
-// and run its attention on mma.sync m16n8k16 from ldmatrix, one 16-row query
-// tile a task, as csrc/attention.cu does, writing the normalised rows to
-// out; they work while the consumers run the next tile's product. The slots
-// hold every crop one tile can touch (127 / N + 2); a tile's epilogue waits
-// until the previous tile's crops are attended, and then no slot it writes
-// is still read. So q, k and v never leave the SM, and LN(x) makes one trip
-// through L2 instead of the qkv's three times its size.
+// cut into `ranges` contiguous ranges, ranges x heads <= the SMs, so every
+// block runs at once and the 12 blocks of one range read its LN rows from
+// L2 together. A block walks its range's rows in 128-row tiles that ignore
+// the crop boundaries, so no row of a tile is padding but in the range's
+// last tile (4% at B = 728); a tile of crop-aligned rows would waste 22%
+// (2 crops of 50 in 128 rows). Warpgroup 0 is the producer: one thread
+// issues TMA loads of the 128 x 64 LN k-tile and of the head's three 64 x 64
+// weight k-tiles (one 192-row B operand) into a ring of 128-byte-swizzled
+// 40 KB stages on full/empty mbarriers. Warpgroups 1-2 run the product,
+// 64 rows each, on wgmma m64n192k16 from shared memory with a group in
+// flight; their epilogue adds the bias in fp32 and writes q, k and v as
+// bf16 from the accumulators into crop slots in shared memory: each crop
+// has a q, a k and a v tile of 64 rows of 128 bytes, its rows at the
+// tile's start, rows past N zero. Warpgroup 3 attends each crop as soon as
+// a tile completes it, while warpgroups 1-2 run the next tile's product:
+// S = Q K^T and O = P V on wgmma m64n64k16 from shared memory (V read as
+// an MN-major operand, so the epilogue writes v as it writes q and k), P
+// written in bf16 over Q. The slots hold every crop one tile can touch
+// (127 / N + 2 of them, so N >= 26 fits beside two stages); a tile's
+// epilogue waits until the previous tile's crops are attended, and then
+// no slot it writes is still read. So q, k and v never leave the SM, and
+// only LN(x) makes a round trip through device memory.
+// What it leaves on the table: the epilogue, which no warpgroup overlaps
+// (a warpgroup cannot hold two tiles' 64 x 192 accumulators), and the LN
+// pass; times by part in PERF.md (chip_smoke.py phase 3).
 // LayerNorm stays a pass of its own: normalising a range's rows once into
 // shared memory does not fit beside the ring and the slots (a tile's 128 x
 // 768 LN rows are 192 KB), and normalising the A k-tiles in the product
 // would repeat it for each of the 12 heads (PR 4 measured every form of LN
 // on the product's A path slower than the pass, at 9 repeats).
 #include <algorithm>
-#include <cstdlib>
 
 #include "common.cuh"
-
-#ifndef K3_V_MN_MAJOR
-#define K3_V_MN_MAJOR 0
-#endif
-#ifndef K3_STAGGER
-#define K3_STAGGER 0
-#endif
 
 namespace oadp {
 namespace {
@@ -73,7 +69,7 @@ constexpr int BN = 3 * HD;               // a head's q, k, v columns
 constexpr int THREADS = 512;
 constexpr int CONSUMERS = 256;
 constexpr int MAX_N = 64;                // a crop's tokens: one wgmma M and N
-constexpr int PART = MAX_N * 128;        // a slot's Q, K or V^T tile
+constexpr int PART = MAX_N * 128;        // a slot's Q, K or V tile
 constexpr int SLOT = 3 * PART;
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory a block may take
 constexpr int A_BYTES = BM * BK * 2;
@@ -107,7 +103,6 @@ struct Args {
   float scale_log2;  // scale * log2(e)
   const bf16* bias;  // (3D,)
   bf16* out;         // (B, N, D)
-  int probe;
 };
 
 // The LN pass: one warp per row of x (rows, K), fp32 statistics (two
@@ -226,8 +221,10 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B (64 x 16, shared)^T,
-// both K-major with the 128-byte swizzle.
+// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B, A K-major; B
+// (64 x 16, shared)^T K-major, or with TRANS_B (16 x 64) MN-major: 16 rows
+// of 64 contiguous values, two 8-row swizzle atoms 1024 bytes apart (the
+// descriptor's SBO); both with the 128-byte swizzle.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
@@ -250,21 +247,21 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint6
 // Attention of one crop by one consumer warpgroup
 // ---------------------------------------------------------------------------
 
-// The crop's slot holds Q (64 query rows x 64 dims), K (64 key rows x 64
-// dims) and V^T (64 dims x 64 keys), each 64 rows of 128 bytes with the
-// 128-byte swizzle, K-major for wgmma; rows and keys past N are zero. S =
-// Q K^T on wgmma m64n64k16 from shared memory; the exp weights (keys past N
-// weigh 0) are rounded to bf16 into P over Q, which S no longer needs; O = P
-// V on wgmma from shared memory, so no A operand comes from registers (a
-// register A computed between wgmmas serialises them); rows are normalised
-// by their fp32 sums and rows < N written to dst (row stride ld). Thread:
-// warp w of the warpgroup, g = lane / 4, tq = lane % 4; barrier `bar` is
-// the warpgroup's own.
+// The crop's slot holds Q, K and V, each 64 token rows x 64 dims of 128
+// bytes with the 128-byte swizzle; rows past N are zero. S = Q K^T on wgmma
+// m64n64k16 from shared memory (Q and K K-major); the exp weights (keys past
+// N weigh 0) are rounded to bf16 into P over Q, which S no longer needs; O =
+// P V on wgmma from shared memory (V the MN-major B operand, 16 key rows a
+// k-step), so no A operand comes from registers (a register A computed
+// between wgmmas serialises them); rows are normalised by their fp32 sums
+// and rows < N written to dst (row stride ld). Thread: warp w of the
+// warpgroup, g = lane / 4, tq = lane % 4; barrier `bar` is the
+// warpgroup's own.
 __device__ __forceinline__ void attend_crop(unsigned char* slot, int N, float scale_log2, bf16* dst,
                                             int ld, int bar, int w, int g, int tq) {
   unsigned char* Qs = slot;
   const unsigned char* Ks = slot + PART;
-  const unsigned char* Vt = slot + 2 * PART;
+  const unsigned char* Vs = slot + 2 * PART;
   float s[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -297,12 +294,8 @@ __device__ __forceinline__ void attend_crop(unsigned char* slot, int N, float sc
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#if K3_V_MN_MAJOR
-    wgmma_m64n64k16<1>(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 2048));
-#else
-    wgmma_m64n64k16<0>(o, smem_desc(Qs + ks * 32), smem_desc(Vt + ks * 32));
-#endif
+  for (int ks = 0; ks < HD / 16; ++ks)
+    wgmma_m64n64k16<1>(o, smem_desc(Qs + ks * 32), smem_desc(Vs + ks * 16 * 128));
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc<32>(o);
@@ -347,8 +340,8 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int rows = (c1 - c0) * N, tiles = (rows + BM - 1) / BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // rows and keys past N stay zero in every slot: the keys weigh 0 and
-  // their V^T columns must be finite
+  // rows past N stay zero in every slot: those keys weigh 0, and their V
+  // rows must be finite
   for (int i = tid; i < l.slots * SLOT / 16; i += THREADS)
     reinterpret_cast<uint4*>(slots)[i] = make_uint4(0, 0, 0, 0);
   for (int c = tid; c < BN; c += THREADS)
@@ -398,7 +391,7 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int t = 0; t < tiles; ++t) {
       mbar_wait(ready, t & 1);
       const int last = min((t + 1) * BM, rows) / N;  // crops [next, last) are complete
-      for (int cr = next; !(a.probe & 1) && cr < last; ++cr)
+      for (int cr = next; cr < last; ++cr)
         attend_crop(slots + (cr % l.slots) * SLOT, N, a.scale_log2,
                     a.out + (size_t)(c0 + cr) * N * D + h * HD, D, 2, w, g, tq);
       next = last;
@@ -417,9 +410,6 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int held = -1;  // the stage the in-flight wgmma group reads
     for (int kt = 0; kt < KT; ++kt) {
-#if K3_STAGGER
-      if (t == 0 && kt == 0 && cw == 1) named_barrier(1, CONSUMERS);
-#endif
       mbar_wait(&full[stage], phase);
       const unsigned char* a_s = base + stage * STAGE + cw * 64 * 128;
       const unsigned char* b_s = base + stage * STAGE + A_BYTES;
@@ -432,9 +422,6 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
       wgmma_wait<1>();
       fence_acc<BN / 2>(acc);
       if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
-#if K3_STAGGER
-      if (t == 0 && cw == 0 && kt == K3_STAGGER - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
-#endif
       held = stage;
       if (++stage == l.stages) {
         stage = 0;
@@ -448,27 +435,18 @@ ln_qkv_attention_kernel(const __grid_constant__ CUtensorMap tm_a,
     // the previous tile's crops are attended: no slot written here is read
     if (t > 0) mbar_wait(done, (t - 1) & 1);
     // fragments acc[jn * 4 + 2hh + e]: row w * 16 + g + 8hh, column
-    // jn * 8 + 2tq + e of q | k | v; bias in fp32, one rounding to bf16; v
-    // goes in transposed (a row per head dimension)
+    // jn * 8 + 2tq + e of q | k | v; bias in fp32, one rounding to bf16
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = t * BM + cw * 64 + w * 16 + g + 8 * hh;  // row of the range
-      if (r < rows && !(a.probe & 2)) {
+      if (r < rows) {
         const int cr = r / N, rr = r - cr * N;
         unsigned char* slot = slots + (cr % l.slots) * SLOT;
 #pragma unroll
         for (int jn = 0; jn < BN / 8; ++jn) {
           const float2 bb = *reinterpret_cast<const float2*>(bias_s + jn * 8 + 2 * tq);
-          const float v0 = acc[jn * 4 + 2 * hh] + bb.x, v1 = acc[jn * 4 + 2 * hh + 1] + bb.y;
-          if (jn < 16 || K3_V_MN_MAJOR) {
-            *reinterpret_cast<__nv_bfloat162*>(slot + (jn >> 3) * PART + swz(rr, jn & 7) +
-                                               4 * tq) = __floats2bfloat162_rn(v0, v1);
-          } else {
-            const int d = (jn - 16) * 8 + 2 * tq;
-            unsigned char* vt = slot + 2 * PART + (rr & 7) * 2;
-            *reinterpret_cast<bf16*>(vt + swz(d, rr >> 3)) = __float2bfloat16_rn(v0);
-            *reinterpret_cast<bf16*>(vt + swz(d + 1, rr >> 3)) = __float2bfloat16_rn(v1);
-          }
+          *reinterpret_cast<__nv_bfloat162*>(slot + (jn >> 3) * PART + swz(rr, jn & 7) + 4 * tq) =
+              __floats2bfloat162_rn(acc[jn * 4 + 2 * hh] + bb.x, acc[jn * 4 + 2 * hh + 1] + bb.y);
         }
       }
     }
@@ -513,7 +491,7 @@ int oadp_ln_qkv_attention(int B, int N, int heads, float scale, const void* x,
   // ranges x heads blocks, at most one wave of the SMs where B allows
   const int ranges = std::max(1, std::min(B, sm_count() / heads));
   const Args a{B, N, heads, ranges, scale * LOG2E, static_cast<const bf16*>(bias),
-               static_cast<bf16*>(out), getenv("OADP_K3_PROBE") ? atoi(getenv("OADP_K3_PROBE")) : 0};
+               static_cast<bf16*>(out)};
   ln_qkv_attention_kernel<<<ranges * heads, THREADS, l.total, s>>>(tm_a, tm_w, a);
   return cudaGetLastError();
 }

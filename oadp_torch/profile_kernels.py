@@ -13,6 +13,11 @@ keeps the named parts, default all):
   (``gemm_residual``) kernel 1's out-projection with its residual (2048 x
   197 rows, 768 -> 768, x + main @ W + b) at every width beside
   ``torch.addmm`` plus the add, with its bound;
+* ``ln_qkv``: kernel 3 (``fused_ln_qkv_attention``) at the globals (16)
+  and blocks (728) batches of 50 tokens, by kernel (device time from
+  ``torch.profiler``), beside the two families' route (the LN pass,
+  ``ln_gemm``, ``attention``) and the library calls (``F.layer_norm``,
+  ``F.linear``, SDPA) on the same inputs;
 * ``patch_embed``: the surgery encoder's patch embedding at 2048 crops,
   the block product of ``models/clip.py`` beside ``F.conv2d``;
 * ``attention``: the ``attention`` kernel at 2048 crops x 12 heads x 197
@@ -24,7 +29,12 @@ keeps the named parts, default all):
 * ``split_dispatch`` and ``fused_dispatch``: ``objects_step`` on 999
   crops of one image (the surgery encoder's split wiring, kernels 4 and
   5) and on the first 1000 of the same crops (the fused wiring, kernels 1
-  and 2), each broken down the same way.
+  and 2), each broken down the same way;
+* ``globals_dispatch`` and ``blocks_dispatch``: the stock encoder's
+  dispatches (kernel 3), one ``globals_step`` of 16 640x480 images and
+  one ``blocks_step`` of 24 (``configs/oake/blocks.py``'s batch): 24
+  wholes and their 624 blocks padded to 704, the 728-crop blocks batch of
+  ``chip_smoke.py``, broken down the same way.
 
 Needs one CUDA device; exits nonzero without one.
 """
@@ -79,6 +89,22 @@ def _breakdown(step) -> dict:
                           calls=e.count) for e in events[:20]])
 
 
+def _device_ms(fn, iters: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (``torch.profiler``,
+    after a warm-up call), and their sum under ``total``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {e.key[:60]: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA}
+    return dict(ms, total=sum(ms.values()))
+
+
 def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
     """Packed buffers as ``ObjectsPipeline.prepare`` builds them."""
     from .ops import boxes as B
@@ -106,10 +132,38 @@ def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
     return np.stack(bufs)
 
 
+def _blocks_inputs(images: int = 24, pad: int = 640, w: int = 640, h: int = 480):
+    """``blocks_step`` arguments as ``BlocksPipeline`` builds them for
+    ``images`` random w x h images (``configs/oake/blocks.py``: blocks of
+    224, stride 112, rescale 1.5, at most 6 levels), the flat blocks
+    padded with zero rows to 704, and the count of real blocks."""
+    from .oake.partitions import plan_blocks
+    from .ops import preprocess as P
+
+    plan = plan_blocks(w, h, 224, 112, 1.5)
+    lwx, lwy = (np.zeros((6, pad, pad), np.float32) for _ in range(2))
+    for k in range(len(plan.levels) - 1):
+        (w0, h0), (w1, h1) = plan.levels[k], plan.levels[k + 1]
+        mx, my = P.plain_resize_matrices(w0, h0, w1, h1, pad, pad)
+        lwx[k, :w1], lwy[k, :h1] = mx, my
+    wwx, wwy = P.clip_transform_matrices(w, h, None, pad, pad)
+    rng = np.random.RandomState(0)
+    imgs = np.zeros((images, pad, pad, 3), np.uint8)
+    imgs[:, :h, :w] = rng.randint(0, 256, (images, h, w, 3))
+    coords = np.asarray([(i, lv, y, x) for i in range(images) for lv, x, y in plan.blocks],
+                        np.int32)
+    if len(coords) > 704:
+        raise ValueError(f'{len(coords)} blocks exceed the bucket of 704')
+    coords = np.concatenate([coords, np.zeros((704 - len(coords), 4), np.int32)])
+    return (imgs, [lwx] * images, [lwy] * images, [wwx] * images, [wwy] * images,
+            coords), len(plan.blocks) * images
+
+
 def main(argv=None) -> int:
     import argparse
 
-    parts = ('gemm', 'attention', 'patch_embed', 'dispatch')
+    parts = ('gemm', 'attention', 'ln_qkv', 'patch_embed', 'dispatch', 'globals_dispatch',
+             'blocks_dispatch')
     ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
     ap.add_argument('--only', default=','.join(parts),
                     help=f'comma-separated parts of {parts}')
@@ -192,7 +246,35 @@ def main(argv=None) -> int:
         del qkv, qq, kk, vv, q, k, v, main
         torch.cuda.empty_cache()
 
-    if not only & {'patch_embed', 'dispatch'}:
+    if 'ln_qkv' in only:
+        ln_s = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).bfloat16()
+        ln_b = (0.1 * torch.randn(d, device=dev, generator=gen)).bfloat16()
+        w = (torch.randn(d, 3 * d, device=dev, generator=gen) * d ** -0.5).bfloat16()
+        wb = (0.02 * torch.randn(3 * d, device=dev, generator=gen)).bfloat16()
+        wt, ln32 = A.kmajor(w), A.ln_fp32(ln_s, ln_b)
+        for b3 in (16, 728):
+            x = torch.randn(b3, 50, d, device=dev, generator=gen).bfloat16()
+            iters = 200 if b3 == 16 else 50
+
+            def families():
+                qkv = torch.empty(b3, 50, 3 * d, device=dev, dtype=x.dtype)
+                A._ln_gemm(x.view(-1, d), wt, wb, qkv.view(-1, 3 * d), ln32=ln32)
+                A._attention(*qkv.split(d, -1), heads, 0.125, out=torch.empty_like(x))
+
+            def library():
+                h = F.linear(F.layer_norm(x, (d,), ln_s, ln_b), wt, wb)
+                q, k, v = (t.view(b3, 50, heads, 64).transpose(1, 2) for t in h.split(d, -1))
+                return F.scaled_dot_product_attention(q, k, v)
+
+            kernel = lambda: A.fused_ln_qkv_attention(  # noqa: E731
+                x, ln_s, ln_b, w, wb, heads, 0.125, qkv_wt=wt, ln32=ln32)
+            emit('ln_qkv', crops=b3, tokens=50, kernel_ms=_timed(kernel, iters),
+                 kernel_device_ms=_device_ms(kernel, iters),
+                 families_ms=_timed(families, iters),
+                 families_device_ms=_device_ms(families, iters),
+                 library_ms=_timed(library, iters), library_device_ms=_device_ms(library, iters))
+            del x
+    if not only & {'patch_embed', 'dispatch', 'globals_dispatch', 'blocks_dispatch'}:
         return 0
     model = E.load_clip(None, 'bfloat16', device=dev)
     if 'patch_embed' in only:
@@ -217,6 +299,25 @@ def main(argv=None) -> int:
         for kind, crops in (('split_dispatch', 999), ('fused_dispatch', 1000)):
             emit(kind, crops=crops, **_breakdown(
                 lambda: steps.objects_step(image, meta[:crops], masks[:crops], k_pad)))
+    if 'globals_dispatch' in only:
+        from .oake.base import bucket
+        from .ops import preprocess as P
+
+        steps = E.OakeSteps(model, 640, 640)
+        imgs = np.zeros((16, 640, 640, 3), np.uint8)
+        imgs[:, :480] = np.random.RandomState(0).randint(0, 256, (16, 480, 640, 3))
+        meta = P.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]]))
+        # the resize taps GlobalsPipeline.prepare and execute_batch pick
+        scale = max(meta[0, 2] / meta[0, 4], meta[0, 3] / meta[0, 5], 1.0)
+        k = bucket(2 * int(np.ceil(2.0 * scale)) + 1, (5, 9, 13, 21))
+        meta = np.repeat(meta, 16, 0)
+        emit('globals_dispatch', images=16,
+             **_breakdown(lambda: steps.globals_step(imgs, meta, k)))
+    if 'blocks_dispatch' in only:
+        steps = E.OakeSteps(model, 640, 640)
+        args, real = _blocks_inputs()
+        emit('blocks_dispatch', wholes=24, blocks=704, real_blocks=real,
+             **_breakdown(lambda: steps.blocks_step(*args)))
     return 0
 
 
