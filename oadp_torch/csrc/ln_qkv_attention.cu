@@ -105,90 +105,9 @@ struct Args {
   bf16* out;         // (B, N, D)
 };
 
-// The LN pass: one warp per row of x (rows, K), fp32 statistics (two
-// passes over the row held in registers), written as bf16 to out.
-// K <= 32 * 8 * LN_CHUNKS, so each row is read from memory once.
-constexpr int LN_CHUNKS = 4;
-
-__global__ void layer_norm_rows(const bf16* __restrict__ x, int rows, int K,
-                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                                bf16* __restrict__ out) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)row * K);
-  uint4* q = reinterpret_cast<uint4*>(out + (size_t)row * K);
-  const int chunks = K / 8;
-  float f[LN_CHUNKS][8];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane + 32 * i;
-    if (c < chunks) {
-      unpack8(p[c], f[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s += f[i][j];
-    }
-  }
-  const float mean = warp_sum(s) / K;
-  float v = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    if (lane + 32 * i < chunks) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = f[i][j] - mean;
-        v += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(v) / K + 1e-5f);
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane + 32 * i;
-    if (c < chunks) {
-      const float4* g4 = reinterpret_cast<const float4*>(gamma + c * 8);
-      const float4* b4 = reinterpret_cast<const float4*>(beta + c * 8);
-      const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[i][j] = (f[i][j] - mean) * rstd * g[j] + b[j];
-      q[c] = pack8(f[i]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// wgmma (as in ln_gemm.cu)
+// wgmma with the head's q | k | v columns as B
 // ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, SBO 1024 bytes (eight
-// 128-byte rows), 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t addr = smem_u32(p);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 192 fp32 per warpgroup) += A (64 x 16, shared) * B (192 x 16, shared)^T,
 // both K-major with the 128-byte swizzle.
@@ -221,30 +140,8 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d (64 x 64 fp32 per warpgroup) += A (64 x 16, shared) * B, A K-major; B
-// (64 x 16, shared)^T K-major, or with TRANS_B (16 x 64) MN-major: 16 rows
-// of 64 contiguous values, two 8-row swizzle atoms 1024 bytes apart (the
-// descriptor's SBO); both with the 128-byte swizzle.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
-}
-
 // ---------------------------------------------------------------------------
-// Attention of one crop by one consumer warpgroup
+// Attention of one crop by the attention warpgroup
 // ---------------------------------------------------------------------------
 
 // The crop's slot holds Q, K and V, each 64 token rows x 64 dims of 128
@@ -478,8 +375,8 @@ int oadp_ln_qkv_attention(int B, int N, int heads, float scale, const void* x,
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = B * N, rows_per_block = 8;  // 256 threads, a warp a row
-  layer_norm_rows<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
-      static_cast<const bf16*>(x), rows, D, gamma, beta, static_cast<bf16*>(ln_out));
+  layer_norm_kernel<<<(rows + rows_per_block - 1) / rows_per_block, 256, 0, s>>>(
+      static_cast<const bf16*>(x), rows, nullptr, 0, D, gamma, beta, static_cast<bf16*>(ln_out));
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   CUtensorMap tm_a, tm_w;

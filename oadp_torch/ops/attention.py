@@ -564,8 +564,6 @@ def fused_ln_qkv_attention(
     ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
     out = torch.empty_like(x)
     if ln_qkv_attention_fits(n, d):
-        if b == 0:
-            raise ValueError(f'{name}: empty batch')
         ln_out = torch.empty_like(x)
         cuda_lib.check(cuda_lib.library().oadp_ln_qkv_attention(
             b, n, heads, float(scale), x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
