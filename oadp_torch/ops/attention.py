@@ -31,8 +31,9 @@ The kernels (``oadp_torch/csrc``) are two families and one fused kernel:
 * ``ln_qkv_attention``: kernel 3 for short sequences (the stock encoder's
   N = 50): an LN pass, then one kernel whose blocks each own a head and a
   range of crops, run the head's QKV product on wgmma and keep its q, k
-  and v in shared memory, where warps of the same block attend each crop
-  as soon as its rows are in. The qkv tensor never reaches device memory.
+  and v in shared memory, where a warpgroup of the same block attends
+  each crop as soon as its rows are in. The qkv tensor never reaches
+  device memory.
 
 All keep the TPU semantics: the softmax clamps logits at 80 and
 normalises after the PV product (``oadp_tpu/ops/attention.py:46-50``;
@@ -136,7 +137,7 @@ def fused_ln_mlp_rows_supported(rows: int, width: int) -> bool:
 
 # ``csrc/ln_qkv_attention.cu``'s shared memory (its ``layout``): a ring of
 # at least two 40 KB stages (a 128 x 64 LN k-tile, a head's 192 x 64
-# weight k-tile) beside a 24 KB slot (q, k and v^T tiles of 64 x 64) for
+# weight k-tile) beside a 24 KB slot (q, k and v tiles of 64 x 64) for
 # every crop one 128-row tile can touch.
 _SMEM_LIMIT = 232448
 _QKV_STAGE = 128 * 64 * 2 + 3 * _HEAD_DIM * 64 * 2

@@ -132,11 +132,12 @@ def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
     return np.stack(bufs)
 
 
-def _blocks_inputs(images: int = 24, pad: int = 640, w: int = 640, h: int = 480):
+def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: int = 480):
     """``blocks_step`` arguments as ``BlocksPipeline`` builds them for
     ``images`` random w x h images (``configs/oake/blocks.py``: blocks of
-    224, stride 112, rescale 1.5, at most 6 levels), the flat blocks
-    padded with zero rows to 704, and the count of real blocks."""
+    224, stride 112, rescale 1.5, at most 6 levels; the resize matrices on
+    ``device``, made once as the CLI caches them per image size), the flat
+    blocks padded with zero rows to 704, and the count of real blocks."""
     from .oake.partitions import plan_blocks
     from .ops import preprocess as P
 
@@ -147,6 +148,7 @@ def _blocks_inputs(images: int = 24, pad: int = 640, w: int = 640, h: int = 480)
         mx, my = P.plain_resize_matrices(w0, h0, w1, h1, pad, pad)
         lwx[k, :w1], lwy[k, :h1] = mx, my
     wwx, wwy = P.clip_transform_matrices(w, h, None, pad, pad)
+    lwx, lwy, wwx, wwy = (torch.from_numpy(a).to(device) for a in (lwx, lwy, wwx, wwy))
     rng = np.random.RandomState(0)
     imgs = np.zeros((images, pad, pad, 3), np.uint8)
     imgs[:, :h, :w] = rng.randint(0, 256, (images, h, w, 3))
@@ -315,7 +317,7 @@ def main(argv=None) -> int:
              **_breakdown(lambda: steps.globals_step(imgs, meta, k)))
     if 'blocks_dispatch' in only:
         steps = E.OakeSteps(model, 640, 640)
-        args, real = _blocks_inputs()
+        args, real = _blocks_inputs(dev)
         emit('blocks_dispatch', wholes=24, blocks=704, real_blocks=real,
              **_breakdown(lambda: steps.blocks_step(*args)))
     return 0
