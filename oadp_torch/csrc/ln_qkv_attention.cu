@@ -52,8 +52,8 @@
 // LayerNorm stays a pass of its own: normalising a range's rows once into
 // shared memory does not fit beside the ring and the slots (a tile's 128 x
 // 768 LN rows are 192 KB), and normalising the A k-tiles in the product
-// would repeat it for each of the 12 heads (PR 4 measured every form of LN
-// on the product's A path slower than the pass, at 9 repeats).
+// would repeat it for each of the 12 heads (every form of LN on ln_gemm's
+// A path measured slower than the pass there, at 9 repeats: PERF.md).
 #include <algorithm>
 
 #include "common.cuh"

@@ -4,7 +4,7 @@
 inputs in fp32 (atol 1e-4, rtol 1e-3), and the wrappers' device routing.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py`` and by the ``cuda``-marked tests below (edge
-shapes of both kernel families; they skip without a card)."""
+shapes of every kernel; they skip without a card)."""
 
 import math
 
