@@ -30,13 +30,26 @@ Phases, in order; any failure exits nonzero:
    crops: kernels 4 and 5 only) against its fused wiring on the same
    crops (cosine >= 0.99) and timed beside it; CPU fp32 re-encodes of
    crops, a whole image (globals) and blocks against the card (cosine
-   >= 0.99); images/s of a warm second run of each CLI.
+   >= 0.99); images/s of a warm second run of each CLI;
+5. ViLD prompts: a random fp16 CLIP checkpoint in the OpenAI layout (both
+   towers at ViT-B/32 width, seed 0) and a synthetic merges file of a
+   CLIP vocabulary's size, then the prompt CLI (``oadp_torch.prompts.vild``)
+   on the card: every COCO/LVIS name (1217) through every template, fp32,
+   with the launch counts at 0 before it and checked at 0 after (the text
+   encoder takes no fused kernel); the record checked (names, (1217, 512)
+   finite embeddings, row norms in (0, 1]) and its rows per second and ms
+   per 256-row batch printed; the prompt builder on 16 names and 3
+   templates on the card against the same on the CPU (cosine >= 0.99999,
+   max abs <= 2e-4); the native COCO matcher built with g++ and held to
+   its Python version on random cases.
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import gzip
 import json
+import math
 import pathlib
 import pickle
 import subprocess
@@ -616,6 +629,161 @@ def main_path(A, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the ViLD prompt CLI at full text-tower width
+# ---------------------------------------------------------------------------
+
+N_MERGES = 49152 - 256 - 2  # the merges of a CLIP vocabulary (49408 ids)
+
+
+def openai_state_dict(vit: dict, text: dict) -> dict:
+    """The port's ViT and text parameter trees as an OpenAI CLIP state dict
+    (``ViT-B-32.pt``'s keys and layouts: ``nn.Linear`` weights ``(out,
+    in)``)."""
+    state = {}
+
+    def put_ln(key, ln):
+        state[f'{key}.weight'], state[f'{key}.bias'] = ln['scale'], ln['bias']
+
+    def put_blocks(prefix, blocks):
+        for i, b in enumerate(blocks):
+            p = f'{prefix}transformer.resblocks.{i}.'
+            put_ln(p + 'ln_1', b['ln_1'])
+            put_ln(p + 'ln_2', b['ln_2'])
+            for key, (group, w, bias) in {
+                'attn.in_proj': ('attn', 'qkv_w', 'qkv_b'),
+                'attn.out_proj': ('attn', 'out_w', 'out_b'),
+                'mlp.c_fc': ('mlp', 'fc_w', 'fc_b'),
+                'mlp.c_proj': ('mlp', 'proj_w', 'proj_b'),
+            }.items():
+                name = p + key + ('_weight' if key == 'attn.in_proj' else '.weight')
+                state[name] = b[group][w].T
+                state[name.replace('weight', 'bias')] = b[group][bias]
+
+    state['visual.conv1.weight'] = vit['conv1']
+    for key in ('class_embedding', 'positional_embedding', 'proj'):
+        state[f'visual.{key}'] = vit[key]
+    put_ln('visual.ln_pre', vit['ln_pre'])
+    put_ln('visual.ln_post', vit['ln_post'])
+    put_blocks('visual.', vit['blocks'])
+    state['token_embedding.weight'] = text['token_embedding']
+    state['positional_embedding'] = text['positional_embedding']
+    state['text_projection'] = text['text_projection']
+    put_ln('ln_final', text['ln_final'])
+    put_blocks('', text['blocks'])
+    return {k: v.contiguous() for k, v in state.items()}
+
+
+def write_bpe(path: pathlib.Path, seed: int = 0) -> None:
+    """A gzipped merges file with a CLIP vocabulary's 48,894 merges: pairs
+    of byte symbols (the second one word-final or not), drawn from
+    ``seed``, so that the tokenizer has all 49,408 ids."""
+    from oadp_torch.models.tokenizer import bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    seconds = symbols + [c + '</w>' for c in symbols]
+    order = np.random.RandomState(seed).permutation(len(symbols) * len(seconds))
+    lines = [f'{symbols[i // len(seconds)]} {seconds[i % len(seconds)]}'
+             for i in order[:N_MERGES]]
+    with gzip.open(path, 'wt', encoding='utf-8') as f:
+        f.write('\n'.join(['#version: synthetic', *lines]) + '\n')
+
+
+def vild_path(A) -> dict:
+    """The ViLD prompt CLI on the card at full text-tower width, its record
+    checked; the builder on a few names against the CPU; the native
+    matcher."""
+    from oadp_torch.base import coco, lvis
+    from oadp_torch.dp import coco_eval as CE
+    from oadp_torch.models import clip as C
+    from oadp_torch.models.tokenizer import SimpleTokenizer
+    from oadp_torch.native import load_library
+    from oadp_torch.prompts import vild
+    from oadp_torch.utils import load_pth
+
+    repo = pathlib.Path(__file__).resolve().parent
+    names = sorted(set(coco.all_ + lvis.all_))
+    cfg = C.TextConfig()
+    with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
+        root = pathlib.Path(tmp)
+        ckpt, bpe, out = root / 'ViT-B-32.pt', root / 'bpe.txt.gz', root / 'vild.pth'
+        gen = torch.Generator().manual_seed(0)
+        state = openai_state_dict(C.init_vit_params(gen), C.init_text_params(gen, cfg))
+        state = {k: v.half() for k, v in state.items()}
+        torch.save(state, ckpt)
+        write_bpe(bpe)
+
+        encode_s = []
+        build = vild.build_vild_prompts
+
+        def timed_build(*a, **k):
+            t0 = time.perf_counter()
+            emb = build(*a, **k)  # numpy: the device's work is done
+            encode_s.append(time.perf_counter() - t0)
+            return emb
+
+        vild.build_vild_prompts = timed_build
+        try:
+            torch.cuda.synchronize()
+            A.reset_launches()
+            t0 = time.perf_counter()
+            vild.main(['--checkpoint', str(ckpt), '--bpe', str(bpe), '--output', str(out),
+                       '--device', 'cuda'])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        finally:
+            vild.build_vild_prompts = build
+        launches = dict(A.LAUNCHES)
+        log(json.dumps({'launches': {'vild': launches}}))
+        if any(launches.values()):
+            raise AssertionError(f'vild: the text encoder launched fused kernels {launches}')
+
+        rec = load_pth(out)
+        emb = np.asarray(rec['embeddings'])
+        norms = np.linalg.norm(emb.astype(np.float64), axis=-1)
+        if (list(rec['names']) != names or len(names) != 1217 or emb.shape != (1217, 512)
+                or emb.dtype != np.float32 or not np.isfinite(emb).all()):
+            raise AssertionError(f'vild record: {len(rec["names"])} names, {emb.shape} {emb.dtype}')
+        # a mean of unit rows: norm <= 1, up to the fp32 rounding of the mean
+        if not (norms > 0).all() or norms.max() > 1 + 1e-6:
+            raise AssertionError(f'vild row norms in [{norms.min()}, {norms.max()}]')
+
+        # the card against the CPU, fp32, on the same parameters
+        tok = SimpleTokenizer(bpe)
+        text_cpu = C.load_openai_text_state_dict(state)
+        text_card = C.map_params(text_cpu, lambda t: t.cuda())
+        few = dict(names=names[:16], batch_size=16, prompts=vild.PROMPTS[:3])
+        card_few = build(text_card, tok, **few)
+        cpu_few = build(text_cpu, tok, **few)
+        few_cos = _min_cos(card_few, cpu_few)
+        few_err = float(np.abs(card_few - cpu_few).max())
+        if few_cos < 0.99999 or few_err > 2e-4:
+            raise AssertionError(f'vild card vs CPU: cosine {few_cos}, max abs {few_err}')
+
+    lib = load_library('cocoeval_match')
+    if lib is None:
+        raise AssertionError('the native COCO matcher did not build')
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        nd, ng = int(rng.integers(1, 40)), int(rng.integers(1, 20))
+        ious = rng.random((nd, ng))
+        g_ignore = np.sort(rng.random(ng) < 0.3)  # ignored gts last
+        iscrowd = (rng.random(ng) < 0.2) & g_ignore
+        for got, want in zip(CE._match_pairs(ious, g_ignore, iscrowd),
+                             CE._match_pairs_py(ious, g_ignore, iscrowd)):
+            np.testing.assert_array_equal(got, want)
+
+    rows = len(names) * len(vild.PROMPTS)
+    batches = math.ceil(len(names) / 256) * len(vild.PROMPTS)
+    res = dict(names=len(names), templates=len(vild.PROMPTS), rows=rows, batches=batches,
+               cli_s=cli_s, encode_s=encode_s[0], rows_per_s=rows / encode_s[0],
+               ms_per_batch=1e3 * encode_s[0] / batches, min_row_norm=float(norms.min()),
+               max_row_norm=float(norms.max()), card_vs_cpu_min_cosine=few_cos,
+               card_vs_cpu_max_abs=few_err, native_matcher_cases=200, launches=launches)
+    log(json.dumps({'vild_path': res}))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: torch sees no CUDA device; nothing was run')
@@ -634,6 +802,7 @@ def main() -> int:
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
     path = main_path(A, card)
+    vild_path(A)
 
     both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
     kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count

@@ -1,5 +1,5 @@
-"""CLIP image encoders."""
+"""CLIP image and text encoders, and the BPE tokenizer."""
 
-from . import clip
+from . import clip, tokenizer
 
-__all__ = ['clip']
+__all__ = ['clip', 'tokenizer']

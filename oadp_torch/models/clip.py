@@ -1,5 +1,5 @@
-"""CLIP ViT-B/32 image encoders in PyTorch (port of
-``oadp_tpu/models/clip.py``; the text encoder is not ported yet).
+"""CLIP ViT-B/32 image encoders and the CLIP text encoder in PyTorch
+(port of ``oadp_tpu/models/clip.py``).
 
 Parameters are a plain dict of tensors with the same keys as
 ``oadp_tpu``'s pytree: linear weights stay ``(in, out)``, so the fused
@@ -8,14 +8,19 @@ do; only ``conv1`` keeps the OpenAI ``(D, 3, P, P)`` layout. For the CUDA
 kernels, :func:`prepare_kernel_params` adds to each block a ``'kernel'``
 entry once, where the parameters reach the card: the weights K-major
 ``(out, in)`` (the OpenAI state dict's layout) and the LayerNorms in fp32;
-the encoders pass them to the fused layers explicitly. The stock
-encoder takes the fused wiring of ``oadp_tpu``'s TPU branch; the surgery
-encoder picks its wiring by shape alone, as ``oadp_tpu``'s gates do on
-the TPU, on every device (see :func:`image_encoder_surgery`). The fused
-entry points run their CUDA kernels on the card and their plain
-versions on the CPU. The QKV and out-projections and the MLPs that
-``oadp_tpu`` leaves to XLA are ``torch`` matmuls here, and the patch
-embedding is a block product (see :func:`_embed_patches`).
+the encoders pass them to the fused layers explicitly. Both image
+encoders pick their wiring by shape alone, as ``oadp_tpu``'s gates do on
+the TPU, on every device (see :func:`image_encoder` and
+:func:`image_encoder_surgery`). The fused entry points run their CUDA
+kernels on the card and their plain versions on the CPU. The QKV and
+out-projections and the MLPs that ``oadp_tpu`` leaves to XLA are
+``torch`` matmuls here, and the patch embedding is a block product (see
+:func:`_embed_patches`).
+
+The text encoder (:func:`text_encoder`) goes through no fused entry
+point: like ``oadp_tpu``'s, it runs :func:`_block` with a causal bias,
+whose attention is the exact softmax of :func:`_sdpa` (the fused layers
+clamp logits at 80).
 
 Images are ``(B, H, W, 3)`` (``oadp_tpu``'s layout) at the public
 functions.
@@ -23,13 +28,17 @@ functions.
 
 __all__ = [
     'ViTConfig',
+    'TextConfig',
     'init_vit_params',
+    'init_text_params',
     'load_openai_state_dict',
+    'load_openai_text_state_dict',
     'map_params',
     'prepare_kernel_params',
     'from_jax_params',
     'image_encoder',
     'image_encoder_surgery',
+    'text_encoder',
     'upsample_vit_params',
 ]
 
@@ -76,9 +85,42 @@ class ViTConfig:
         return self.grid * self.grid + 1
 
 
+@dataclasses.dataclass(frozen=True)
+class TextConfig:
+    """CLIP text encoder geometry (ViT-B/32's text tower)."""
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    output_dim: int = 512
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+
+def _ln_init(d: int, dtype: torch.dtype) -> Params:
+    return {'scale': torch.ones(d, dtype=dtype), 'bias': torch.zeros(d, dtype=dtype)}
+
+
+def _init_block(randn, d: int, dtype: torch.dtype) -> Params:
+    zeros = lambda n: torch.zeros(n, dtype=dtype)  # noqa: E731
+    return {
+        'ln_1': _ln_init(d, dtype),
+        'ln_2': _ln_init(d, dtype),
+        'attn': {'qkv_w': randn(d, 3 * d), 'qkv_b': zeros(3 * d),
+                 'out_w': randn(d, d), 'out_b': zeros(d)},
+        'mlp': {'fc_w': randn(d, 4 * d), 'fc_b': zeros(4 * d),
+                'proj_w': randn(4 * d, d), 'proj_b': zeros(d)},
+    }
+
+
+def _randn(generator: torch.Generator, dtype: torch.dtype, scale: float):
+    def randn(*shape, s=scale):
+        return (torch.randn(*shape, generator=generator) * s).to(dtype)
+    return randn
 
 
 def init_vit_params(
@@ -94,59 +136,58 @@ def init_vit_params(
     packages hand both the same saved weights instead.
     """
     d, p = config.width, config.patch_size
-    scale = d ** -0.5
     grid = config.image_size // p
-
-    def randn(*shape, s=scale):
-        return (torch.randn(*shape, generator=generator) * s).to(dtype)
-
-    def ln():
-        return {'scale': torch.ones(d, dtype=dtype),
-                'bias': torch.zeros(d, dtype=dtype)}
-
-    def block():
-        return {
-            'ln_1': ln(),
-            'ln_2': ln(),
-            'attn': {
-                'qkv_w': randn(d, 3 * d),
-                'qkv_b': torch.zeros(3 * d, dtype=dtype),
-                'out_w': randn(d, d),
-                'out_b': torch.zeros(d, dtype=dtype),
-            },
-            'mlp': {
-                'fc_w': randn(d, 4 * d),
-                'fc_b': torch.zeros(4 * d, dtype=dtype),
-                'proj_w': randn(4 * d, d),
-                'proj_b': torch.zeros(d, dtype=dtype),
-            },
-        }
-
+    randn = _randn(generator, dtype, d ** -0.5)
     return {
         'conv1': randn(d, 3, p, p),
         'class_embedding': randn(d),
         'positional_embedding': randn(grid * grid + 1, d),
-        'ln_pre': ln(),
-        'ln_post': ln(),
+        'ln_pre': _ln_init(d, dtype),
+        'ln_post': _ln_init(d, dtype),
         'proj': randn(d, config.output_dim),
-        'blocks': [block() for _ in range(config.layers)],
+        'blocks': [_init_block(randn, d, dtype) for _ in range(config.layers)],
     }
 
 
-def load_openai_state_dict(
-    state: dict[str, Any], prefix: str = 'visual.'
+def init_text_params(
+    generator: torch.Generator,
+    config: TextConfig = TextConfig(),
+    dtype: torch.dtype = torch.float32,
 ) -> Params:
-    """Image-encoder parameters (fp32, CPU) from an OpenAI CLIP state
-    dict of tensors or numpy arrays. ``nn.Linear`` weights are ``(out,
-    in)`` there and are transposed to ``(in, out)``."""
+    """Random text-encoder parameters with OpenAI CLIP's shapes and
+    ``oadp_tpu``'s scales (``init_text_params``), drawn on the CPU from
+    ``generator``; not ``oadp_tpu``'s draws."""
+    d = config.width
+    randn = _randn(generator, dtype, d ** -0.5)
+    return {
+        'token_embedding': randn(config.vocab_size, d, s=0.02),
+        'positional_embedding': randn(config.context_length, d, s=0.01),
+        'ln_final': _ln_init(d, dtype),
+        'text_projection': randn(d, config.output_dim),
+        'blocks': [_init_block(randn, d, dtype) for _ in range(config.layers)],
+    }
 
+
+def _state_reader(state: dict[str, Any]):
+    """``name`` → that entry of an OpenAI CLIP state dict (tensor or numpy
+    array) as an fp32 CPU tensor."""
     def a(name):
         return torch.as_tensor(np.asarray(state[name])).float()
+    return a
+
+
+def _state_blocks(state: dict[str, Any], prefix: str) -> list[Params]:
+    """The residual blocks under ``{prefix}transformer.resblocks.``;
+    ``nn.Linear`` weights are ``(out, in)`` there and are transposed to
+    ``(in, out)``."""
+    a = _state_reader(state)
 
     def block(p):
+        def ln(name):
+            return {'scale': a(f'{p}.{name}.weight'), 'bias': a(f'{p}.{name}.bias')}
         return {
-            'ln_1': {'scale': a(f'{p}.ln_1.weight'), 'bias': a(f'{p}.ln_1.bias')},
-            'ln_2': {'scale': a(f'{p}.ln_2.weight'), 'bias': a(f'{p}.ln_2.bias')},
+            'ln_1': ln('ln_1'),
+            'ln_2': ln('ln_2'),
             'attn': {
                 'qkv_w': a(f'{p}.attn.in_proj_weight').T.contiguous(),
                 'qkv_b': a(f'{p}.attn.in_proj_bias'),
@@ -166,6 +207,15 @@ def load_openai_state_dict(
         int(k[len(blocks):].split('.')[0]) for k in state
         if k.startswith(blocks)
     )
+    return [block(f'{blocks}{i}') for i in range(n)]
+
+
+def load_openai_state_dict(
+    state: dict[str, Any], prefix: str = 'visual.'
+) -> Params:
+    """Image-encoder parameters (fp32, CPU) from an OpenAI CLIP state
+    dict of tensors or numpy arrays."""
+    a = _state_reader(state)
     return {
         'conv1': a(f'{prefix}conv1.weight'),
         'class_embedding': a(f'{prefix}class_embedding'),
@@ -175,13 +225,29 @@ def load_openai_state_dict(
         'ln_post': {'scale': a(f'{prefix}ln_post.weight'),
                     'bias': a(f'{prefix}ln_post.bias')},
         'proj': a(f'{prefix}proj'),
-        'blocks': [block(f'{blocks}{i}') for i in range(n)],
+        'blocks': _state_blocks(state, prefix),
+    }
+
+
+def load_openai_text_state_dict(state: dict[str, Any]) -> Params:
+    """Text-encoder parameters (fp32, CPU) from the same state dict (its
+    keys without a prefix), or ``{}`` when it holds no text tower (the
+    text side of ``oadp_tpu``'s ``convert_torch_state_dict``)."""
+    if 'token_embedding.weight' not in state:
+        return {}
+    a = _state_reader(state)
+    return {
+        'token_embedding': a('token_embedding.weight'),
+        'positional_embedding': a('positional_embedding'),
+        'ln_final': {'scale': a('ln_final.weight'), 'bias': a('ln_final.bias')},
+        'text_projection': a('text_projection'),
+        'blocks': _state_blocks(state, ''),
     }
 
 
 def from_jax_params(tree: Any) -> Params:
-    """``oadp_tpu``'s ViT parameter pytree (numpy leaves) → the port's
-    dict; ``conv1`` goes from HWIO to ``(D, 3, P, P)``."""
+    """``oadp_tpu``'s ViT or text parameter pytree (numpy leaves) → the
+    port's dict; a ViT's ``conv1`` goes from HWIO to ``(D, 3, P, P)``."""
 
     def conv(x):
         if isinstance(x, dict):
@@ -191,7 +257,8 @@ def from_jax_params(tree: Any) -> Params:
         return torch.from_numpy(np.array(x))
 
     params = conv(tree)
-    params['conv1'] = params['conv1'].permute(3, 2, 0, 1).contiguous()
+    if 'conv1' in params:
+        params['conv1'] = params['conv1'].permute(3, 2, 0, 1).contiguous()
     return params
 
 
@@ -283,39 +350,19 @@ def _embed_patches(images, params: Params, config: ViTConfig):
     return x + params['positional_embedding'].to(x.dtype)
 
 
-def image_encoder(
-    params: Params,
-    images: torch.Tensor,
-    config: ViTConfig = ViTConfig(),
-) -> torch.Tensor:
-    """Stock CLIP image encoder: ``(B, H, W, 3)`` → ``(B, output_dim)``
-    (``oadp_tpu/models/clip.py:image_encoder`` with the ``_block_fused``
-    wiring, reference ``oadp/oake/globals.py:57``)."""
-    x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
-    scale = 1.0 / math.sqrt(config.width // config.heads)
-    for block in params['blocks']:
-        attn, kern = block['attn'], block.get('kernel', {})
-        a = A.fused_ln_qkv_attention(
-            x, block['ln_1']['scale'], block['ln_1']['bias'],
-            attn['qkv_w'], attn['qkv_b'], config.heads, scale,
-            qkv_wt=kern.get('qkv_wt'), ln32=kern.get('ln_1'),
-        )
-        x = x + (a @ attn['out_w'] + attn['out_b'])
-        x = x + _mlp(_layer_norm(x, block['ln_2']), block['mlp'])
-    x = _layer_norm(x[:, 0], params['ln_post'])
-    return x @ params['proj']
-
-
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     b, n, d = t.shape
     return t.reshape(b, n, heads, d // heads).transpose(1, 2)
 
 
-def _sdpa(q, k, v) -> torch.Tensor:
-    """Unmasked softmax attention on ``(B, h, N, d)`` → ``(B, N, h*d)``
-    (``oadp_tpu``'s ``_sdpa``, for shapes its packed kernel refuses)."""
+def _sdpa(q, k, v, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Softmax attention on ``(B, h, N, d)`` → ``(B, N, h*d)`` with an
+    optional additive fp32 ``bias`` broadcastable to ``(B, h, M, N)``
+    (``oadp_tpu``'s ``_sdpa``): fp32 logits, exact softmax, no clamp."""
     b, h, m, d = q.shape
     logits = (q * (1.0 / math.sqrt(d))).float() @ k.float().transpose(-1, -2)
+    if bias is not None:
+        logits = logits + bias
     weights = torch.softmax(logits, -1).to(v.dtype)
     return (weights @ v).transpose(1, 2).reshape(b, m, h * d)
 
@@ -328,6 +375,67 @@ def _self_attention_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     if A.fused_mha_qkv_supported(heads, d // heads):
         return A.fused_mha_qkv(qkv, heads, 1.0 / math.sqrt(d // heads))
     return _sdpa(*(_split_heads(t, heads) for t in qkv.split(d, -1)))
+
+
+def _attention(x: torch.Tensor, p: Params, heads: int,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head self-attention with its out-projection
+    (``oadp_tpu/models/clip.py:_attention``). Unbiased, from one packed
+    QKV product through :func:`_self_attention_packed`; with a ``bias``,
+    the kv and q products apart and :func:`_sdpa`."""
+    d = x.shape[-1]
+    qkv_w, qkv_b = p['qkv_w'], p['qkv_b']
+    if bias is None:
+        out = _self_attention_packed(x @ qkv_w + qkv_b, heads)
+    else:
+        k, v = (x @ qkv_w[:, d:] + qkv_b[d:]).split(d, -1)
+        q = x @ qkv_w[:, :d] + qkv_b[:d]
+        out = _sdpa(*(_split_heads(t, heads) for t in (q, k, v)), bias)
+    return out @ p['out_w'] + p['out_b']
+
+
+def _block(x: torch.Tensor, p: Params, heads: int,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """A residual block without fused layers (``oadp_tpu``'s ``_block``)."""
+    x = x + _attention(_layer_norm(x, p['ln_1']), p['attn'], heads, bias)
+    return x + _mlp(_layer_norm(x, p['ln_2']), p['mlp'])
+
+
+def _block_fused(x: torch.Tensor, p: Params, heads: int) -> torch.Tensor:
+    """A residual block with kernel 3 for LN → QKV → attention
+    (``oadp_tpu``'s ``_block_fused``)."""
+    attn, kern = p['attn'], p.get('kernel', {})
+    a = A.fused_ln_qkv_attention(
+        x, p['ln_1']['scale'], p['ln_1']['bias'], attn['qkv_w'], attn['qkv_b'],
+        heads, 1.0 / math.sqrt(x.shape[-1] // heads),
+        qkv_wt=kern.get('qkv_wt'), ln32=kern.get('ln_1'),
+    )
+    x = x + (a @ attn['out_w'] + attn['out_b'])
+    return x + _mlp(_layer_norm(x, p['ln_2']), p['mlp'])
+
+
+def image_encoder(
+    params: Params,
+    images: torch.Tensor,
+    config: ViTConfig = ViTConfig(),
+) -> torch.Tensor:
+    """Stock CLIP image encoder: ``(B, H, W, 3)`` → ``(B, output_dim)``
+    (``oadp_tpu/models/clip.py:image_encoder``, reference
+    ``oadp/oake/globals.py:57``).
+
+    The wiring follows ``oadp_tpu``'s gate on the TPU (``_use_fused_block``),
+    by shape alone and the same on every device: every block through
+    kernel 3 (:func:`_block_fused`, softmax clamped at 80) iff ``D % 128
+    == 0``, else through :func:`_block` (exact softmax)."""
+    x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
+    heads = config.heads
+    block_fn = (_block_fused
+                if A.fused_ln_qkv_attention_supported(heads, config.width // heads)
+                else _block)
+    for block in params['blocks']:
+        x = block_fn(x, block, heads)
+    x = _layer_norm(x[:, 0], params['ln_post'])
+    return x @ params['proj']
 
 
 def _side_logits_concat(k, v, qy, ky, vy, bias, heads: int) -> torch.Tensor:
@@ -439,6 +547,28 @@ def image_encoder_surgery(
             x = x + _mlp(_layer_norm(x, block['ln_2']), mlp)
     y = _layer_norm(y, params['ln_post'])
     return y @ params['proj']
+
+
+def text_encoder(
+    params: Params,
+    tokens: torch.Tensor,
+    config: TextConfig = TextConfig(),
+) -> torch.Tensor:
+    """CLIP text encoder: ``(B, context)`` integer tokens → ``(B,
+    output_dim)`` (``oadp_tpu/models/clip.py:text_encoder``, OpenAI CLIP's
+    ``encode_text``): every block through :func:`_block` with the causal
+    ``-inf`` bias, then ``ln_final`` at the EOT token, the first position
+    of the largest token id, and ``text_projection``."""
+    tokens = tokens.long()
+    x = params['token_embedding'][tokens]
+    x = x + params['positional_embedding'][:x.shape[1]]
+    n = x.shape[1]
+    causal = torch.full((n, n), float('-inf'), device=x.device).triu(1)
+    for block in params['blocks']:
+        x = _block(x, block, config.heads, bias=causal)
+    x = _layer_norm(x, params['ln_final'])
+    x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(-1)]
+    return x @ params['text_projection']
 
 
 # ---------------------------------------------------------------------------

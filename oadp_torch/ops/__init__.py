@@ -1,5 +1,6 @@
-"""Preprocessing, box algebra and the fused attention kernels."""
+"""Preprocessing, box algebra, polygon masks and the fused attention
+kernels."""
 
-from . import attention, boxes, preprocess
+from . import attention, boxes, masks, preprocess
 
-__all__ = ['attention', 'boxes', 'preprocess']
+__all__ = ['attention', 'boxes', 'masks', 'preprocess']

@@ -54,6 +54,7 @@ __all__ = [
     'fused_ln_mlp_rows_supported',
     'fused_ln_qkv_attention',
     'fused_ln_qkv_attention_plain',
+    'fused_ln_qkv_attention_supported',
     'fused_mha_qkv',
     'fused_mha_qkv_plain',
     'fused_mha_qkv_supported',
@@ -113,8 +114,8 @@ def ln_fp32(scale: torch.Tensor, bias: torch.Tensor) -> tuple:
 
 # ---------------------------------------------------------------------------
 # Shape gates: the rules of oadp_tpu's ``*_supported`` (its TPU lane
-# rules), without its backend test. ``models/clip.py`` picks the surgery
-# encoder's wiring with them, by shape alone, on every device.
+# rules), without its backend test. ``models/clip.py`` picks both image
+# encoders' wiring with them, by shape alone, on every device.
 # ---------------------------------------------------------------------------
 
 
@@ -124,6 +125,10 @@ def fused_mha_qkv_supported(heads: int, head_dim: int) -> bool:
 
 
 def fused_side_attention_supported(heads: int, head_dim: int) -> bool:
+    return (heads * head_dim) % 128 == 0
+
+
+def fused_ln_qkv_attention_supported(heads: int, head_dim: int) -> bool:
     return (heads * head_dim) % 128 == 0
 
 

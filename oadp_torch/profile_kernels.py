@@ -34,7 +34,12 @@ keeps the named parts, default all):
   dispatches (kernel 3), one ``globals_step`` of 16 640x480 images and
   one ``blocks_step`` of 24 (``configs/oake/blocks.py``'s batch): 24
   wholes and their 624 blocks padded to 704, the 728-crop blocks batch of
-  ``chip_smoke.py``, broken down the same way.
+  ``chip_smoke.py``, broken down the same way;
+* ``text``: one batch of the ViLD prompt builder (256 rows of 77
+  tokens) through the full CLIP text tower (width 512, 12 layers, 8
+  heads, fp32 products without TF32, random weights from seed 0), broken
+  down the same way, beside its operation count and the time it takes
+  at the card's fp32 peak outside the tensor cores.
 
 Needs one CUDA device; exits nonzero without one.
 """
@@ -165,7 +170,7 @@ def main(argv=None) -> int:
     import argparse
 
     parts = ('gemm', 'attention', 'ln_qkv', 'patch_embed', 'dispatch', 'globals_dispatch',
-             'blocks_dispatch')
+             'blocks_dispatch', 'text')
     ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
     ap.add_argument('--only', default=','.join(parts),
                     help=f'comma-separated parts of {parts}')
@@ -276,6 +281,23 @@ def main(argv=None) -> int:
                  families_device_ms=_device_ms(families, iters),
                  library_ms=_timed(library, iters), library_device_ms=_device_ms(library, iters))
             del x
+    if 'text' in only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = C.TextConfig()
+        text = C.map_params(C.init_text_params(torch.Generator().manual_seed(0), cfg),
+                            lambda t: t.to(dev))
+        rows, n, w = 256, cfg.context_length, cfg.width
+        tokens = torch.randint(1, cfg.vocab_size - 1, (rows, n), device=dev, generator=gen)
+        tokens[:, 20] = cfg.vocab_size - 1  # the EOT id
+        # per layer: QKV, out-projection and MLP products (24 w^2 per token)
+        # and the two attention products over all n keys
+        flops = cfg.layers * (2 * rows * n * 12 * w * w + 4 * rows * n * n * w) \
+            + 2 * rows * w * cfg.output_dim
+        with torch.inference_mode():
+            emit('text', rows=rows, tokens=n, width=w, layers=cfg.layers, flops=flops,
+                 fp32_peak_ms=1e3 * flops / 67e12,
+                 **_breakdown(lambda: C.text_encoder(text, tokens, cfg)))
+        del text, tokens
     if not only & {'patch_embed', 'dispatch', 'globals_dispatch', 'blocks_dispatch'}:
         return 0
     model = E.load_clip(None, 'bfloat16', device=dev)

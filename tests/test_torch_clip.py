@@ -187,3 +187,48 @@ def test_encoders_with_prepared_params_match(models, encoder):
             tclip.prepare_kernel_params(tup), torch.from_numpy(images),
             torch.from_numpy(masks), tc)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize('width', [64, 128])
+def test_stock_encoder_wiring_by_shape(monkeypatch, width):
+    """The stock encoder takes kernel 3 iff ``D % 128 == 0``, as
+    ``oadp_tpu``'s ``_use_fused_block`` does on the TPU, and ``_block``
+    (exact softmax) otherwise. With ``qkv_w`` scaled by 12 the logits pass
+    the fused softmax's clamp at 80, so the two wirings differ: at D = 64
+    the port is held to ``oadp_tpu``'s ``_block``, at D = 128 to its fused
+    block in interpret mode."""
+    from oadp_torch.ops import attention as ta
+    from tests.oracles import clip_torch
+
+    torch.manual_seed(0)
+    visual = clip_torch.VisionTransformer(
+        input_resolution=64, patch_size=16, width=width, layers=2, heads=2,
+        output_dim=32,
+    ).eval()
+    state = clip_torch.state_dict_openai_style(visual)
+    for i in range(2):
+        state[f'visual.transformer.resblocks.{i}.attn.in_proj_weight'] *= 12
+    geom = dict(GEOM, width=width)
+    tcfg = tclip.ViTConfig(**geom)
+    params = tclip.load_openai_state_dict(state)
+    images = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
+
+    # the first layer's largest attention logit passes the clamp
+    x = tclip._layer_norm(tclip._embed_patches(torch.from_numpy(images), params, tcfg),
+                          params['ln_pre'])
+    block = params['blocks'][0]
+    q, k, _ = (tclip._split_heads(t, 2) for t in (
+        tclip._layer_norm(x, block['ln_1']) @ block['attn']['qkv_w']
+        + block['attn']['qkv_b']).split(width, -1))
+    assert float((q @ k.transpose(-1, -2)).max()) / (width // 2) ** 0.5 > ta.LOGIT_CLAMP
+
+    calls = []
+    fused = ta.fused_ln_qkv_attention
+    monkeypatch.setattr(ta, 'fused_ln_qkv_attention',
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    got = tclip.image_encoder(params, torch.from_numpy(images), tcfg).numpy()
+    assert len(calls) == (2 if width % 128 == 0 else 0)
+    jparams, _ = jclip.convert_torch_state_dict(state)
+    want = np.asarray(jclip.image_encoder(
+        jparams, images, jclip.ViTConfig(**geom), interpret_fused=width % 128 == 0))
+    np.testing.assert_allclose(got, want, **TOL)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``oadp_torch`` nor ``chip_smoke.py``
-imports ``jax`` or ``oadp_tpu``, and the CLI modules import in a process
-where ``jax`` cannot be imported at all."""
+imports ``jax``, ``oadp_tpu`` or ``regex``, and the CLI and evaluator
+modules import in a process where none of them can be imported at all."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'oadp_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'oadp_tpu', 'regex')
 
 
 def _port_files():
@@ -35,10 +35,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_cli_modules_import_without_jax():
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None; "
-        "sys.modules['oadp_tpu'] = None; "
-        "import oadp_torch.oake.objects, oadp_torch.oake.globals, oadp_torch.oake.blocks, chip_smoke; "
-        "print('ok')"
+        "import sys; sys.modules.update(dict.fromkeys(%r)); "
+        "import oadp_torch.oake.objects, oadp_torch.oake.globals, oadp_torch.oake.blocks, "
+        "oadp_torch.prompts.vild, oadp_torch.prompts.detpro, oadp_torch.dp.coco_eval, "
+        "oadp_torch.dp.lvis_eval, chip_smoke; "
+        "print('ok')" % (FORBIDDEN,)
     )
     out = subprocess.run(
         [sys.executable, '-c', code], cwd=REPO, capture_output=True,
