@@ -41,7 +41,31 @@ Phases, in order; any failure exits nonzero:
    per 256-row batch printed; the prompt builder on 16 names and 3
    templates on the card against the same on the CPU (cosine >= 0.99999,
    max abs <= 2e-4); the native COCO matcher built with g++ and held to
-   its Python version on random cases.
+   its Python version on random cases;
+6. DP inference, with the launch counts at 0 before it and checked at 0
+   after (no fused kernel is on this path): a random mmdet-layout
+   detector checkpoint (ResNet-50 + FPN + RPN + the bbox, object and mask
+   heads, seed 0) and 8 synthetic COCO-size images (landscape and
+   portrait: both canvases) with the 65 OV-COCO categories, then
+   ``python -m oadp_torch.dp.test`` with ``configs/dp/oadp_ov_coco.py`` at
+   full width, phase 5's ``vild.pth`` as the prompts, fp32 (TF32 off),
+   twice (images/s of the warm run, its evaluator loop and its COCO
+   evaluation apart), then with bf16 activations; every image's
+   detections checked (finite, inside the image, known labels, at most
+   300, scores descending) and the OV-COCO metric keys; OV-LVIS Mask
+   R-CNN (``configs/dp/oadp_ov_lvis.py``, C = 1203) on 2 images with the
+   LVIS bbox and segm evaluation, masks (300, 28, 28) in [0, 1];
+   ``simple_test`` on one image by stage (CUDA events; backbone + FPN, RPN
+   head, proposals + NMS, RoIAlign, the two heads, ``multiclass_nms``,
+   the rest; the NMS's IoU and passes apart, and its pass counts) with
+   the device's idle share from ``torch.profiler``, for OV-COCO and
+   OV-LVIS; the card against the CPU on one image, fp32: RPN logits, the
+   pre-NMS probs on the card's proposals (max rel <= 1e-3 above 1e-4),
+   ``multiclass_nms`` and ``batched_nms`` on the card over the CPU's exact
+   inputs (identical keep sets), the final detections (>= 95% of the
+   CPU's top 100 with a card detection of the same label, IoU >= 0.99,
+   |score difference| <= 1e-3); bf16 activations against fp32 on the same
+   proposals (pre-NMS probs cosine >= 0.999).
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -689,10 +713,10 @@ def write_bpe(path: pathlib.Path, seed: int = 0) -> None:
         f.write('\n'.join(['#version: synthetic', *lines]) + '\n')
 
 
-def vild_path(A) -> dict:
+def vild_path(A, out: pathlib.Path) -> dict:
     """The ViLD prompt CLI on the card at full text-tower width, its record
-    checked; the builder on a few names against the CPU; the native
-    matcher."""
+    (``out``, phase 6's prompt file) checked; the builder on a few names
+    against the CPU; the native matcher."""
     from oadp_torch.base import coco, lvis
     from oadp_torch.dp import coco_eval as CE
     from oadp_torch.models import clip as C
@@ -706,7 +730,7 @@ def vild_path(A) -> dict:
     cfg = C.TextConfig()
     with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
         root = pathlib.Path(tmp)
-        ckpt, bpe, out = root / 'ViT-B-32.pt', root / 'bpe.txt.gz', root / 'vild.pth'
+        ckpt, bpe = root / 'ViT-B-32.pt', root / 'bpe.txt.gz'
         gen = torch.Generator().manual_seed(0)
         state = openai_state_dict(C.init_vit_params(gen), C.init_text_params(gen, cfg))
         state = {k: v.half() for k, v in state.items()}
@@ -784,6 +808,563 @@ def vild_path(A) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: DP inference (python -m oadp_torch.dp.test) at full OV-COCO width
+# ---------------------------------------------------------------------------
+
+# (w, h) of the synthetic images: COCO sizes, landscape and portrait
+DP_SIZES = [(640, 480), (480, 640), (640, 427), (427, 640), (500, 375), (375, 500),
+            (640, 512), (612, 612)]
+N_LVIS_IMAGES = 2
+
+
+def mmdet_state_dict(seed: int = 0, base: int = 64, fpn: int = 256, fc: int = 1024,
+                     emb: int = 512) -> dict:
+    """A random mmdet-layout detector checkpoint (ResNet-50 at ``base``
+    channels, FPN, RPN, the bbox and object heads, the mask head), drawn from
+    ``seed``: He-normal convs, Xavier fcs, batch norms with random affines and
+    running statistics (the last of each bottleneck small, so that the
+    residual stream stays bounded through 16 blocks)."""
+    from oadp_torch.models.resnet import STAGE_BLOCKS
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen) * std
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen)
+
+    def conv(key, c_out, c_in, k, bias=False):
+        state[f'{key}.weight'] = randn(c_out, c_in, k, k, std=(2.0 / (c_in * k * k)) ** 0.5)
+        if bias:
+            state[f'{key}.bias'] = randn(c_out, std=0.01)
+
+    def bn(key, c, scale=(0.5, 1.0)):
+        state[f'{key}.weight'] = uniform(*scale, c)
+        state[f'{key}.bias'] = randn(c, std=0.1)
+        state[f'{key}.running_mean'] = randn(c, std=0.1)
+        state[f'{key}.running_var'] = uniform(0.5, 2.0, c)
+
+    def linear(key, c_out, c_in, std=None):
+        std = (2.0 / (c_in + c_out)) ** 0.5 if std is None else std
+        state[f'{key}.weight'] = randn(c_out, c_in, std=std)
+        state[f'{key}.bias'] = randn(c_out, std=0.01)
+
+    conv('backbone.conv1', base, 3, 7)
+    bn('backbone.bn1', base)
+    c_in = base
+    for i, n in enumerate(STAGE_BLOCKS[50]):
+        c_mid = base * 2 ** i
+        for b in range(n):
+            p = f'backbone.layer{i + 1}.{b}'
+            conv(f'{p}.conv1', c_mid, c_in, 1)
+            bn(f'{p}.bn1', c_mid)
+            conv(f'{p}.conv2', c_mid, c_mid, 3)
+            bn(f'{p}.bn2', c_mid)
+            conv(f'{p}.conv3', 4 * c_mid, c_mid, 1)
+            bn(f'{p}.bn3', 4 * c_mid, scale=(0.1, 0.3))
+            if b == 0:
+                conv(f'{p}.downsample.0', 4 * c_mid, c_in, 1)
+                bn(f'{p}.downsample.1', 4 * c_mid)
+            c_in = 4 * c_mid
+    for i in range(4):
+        conv(f'neck.lateral_convs.{i}.conv', fpn, base * 4 * 2 ** i, 1)
+        bn(f'neck.lateral_convs.{i}.bn', fpn)
+        conv(f'neck.fpn_convs.{i}.conv', fpn, fpn, 3)
+        bn(f'neck.fpn_convs.{i}.bn', fpn)
+    state['rpn_head.rpn_conv.weight'] = randn(fpn, fpn, 3, 3, std=0.01)
+    state['rpn_head.rpn_conv.bias'] = torch.zeros(fpn)
+    for name, c_out in (('rpn_cls', 3), ('rpn_reg', 12)):
+        state[f'rpn_head.{name}.weight'] = randn(c_out, fpn, 1, 1, std=0.01)
+        state[f'rpn_head.{name}.bias'] = torch.zeros(c_out)
+    for head in ('bbox_head', '_object_head'):
+        p = f'roi_head.{head}'
+        for i in range(4):
+            conv(f'{p}.shared_convs.{i}.conv', fpn, fpn, 3)
+            bn(f'{p}.shared_convs.{i}.bn', fpn)
+        linear(f'{p}.shared_fcs.0', fc, fpn * 7 * 7)
+        linear(f'{p}.fc_cls._linear', emb, fc)
+        state[f'{p}.fc_cls._bg_embedding'] = randn(1, emb)
+    linear('roi_head.bbox_head.fc_reg', 4, fc, std=0.001)
+    for i in range(4):
+        conv(f'roi_head.mask_head.convs.{i}.conv', fpn, fpn, 3, bias=True)
+    state['roi_head.mask_head.upsample.weight'] = randn(fpn, fpn, 2, 2, std=(2.0 / (4 * fpn)) ** 0.5)
+    state['roi_head.mask_head.upsample.bias'] = randn(fpn, std=0.01)
+    conv('roi_head.mask_head.conv_logits', 1, fpn, 1, bias=True)
+    return state
+
+
+def write_dp_data(root: pathlib.Path, names: list[str], sizes: list, seed: int = 0,
+                  lvis: bool = False) -> tuple[pathlib.Path, pathlib.Path]:
+    """JPEGs at ``sizes`` and a COCO-layout annotation file over the
+    categories ``names`` (ids 1..C in that order): 3-8 random boxes an
+    image, each with a triangle polygon; with ``lvis``, LVIS's fields
+    (frequencies, negative and not-exhaustive category lists)."""
+    import PIL.Image
+
+    rng = np.random.RandomState(seed)
+    img_dir = root / 'images'
+    img_dir.mkdir(parents=True)
+    images, annotations = [], []
+    for i, (w, h) in enumerate(sizes):
+        id_ = i + 1
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx * yy) % 256], -1)
+        arr = np.clip(base + rng.randint(-40, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+        name = f'{id_:012d}.jpg'
+        PIL.Image.fromarray(arr).save(img_dir / name, quality=90)
+        info = dict(id=id_, file_name=name, width=w, height=h)
+        if lvis:
+            info.update(neg_category_ids=[int(c) + 1 for c in rng.choice(len(names), 5, False)],
+                        not_exhaustive_category_ids=[])
+        images.append(info)
+        for _ in range(rng.randint(3, 9)):
+            x0, y0 = rng.uniform(0, w * 0.6), rng.uniform(0, h * 0.6)
+            bw, bh = rng.uniform(16, w * 0.4), rng.uniform(16, h * 0.4)
+            annotations.append(dict(
+                id=len(annotations) + 1, image_id=id_,
+                category_id=int(rng.randint(len(names))) + 1, bbox=[x0, y0, bw, bh],
+                area=bw * bh / 2, iscrowd=0,
+                segmentation=[[x0, y0, x0 + bw, y0, x0 + bw / 2, y0 + bh]]))
+    categories = [dict(id=i + 1, name=n, **(dict(frequency='rcf'[i % 3]) if lvis else {}))
+                  for i, n in enumerate(names)]
+    ann = root / 'annotations.json'
+    ann.write_text(json.dumps(dict(images=images, annotations=annotations,
+                                   categories=categories)))
+    return img_dir, ann
+
+
+def _dp_config(base: str, root: pathlib.Path, img_dir, ann, prompts, ckpt) -> pathlib.Path:
+    """The repo's DP config with the synthetic val split, phase 5's prompt
+    file, no ``ml_prompts`` file (random embeddings) and the random
+    checkpoint as ``model.pretrained``, on the card."""
+    from oadp_torch.utils import Config
+
+    cfg = Config.load(base)
+    cfg.model.update(prompts=str(prompts), ml_prompts=str(root / 'absent_ml.pth'),
+                     pretrained=str(ckpt), device='cuda')
+    cfg.validator.dataloader.dataset.update(ann_file=str(ann), img_prefix=str(img_dir))
+    path = root / pathlib.Path(base).name
+    cfg.dump(path)
+    return path
+
+
+def _check_detections(results: dict, dataset, max_dets: int) -> int:
+    """Every image's records: finite boxes inside the image, known
+    categories, at most ``max_dets``, scores non-increasing. Returns the
+    number of detections."""
+    n = 0
+    for info in dataset.images:
+        dets = results[info['id']]
+        if not 0 < len(dets) <= max_dets:
+            raise AssertionError(f'image {info["id"]}: {len(dets)} detections')
+        box = np.asarray([d['bbox'] for d in dets], np.float64)
+        score = np.asarray([d['score'] for d in dets])
+        w, h = info['width'], info['height']
+        if not (np.isfinite(box).all() and np.isfinite(score).all()):
+            raise AssertionError(f'image {info["id"]}: non-finite detections')
+        if ((box[:, :2] < -1e-3).any() or (box[:, 0] + box[:, 2] > w * (1 + 1e-4)).any()
+                or (box[:, 1] + box[:, 3] > h * (1 + 1e-4)).any() or (box[:, 2:] < 0).any()):
+            raise AssertionError(f'image {info["id"]}: a box outside the {w}x{h} image')
+        if (np.diff(score) > 0).any():
+            raise AssertionError(f'image {info["id"]}: scores not in descending order')
+        labels = [dataset.cat2label[d['category_id']] for d in dets]
+        if min(labels) < 0 or max(labels) >= len(dataset.cat_ids):
+            raise AssertionError(f'image {info["id"]}: label out of range')
+        n += len(dets)
+    return n
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> tuple[float, float]:
+    """Max abs and max rel difference (rel over ``|want| > floor``)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    diff = (got - want).abs()
+    keep = want.abs() > floor
+    rel = (diff[keep] / want.abs()[keep]).max() if keep.any() else torch.tensor(0.0)
+    return float(diff.max()), float(rel)
+
+
+def _box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = lambda x: np.clip(x[:, 2:] - x[:, :2], 0, None).prod(-1)  # noqa: E731
+    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-9)
+
+
+def _check_full_width(config) -> None:
+    """The OV-COCO detector at its published widths: ResNet-50 (64 base
+    channels), FPN 256, the 4conv-1fc heads at 1024, 1000 proposals, 300
+    detections, 65 classes."""
+    got = (config.backbone.base_channels, config.backbone.stage_blocks, config.fpn_channels,
+           config.bbox_head.fc_channels, config.rpn_test_max, config.rcnn_max_per_img,
+           config.num_all)
+    if got != (64, (3, 4, 6, 3), 256, 1024, 1000, 300, 65):
+        raise AssertionError(f'not the full OV-COCO detector: {got}')
+
+
+class _StageClock:
+    """CUDA events around the stages of ``simple_test``: each stage
+    function of the detector's modules is wrapped while the clock is
+    entered, its calls' event pairs kept by stage name."""
+
+    def __init__(self, stages):
+        self.stages = stages  # (name, module, attribute)
+        self.events: dict[str, list] = {name: [] for name, _, _ in stages}
+
+    def __enter__(self):
+        self.saved = [(m, a, getattr(m, a)) for _, m, a in self.stages]
+        for (name, module, attr), (_, _, fn) in zip(self.stages, self.saved):
+            setattr(module, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+    def _wrap(self, name, fn):
+        def timed_fn(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return timed_fn
+
+    def ms(self, calls: int) -> dict:
+        torch.cuda.synchronize()
+        return {name: sum(s.elapsed_time(e) for s, e in ev) / calls
+                for name, ev in self.events.items()}
+
+
+def _time_simple_test(run, canvas, reps: int = 5) -> dict:
+    """``run()`` (one ``simple_test`` call on the card) timed by stage with
+    CUDA events over ``reps`` warm calls (the NMS internals, nested in the
+    proposal and detection stages, reported beside them), and the device's
+    busy time from ``torch.profiler`` over two more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oadp_torch.models import detector as DET
+    from oadp_torch.models import heads as H
+    from oadp_torch.models import mask_head as MH
+    from oadp_torch.models import rpn as RPN
+    from oadp_torch.ops import nms as NMS
+    from oadp_torch.ops import roi_align as RA
+
+    stages = (('backbone_fpn', DET, '_extract'), ('rpn_head', RPN, 'rpn_forward'),
+              ('rpn_proposals_nms', RPN, 'rpn_proposals'),
+              ('roi_align', RA, 'roi_align_fpn'), ('two_heads', H, 'convfc_forward'),
+              ('multiclass_nms', NMS, 'multiclass_nms'), ('mask_head', MH, 'mask_head_forward'))
+    nested = (('nms_iou', NMS, '_suppression'), ('nms_passes', NMS, '_greedy_keep'))
+    run()
+    torch.cuda.synchronize()
+    with _StageClock(stages + nested + (('simple_test', DET, 'simple_test'),)) as clock:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    stage_ms = clock.ms(reps)
+    total = stage_ms.pop('simple_test')
+    inner = {name: stage_ms.pop(name) for name, _, _ in nested}
+    stage_ms['ensemble_decode_other'] = total - sum(stage_ms.values())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 2 / 1e3
+    # one more call with the passes of every greedy loop counted: the
+    # proposals' NMS first, then each class chunk of the detections'
+    passes = []
+    greedy = NMS._greedy_keep
+
+    def counted(sup, alive):
+        keep, n = greedy(sup, alive)
+        passes.append(n)
+        return keep, n
+
+    NMS._greedy_keep = counted
+    try:
+        run()
+    finally:
+        NMS._greedy_keep = greedy
+    return dict(canvas=canvas, simple_test_ms=total, wall_ms=wall_ms, stage_ms=stage_ms,
+                nms_inner_ms=inner, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                nms_passes=dict(proposals=passes[0], detections=passes[1:]))
+
+
+def dp_path(A, card: str, prompts: pathlib.Path) -> dict:
+    """DP inference through ``python -m oadp_torch.dp.test`` at full
+    OV-COCO width (fp32, twice: the second run warm) and OV-LVIS Mask
+    R-CNN width, with every launch count at 0 before and after; the stages
+    of one ``simple_test`` call timed; the card against the CPU on one
+    image; one bf16 pass against fp32."""
+    from oadp_torch.base import coco, lvis
+    from oadp_torch.dp import builder as B
+    from oadp_torch.dp import test as dp_test
+    from oadp_torch.dp.datasets import BatchBuilder, CocoDetDataset, TestTransform
+    from oadp_torch.dp.evaluator import DetEvaluator
+    from oadp_torch.models import detector as DET
+    from oadp_torch.models import heads as H
+    from oadp_torch.models import rpn as RPN
+    from oadp_torch.ops import nms as NMS
+    from oadp_torch.ops.coder import clip_boxes, decode_deltas
+
+    repo = pathlib.Path(__file__).resolve().parent
+    captured: dict = {}
+    run_fn, metrics_fn, forward_fn = DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward
+
+    def timed_run(self, params, stats):
+        t0 = time.perf_counter()
+        out = run_fn(self, params, stats)
+        captured['run_s'] = time.perf_counter() - t0
+        return out
+
+    def keep_results(self, results):
+        captured['results'] = results
+        t0 = time.perf_counter()
+        out = metrics_fn(self, results)
+        captured['metrics_s'] = time.perf_counter() - t0
+        return out
+
+    def keep_outputs(self, params, stats, batch):
+        out = forward_fn(self, params, stats, batch)
+        captured.setdefault('outputs', []).append(out)
+        return out
+
+    res: dict = {'card': card}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
+        root = pathlib.Path(tmp)
+        ckpt = root / 'mmdet_r50_fpn.pth'
+        torch.save({'state_dict': mmdet_state_dict(seed=0)}, ckpt)
+        coco_img, coco_ann = write_dp_data(root / 'coco', list(coco.all_), DP_SIZES)
+        lvis_img, lvis_ann = write_dp_data(root / 'lvis', list(lvis.all_),
+                                           DP_SIZES[:N_LVIS_IMAGES], seed=1, lvis=True)
+        coco_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_coco.py'), root, coco_img,
+                              coco_ann, prompts, ckpt)
+        lvis_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_lvis.py'), root, lvis_img,
+                              lvis_ann, prompts, ckpt)
+
+        DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
+            timed_run, keep_results, keep_outputs)
+        torch.cuda.synchronize()
+        A.reset_launches()
+        try:
+            walls = []
+            for _ in range(2):  # cold, then warm
+                captured.clear()
+                t0 = time.perf_counter()
+                metrics = dp_test.main([str(coco_cfg), 'none'])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            coco_results = captured['results']
+            # the warm run's evaluator loop (inference and records) and its
+            # COCO evaluation, inside the CLI's wall
+            loop_s = captured['run_s'] - captured['metrics_s']
+            coco_eval_s = captured['metrics_s']
+            captured.clear()
+            t0 = time.perf_counter()
+            bf16_metrics = dp_test.main([str(coco_cfg), 'none', '--override',
+                                         '.validator.bf16:True'])
+            torch.cuda.synchronize()
+            bf16_wall = time.perf_counter() - t0
+            bf16_results = captured['results']
+            lvis_walls = []
+            for _ in range(2):
+                captured.clear()
+                t0 = time.perf_counter()
+                lvis_metrics = dp_test.main([str(lvis_cfg), 'none'])
+                torch.cuda.synchronize()
+                lvis_walls.append(time.perf_counter() - t0)
+            lvis_results, lvis_outputs = captured['results'], captured['outputs']
+            lvis_loop_s = captured['run_s'] - captured['metrics_s']
+            lvis_eval_s = captured['metrics_s']
+        finally:
+            DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
+                run_fn, metrics_fn, forward_fn)
+        launches = dict(A.LAUNCHES)
+        log(json.dumps({'launches': {'dp': launches}}))
+        if any(launches.values()):
+            raise AssertionError(f'dp: fused kernels launched {launches}')
+
+        coco_ds = CocoDetDataset(str(coco_ann), str(coco_img), coco, test_mode=True)
+        lvis_ds = CocoDetDataset(str(lvis_ann), str(lvis_img), lvis, test_mode=True)
+        res['coco_detections'] = _check_detections(coco_results, coco_ds, 300)
+        res['bf16_detections'] = _check_detections(bf16_results, coco_ds, 300)
+        res['lvis_detections'] = _check_detections(lvis_results, lvis_ds, 300)
+        for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
+            if key not in metrics or key not in bf16_metrics:
+                raise AssertionError(f'OV-COCO metrics lack {key}: {sorted(metrics)}')
+        for key in ('lvis_bbox_APr', 'lvis_segm_APr', 'lvis_segm_AP'):
+            if key not in lvis_metrics:
+                raise AssertionError(f'OV-LVIS metrics lack {key}: {sorted(lvis_metrics)}')
+        for out in lvis_outputs:
+            m = out['masks']
+            if (m.shape[1:] != (300, 28, 28) or not torch.isfinite(m).all()
+                    or m.min() < 0 or m.max() > 1):
+                raise AssertionError(f'OV-LVIS masks: {tuple(m.shape)} in '
+                                     f'[{float(m.min())}, {float(m.max())}]')
+        res.update(
+            images=len(DP_SIZES), cold_s=walls[0], warm_s=walls[1],
+            img_s=len(DP_SIZES) / walls[1], loop_s=loop_s, loop_img_s=len(DP_SIZES) / loop_s,
+            coco_eval_s=coco_eval_s, bf16_img_s=len(DP_SIZES) / bf16_wall,
+            lvis_images=N_LVIS_IMAGES, lvis_ms_per_image=1e3 * lvis_walls[1] / N_LVIS_IMAGES,
+            lvis_loop_ms_per_image=1e3 * lvis_loop_s / N_LVIS_IMAGES, lvis_eval_s=lvis_eval_s,
+            lvis_cold_s=lvis_walls[0],
+            metrics=metrics, bf16_metrics=bf16_metrics, lvis_metrics=lvis_metrics)
+        log(json.dumps({'dp_cli': res}))
+
+        # one batch (one landscape image) through simple_test, by stage
+        from oadp_torch.utils import Config
+
+        cfg = Config.load(coco_cfg)
+        bundle_cpu = B.build_detector(cfg.model, coco)
+        bundle = bundle_cpu.to(torch.device('cuda'))
+        config = bundle.config
+        _check_full_width(config)
+        batch = BatchBuilder(num_all=coco.num_all, with_clip=False)(
+            [TestTransform()(coco_ds[0])])
+        canvas = tuple(batch['images'].shape[1:3])
+
+        def inputs(device, dtype=torch.float32):
+            images = torch.from_numpy(batch['images']).to(device)
+            return {'images': DET.ingest_images(images, dtype),
+                    'img_hw': torch.from_numpy(batch['img_hw']).to(device)}
+
+        anchors = {d: B.canvas_anchors(config, canvas, d) for d in ('cpu', 'cuda')}
+        card_in = inputs('cuda')
+
+        def run_card():
+            with torch.inference_mode():
+                return DET.simple_test(bundle.params, bundle.stats, card_in, config,
+                                       anchors['cuda'])
+
+        timing = _time_simple_test(run_card, canvas)
+        log(json.dumps({'dp_simple_test': timing}))
+
+        # the same for OV-LVIS (C = 1203, masks) on its first image
+        lvis_bundle = B.build_detector(Config.load(lvis_cfg).model, lvis).to(torch.device('cuda'))
+        lvis_batch = BatchBuilder(num_all=lvis.num_all, with_clip=False)(
+            [TestTransform()(lvis_ds[0])])
+        lvis_canvas = tuple(lvis_batch['images'].shape[1:3])
+        lvis_in = {'images': DET.ingest_images(torch.from_numpy(lvis_batch['images']).cuda()),
+                   'img_hw': torch.from_numpy(lvis_batch['img_hw']).cuda()}
+        lvis_anchors = B.canvas_anchors(lvis_bundle.config, lvis_canvas, 'cuda')
+
+        def run_lvis():
+            with torch.inference_mode():
+                return DET.simple_test(lvis_bundle.params, lvis_bundle.stats, lvis_in,
+                                       lvis_bundle.config, lvis_anchors)
+
+        lvis_timing = _time_simple_test(run_lvis, lvis_canvas)
+        log(json.dumps({'dp_lvis_simple_test': lvis_timing}))
+        del lvis_bundle, lvis_in
+
+        # the card against the CPU on the same image, fp32 (TF32 off)
+        def pre_nms(b, data, device, proposals=None, capture=None):
+            p, st = b.params, b.stats
+            with torch.inference_mode():
+                pyramid = DET._extract(p, st, data['images'], config)
+                scores, deltas = RPN.rpn_forward(p['rpn'], pyramid)
+                rpn_nms = RPN.batched_nms
+                if capture is not None:
+                    RPN.batched_nms = lambda *a: capture.append(a) or rpn_nms(*a)
+                try:
+                    props, _, valid = RPN.rpn_proposals(
+                        scores, deltas, anchors[device], data['img_hw'],
+                        nms_pre=config.rpn_test_nms_pre, max_per_img=config.rpn_test_max)
+                finally:
+                    RPN.batched_nms = rpn_nms
+                if proposals is not None:
+                    props, valid = (t.to(device) for t in proposals)
+                flat = DET._roi_feats(pyramid, props)
+                bl, reg, _ = H.convfc_forward(p['bbox_head'], st['bbox_head'], flat,
+                                              config.bbox_head)
+                ol, _, _ = H.convfc_forward(p['object_head'], st['object_head'], flat,
+                                            config.object_head)
+                probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
+                boxes = clip_boxes(decode_deltas(props.reshape(-1, 4), reg,
+                                                 stds=config.bbox_reg_stds),
+                                   data['img_hw'][0])
+            return torch.cat([s.flatten() for s in scores]), props, valid, probs, boxes
+
+        cpu_in = inputs('cpu')
+        t0 = time.perf_counter()
+        card_logits, props, valid, card_probs, card_boxes = pre_nms(bundle, card_in, 'cuda')
+        rpn_args = []
+        cpu_logits, _, _, cpu_probs, cpu_boxes = pre_nms(
+            bundle_cpu, cpu_in, 'cpu', proposals=(props.cpu(), valid.cpu()), capture=rpn_args)
+        cmp = {}
+        cmp['rpn_logits_max_abs'], cmp['rpn_logits_max_rel'] = _rel_err(card_logits, cpu_logits,
+                                                                        1e-3)
+        cmp['probs_max_abs'], cmp['probs_max_rel'] = _rel_err(card_probs, cpu_probs, 1e-4)
+        cmp['boxes_max_abs'], _ = _rel_err(card_boxes, cpu_boxes)
+        nms_args = dict(score_thr=config.rcnn_score_thr, iou_threshold=config.rcnn_nms_iou,
+                        max_per_img=config.rcnn_max_per_img, num_classes=config.num_all)
+        with torch.inference_mode():
+            cpu_nms = NMS.multiclass_nms(cpu_boxes, cpu_probs, **nms_args)
+            card_nms = NMS.multiclass_nms(cpu_boxes.cuda(), cpu_probs.cuda(), **nms_args)
+            cpu_rpn = NMS.batched_nms(*rpn_args[0])
+            card_rpn = NMS.batched_nms(*(a.cuda() if torch.is_tensor(a) else a
+                                         for a in rpn_args[0]))
+        cmp['multiclass_nms_identical'] = all(
+            torch.equal(a.cpu(), b) for a, b in zip(card_nms[1:], cpu_nms[1:]))
+        cmp['multiclass_nms_kept'] = int(cpu_nms[3].sum())
+        cmp['batched_nms_identical'] = all(
+            torch.equal(a.cpu(), b) for a, b in zip(card_rpn, cpu_rpn))
+        cmp['batched_nms_candidates'] = int(rpn_args[0][0].shape[0])
+        cmp['batched_nms_kept'] = int(cpu_rpn[1].sum())
+        with torch.inference_mode():
+            cpu_out = DET.simple_test(bundle_cpu.params, bundle_cpu.stats, cpu_in, config,
+                                      anchors['cpu'])
+        cmp['cpu_s'] = time.perf_counter() - t0
+        card_out = run_card()
+        want_ok = cpu_out['valid'][0].numpy()
+        got_ok = card_out['valid'][0].cpu().numpy()
+        want = cpu_out['dets'][0].numpy()[want_ok][:100]
+        got = card_out['dets'][0].cpu().numpy()[got_ok]
+        want_l = cpu_out['labels'][0].numpy()[want_ok][:100]
+        got_l = card_out['labels'][0].cpu().numpy()[got_ok]
+        iou = _box_iou(want[:, :4], got[:, :4])
+        match = ((want_l[:, None] == got_l[None]) & (iou >= 0.99)
+                 & (np.abs(want[:, None, 4] - got[None, :, 4]) <= 1e-3)).any(1)
+        cmp['top100_matched'] = float(match.mean()) if len(match) else 0.0
+        cmp['cpu_top'] = int(len(match))
+        log(json.dumps({'dp_card_vs_cpu': cmp}))
+        if (cmp['probs_max_rel'] > 1e-3 or not cmp['multiclass_nms_identical']
+                or not cmp['batched_nms_identical'] or cmp['top100_matched'] < 0.95
+                or cmp['cpu_top'] < 100):
+            raise AssertionError(f'dp card vs CPU: {cmp}')
+
+        # bf16 activations on the fp32 run's proposals: the pre-NMS probs
+        bf16_in = inputs('cuda', torch.bfloat16)
+        with torch.inference_mode():
+            pyramid = DET._extract(bundle.params, bundle.stats, bf16_in['images'], config)
+            flat = DET._roi_feats(pyramid, props)
+            bl, _, _ = H.convfc_forward(bundle.params['bbox_head'], bundle.stats['bbox_head'],
+                                        flat, config.bbox_head)
+            ol, _, _ = H.convfc_forward(bundle.params['object_head'],
+                                        bundle.stats['object_head'], flat, config.object_head)
+            bf16_probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
+        ok = valid[0]
+        a, b = bf16_probs[ok].double(), card_probs[ok].double()
+        bf16 = dict(probs_cosine=float(F.cosine_similarity(a.flatten(), b.flatten(), 0)),
+                    probs_row_min_cosine=float(F.cosine_similarity(a, b, 1).min()),
+                    probs_max_abs=float((a - b).abs().max()))
+        log(json.dumps({'dp_bf16_vs_fp32': bf16}))
+        if bf16['probs_cosine'] < 0.999:
+            raise AssertionError(f'dp bf16 vs fp32: {bf16}')
+    res.update(simple_test=timing, lvis_simple_test=lvis_timing, card_vs_cpu=cmp,
+               bf16_vs_fp32=bf16, launches=launches, phase_s=time.perf_counter() - t_phase)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: torch sees no CUDA device; nothing was run')
@@ -802,7 +1383,11 @@ def main() -> int:
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
     path = main_path(A, card)
-    vild_path(A)
+    with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent / 'build') as tmp:
+        prompts = pathlib.Path(tmp) / 'vild.pth'
+        vild_path(A, prompts)
+        dp = dp_path(A, card, prompts)
+    log(json.dumps({'dp_path': dp}))
 
     both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
     kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count

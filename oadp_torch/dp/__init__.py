@@ -1,6 +1,6 @@
-"""DP ("Distillation Pyramid") stage: so far the COCO and LVIS evaluators
-(copies of ``oadp_tpu/dp/{coco_eval,lvis_eval}.py``)."""
+"""DP ("Distillation Pyramid") stage: the detector's assembly, data
+pipeline, evaluation loop and test CLI, and the COCO and LVIS evaluators."""
 
-from . import coco_eval, lvis_eval
+from . import builder, coco_eval, datasets, evaluator, lvis_eval
 
-__all__ = ['coco_eval', 'lvis_eval']
+__all__ = ['builder', 'coco_eval', 'datasets', 'evaluator', 'lvis_eval']

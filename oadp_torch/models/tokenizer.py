@@ -13,11 +13,17 @@ normalization, which is lossless for the ASCII class names and prompt
 templates used here.
 
 The original's pattern splits letters ``\p{L}+``, single digits ``\p{N}``
-and runs of anything else ``[^\s\p{L}\p{N}]+``. Here they are
-``[^\W\d_]+``, ``\d`` and ``(?:[^\s\w]|_)+``: the same pieces on ASCII
-text, which holds every COCO/LVIS name through every ViLD template. Other
-Unicode can split otherwise: ``'x½'`` is one piece here and two there,
-because ``re`` counts ``½`` as a word character and ``regex`` as a number.
+and runs of anything else ``[^\s\p{L}\p{N}]+``. ``re`` has no property
+classes, so :func:`_classes` builds them once, at first use, as code-point
+ranges from :mod:`unicodedata`: ``\p{L}`` is every code point of category
+``L*``, ``\p{N}`` every one of ``N*``, and ``\s`` the Unicode
+``White_Space`` set that ``regex`` matches (``re``'s own ``\s`` adds
+U+001C-U+001F). Case folding is as ``regex``'s: the letter and number
+classes match without it, the class of the rest with it (a combining mark,
+U+0345, folds to ``ι``: it is no letter, nor is it in the rest, so neither
+engine gives it a piece). ``regex`` carries newer Unicode tables than the
+interpreter's :mod:`unicodedata`, so the two can differ only on code points
+that the interpreter's Unicode version leaves unassigned.
 """
 
 __all__ = ['SimpleTokenizer', 'tokenize']
@@ -25,10 +31,16 @@ __all__ = ['SimpleTokenizer', 'tokenize']
 import functools
 import gzip
 import html
+import itertools
 import pathlib
 import re
+import sys
+import unicodedata
 
 import numpy as np
+
+# Unicode White_Space: what ``regex`` (and the original pattern) means by \s
+_WHITE_SPACE = '\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000'
 
 
 @functools.lru_cache()
@@ -46,6 +58,27 @@ def bytes_to_unicode() -> dict[int, str]:
             cs.append(256 + n)
             n += 1
     return dict(zip(bs, [chr(c) for c in cs]))
+
+
+@functools.lru_cache()
+def _classes() -> tuple[str, str]:
+    r"""The bodies of the character classes ``\p{L}`` and ``\p{N}`` for
+    ``re``: runs of code points of category ``L*`` and ``N*``."""
+    runs: dict[str, list[tuple[int, int]]] = {'L': [], 'N': []}
+    cps = range(sys.maxunicode + 1)
+    majors = (c[0] for c in map(unicodedata.category, map(chr, cps)))
+    start = 0
+    for major, group in itertools.groupby(majors):
+        n = sum(1 for _ in group)
+        if major in runs:
+            runs[major].append((start, start + n - 1))
+        start += n
+
+    def body(r):
+        return ''.join(re.escape(chr(a)) if a == b else
+                       f'{re.escape(chr(a))}-{re.escape(chr(b))}' for a, b in r)
+
+    return body(runs['L']), body(runs['N'])
 
 
 def _get_pairs(word: tuple) -> set:
@@ -84,9 +117,10 @@ class SimpleTokenizer:
             '<|startoftext|>': '<|startoftext|>',
             '<|endoftext|>': '<|endoftext|>',
         }
+        letter, number = _classes()
         self.pat = re.compile(
             r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll"""
-            r"""|'d|[^\W\d_]+|\d|(?:[^\s\w]|_)+""",
+            rf"""|'d|(?-i:[{letter}]+|[{number}])|[^{_WHITE_SPACE}{letter}{number}]+""",
             re.IGNORECASE,
         )
 

@@ -1,6 +1,7 @@
-"""Preprocessing, box algebra, polygon masks and the fused attention
-kernels."""
+"""Preprocessing, box algebra, anchors, NMS, RoIAlign, polygon masks and
+the fused attention kernels."""
 
-from . import attention, boxes, masks, preprocess
+from . import anchors, attention, boxes, coder, masks, nms, preprocess, roi_align
 
-__all__ = ['attention', 'boxes', 'masks', 'preprocess']
+__all__ = ['anchors', 'attention', 'boxes', 'coder', 'masks', 'nms', 'preprocess',
+           'roi_align']

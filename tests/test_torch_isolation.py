@@ -38,7 +38,8 @@ def test_cli_modules_import_without_jax():
         "import sys; sys.modules.update(dict.fromkeys(%r)); "
         "import oadp_torch.oake.objects, oadp_torch.oake.globals, oadp_torch.oake.blocks, "
         "oadp_torch.prompts.vild, oadp_torch.prompts.detpro, oadp_torch.dp.coco_eval, "
-        "oadp_torch.dp.lvis_eval, chip_smoke; "
+        "oadp_torch.dp.lvis_eval, oadp_torch.dp.test, oadp_torch.dp.evaluator, "
+        "oadp_torch.models.detector, chip_smoke; "
         "print('ok')" % (FORBIDDEN,)
     )
     out = subprocess.run(

@@ -216,14 +216,39 @@ def test_tokenizer_ids_equal_on_vild_texts(bpe_path):
                                   jtok.tokenize(texts[:300], jtk))
 
 
-def test_tokenizer_unicode_gap(bpe_path):
-    """The one gap the copy keeps (``ROADMAP.md`` queue 3): ``re`` counts
-    ``½`` as a word character, so ``'x½'`` is one piece for the port and
-    two (a letter, a number) for ``oadp_tpu``."""
+def _assigned_code_points():
+    """Every code point that the interpreter's Unicode tables assign to a
+    character (``regex`` may carry newer tables: the code points those add
+    are ``Cn`` here and left out; surrogates, ``Cs``, have no UTF-8 form,
+    and both tokenizers raise on them)."""
+    import sys
+    import unicodedata
+    return [c for c in range(sys.maxunicode + 1)
+            if unicodedata.category(chr(c)) not in ('Cn', 'Cs')]
+
+
+@pytest.mark.parametrize('case', ['x_half', 'printable', 'random_unicode'])
+def test_tokenizer_unicode_equal(bpe_path, case):
+    """The ``re`` pattern's letter, number and rest classes split text as
+    ``regex``'s ``\\p{L}``, ``\\p{N}`` and ``[^\\s\\p{L}\\p{N}]`` do:
+    ``'x½'`` is two pieces (a letter, a number) for both, and the ids are
+    equal on ``string.printable`` and on 3000 random strings over every
+    assigned code point."""
     jtk, ttk = jtok.SimpleTokenizer(bpe_path), ttok.SimpleTokenizer(bpe_path)
-    assert ttk.pat.findall('x½') == ['x½']
-    assert jtk.pat.findall('x½') == ['x', '½']
-    assert ttk.encode('x½') != jtk.encode('x½')
+    if case == 'x_half':
+        texts = ['x½']
+        assert ttk.pat.findall('x½') == jtk.pat.findall('x½') == ['x', '½']
+    elif case == 'printable':
+        texts = [string.printable, string.printable[::-1]]
+    else:
+        cps = np.asarray(_assigned_code_points())
+        rng = np.random.default_rng(0)
+        texts = [''.join(map(chr, rng.choice(cps, int(rng.integers(1, 24)))))
+                 for _ in range(3000)]
+    for text in texts:
+        lowered = ttok._clean(text).lower()
+        assert ttk.pat.findall(lowered) == jtk.pat.findall(lowered), repr(text)
+        assert ttk.encode(text) == jtk.encode(text), repr(text)
 
 
 def test_smoke_checkpoint_round_trips():
