@@ -121,11 +121,10 @@ class DetectorBundle:
                 self.params['rpn'] = RPN.convert_torch_rpn(state)
             if 'mask_head' in self.params and any(
                     k.startswith('roi_head.mask_head.') for k in state):
-                try:
-                    self.params['mask_head'] = convert_torch_mask_head(state)
-                    logger.info('grafted mask head from %s', path)
-                except KeyError as e:
-                    logger.warning('mask head graft failed: %s', e)
+                # a partial mask head raises here (oadp_tpu warns and keeps
+                # the random init, whose masks would mean nothing)
+                self.params['mask_head'] = convert_torch_mask_head(state)
+                logger.info('grafted mask head from %s', path)
             if any(k.startswith('roi_head.bbox_head.') for k in state):
                 self._graft_heads(state, path)
             logger.info('loaded pretrained backbone(+neck) from %s', path)

@@ -191,6 +191,25 @@ def test_from_jax_params_equals_mmdet_loaders(tmp_path):
             torch.testing.assert_close(flat_g[key], flat_w[key], rtol=0, atol=0, msg=key)
 
 
+def test_partial_mask_head_graft_raises(tmp_path):
+    """A checkpoint whose mask head lacks keys fails the graft instead of
+    leaving the random mask head in place."""
+    import chip_smoke
+
+    state = chip_smoke.mmdet_state_dict(seed=4, base=8, fpn=16, fc=32, emb=32)
+    del state['roi_head.mask_head.conv_logits.weight']
+    torch.save({'state_dict': state}, tmp_path / 'partial.pth')
+    sizes = {k: v for k, v in SIZES.items() if k != 'stage_blocks'}
+    cfg = tbuilder._apply_size_overrides(
+        tdet.DetectorConfig.build(coco.num_bases, coco.num_all, with_mask=True),
+        Config(dict(sizes=sizes)))
+    emb = torch.nn.functional.normalize(torch.randn(65, 32), dim=-1)
+    bundle = tbuilder.DetectorBundle(
+        cfg, *tdet.init_detector(torch.Generator().manual_seed(0), cfg, emb))
+    with pytest.raises(KeyError, match='conv_logits'):
+        bundle.load_pretrained(str(tmp_path / 'partial.pth'))
+
+
 def _leaves(tree, prefix=''):
     if isinstance(tree, dict):
         return {k2: v2 for k, v in sorted(tree.items())
