@@ -65,7 +65,32 @@ Phases, in order; any failure exits nonzero:
    inputs (identical keep sets), the final detections (>= 95% of the
    CPU's top 100 with a card detection of the same label, IoU >= 0.99,
    |score difference| <= 1e-3); bf16 activations against fp32 on the same
-   proposals (pre-NMS probs cosine >= 0.999).
+   proposals (pre-NMS probs cosine >= 0.999);
+7. DP training, with the launch counts at 0 before and after: a COCO
+   train annotation file for phase 4's images (3-8 boxes each over the 48
+   base classes), then ``python -m oadp_torch.dp.train`` with
+   ``configs/dp/oadp_ov_coco.py`` at full width on those images and the
+   OAKE records phase 4 wrote for them, phase 6's checkpoint as
+   ``load_from`` and phase 5's prompts: 20 iterations at batch 2 in bf16
+   (checkpoints at 10 and 20), a resume from iteration 10 to 20 (the same
+   step and lr; a ``torch.profiler`` window of 4 steps for the device's
+   idle share), and ``python -m oadp_torch.dp.test`` on the trained
+   checkpoint (phase 6's checks on every image). Gates: every logged loss
+   finite; frozen leaves bit-unchanged, every trainable leaf moved; the
+   backbone's running statistics unchanged (``norm_eval``), the FPN's and
+   heads' moved. Printed on the ``dp_train`` line: ms per step (CUDA
+   events, median of iterations 5-20), images/s, ms by stage (backbone,
+   FPN, RPN head, RPN loss with assign and sample, proposals + NMS with
+   their passes, RCNN sampling, RoIAlign, the three heads, the global
+   head, backward, SGD update), peak memory, RoIAlign's forward and
+   backward at the step's 2 x 1152 RoIs. Then one fp32 step (TF32 off)
+   on the card against the CPU from the same params, image and draws, the
+   card on the CPU's proposals: identical samples, losses within max rel
+   1e-3 (above 1e-5), every trainable leaf's update with cosine >= 0.999;
+   the card on its own proposals and in bf16 are printed beside it. Last,
+   one OV-LVIS Mask R-CNN train step (``configs/dp/oadp_ov_lvis.py``, C =
+   1203, masks) on the card in bf16 on a synthetic batch at the LVIS train
+   batch's sizes: finite losses, every mask-head leaf moved.
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -485,7 +510,7 @@ def _unit_rows(name, emb, rows: int) -> None:
         raise AssertionError(f'{name}: not unit rows')
 
 
-def main_path(A, card: str) -> dict:
+def main_path(A, card: str, root: pathlib.Path) -> dict:
     """The OAKE CLIs (objects, globals, blocks) and the split-wiring
     objects step, each driven with every launch count set to 0 just before
     it and read just after."""
@@ -526,117 +551,115 @@ def main_path(A, card: str) -> dict:
             raise AssertionError(f'{label}: launch counts {launches} != expected {want}')
         return out, launches
 
-    with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
-        root = pathlib.Path(tmp)
-        data = make_data(root)
-        cfgs = {name: write_config(str(repo / f'configs/oake/{base}.py'), root, data,
-                                   str(root / name))
-                for name, base in (('objects', 'objects_coco'), ('globals', 'globals'),
-                                   ('blocks', 'blocks'))}
-        override = ['--override', ".model.device:'cuda'", ".model.dtype:'bfloat16'"]
+    data = make_data(root)
+    cfgs = {name: write_config(str(repo / f'configs/oake/{base}.py'), root, data,
+                               str(root / name))
+            for name, base in (('objects', 'objects_coco'), ('globals', 'globals'),
+                               ('blocks', 'blocks'))}
+    override = ['--override', ".model.device:'cuda'", ".model.dtype:'bfloat16'"]
 
-        objects, l_obj = driven('objects', lambda: O.main(
-            ['smoke_objects', str(cfgs['objects']), *override]), lambda: {
-                'fused_surgery_layer': 12 * calls['objects'],
-                'fused_ln_mlp_rows': 12 * calls['objects']})
-        globals_, l_glob = driven('globals', lambda: G.main(
-            ['smoke_globals', str(cfgs['globals']), *override]), lambda: {
-                'fused_ln_qkv_attention': 12 * calls['globals']})
-        blocks, l_blocks = driven('blocks', lambda: BL.main(
-            ['smoke_blocks', str(cfgs['blocks']), *override]), lambda: {
-                'fused_ln_qkv_attention': 12 * calls['blocks']})
-        dispatches = dict(calls)
-        cfg = objects.model.config
-        if (cfg.width, cfg.layers, cfg.heads, objects.model.surgery_config.tokens) != (
-                768, 12, 12, 197):
-            raise AssertionError(f'not the full ViT-B/32: {cfg}')
+    objects, l_obj = driven('objects', lambda: O.main(
+        ['smoke_objects', str(cfgs['objects']), *override]), lambda: {
+            'fused_surgery_layer': 12 * calls['objects'],
+            'fused_ln_mlp_rows': 12 * calls['objects']})
+    globals_, l_glob = driven('globals', lambda: G.main(
+        ['smoke_globals', str(cfgs['globals']), *override]), lambda: {
+            'fused_ln_qkv_attention': 12 * calls['globals']})
+    blocks, l_blocks = driven('blocks', lambda: BL.main(
+        ['smoke_blocks', str(cfgs['blocks']), *override]), lambda: {
+            'fused_ln_qkv_attention': 12 * calls['blocks']})
+    dispatches = dict(calls)
+    cfg = objects.model.config
+    if (cfg.width, cfg.layers, cfg.heads, objects.model.surgery_config.tokens) != (
+            768, 12, 12, 197):
+        raise AssertionError(f'not the full ViT-B/32: {cfg}')
 
-        for i, id_ in enumerate(data['ids']):
-            rec = load_pth(root / 'objects' / f'{id_:012d}.pth')
-            raw = data['raw'][i]
-            _unit_rows(f'objects {id_}', rec['embeddings'], len(raw))
-            np.testing.assert_array_equal(rec['bboxes'], raw[:, :4].astype(np.float16))
-            np.testing.assert_array_equal(rec['objectness'], raw[:, 4:].astype(np.float16))
-            g = load_pth(root / 'globals' / f'{id_:012d}.pth')
-            _unit_rows(f'globals {id_}', g[None], 1)
-            w, h = SIZES[i]
-            plan = plan_blocks(w, h, blocks.block_size, blocks.max_stride, blocks.rescale)
-            rec = load_pth(root / 'blocks' / f'{id_:012d}.pth')
-            _unit_rows(f'blocks {id_}', rec['embeddings'], 1 + len(plan.blocks))
-            np.testing.assert_array_equal(rec['bboxes'], np.asarray(
-                [first_block_bbox(w, h)] + plan.bboxes, np.float32).astype(np.float16))
+    for i, id_ in enumerate(data['ids']):
+        rec = load_pth(root / 'objects' / f'{id_:012d}.pth')
+        raw = data['raw'][i]
+        _unit_rows(f'objects {id_}', rec['embeddings'], len(raw))
+        np.testing.assert_array_equal(rec['bboxes'], raw[:, :4].astype(np.float16))
+        np.testing.assert_array_equal(rec['objectness'], raw[:, 4:].astype(np.float16))
+        g = load_pth(root / 'globals' / f'{id_:012d}.pth')
+        _unit_rows(f'globals {id_}', g[None], 1)
+        w, h = SIZES[i]
+        plan = plan_blocks(w, h, blocks.block_size, blocks.max_stride, blocks.rescale)
+        rec = load_pth(root / 'blocks' / f'{id_:012d}.pth')
+        _unit_rows(f'blocks {id_}', rec['embeddings'], 1 + len(plan.blocks))
+        np.testing.assert_array_equal(rec['bboxes'], np.asarray(
+            [first_block_bbox(w, h)] + plan.bboxes, np.float32).astype(np.float16))
 
-        # the first image's first chunk of crops, as the objects CLI packs it
-        item = dict(id=data['ids'][0], output=None, proposals=dict(
-            (id_, p) for id_, p in zip(data['ids'], data['raw'])))
-        item['image'] = objects._dataset.load(item['id'])
-        item['height'], item['width'] = item['image'].shape[:2]
-        prep = objects.prepare(item)
-        buf, rows, m = prep['chunks'][0]
-        n_img, grid = objects.pad * objects.pad * 3, objects.model.grid
-        image = buf[:n_img].reshape(objects.pad, objects.pad, 3)
-        masks = buf[n_img:n_img + rows * grid * grid].reshape(rows, grid, grid)[:m]
-        meta = buf[n_img + rows * grid * grid:].view(np.float32).reshape(rows, 9)[:m]
-        k_pad = prep['k']
+    # the first image's first chunk of crops, as the objects CLI packs it
+    item = dict(id=data['ids'][0], output=None, proposals=dict(
+        (id_, p) for id_, p in zip(data['ids'], data['raw'])))
+    item['image'] = objects._dataset.load(item['id'])
+    item['height'], item['width'] = item['image'].shape[:2]
+    prep = objects.prepare(item)
+    buf, rows, m = prep['chunks'][0]
+    n_img, grid = objects.pad * objects.pad * 3, objects.model.grid
+    image = buf[:n_img].reshape(objects.pad, objects.pad, 3)
+    masks = buf[n_img:n_img + rows * grid * grid].reshape(rows, grid, grid)[:m]
+    meta = buf[n_img + rows * grid * grid:].view(np.float32).reshape(rows, 9)[:m]
+    k_pad = prep['k']
 
-        # split path: objects_step on 999 crops (B % 8 != 0) against the
-        # fused wiring on the first 1000 of the same crops
-        card_steps = objects.steps
-        nb = SPLIT_BATCH
-        split, l_split = driven('split', lambda: card_steps.objects_step(
-            image, meta[:nb], masks[:nb], k_pad).float().cpu().numpy(), lambda: {
-                'fused_mha_qkv': 11, 'fused_side_attention': 12})
-        fused, _ = driven('fused', lambda: card_steps.objects_step(
-            image, meta[:nb + 1], masks[:nb + 1], k_pad).float().cpu().numpy(), lambda: {
-                'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12})
-        split_vs_fused = _min_cos(split, fused[:nb])
-        split_ms = _wall_ms(lambda: card_steps.objects_step(image, meta[:nb], masks[:nb], k_pad))
-        fused_ms = _wall_ms(
-            lambda: card_steps.objects_step(image, meta[:nb + 1], masks[:nb + 1], k_pad))
+    # split path: objects_step on 999 crops (B % 8 != 0) against the
+    # fused wiring on the first 1000 of the same crops
+    card_steps = objects.steps
+    nb = SPLIT_BATCH
+    split, l_split = driven('split', lambda: card_steps.objects_step(
+        image, meta[:nb], masks[:nb], k_pad).float().cpu().numpy(), lambda: {
+            'fused_mha_qkv': 11, 'fused_side_attention': 12})
+    fused, _ = driven('fused', lambda: card_steps.objects_step(
+        image, meta[:nb + 1], masks[:nb + 1], k_pad).float().cpu().numpy(), lambda: {
+            'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12})
+    split_vs_fused = _min_cos(split, fused[:nb])
+    split_ms = _wall_ms(lambda: card_steps.objects_step(image, meta[:nb], masks[:nb], k_pad))
+    fused_ms = _wall_ms(
+        lambda: card_steps.objects_step(image, meta[:nb + 1], masks[:nb + 1], k_pad))
 
-        # CPU fp32 re-encodes: 8 crops (fused wiring on the CPU too) against
-        # the objects record, 7 crops (split) against the split step, and a
-        # whole image and 4 blocks against the blocks record
-        cpu_model = E.load_clip(objects.config.model.checkpoint, 'float32', device='cpu')
-        cpu_steps = E.OakeSteps(cpu_model, objects.pad, objects.pad)
-        emb_cpu = cpu_steps.objects_step(image, meta[:8], masks[:8], k_pad).float().numpy()
-        emb_card = load_pth(root / 'objects' / f'{item["id"]:012d}.pth')['embeddings'][:8]
-        cos = {'objects_fused_8': _min_cos(emb_cpu, emb_card)}
-        emb_cpu = cpu_steps.objects_step(image, meta[:7], masks[:7], k_pad).float().numpy()
-        cos['objects_split_7'] = _min_cos(emb_cpu, split[:7])
-        bprep = blocks.prepare(dict(item, output=None))
-        n_check = 4
-        coords = np.concatenate([np.zeros((n_check, 1), np.int32),
-                                 bprep['coords'][:n_check]], 1)
-        emb_cpu = cpu_steps.blocks_step(
-            bprep['image'][None], *([bprep[k].cpu()] for k in (
-                'level_wx', 'level_wy', 'whole_wx', 'whole_wy')), coords,
-        ).float().numpy()
-        emb_card = load_pth(root / 'blocks' / f'{item["id"]:012d}.pth')['embeddings']
-        cos['blocks_whole_and_4'] = _min_cos(emb_cpu, emb_card[:1 + n_check])
-        # the first image's whole-image embedding, with the resize taps the
-        # globals CLI's batch used (the largest of its images')
-        gpreps = [globals_.prepare(dict(
-            id=id_, output=None, image=(im := objects._dataset.load(id_)),
-            height=im.shape[0], width=im.shape[1])) for id_ in data['ids']]
-        k_glob = bucket(max(p['ksize'] for p in gpreps), (5, 9, 13, 21))
-        emb_cpu = cpu_steps.globals_step(
-            [gpreps[0]['image']], gpreps[0]['meta'][None], k_glob).float().numpy()
-        emb_card = load_pth(root / 'globals' / f'{data["ids"][0]:012d}.pth')[None]
-        cos['globals_1'] = _min_cos(emb_cpu, emb_card)
-        log(json.dumps({'cpu_fp32_vs_card_bf16_min_cosine': cos,
-                        'split_vs_fused_min_cosine': split_vs_fused}))
-        if min(cos.values()) < 0.99 or split_vs_fused < 0.99:
-            raise AssertionError(f'cosine below 0.99: {cos}, split vs fused {split_vs_fused}')
+    # CPU fp32 re-encodes: 8 crops (fused wiring on the CPU too) against
+    # the objects record, 7 crops (split) against the split step, and a
+    # whole image and 4 blocks against the blocks record
+    cpu_model = E.load_clip(objects.config.model.checkpoint, 'float32', device='cpu')
+    cpu_steps = E.OakeSteps(cpu_model, objects.pad, objects.pad)
+    emb_cpu = cpu_steps.objects_step(image, meta[:8], masks[:8], k_pad).float().numpy()
+    emb_card = load_pth(root / 'objects' / f'{item["id"]:012d}.pth')['embeddings'][:8]
+    cos = {'objects_fused_8': _min_cos(emb_cpu, emb_card)}
+    emb_cpu = cpu_steps.objects_step(image, meta[:7], masks[:7], k_pad).float().numpy()
+    cos['objects_split_7'] = _min_cos(emb_cpu, split[:7])
+    bprep = blocks.prepare(dict(item, output=None))
+    n_check = 4
+    coords = np.concatenate([np.zeros((n_check, 1), np.int32),
+                             bprep['coords'][:n_check]], 1)
+    emb_cpu = cpu_steps.blocks_step(
+        bprep['image'][None], *([bprep[k].cpu()] for k in (
+            'level_wx', 'level_wy', 'whole_wx', 'whole_wy')), coords,
+    ).float().numpy()
+    emb_card = load_pth(root / 'blocks' / f'{item["id"]:012d}.pth')['embeddings']
+    cos['blocks_whole_and_4'] = _min_cos(emb_cpu, emb_card[:1 + n_check])
+    # the first image's whole-image embedding, with the resize taps the
+    # globals CLI's batch used (the largest of its images')
+    gpreps = [globals_.prepare(dict(
+        id=id_, output=None, image=(im := objects._dataset.load(id_)),
+        height=im.shape[0], width=im.shape[1])) for id_ in data['ids']]
+    k_glob = bucket(max(p['ksize'] for p in gpreps), (5, 9, 13, 21))
+    emb_cpu = cpu_steps.globals_step(
+        [gpreps[0]['image']], gpreps[0]['meta'][None], k_glob).float().numpy()
+    emb_card = load_pth(root / 'globals' / f'{data["ids"][0]:012d}.pth')[None]
+    cos['globals_1'] = _min_cos(emb_cpu, emb_card)
+    log(json.dumps({'cpu_fp32_vs_card_bf16_min_cosine': cos,
+                    'split_vs_fused_min_cosine': split_vs_fused}))
+    if min(cos.values()) < 0.99 or split_vs_fused < 0.99:
+        raise AssertionError(f'cosine below 0.99: {cos}, split vs fused {split_vs_fused}')
 
-        # steady-state rate: the same pipelines again into fresh directories
-        rates = {}
-        for name, pipe in (('objects', objects), ('globals', globals_), ('blocks', blocks)):
-            pipe.config.val.dataloader.dataset.output_dir = str(root / f'{name}_timed')
-            t0 = time.perf_counter()
-            pipe.run()
-            torch.cuda.synchronize()
-            rates[name] = N_IMAGES / (time.perf_counter() - t0)
+    # steady-state rate: the same pipelines again into fresh directories
+    rates = {}
+    for name, pipe in (('objects', objects), ('globals', globals_), ('blocks', blocks)):
+        pipe.config.val.dataloader.dataset.output_dir = str(root / f'{name}_timed')
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        rates[name] = N_IMAGES / (time.perf_counter() - t0)
     for name, attr in steps_of.items():
         setattr(E.OakeSteps, attr, originals[name])
     launches = dict(l_obj)
@@ -1098,7 +1121,7 @@ def _time_simple_test(run, canvas, reps: int = 5) -> dict:
                 nms_passes=dict(proposals=passes[0], detections=passes[1:]))
 
 
-def dp_path(A, card: str, prompts: pathlib.Path) -> dict:
+def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     """DP inference through ``python -m oadp_torch.dp.test`` at full
     OV-COCO width (fp32, twice: the second run warm) and OV-LVIS Mask
     R-CNN width, with every launch count at 0 before and after; the stages
@@ -1139,229 +1162,708 @@ def dp_path(A, card: str, prompts: pathlib.Path) -> dict:
 
     res: dict = {'card': card}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=repo / 'build') as tmp:
-        root = pathlib.Path(tmp)
-        ckpt = root / 'mmdet_r50_fpn.pth'
-        torch.save({'state_dict': mmdet_state_dict(seed=0)}, ckpt)
-        coco_img, coco_ann = write_dp_data(root / 'coco', list(coco.all_), DP_SIZES)
-        lvis_img, lvis_ann = write_dp_data(root / 'lvis', list(lvis.all_),
-                                           DP_SIZES[:N_LVIS_IMAGES], seed=1, lvis=True)
-        coco_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_coco.py'), root, coco_img,
-                              coco_ann, prompts, ckpt)
-        lvis_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_lvis.py'), root, lvis_img,
-                              lvis_ann, prompts, ckpt)
+    ckpt = root / 'mmdet_r50_fpn.pth'
+    torch.save({'state_dict': mmdet_state_dict(seed=0)}, ckpt)
+    coco_img, coco_ann = write_dp_data(root / 'coco', list(coco.all_), DP_SIZES)
+    lvis_img, lvis_ann = write_dp_data(root / 'lvis', list(lvis.all_),
+                                       DP_SIZES[:N_LVIS_IMAGES], seed=1, lvis=True)
+    coco_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_coco.py'), root, coco_img,
+                          coco_ann, prompts, ckpt)
+    lvis_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_lvis.py'), root, lvis_img,
+                          lvis_ann, prompts, ckpt)
 
-        DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
-            timed_run, keep_results, keep_outputs)
-        torch.cuda.synchronize()
-        A.reset_launches()
-        try:
-            walls = []
-            for _ in range(2):  # cold, then warm
-                captured.clear()
-                t0 = time.perf_counter()
-                metrics = dp_test.main([str(coco_cfg), 'none'])
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            coco_results = captured['results']
-            # the warm run's evaluator loop (inference and records) and its
-            # COCO evaluation, inside the CLI's wall
-            loop_s = captured['run_s'] - captured['metrics_s']
-            coco_eval_s = captured['metrics_s']
+    DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
+        timed_run, keep_results, keep_outputs)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    try:
+        walls = []
+        for _ in range(2):  # cold, then warm
             captured.clear()
             t0 = time.perf_counter()
-            bf16_metrics = dp_test.main([str(coco_cfg), 'none', '--override',
-                                         '.validator.bf16:True'])
+            metrics = dp_test.main([str(coco_cfg), 'none'])
             torch.cuda.synchronize()
-            bf16_wall = time.perf_counter() - t0
-            bf16_results = captured['results']
-            lvis_walls = []
-            for _ in range(2):
-                captured.clear()
-                t0 = time.perf_counter()
-                lvis_metrics = dp_test.main([str(lvis_cfg), 'none'])
-                torch.cuda.synchronize()
-                lvis_walls.append(time.perf_counter() - t0)
-            lvis_results, lvis_outputs = captured['results'], captured['outputs']
-            lvis_loop_s = captured['run_s'] - captured['metrics_s']
-            lvis_eval_s = captured['metrics_s']
-        finally:
-            DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
-                run_fn, metrics_fn, forward_fn)
-        launches = dict(A.LAUNCHES)
-        log(json.dumps({'launches': {'dp': launches}}))
-        if any(launches.values()):
-            raise AssertionError(f'dp: fused kernels launched {launches}')
-
-        coco_ds = CocoDetDataset(str(coco_ann), str(coco_img), coco, test_mode=True)
-        lvis_ds = CocoDetDataset(str(lvis_ann), str(lvis_img), lvis, test_mode=True)
-        res['coco_detections'] = _check_detections(coco_results, coco_ds, 300)
-        res['bf16_detections'] = _check_detections(bf16_results, coco_ds, 300)
-        res['lvis_detections'] = _check_detections(lvis_results, lvis_ds, 300)
-        for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
-            if key not in metrics or key not in bf16_metrics:
-                raise AssertionError(f'OV-COCO metrics lack {key}: {sorted(metrics)}')
-        for key in ('lvis_bbox_APr', 'lvis_segm_APr', 'lvis_segm_AP'):
-            if key not in lvis_metrics:
-                raise AssertionError(f'OV-LVIS metrics lack {key}: {sorted(lvis_metrics)}')
-        for out in lvis_outputs:
-            m = out['masks']
-            if (m.shape[1:] != (300, 28, 28) or not torch.isfinite(m).all()
-                    or m.min() < 0 or m.max() > 1):
-                raise AssertionError(f'OV-LVIS masks: {tuple(m.shape)} in '
-                                     f'[{float(m.min())}, {float(m.max())}]')
-        res.update(
-            images=len(DP_SIZES), cold_s=walls[0], warm_s=walls[1],
-            img_s=len(DP_SIZES) / walls[1], loop_s=loop_s, loop_img_s=len(DP_SIZES) / loop_s,
-            coco_eval_s=coco_eval_s, bf16_img_s=len(DP_SIZES) / bf16_wall,
-            lvis_images=N_LVIS_IMAGES, lvis_ms_per_image=1e3 * lvis_walls[1] / N_LVIS_IMAGES,
-            lvis_loop_ms_per_image=1e3 * lvis_loop_s / N_LVIS_IMAGES, lvis_eval_s=lvis_eval_s,
-            lvis_cold_s=lvis_walls[0],
-            metrics=metrics, bf16_metrics=bf16_metrics, lvis_metrics=lvis_metrics)
-        log(json.dumps({'dp_cli': res}))
-
-        # one batch (one landscape image) through simple_test, by stage
-        from oadp_torch.utils import Config
-
-        cfg = Config.load(coco_cfg)
-        bundle_cpu = B.build_detector(cfg.model, coco)
-        bundle = bundle_cpu.to(torch.device('cuda'))
-        config = bundle.config
-        _check_full_width(config)
-        batch = BatchBuilder(num_all=coco.num_all, with_clip=False)(
-            [TestTransform()(coco_ds[0])])
-        canvas = tuple(batch['images'].shape[1:3])
-
-        def inputs(device, dtype=torch.float32):
-            images = torch.from_numpy(batch['images']).to(device)
-            return {'images': DET.ingest_images(images, dtype),
-                    'img_hw': torch.from_numpy(batch['img_hw']).to(device)}
-
-        anchors = {d: B.canvas_anchors(config, canvas, d) for d in ('cpu', 'cuda')}
-        card_in = inputs('cuda')
-
-        def run_card():
-            with torch.inference_mode():
-                return DET.simple_test(bundle.params, bundle.stats, card_in, config,
-                                       anchors['cuda'])
-
-        timing = _time_simple_test(run_card, canvas)
-        log(json.dumps({'dp_simple_test': timing}))
-
-        # the same for OV-LVIS (C = 1203, masks) on its first image
-        lvis_bundle = B.build_detector(Config.load(lvis_cfg).model, lvis).to(torch.device('cuda'))
-        lvis_batch = BatchBuilder(num_all=lvis.num_all, with_clip=False)(
-            [TestTransform()(lvis_ds[0])])
-        lvis_canvas = tuple(lvis_batch['images'].shape[1:3])
-        lvis_in = {'images': DET.ingest_images(torch.from_numpy(lvis_batch['images']).cuda()),
-                   'img_hw': torch.from_numpy(lvis_batch['img_hw']).cuda()}
-        lvis_anchors = B.canvas_anchors(lvis_bundle.config, lvis_canvas, 'cuda')
-
-        def run_lvis():
-            with torch.inference_mode():
-                return DET.simple_test(lvis_bundle.params, lvis_bundle.stats, lvis_in,
-                                       lvis_bundle.config, lvis_anchors)
-
-        lvis_timing = _time_simple_test(run_lvis, lvis_canvas)
-        log(json.dumps({'dp_lvis_simple_test': lvis_timing}))
-        del lvis_bundle, lvis_in
-
-        # the card against the CPU on the same image, fp32 (TF32 off)
-        def pre_nms(b, data, device, proposals=None, capture=None):
-            p, st = b.params, b.stats
-            with torch.inference_mode():
-                pyramid = DET._extract(p, st, data['images'], config)
-                scores, deltas = RPN.rpn_forward(p['rpn'], pyramid)
-                rpn_nms = RPN.batched_nms
-                if capture is not None:
-                    RPN.batched_nms = lambda *a: capture.append(a) or rpn_nms(*a)
-                try:
-                    props, _, valid = RPN.rpn_proposals(
-                        scores, deltas, anchors[device], data['img_hw'],
-                        nms_pre=config.rpn_test_nms_pre, max_per_img=config.rpn_test_max)
-                finally:
-                    RPN.batched_nms = rpn_nms
-                if proposals is not None:
-                    props, valid = (t.to(device) for t in proposals)
-                flat = DET._roi_feats(pyramid, props)
-                bl, reg, _ = H.convfc_forward(p['bbox_head'], st['bbox_head'], flat,
-                                              config.bbox_head)
-                ol, _, _ = H.convfc_forward(p['object_head'], st['object_head'], flat,
-                                            config.object_head)
-                probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
-                boxes = clip_boxes(decode_deltas(props.reshape(-1, 4), reg,
-                                                 stds=config.bbox_reg_stds),
-                                   data['img_hw'][0])
-            return torch.cat([s.flatten() for s in scores]), props, valid, probs, boxes
-
-        cpu_in = inputs('cpu')
+            walls.append(time.perf_counter() - t0)
+        coco_results = captured['results']
+        # the warm run's evaluator loop (inference and records) and its
+        # COCO evaluation, inside the CLI's wall
+        loop_s = captured['run_s'] - captured['metrics_s']
+        coco_eval_s = captured['metrics_s']
+        captured.clear()
         t0 = time.perf_counter()
-        card_logits, props, valid, card_probs, card_boxes = pre_nms(bundle, card_in, 'cuda')
-        rpn_args = []
-        cpu_logits, _, _, cpu_probs, cpu_boxes = pre_nms(
-            bundle_cpu, cpu_in, 'cpu', proposals=(props.cpu(), valid.cpu()), capture=rpn_args)
-        cmp = {}
-        cmp['rpn_logits_max_abs'], cmp['rpn_logits_max_rel'] = _rel_err(card_logits, cpu_logits,
-                                                                        1e-3)
-        cmp['probs_max_abs'], cmp['probs_max_rel'] = _rel_err(card_probs, cpu_probs, 1e-4)
-        cmp['boxes_max_abs'], _ = _rel_err(card_boxes, cpu_boxes)
-        nms_args = dict(score_thr=config.rcnn_score_thr, iou_threshold=config.rcnn_nms_iou,
-                        max_per_img=config.rcnn_max_per_img, num_classes=config.num_all)
-        with torch.inference_mode():
-            cpu_nms = NMS.multiclass_nms(cpu_boxes, cpu_probs, **nms_args)
-            card_nms = NMS.multiclass_nms(cpu_boxes.cuda(), cpu_probs.cuda(), **nms_args)
-            cpu_rpn = NMS.batched_nms(*rpn_args[0])
-            card_rpn = NMS.batched_nms(*(a.cuda() if torch.is_tensor(a) else a
-                                         for a in rpn_args[0]))
-        cmp['multiclass_nms_identical'] = all(
-            torch.equal(a.cpu(), b) for a, b in zip(card_nms[1:], cpu_nms[1:]))
-        cmp['multiclass_nms_kept'] = int(cpu_nms[3].sum())
-        cmp['batched_nms_identical'] = all(
-            torch.equal(a.cpu(), b) for a, b in zip(card_rpn, cpu_rpn))
-        cmp['batched_nms_candidates'] = int(rpn_args[0][0].shape[0])
-        cmp['batched_nms_kept'] = int(cpu_rpn[1].sum())
-        with torch.inference_mode():
-            cpu_out = DET.simple_test(bundle_cpu.params, bundle_cpu.stats, cpu_in, config,
-                                      anchors['cpu'])
-        cmp['cpu_s'] = time.perf_counter() - t0
-        card_out = run_card()
-        want_ok = cpu_out['valid'][0].numpy()
-        got_ok = card_out['valid'][0].cpu().numpy()
-        want = cpu_out['dets'][0].numpy()[want_ok][:100]
-        got = card_out['dets'][0].cpu().numpy()[got_ok]
-        want_l = cpu_out['labels'][0].numpy()[want_ok][:100]
-        got_l = card_out['labels'][0].cpu().numpy()[got_ok]
-        iou = _box_iou(want[:, :4], got[:, :4])
-        match = ((want_l[:, None] == got_l[None]) & (iou >= 0.99)
-                 & (np.abs(want[:, None, 4] - got[None, :, 4]) <= 1e-3)).any(1)
-        cmp['top100_matched'] = float(match.mean()) if len(match) else 0.0
-        cmp['cpu_top'] = int(len(match))
-        log(json.dumps({'dp_card_vs_cpu': cmp}))
-        if (cmp['probs_max_rel'] > 1e-3 or not cmp['multiclass_nms_identical']
-                or not cmp['batched_nms_identical'] or cmp['top100_matched'] < 0.95
-                or cmp['cpu_top'] < 100):
-            raise AssertionError(f'dp card vs CPU: {cmp}')
+        bf16_metrics = dp_test.main([str(coco_cfg), 'none', '--override',
+                                     '.validator.bf16:True'])
+        torch.cuda.synchronize()
+        bf16_wall = time.perf_counter() - t0
+        bf16_results = captured['results']
+        lvis_walls = []
+        for _ in range(2):
+            captured.clear()
+            t0 = time.perf_counter()
+            lvis_metrics = dp_test.main([str(lvis_cfg), 'none'])
+            torch.cuda.synchronize()
+            lvis_walls.append(time.perf_counter() - t0)
+        lvis_results, lvis_outputs = captured['results'], captured['outputs']
+        lvis_loop_s = captured['run_s'] - captured['metrics_s']
+        lvis_eval_s = captured['metrics_s']
+    finally:
+        DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
+            run_fn, metrics_fn, forward_fn)
+    launches = dict(A.LAUNCHES)
+    log(json.dumps({'launches': {'dp': launches}}))
+    if any(launches.values()):
+        raise AssertionError(f'dp: fused kernels launched {launches}')
 
-        # bf16 activations on the fp32 run's proposals: the pre-NMS probs
-        bf16_in = inputs('cuda', torch.bfloat16)
+    coco_ds = CocoDetDataset(str(coco_ann), str(coco_img), coco, test_mode=True)
+    lvis_ds = CocoDetDataset(str(lvis_ann), str(lvis_img), lvis, test_mode=True)
+    res['coco_detections'] = _check_detections(coco_results, coco_ds, 300)
+    res['bf16_detections'] = _check_detections(bf16_results, coco_ds, 300)
+    res['lvis_detections'] = _check_detections(lvis_results, lvis_ds, 300)
+    for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
+        if key not in metrics or key not in bf16_metrics:
+            raise AssertionError(f'OV-COCO metrics lack {key}: {sorted(metrics)}')
+    for key in ('lvis_bbox_APr', 'lvis_segm_APr', 'lvis_segm_AP'):
+        if key not in lvis_metrics:
+            raise AssertionError(f'OV-LVIS metrics lack {key}: {sorted(lvis_metrics)}')
+    for out in lvis_outputs:
+        m = out['masks']
+        if (m.shape[1:] != (300, 28, 28) or not torch.isfinite(m).all()
+                or m.min() < 0 or m.max() > 1):
+            raise AssertionError(f'OV-LVIS masks: {tuple(m.shape)} in '
+                                 f'[{float(m.min())}, {float(m.max())}]')
+    res.update(
+        images=len(DP_SIZES), cold_s=walls[0], warm_s=walls[1],
+        img_s=len(DP_SIZES) / walls[1], loop_s=loop_s, loop_img_s=len(DP_SIZES) / loop_s,
+        coco_eval_s=coco_eval_s, bf16_img_s=len(DP_SIZES) / bf16_wall,
+        lvis_images=N_LVIS_IMAGES, lvis_ms_per_image=1e3 * lvis_walls[1] / N_LVIS_IMAGES,
+        lvis_loop_ms_per_image=1e3 * lvis_loop_s / N_LVIS_IMAGES, lvis_eval_s=lvis_eval_s,
+        lvis_cold_s=lvis_walls[0],
+        metrics=metrics, bf16_metrics=bf16_metrics, lvis_metrics=lvis_metrics)
+    log(json.dumps({'dp_cli': res}))
+
+    # one batch (one landscape image) through simple_test, by stage
+    from oadp_torch.utils import Config
+
+    cfg = Config.load(coco_cfg)
+    bundle_cpu = B.build_detector(cfg.model, coco)
+    bundle = bundle_cpu.to(torch.device('cuda'))
+    config = bundle.config
+    _check_full_width(config)
+    batch = BatchBuilder(num_all=coco.num_all, with_clip=False)(
+        [TestTransform()(coco_ds[0])])
+    canvas = tuple(batch['images'].shape[1:3])
+
+    def inputs(device, dtype=torch.float32):
+        images = torch.from_numpy(batch['images']).to(device)
+        return {'images': DET.ingest_images(images, dtype),
+                'img_hw': torch.from_numpy(batch['img_hw']).to(device)}
+
+    anchors = {d: B.canvas_anchors(config, canvas, d) for d in ('cpu', 'cuda')}
+    card_in = inputs('cuda')
+
+    def run_card():
         with torch.inference_mode():
-            pyramid = DET._extract(bundle.params, bundle.stats, bf16_in['images'], config)
+            return DET.simple_test(bundle.params, bundle.stats, card_in, config,
+                                   anchors['cuda'])
+
+    timing = _time_simple_test(run_card, canvas)
+    log(json.dumps({'dp_simple_test': timing}))
+
+    # the same for OV-LVIS (C = 1203, masks) on its first image
+    lvis_bundle = B.build_detector(Config.load(lvis_cfg).model, lvis).to(torch.device('cuda'))
+    lvis_batch = BatchBuilder(num_all=lvis.num_all, with_clip=False)(
+        [TestTransform()(lvis_ds[0])])
+    lvis_canvas = tuple(lvis_batch['images'].shape[1:3])
+    lvis_in = {'images': DET.ingest_images(torch.from_numpy(lvis_batch['images']).cuda()),
+               'img_hw': torch.from_numpy(lvis_batch['img_hw']).cuda()}
+    lvis_anchors = B.canvas_anchors(lvis_bundle.config, lvis_canvas, 'cuda')
+
+    def run_lvis():
+        with torch.inference_mode():
+            return DET.simple_test(lvis_bundle.params, lvis_bundle.stats, lvis_in,
+                                   lvis_bundle.config, lvis_anchors)
+
+    lvis_timing = _time_simple_test(run_lvis, lvis_canvas)
+    log(json.dumps({'dp_lvis_simple_test': lvis_timing}))
+    del lvis_bundle, lvis_in
+
+    # the card against the CPU on the same image, fp32 (TF32 off)
+    def pre_nms(b, data, device, proposals=None, capture=None):
+        p, st = b.params, b.stats
+        with torch.inference_mode():
+            pyramid = DET._extract(p, st, data['images'], config)
+            scores, deltas = RPN.rpn_forward(p['rpn'], pyramid)
+            rpn_nms = RPN.batched_nms
+            if capture is not None:
+                RPN.batched_nms = lambda *a: capture.append(a) or rpn_nms(*a)
+            try:
+                props, _, valid = RPN.rpn_proposals(
+                    scores, deltas, anchors[device], data['img_hw'],
+                    nms_pre=config.rpn_test_nms_pre, max_per_img=config.rpn_test_max)
+            finally:
+                RPN.batched_nms = rpn_nms
+            if proposals is not None:
+                props, valid = (t.to(device) for t in proposals)
             flat = DET._roi_feats(pyramid, props)
-            bl, _, _ = H.convfc_forward(bundle.params['bbox_head'], bundle.stats['bbox_head'],
-                                        flat, config.bbox_head)
-            ol, _, _ = H.convfc_forward(bundle.params['object_head'],
-                                        bundle.stats['object_head'], flat, config.object_head)
-            bf16_probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
-        ok = valid[0]
-        a, b = bf16_probs[ok].double(), card_probs[ok].double()
-        bf16 = dict(probs_cosine=float(F.cosine_similarity(a.flatten(), b.flatten(), 0)),
-                    probs_row_min_cosine=float(F.cosine_similarity(a, b, 1).min()),
-                    probs_max_abs=float((a - b).abs().max()))
-        log(json.dumps({'dp_bf16_vs_fp32': bf16}))
-        if bf16['probs_cosine'] < 0.999:
-            raise AssertionError(f'dp bf16 vs fp32: {bf16}')
+            bl, reg, _ = H.convfc_forward(p['bbox_head'], st['bbox_head'], flat,
+                                          config.bbox_head)
+            ol, _, _ = H.convfc_forward(p['object_head'], st['object_head'], flat,
+                                        config.object_head)
+            probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
+            boxes = clip_boxes(decode_deltas(props.reshape(-1, 4), reg,
+                                             stds=config.bbox_reg_stds),
+                               data['img_hw'][0])
+        return torch.cat([s.flatten() for s in scores]), props, valid, probs, boxes
+
+    cpu_in = inputs('cpu')
+    t0 = time.perf_counter()
+    card_logits, props, valid, card_probs, card_boxes = pre_nms(bundle, card_in, 'cuda')
+    rpn_args = []
+    cpu_logits, _, _, cpu_probs, cpu_boxes = pre_nms(
+        bundle_cpu, cpu_in, 'cpu', proposals=(props.cpu(), valid.cpu()), capture=rpn_args)
+    cmp = {}
+    cmp['rpn_logits_max_abs'], cmp['rpn_logits_max_rel'] = _rel_err(card_logits, cpu_logits,
+                                                                    1e-3)
+    cmp['probs_max_abs'], cmp['probs_max_rel'] = _rel_err(card_probs, cpu_probs, 1e-4)
+    cmp['boxes_max_abs'], _ = _rel_err(card_boxes, cpu_boxes)
+    nms_args = dict(score_thr=config.rcnn_score_thr, iou_threshold=config.rcnn_nms_iou,
+                    max_per_img=config.rcnn_max_per_img, num_classes=config.num_all)
+    with torch.inference_mode():
+        cpu_nms = NMS.multiclass_nms(cpu_boxes, cpu_probs, **nms_args)
+        card_nms = NMS.multiclass_nms(cpu_boxes.cuda(), cpu_probs.cuda(), **nms_args)
+        cpu_rpn = NMS.batched_nms(*rpn_args[0])
+        card_rpn = NMS.batched_nms(*(a.cuda() if torch.is_tensor(a) else a
+                                     for a in rpn_args[0]))
+    cmp['multiclass_nms_identical'] = all(
+        torch.equal(a.cpu(), b) for a, b in zip(card_nms[1:], cpu_nms[1:]))
+    cmp['multiclass_nms_kept'] = int(cpu_nms[3].sum())
+    cmp['batched_nms_identical'] = all(
+        torch.equal(a.cpu(), b) for a, b in zip(card_rpn, cpu_rpn))
+    cmp['batched_nms_candidates'] = int(rpn_args[0][0].shape[0])
+    cmp['batched_nms_kept'] = int(cpu_rpn[1].sum())
+    with torch.inference_mode():
+        cpu_out = DET.simple_test(bundle_cpu.params, bundle_cpu.stats, cpu_in, config,
+                                  anchors['cpu'])
+    cmp['cpu_s'] = time.perf_counter() - t0
+    card_out = run_card()
+    want_ok = cpu_out['valid'][0].numpy()
+    got_ok = card_out['valid'][0].cpu().numpy()
+    want = cpu_out['dets'][0].numpy()[want_ok][:100]
+    got = card_out['dets'][0].cpu().numpy()[got_ok]
+    want_l = cpu_out['labels'][0].numpy()[want_ok][:100]
+    got_l = card_out['labels'][0].cpu().numpy()[got_ok]
+    iou = _box_iou(want[:, :4], got[:, :4])
+    match = ((want_l[:, None] == got_l[None]) & (iou >= 0.99)
+             & (np.abs(want[:, None, 4] - got[None, :, 4]) <= 1e-3)).any(1)
+    cmp['top100_matched'] = float(match.mean()) if len(match) else 0.0
+    cmp['cpu_top'] = int(len(match))
+    log(json.dumps({'dp_card_vs_cpu': cmp}))
+    if (cmp['probs_max_rel'] > 1e-3 or not cmp['multiclass_nms_identical']
+            or not cmp['batched_nms_identical'] or cmp['top100_matched'] < 0.95
+            or cmp['cpu_top'] < 100):
+        raise AssertionError(f'dp card vs CPU: {cmp}')
+
+    # bf16 activations on the fp32 run's proposals: the pre-NMS probs
+    bf16_in = inputs('cuda', torch.bfloat16)
+    with torch.inference_mode():
+        pyramid = DET._extract(bundle.params, bundle.stats, bf16_in['images'], config)
+        flat = DET._roi_feats(pyramid, props)
+        bl, _, _ = H.convfc_forward(bundle.params['bbox_head'], bundle.stats['bbox_head'],
+                                    flat, config.bbox_head)
+        ol, _, _ = H.convfc_forward(bundle.params['object_head'],
+                                    bundle.stats['object_head'], flat, config.object_head)
+        bf16_probs = torch.where(valid[0][:, None], DET.ensemble(bl, ol, config), 0.0)
+    ok = valid[0]
+    a, b = bf16_probs[ok].double(), card_probs[ok].double()
+    bf16 = dict(probs_cosine=float(F.cosine_similarity(a.flatten(), b.flatten(), 0)),
+                probs_row_min_cosine=float(F.cosine_similarity(a, b, 1).min()),
+                probs_max_abs=float((a - b).abs().max()))
+    log(json.dumps({'dp_bf16_vs_fp32': bf16}))
+    if bf16['probs_cosine'] < 0.999:
+        raise AssertionError(f'dp bf16 vs fp32: {bf16}')
     res.update(simple_test=timing, lvis_simple_test=lvis_timing, card_vs_cpu=cmp,
                bf16_vs_fp32=bf16, launches=launches, phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: DP training (python -m oadp_torch.dp.train) at full OV-COCO width
+# ---------------------------------------------------------------------------
+
+TRAIN_ITERS, RESUME_AT, TIMED_FROM = 20, 10, 5
+TRAIN_STEP = 300  # the card-vs-CPU step: past the distillation warm-ups' start
+
+
+def write_train_ann(path: pathlib.Path, names: list[str], n_bases: int, seed: int = 0) -> None:
+    """A COCO train annotation file for phase 4's images (``SIZES``, ids
+    1..N): 3-8 random boxes an image over the first ``n_bases`` of the
+    categories ``names`` (ids 1..C in that order)."""
+    rng = np.random.RandomState(seed)
+    images, annotations = [], []
+    for i, (w, h) in enumerate(SIZES[:N_IMAGES]):
+        images.append(dict(id=i + 1, file_name=f'{i + 1:012d}.jpg', width=w, height=h))
+        for _ in range(rng.randint(3, 9)):
+            x0, y0 = rng.uniform(0, w * 0.6), rng.uniform(0, h * 0.6)
+            bw, bh = rng.uniform(16, w * 0.4), rng.uniform(16, h * 0.4)
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1,
+                                    category_id=int(rng.randint(n_bases)) + 1,
+                                    bbox=[x0, y0, bw, bh], area=bw * bh, iscrowd=0))
+    categories = [dict(id=i + 1, name=n) for i, n in enumerate(names)]
+    path.write_text(json.dumps(dict(images=images, annotations=annotations,
+                                    categories=categories)))
+
+
+def _train_config(repo: pathlib.Path, root: pathlib.Path, oake: pathlib.Path, dp: pathlib.Path,
+                  prompts: pathlib.Path) -> pathlib.Path:
+    """``configs/dp/oadp_ov_coco.py`` on the card with phase 4's images, their
+    OAKE records and a train annotation file, phase 6's checkpoint as
+    ``load_from`` and its images as the validator's, phase 5's prompts, 20
+    iterations with checkpoints every 10, a log every 5, no in-train eval."""
+    from oadp_torch.base import coco
+    from oadp_torch.utils import Config
+
+    ann = root / 'train.json'
+    write_train_ann(ann, list(coco.all_), coco.num_bases)
+    cfg = Config.load(str(repo / 'configs/dp/oadp_ov_coco.py'))
+    cfg.model.update(prompts=str(prompts), ml_prompts=str(root / 'absent_ml.pth'), device='cuda')
+    cfg.trainer.dataloader.dataset.update(
+        ann_file=str(ann), img_prefix=str(oake / 'images'),
+        clip_features=dict(globals_=str(oake / 'globals'), blocks=str(oake / 'blocks'),
+                           objects=str(oake / 'objects')))
+    cfg.trainer.update(load_from=str(dp / 'mmdet_r50_fpn.pth'), seed=0)
+    cfg.trainer.runner.max_iters = TRAIN_ITERS
+    cfg.trainer.checkpoint_config.update(by_epoch=False, interval=RESUME_AT)
+    cfg.trainer.log_config.interval = 5
+    cfg.trainer.evaluation.interval = 10 ** 9
+    cfg.validator.dataloader.dataset.update(ann_file=str(dp / 'coco' / 'annotations.json'),
+                                            img_prefix=str(dp / 'coco' / 'images'))
+    path = root / 'oadp_ov_coco_train.py'
+    cfg.dump(path)
+    return path
+
+
+class _StepClock(_StageClock):
+    """CUDA events around each train step and, from step ``TIMED_FROM`` on,
+    around the stage functions it calls, with the greedy NMS's passes
+    counted."""
+
+    def __init__(self, stages):
+        super().__init__(stages)
+        self.steps: list = []
+        self.passes: list[int] = []
+        self.timed = False
+
+    def __enter__(self):
+        from oadp_torch.dp import trainer as TR
+        from oadp_torch.ops import nms as NMS
+
+        super().__enter__()
+        self.saved += [(TR.Trainer, '_step_for', TR.Trainer._step_for),
+                       (NMS, '_greedy_keep', NMS._greedy_keep)]
+        step_for, greedy = TR.Trainer._step_for, NMS._greedy_keep
+        clock = self
+
+        def timed_step_for(trainer, canvas, epoch_len):
+            step_fn, anchors = step_for(trainer, canvas, epoch_len)
+
+            def step(*a, **k):
+                clock.timed = len(clock.steps) >= TIMED_FROM
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step_fn(*a, **k)
+                end.record()
+                clock.steps.append((start, end))
+                return out
+            return step, anchors
+
+        def counted(sup, alive):
+            keep, n = greedy(sup, alive)
+            if clock.timed:
+                clock.passes.append(n)
+            return keep, n
+
+        TR.Trainer._step_for, NMS._greedy_keep = timed_step_for, counted
+        return self
+
+    def _wrap(self, name, fn):
+        timed_fn = super()._wrap(name, fn)
+
+        def maybe_timed(*a, **k):
+            return (timed_fn if self.timed else fn)(*a, **k)
+        return maybe_timed
+
+    def result(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.steps]
+        timed = ms[TIMED_FROM:]
+        n = len(timed)
+        stage = self.ms(n)
+        return dict(step_ms=ms, timed_steps=n, ms_per_step=float(np.median(timed)),
+                    mean_ms_per_step=float(np.mean(timed)), stage_ms=stage,
+                    stage_sum_ms=sum(stage.values()),
+                    nms_passes_per_step=sum(self.passes) / n,
+                    nms_calls_per_step=len(self.passes) / n)
+
+
+def _log_lines(path: pathlib.Path) -> dict[int, dict]:
+    """The ``iter`` lines of a train log: step -> {lr, total, metrics}."""
+    out = {}
+    for line in path.read_text().splitlines():
+        if ' lr ' not in line or 'iter ' not in line:
+            continue
+        head, inner = line.split('(', 1)
+        words = head.split()
+        step = int(words[words.index('iter') + 1].split('/')[0])
+        vals = inner.split(')')[0].split()
+        out[step] = dict(lr=float(words[words.index('lr') + 1]),
+                         total=float(words[words.index('total') + 1]),
+                         **{k: float(v) for k, v in zip(vals[0::2], vals[1::2])})
+    return out
+
+
+def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=None):
+    """One train step of ``bundle``'s params (copied) on ``device`` in
+    ``dtype``: ``(losses, params before, params after, proposals)``, every
+    sampled index set appended to ``captured``. ``proposals`` (the RPN's
+    output of another run) replaces this run's RPN proposals."""
+    from oadp_torch.dp import builder as B
+    from oadp_torch.dp import trainer as TR
+    from oadp_torch.models import detector as DET
+    from oadp_torch.models import rpn as RPN
+    from oadp_torch.models.clip import map_params
+
+    params = map_params(bundle.params, lambda t: t.detach().to(device).clone())
+    stats = map_params(bundle.stats, lambda t: t.to(device).clone())
+    before = map_params(params, torch.clone)
+    trainer = TR.Trainer(bundle, config.trainer, None, '.', bf16=dtype == torch.bfloat16,
+                         device=device)
+    anchors = B.canvas_anchors(bundle.config, tuple(batch['images'].shape[1:3]), device)
+    step_fn = TR.build_train_step(
+        bundle.config, anchors, TR._lr_mult_tree(params, trainer.lr_rules),
+        TR.trainable_mask_tree(params, bundle.config), base_lr=trainer.base_lr,
+        milestones=trainer.milestones, momentum=trainer.momentum,
+        weight_decay=trainer.weight_decay, warmup_iters=trainer.warmup_iters,
+        warmup_ratio=trainer.warmup_ratio)
+    sample, rpn_proposals = DET.random_sample, RPN.rpn_proposals
+    kept = []
+
+    def keep(u, assigned, num, frac):
+        out = sample(u, assigned, num, frac)
+        captured.append([t.cpu() for t in out])
+        return out
+
+    def props(*a, **k):
+        out = (rpn_proposals(*a, **k) if proposals is None
+               else tuple(t.to(device) for t in proposals))
+        kept.append([t.cpu() for t in out])
+        return out
+
+    DET.random_sample = RPN.random_sample = keep
+    RPN.rpn_proposals = props
+    try:
+        params, _, _, losses = step_fn(params, stats, TR.sgd_init(params),
+                                       trainer.device_batch(batch), TRAIN_STEP,
+                                       {k: v.to(device) for k, v in draws.items()})
+    finally:
+        DET.random_sample = RPN.random_sample = sample
+        RPN.rpn_proposals = rpn_proposals
+    return losses, before, params, kept[0]
+
+
+def _step_diff(want_losses, got_losses, want, got, flags) -> dict:
+    """Losses' max rel difference (over |loss| > 1e-5) and the trainable
+    leaves' update cosines of two steps; ``want``/``got`` are ``(before,
+    after)`` params."""
+    rel = {}
+    for k, v in want_losses.items():
+        if k.startswith('loss'):
+            w, g = float(v), float(got_losses[k])
+            rel[k] = abs(g - w) / abs(w) if abs(w) > 1e-5 else 0.0
+    cos = _update_cosines(*want, *got, flags)
+    return dict(loss_max_rel=max(rel.values()), loss_rel=rel, update_min_cosine=min(cos),
+                trainable_leaves=len(cos))
+
+
+def _update_cosines(a_before, a_after, b_before, b_after, flags) -> list[float]:
+    """Per trainable leaf: the cosine of the two updates ``after - before``."""
+    from oadp_torch.dp.trainer import _leaves
+
+    out = []
+    for a0, a1, b0, b1, t in zip(*map(_leaves, (a_before, a_after, b_before, b_after, flags))):
+        if not t:
+            continue
+        da = (a1 - a0).detach().double().cpu().flatten()
+        db = (b1 - b0).detach().double().cpu().flatten()
+        out.append(float(F.cosine_similarity(da, db, 0)) if da.norm() * db.norm() > 0
+                   else float(torch.equal(da, db)))
+    return out
+
+
+def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib.Path,
+                  prompts: pathlib.Path) -> dict:
+    """DP training through ``python -m oadp_torch.dp.train`` at full OV-COCO
+    width on phase 4's images and OAKE records, bf16: 20 iterations straight
+    (checkpoints at 10 and 20; steps and stages timed with CUDA events from
+    step 5; peak memory), a resume from the iteration-10 checkpoint to 20
+    (a ``torch.profiler`` window over 4 of its steps for the device's idle
+    share), ``python -m oadp_torch.dp.test`` on the trained checkpoint; the
+    launch counts at 0 before and after. Then RoIAlign forward and backward
+    at the step's shapes, and one step (fp32, TF32 off) on the card against
+    the CPU from the same params, image and draws, and in bf16."""
+    import os
+
+    from oadp_torch.base import coco, lvis
+    from oadp_torch.dp import builder as B
+    from oadp_torch.dp import test as dp_test
+    from oadp_torch.dp import train as dp_train
+    from oadp_torch.dp import trainer as TR
+    from oadp_torch.dp.datasets import CocoDetDataset
+    from oadp_torch.dp.evaluator import DetEvaluator
+    from oadp_torch.dp.synthetic import make_train_batch
+    from oadp_torch.models import detector as DET
+    from oadp_torch.models import fpn as FP
+    from oadp_torch.models import heads as H
+    from oadp_torch.models import resnet as RN
+    from oadp_torch.models import rpn as RPN
+    from oadp_torch.ops import roi_align as RA
+    from oadp_torch.utils import Config
+
+    repo = pathlib.Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    cfg_path = _train_config(repo, root, oake, dp, prompts)
+    cwd = os.getcwd()
+    os.chdir(root)
+    stages = (('backbone', RN, 'resnet_forward'), ('fpn', FP, 'fpn_forward_train'),
+              ('rpn_head', RPN, 'rpn_forward'), ('rpn_loss_assign_sample', RPN, 'rpn_loss'),
+              ('proposals_nms', RPN, 'rpn_proposals'), ('rcnn_sampling', DET, '_sample_rcnn'),
+              ('roi_align', RA, 'roi_align_fpn'), ('three_heads', H, 'convfc_forward_train'),
+              ('global_head', H, 'global_head_forward'), ('backward', TR, '_gradients'),
+              ('sgd_update', TR, 'sgd_update'))
+    prof_box: dict = {}
+    start_prof, stop_prof = TR._start_profiler, TR._stop_profiler
+
+    def start(device):
+        torch.cuda.synchronize()
+        prof_box['t0'] = time.perf_counter()
+        prof_box['prof'] = start_prof(device)
+        return prof_box['prof']
+
+    def stop(prof, device, out_dir):
+        torch.cuda.synchronize()
+        prof_box['wall_ms'] = (time.perf_counter() - prof_box['t0']) * 1e3
+        stop_prof(prof, device, out_dir)
+
+    try:
+        torch.cuda.synchronize()
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StepClock(stages) as clock:
+            straight = dp_train.main(['smoke_train', str(cfg_path)])
+        torch.cuda.synchronize()
+        straight_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        timing = clock.result()
+        work = root / 'work_dirs' / 'smoke_train'
+        TR._start_profiler, TR._stop_profiler = start, stop
+        try:
+            t0 = time.perf_counter()
+            resumed = dp_train.main([
+                'smoke_resumed', str(cfg_path), '--override',
+                f".trainer.resume_from:'{work / f'ckpt_{RESUME_AT}.pth'}'",
+                f".trainer.profile:{{'start': 14, 'stop': 18, 'dir': '{root / 'trace'}'}}"])
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+        finally:
+            TR._start_profiler, TR._stop_profiler = start_prof, stop_prof
+        captured = {}
+        metrics_fn = DetEvaluator._metrics
+
+        def keep_results(self, results):
+            captured['results'] = results
+            return metrics_fn(self, results)
+
+        DetEvaluator._metrics = keep_results
+        try:
+            t0 = time.perf_counter()
+            metrics = dp_test.main([str(cfg_path), str(work / 'latest.txt')])
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+        finally:
+            DetEvaluator._metrics = metrics_fn
+        launches = dict(A.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    log(json.dumps({'launches': {'dp_train': launches}}))
+    if any(launches.values()):
+        raise AssertionError(f'dp_train: fused kernels launched {launches}')
+
+    # the runs' gates: finite logged losses, a resume that continues, frozen
+    # leaves and the backbone's statistics unchanged, the rest moved
+    logs = _log_lines(work / 'train.log')
+    res_logs = _log_lines(root / 'work_dirs' / 'smoke_resumed' / 'train.log')
+    if sorted(logs) != [5, 10, 15, 20] or sorted(res_logs) != [15, 20]:
+        raise AssertionError(f'dp_train: logged steps {sorted(logs)}, resumed {sorted(res_logs)}')
+    for step, vals in list(logs.items()) + list(res_logs.items()):
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f'dp_train: non-finite log at step {step}: {vals}')
+    if (straight.step, resumed.step) != (TRAIN_ITERS, TRAIN_ITERS) or any(
+            res_logs[s]['lr'] != logs[s]['lr'] for s in (15, 20)):
+        raise AssertionError(f'dp_train: resume at {resumed.step} with lr '
+                             f'{[res_logs[s]["lr"] for s in (15, 20)]} against '
+                             f'{[logs[s]["lr"] for s in (15, 20)]}')
+    cfg = Config.load(cfg_path)
+    cfg.model.device = 'cpu'
+    init = B.build_detector(cfg.model, coco, seed=0)
+    init.load_pretrained(cfg.trainer.load_from)
+    _check_full_width(init.config)
+    flags = TR.trainable_mask_tree(init.params, init.config)
+    final = TR.Trainer.restore(work / 'latest.txt')
+    moves = {'frozen_changed': 0, 'trainable_unmoved': 0, 'trainable': 0, 'frozen': 0}
+    for p0, p1, t in zip(*map(TR._leaves, (init.params, final.params, flags))):
+        same = torch.equal(p0, p1)
+        moves['trainable' if t else 'frozen'] += 1
+        moves['trainable_unmoved' if t else 'frozen_changed'] += same if t else not same
+    stats_moved = {name: sum(not torch.equal(a, b) for a, b in zip(
+        TR._leaves(init.stats[name]), TR._leaves(final.stats[name])))
+        for name in final.stats}
+    stats_total = {name: len(TR._leaves(final.stats[name])) for name in final.stats}
+    log(json.dumps({'dp_train_leaves': moves, 'stats_moved': stats_moved,
+                    'stats_total': stats_total}))
+    if (moves['frozen_changed'] or moves['trainable_unmoved'] or stats_moved['backbone']
+            or any(stats_moved[k] != stats_total[k] for k in stats_total if k != 'backbone')):
+        raise AssertionError(f'dp_train leaves: {moves}, stats moved {stats_moved}')
+    val = CocoDetDataset(str(dp / 'coco' / 'annotations.json'), str(dp / 'coco' / 'images'),
+                         coco, test_mode=True)
+    n_dets = _check_detections(captured['results'], val, 300)
+    if 'COCO_48_17_bbox_mAP_50' not in metrics:
+        raise AssertionError(f'dp.test on the trained checkpoint: {sorted(metrics)}')
+
+    # the device's idle share over the resumed run's profiled steps
+    prof = prof_box['prof']
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    window = dict(steps=4, wall_ms=prof_box['wall_ms'], device_busy_ms=busy_ms,
+                  device_idle_share=1 - busy_ms / prof_box['wall_ms'])
+
+    # RoIAlign at the step's shapes: a bf16 pyramid of 2 landscape images and
+    # 2 x (512 + 512 + 128) RoIs, forward and backward (the scatter-add)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    batch_cfg = cfg.trainer.dataloader.batch
+    canvas, c = tuple(batch_cfg.canvas), init.config.fpn_channels
+    pyramid = [torch.randn(2, c, -(-canvas[0] // s), -(-canvas[1] // s), generator=gen,
+                           device='cuda', dtype=torch.bfloat16).requires_grad_(True)
+               for s in (4, 8, 16, 32, 64)]
+    n_rois = init.config.rcnn_samples + batch_cfg.max_objects + batch_cfg.max_blocks
+    xy = torch.rand(2, n_rois, 2, generator=gen, device='cuda') * torch.tensor(
+        [canvas[1] * 0.8, canvas[0] * 0.8], device='cuda')
+    wh = 8 + torch.rand(2, n_rois, 2, generator=gen, device='cuda') * canvas[0] * 0.5
+    rois = torch.cat([xy, xy + wh], -1)
+    grad_out = torch.randn(2, n_rois, c, 7, 7, generator=gen, device='cuda',
+                           dtype=torch.bfloat16)
+
+    def roi_fwd():
+        return RA.roi_align_fpn(pyramid, rois)
+
+    def roi_fwd_bwd():
+        torch.autograd.grad(RA.roi_align_fpn(pyramid, rois), pyramid[:4], grad_out)
+
+    fwd_ms, fwd_bwd_ms = timed(roi_fwd, 5), timed(roi_fwd_bwd, 5)
+    roi_align = dict(rois=2 * n_rois, forward_ms=fwd_ms, backward_ms=fwd_bwd_ms - fwd_ms)
+    del pyramid, grad_out
+
+    # one step on the card against the CPU: fp32 (TF32 off), the same params,
+    # one image and the same draws; then the card's step in bf16
+    cfg.trainer.dataloader['samples_per_gpu'] = 1
+    batch = next(iter(dp_train.build_train_loader(cfg, coco, cfg.model).epoch(0)))
+    n_anchors = sum(len(a) for a in B.canvas_anchors(init.config,
+                                                     tuple(batch['images'].shape[1:3])))
+    draws = DET.make_draws(torch.Generator().manual_seed(1), init.config, 1, n_anchors,
+                           batch['gt_boxes'].shape[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device('cuda')
+    samples = {'cpu': [], 'card': []}
+    t0 = time.perf_counter()
+    cpu_losses, *cpu, cpu_props = _one_step(cfg, init, batch, draws, torch.device('cpu'),
+                                            torch.float32, samples['cpu'])
+    cpu_s = time.perf_counter() - t0
+    # the card on the CPU's proposals: the RPN's scores sit in near-ties
+    # (random weights), where rounding can reorder a few candidates before the
+    # NMS; both sides' own proposals are compared apart
+    card_losses, *card_run, card_props = _one_step(cfg, init, batch, draws, cuda, torch.float32,
+                                               samples['card'], proposals=cpu_props)
+    free_losses, *free, free_props = _one_step(cfg, init, batch, draws, cuda, torch.float32, [])
+    cmp = dict(samplers=len(samples['cpu']), samples_identical=len(samples['cpu']) == len(
+        samples['card']) and all(torch.equal(a, b) for x, y in zip(samples['cpu'], samples['card'])
+                                 for a, b in zip(x, y)), cpu_s=cpu_s,
+               losses_cpu={k: float(v) for k, v in cpu_losses.items() if k != 'lr'},
+               **_step_diff(cpu_losses, card_losses, cpu, card_run, flags))
+    same = (free_props[0] - cpu_props[0]).abs().amax(-1) <= 1e-3
+    cmp['own_proposals'] = dict(
+        rows_equal=int(same.sum()), rows=int(same.numel()),
+        valid_equal=bool(torch.equal(free_props[2], cpu_props[2])),
+        **{k: v for k, v in _step_diff(cpu_losses, free_losses, cpu, free, flags).items()
+           if k != 'loss_rel'})
+    log(json.dumps({'dp_train_card_vs_cpu': cmp}))
+    if (not cmp['samples_identical'] or cmp['loss_max_rel'] > 1e-3
+            or cmp['update_min_cosine'] < 0.999):
+        raise AssertionError(f'dp_train card vs CPU: {cmp}')
+    # bf16 on the card's fp32 proposals, against that fp32 step
+    bf_losses, *bf, _ = _one_step(cfg, init, batch, draws, cuda, torch.bfloat16, [],
+                                  proposals=free_props)
+    bf_cos = _update_cosines(*free, *bf, flags)
+    bf16 = dict(losses={k: float(v) for k, v in bf_losses.items() if k != 'lr'},
+                update_min_cosine=min(bf_cos), update_median_cosine=float(np.median(bf_cos)))
+    log(json.dumps({'dp_train_bf16_vs_fp32': bf16}))
+    if not all(math.isfinite(v) for v in list(bf16['losses'].values()) + bf_cos):
+        raise AssertionError(f'dp_train bf16: {bf16}')
+
+    # one OV-LVIS Mask R-CNN step (C = 1203, masks) on the card, bf16, on a
+    # synthetic batch at the LVIS train batch's sizes with a triangle polygon
+    # in each gt box: finite losses, the mask head's leaves moved
+    lvis_cfg = Config.load(dp / 'oadp_ov_lvis.py')
+    lvis_cfg.model.device = 'cpu'
+    lvis_init = B.build_detector(lvis_cfg.model, lvis, seed=0)
+    lb = lvis_cfg.trainer.dataloader.batch
+    lbatch = make_train_batch(1, tuple(lb.canvas), lvis.num_bases, lvis.num_all,
+                              lvis_init.config.global_cls.embedding_dim,
+                              n_gt=lb.max_gts, n_blocks=lb.max_blocks, n_objects=lb.max_objects,
+                              n_gt_valid=6)
+    polys = np.full((1, lb.max_gts, lb.max_polygon_parts, lb.max_polygon_verts, 2), -1e6,
+                    np.float32)
+    for j, (x0, y0, x1, y1) in enumerate(lbatch['gt_boxes'][0]):
+        polys[0, j, 0] = [(x0, y0), (x1, y0)] + [(x0, y1)] * (lb.max_polygon_verts - 2)
+    lbatch['gt_polygons'] = polys
+    n_anchors = sum(len(a) for a in B.canvas_anchors(lvis_init.config, tuple(lb.canvas)))
+    ldraws = DET.make_draws(torch.Generator().manual_seed(2), lvis_init.config, 1, n_anchors,
+                            lb.max_gts)
+    t0 = time.perf_counter()
+    lvis_losses, lvis_before, lvis_after, _ = _one_step(lvis_cfg, lvis_init, lbatch, ldraws,
+                                                        cuda, torch.bfloat16, [])
+    lvis_s = time.perf_counter() - t0
+    mask_moved = [not torch.equal(a.cpu(), b.detach().cpu()) for a, b in zip(
+        TR._leaves(lvis_before['mask_head']), TR._leaves(lvis_after['mask_head']))]
+    lvis_res = dict(losses={k: float(v) for k, v in lvis_losses.items() if k != 'lr'},
+                    step_s=lvis_s, mask_leaves_moved=sum(mask_moved), mask_leaves=len(mask_moved))
+    log(json.dumps({'dp_train_lvis': lvis_res}))
+    if (not all(math.isfinite(v) for v in lvis_res['losses'].values())
+            or not lvis_res['losses']['loss_mask'] > 0 or not all(mask_moved)):
+        raise AssertionError(f'dp_train OV-LVIS step: {lvis_res}')
+
+    res = dict(card=card, config='configs/dp/oadp_ov_coco.py', iterations=TRAIN_ITERS,
+               batch=2, dtype='bfloat16', images=N_IMAGES,
+               ms_per_step=timing['ms_per_step'], img_s=2e3 / timing['ms_per_step'],
+               mean_ms_per_step=timing['mean_ms_per_step'], timed_steps=timing['timed_steps'],
+               step_ms=timing['step_ms'], stage_ms=timing['stage_ms'],
+               stage_sum_ms=timing['stage_sum_ms'],
+               nms_passes_per_step=timing['nms_passes_per_step'],
+               nms_calls_per_step=timing['nms_calls_per_step'], profiled=window,
+               peak_memory_gb=peak_gb, roi_align=roi_align, straight_s=straight_s,
+               resumed_s=resumed_s, test_s=test_s, test_detections=n_dets, test_metrics=metrics,
+               last_log=logs[TRAIN_ITERS], leaves=moves, card_vs_cpu=cmp, bf16_vs_fp32=bf16,
+               lvis_step=lvis_res,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
     return res
 
 
@@ -1382,12 +1884,19 @@ def main() -> int:
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
-    path = main_path(A, card)
+    # one directory for phases 4-7: phase 7 trains on phase 4's images and
+    # OAKE records, from phase 6's checkpoint, with phase 5's prompts
     with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent / 'build') as tmp:
-        prompts = pathlib.Path(tmp) / 'vild.pth'
+        tmp = pathlib.Path(tmp)
+        for sub in ('oake', 'dp', 'train'):
+            (tmp / sub).mkdir()
+        path = main_path(A, card, tmp / 'oake')
+        prompts = tmp / 'vild.pth'
         vild_path(A, prompts)
-        dp = dp_path(A, card, prompts)
-    log(json.dumps({'dp_path': dp}))
+        dp = dp_path(A, card, prompts, tmp / 'dp')
+        log(json.dumps({'dp_path': dp}))
+        train = dp_train_path(A, card, tmp / 'train', tmp / 'oake', tmp / 'dp', prompts)
+    log(json.dumps({'dp_train': train}))
 
     both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
     kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count

@@ -1,6 +1,8 @@
 """DP ("Distillation Pyramid") stage: the detector's assembly, data
-pipeline, evaluation loop and test CLI, and the COCO and LVIS evaluators."""
+pipeline, trainer, evaluation loop, the train and test CLIs, and the COCO
+and LVIS evaluators."""
 
-from . import builder, coco_eval, datasets, evaluator, lvis_eval
+from . import builder, coco_eval, datasets, evaluator, lvis_eval, synthetic, trainer
 
-__all__ = ['builder', 'coco_eval', 'datasets', 'evaluator', 'lvis_eval']
+__all__ = ['builder', 'coco_eval', 'datasets', 'evaluator', 'lvis_eval', 'synthetic',
+           'trainer']

@@ -1,6 +1,13 @@
-"""The OADP / ViLD detector's calibrated inference in PyTorch (port of
-``oadp_tpu/models/detector.py``, inference path; ``forward_train`` comes
-with the trainer).
+"""The OADP / ViLD detector in PyTorch: its training losses and its
+calibrated inference (port of ``oadp_tpu/models/detector.py``).
+
+:func:`forward_train` gives every loss of a train step: the RPN's, the
+RCNN's over ``[gts, proposals]`` sampled at 512 (0.25 positive), the mask
+loss, and the OADP distillation losses of the object, block and global
+heads with their warm-up weights, and the new batch-norm statistics.
+The sampler's uniform draws are an argument (:func:`make_draws`), so
+that a test can pass ``oadp_tpu``'s. The proposals come from detached
+scores; the frozen parameters are detached where they are read.
 
 :func:`simple_test` runs ResNet-50 + FPN, the RPN and its proposals,
 RoIAlign, the bbox and object heads, the ViLD ensemble
@@ -21,6 +28,8 @@ __all__ = [
     'IMG_STD',
     'init_detector',
     'ingest_images',
+    'make_draws',
+    'forward_train',
     'ensemble',
     'simple_test',
     'from_jax_params',
@@ -32,10 +41,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..base import losses as L
 from ..ops import nms as NMS
 from ..ops import roi_align as RA
 from ..ops.anchors import AnchorGenerator
-from ..ops.coder import clip_boxes, decode_deltas
+from ..ops.assign import max_iou_assign, random_sample
+from ..ops.coder import clip_boxes, decode_deltas, encode_deltas
+from ..ops.masks import rasterize_in_boxes
+from ..utils.dist import Collective
 from . import fpn as FP
 from . import heads as H
 from . import mask_head as MH
@@ -228,6 +241,161 @@ def ensemble(bbox_logits: torch.Tensor, object_logits: torch.Tensor,
     cls_score = torch.cat([cls_score[:, :-1], 1 - cls_score[:, :-1].sum(-1, keepdim=True)], 1)
     # mmdet applies softmax(log p) downstream = p renormalized
     return cls_score / cls_score.sum(-1, keepdim=True).clamp(min=1e-12)
+
+
+def make_draws(gen: torch.Generator, config: DetectorConfig, batch_size: int,
+               num_anchors: int, max_gts: int) -> dict[str, torch.Tensor]:
+    """The uniform draws of one train step's samplers on the generator's
+    device: ``rpn (B, num_anchors)`` over the anchors and ``rcnn (B, max_gts +
+    rpn_train_max)`` over ``[gts, proposals]``."""
+    dev = gen.device
+    return {'rpn': torch.rand(batch_size, num_anchors, generator=gen, device=dev),
+            'rcnn': torch.rand(batch_size, max_gts + config.rpn_train_max, generator=gen,
+                               device=dev)}
+
+
+def _sample_rcnn(config: DetectorConfig, draws, cand, cand_valid, gts, gt_valid, gt_labels):
+    """Per image: the RCNN's sampled RoIs, labels (background ``num_all``),
+    regression targets, validity, positivity and matched gt."""
+    out = []
+    for i in range(cand.shape[0]):
+        assigned = max_iou_assign(cand[i], cand_valid[i], gts[i], gt_valid[i],
+                                  pos_iou_thr=config.rcnn_pos_iou,
+                                  neg_iou_thr=config.rcnn_pos_iou,
+                                  min_pos_iou=config.rcnn_pos_iou, match_low_quality=False)
+        inds, valid, is_pos = random_sample(draws[i], assigned, config.rcnn_samples,
+                                            config.rcnn_pos_fraction)
+        inds = inds.long()
+        rois = cand[i][inds]
+        gt_idx = (assigned[inds] - 1).clamp(min=0).long()
+        labels = torch.where(is_pos, gt_labels[i][gt_idx].long(), config.num_all)
+        targets = encode_deltas(rois, gts[i][gt_idx], stds=config.bbox_reg_stds)
+        out.append((rois, labels, targets, valid, is_pos, gt_idx))
+    return [torch.stack(t) for t in zip(*out)]
+
+
+def forward_train(
+    params: Params,
+    stats: Params,
+    batch: dict[str, torch.Tensor],
+    config: DetectorConfig,
+    level_anchors: list[torch.Tensor],
+    step: int,
+    draws: dict[str, torch.Tensor],
+    coll: Collective = Collective(),
+) -> tuple[dict[str, torch.Tensor], Params]:
+    """All training losses (RPN, RCNN, mask, OV heads and distillation) and
+    the new batch-norm statistics, for ``batch['images'] (B, 3, H, W)``
+    activations and the padded fields of ``oadp_tpu``'s batch layout.
+
+    With ``coll`` over several processes each loss is this process's share:
+    its sum over the local rows divided by the count over every process, so
+    that the shares add up to the loss of the global batch; the batch norms
+    take the global batch's statistics, and the block relation loss and the
+    recalls are computed on the gathered rows and divided by the world
+    size. ``loss_clip_global`` is the local sum, as in ``oadp_tpu``."""
+    if not config.backbone.norm_eval:
+        raise NotImplementedError('training with backbone.norm_eval=False is not ported')
+    all_sum = coll.all_sum
+    b = batch['images'].shape[0]
+    feats = RN.resnet_forward(params['backbone'], stats['backbone'], batch['images'],
+                              config.backbone)
+    pyramid, fpn_stats = FP.fpn_forward_train(params['fpn'], stats['fpn'], feats, 5, all_sum)
+    new_stats: Params = {'backbone': stats['backbone'], 'fpn': fpn_stats}
+    gt_boxes, gt_valid = batch['gt_boxes'], batch['gt_valid']
+
+    # --- RPN --------------------------------------------------------------
+    scores, deltas = RPN.rpn_forward(params['rpn'], pyramid)
+    losses = RPN.rpn_loss(draws['rpn'], scores, deltas, torch.cat(level_anchors), gt_boxes,
+                          gt_valid, batch['img_hw'], config.rpn_samples,
+                          config.rpn_pos_fraction, all_sum)
+    proposals, _, prop_valid = RPN.rpn_proposals(
+        [s.detach() for s in scores], [d.detach() for d in deltas], level_anchors,
+        batch['img_hw'], nms_pre=config.rpn_train_nms_pre, max_per_img=config.rpn_train_max)
+
+    # --- RCNN sampling (add_gt_as_proposals) -------------------------------
+    rois, labels, reg_targets, sel_valid, is_pos, roi_gt_idx = _sample_rcnn(
+        config, draws['rcnn'], torch.cat([gt_boxes, proposals.to(gt_boxes.dtype)], 1),
+        torch.cat([gt_valid, prop_valid], 1), gt_boxes, gt_valid, batch['gt_labels'])
+
+    # ONE RoIAlign over the RCNN, object and block RoIs (one gather, and one
+    # scatter-add in its backward)
+    r, o = config.rcnn_samples, batch['object_boxes'].shape[1]
+    all_rois = [rois, batch['object_boxes']]
+    if config.with_block:
+        all_rois.append(batch['block_boxes'])
+    packed = RA.roi_align_fpn(pyramid, torch.cat(all_rois, 1))  # (B, R, C, 7, 7)
+
+    sel_f, pos_f, labels_f = sel_valid.reshape(-1), is_pos.reshape(-1), labels.reshape(-1)
+    cls_logits, reg, _, new_stats['bbox_head'] = H.convfc_forward_train(
+        params['bbox_head'], stats['bbox_head'], packed[:, :r].flatten(0, 1), config.bbox_head,
+        sel_f, all_sum)
+    n_samples = sel_f.sum().float()
+    n_samples = (n_samples if all_sum is None else all_sum(n_samples)).clamp(min=1.0)
+    losses['loss_cls'] = L.softmax_cross_entropy(cls_logits, labels_f, sel_f.float(), n_samples)
+    losses['acc'] = ((cls_logits.argmax(-1) == labels_f) & sel_f).sum() / n_samples * 100.0
+    losses['loss_bbox'] = ((reg.float() - reg_targets.reshape(-1, 4)).abs().sum(-1)
+                           * pos_f.float()).sum() / n_samples
+
+    # --- mask head (LVIS instance segmentation) -----------------------------
+    if config.with_mask:
+        mc = config.mask_head
+        mask_feats = RA.roi_align_fpn(pyramid, rois, out_size=mc.roi_size)
+        targets = torch.stack([
+            rasterize_in_boxes(batch['gt_polygons'][i], roi_gt_idx[i], rois[i], mc.mask_size)
+            for i in range(b)])
+        logits = MH.mask_head_forward(params['mask_head'], mask_feats.flatten(0, 1))
+        losses['loss_mask'] = MH.mask_loss(logits, targets.flatten(0, 1), pos_f, all_sum)
+
+    # --- object head distillation -------------------------------------------
+    obj_mask = batch['object_valid'].reshape(-1)
+    _, _, obj_proj, new_stats['object_head'] = H.convfc_forward_train(
+        params['object_head'], stats['object_head'], packed[:, r:r + o].flatten(0, 1),
+        config.object_head, obj_mask, all_sum)
+    losses['loss_clip_objects'] = L.l1_loss(
+        obj_proj, batch['clip_objects'].flatten(0, 1), obj_mask, all_sum,
+    ) * L.warmup_weight(step, config.objects_gain, config.objects_warmup)
+
+    # --- block head -----------------------------------------------------------
+    if config.with_block:
+        blk_mask = batch['block_valid'].reshape(-1)
+        blk_logits, _, blk_proj, new_stats['block_head'] = H.convfc_forward_train(
+            params['block_head'], stats['block_head'], packed[:, r + o:].flatten(0, 1),
+            config.block_head, blk_mask, all_sum)
+        blk_targets = batch['block_labels'].flatten(0, 1)
+        clip_blocks = batch['clip_blocks'].flatten(0, 1)
+        losses['loss_block'] = L.asymmetric_loss(
+            torch.sigmoid(blk_logits[:, :-1]), blk_targets, blk_mask, gamma_neg=4, gamma_pos=0,
+            all_sum=all_sum,
+        ) * L.warmup_weight(step, config.block_loss_gain, config.block_loss_warmup)
+        losses['recall_block'] = L.multilabel_topk_recall(
+            coll.gather(blk_logits[:, :-1].detach()), coll.gather(blk_targets),
+            config.block_topk, coll.gather(blk_mask)) / coll.world
+        losses['loss_clip_blocks'] = L.l1_loss(
+            blk_proj, clip_blocks, blk_mask, all_sum,
+        ) * L.warmup_weight(step, config.blocks_gain, config.blocks_warmup)
+        losses['loss_clip_block_relations'] = L.rkd_loss(
+            coll.gather(blk_proj), coll.gather(clip_blocks), coll.gather(blk_mask),
+        ) / coll.world * L.warmup_weight(step, config.blocks_rkd_gain, config.blocks_warmup)
+
+    # --- global head ------------------------------------------------------------
+    if config.with_global:
+        g_logits, g_proj = H.global_head_forward(params['global_head'], pyramid,
+                                                 config.global_cls, train=True)
+        hot = torch.nn.functional.one_hot(
+            batch['gt_labels'].long().clamp(0, config.num_all - 1), config.num_all)
+        g_targets = (hot.bool() & gt_valid[..., None]).any(1)
+        losses['loss_global'] = L.asymmetric_loss(
+            torch.sigmoid(g_logits), g_targets, None, gamma_neg=4, gamma_pos=0,
+            all_sum=all_sum,
+        ) * L.warmup_weight(step, config.global_loss_gain, config.global_loss_warmup)
+        losses['recall_global'] = L.multilabel_topk_recall(
+            coll.gather(g_logits.detach()), coll.gather(g_targets), config.global_topk,
+        ) / coll.world
+        losses['loss_clip_global'] = L.mse_loss(
+            g_proj, batch['clip_global'], reduction='sum',
+        ) * L.warmup_weight(step, config.global_distill_gain, config.global_distill_warmup)
+    return losses, new_stats
 
 
 def simple_test(

@@ -1,18 +1,22 @@
 """Feature Pyramid Network in PyTorch, NCHW (port of
-``oadp_tpu/models/fpn.py``, inference path).
+``oadp_tpu/models/fpn.py``).
 
 mmdet's ``FPN`` as the DP configs set it: 1x1 lateral convs, nearest 2x
 top-down upsampling, 3x3 output convs, each followed by batch norm (the
-ViLD overlay), no activations, and P6 as a stride-2 1x1 max pool of P5.
+ViLD overlay's SyncBN), no activations, and P6 as a stride-2 1x1 max pool
+of P5. :func:`fpn_forward` runs the batch norms on their running
+statistics, :func:`fpn_forward_train` on the batch's.
 """
 
-__all__ = ['init_fpn_params', 'fpn_forward', 'convert_torch_fpn']
+__all__ = ['init_fpn_params', 'fpn_forward', 'fpn_forward_train', 'convert_torch_fpn']
 
 from typing import Any
 
 import torch
 
-from .layers import batch_norm, conv, init_bn, init_conv, max_pool, state_tensor
+from .layers import (
+    batch_norm, batch_norm_train, conv, init_bn, init_conv, max_pool, state_tensor,
+)
 
 Params = dict[str, Any]
 
@@ -40,24 +44,44 @@ def _upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
-def fpn_forward(
-    params: Params, stats: Params, feats: list[torch.Tensor], num_outs: int = 5,
-) -> list[torch.Tensor]:
-    """``[C2..C5]`` (NCHW) to ``[P2..P6]``."""
+def _fpn(params: Params, stats: Params, feats: list[torch.Tensor], num_outs: int, norm
+         ) -> tuple[list[torch.Tensor], Params]:
+    """``norm(x, p, s) -> (y, new_s)`` after every conv."""
+    new_stats: Params = {'laterals': [], 'outputs': []}
     laterals = []
     for i, f in enumerate(feats):
-        x = conv(f, params['laterals'][i]['conv'])
-        laterals.append(batch_norm(x, params['laterals'][i]['bn'],
-                                   stats['laterals'][i]['bn']))
+        x, s = norm(conv(f, params['laterals'][i]['conv']), params['laterals'][i]['bn'],
+                    stats['laterals'][i]['bn'])
+        laterals.append(x)
+        new_stats['laterals'].append({'bn': s})
     for i in range(len(feats) - 1, 0, -1):
         laterals[i - 1] = laterals[i - 1] + _upsample_nearest_2x(laterals[i])
     outs = []
     for i, x in enumerate(laterals):
-        y = conv(x, params['outputs'][i]['conv'], padding=1)
-        outs.append(batch_norm(y, params['outputs'][i]['bn'], stats['outputs'][i]['bn']))
+        y, s = norm(conv(x, params['outputs'][i]['conv'], padding=1),
+                    params['outputs'][i]['bn'], stats['outputs'][i]['bn'])
+        outs.append(y)
+        new_stats['outputs'].append({'bn': s})
     while len(outs) < num_outs:
         outs.append(max_pool(outs[-1], 1, 2, 0))
-    return outs
+    return outs, new_stats
+
+
+def fpn_forward(
+    params: Params, stats: Params, feats: list[torch.Tensor], num_outs: int = 5,
+) -> list[torch.Tensor]:
+    """``[C2..C5]`` (NCHW) to ``[P2..P6]``."""
+    return _fpn(params, stats, feats, num_outs, lambda x, p, s: (batch_norm(x, p, s), s))[0]
+
+
+def fpn_forward_train(
+    params: Params, stats: Params, feats: list[torch.Tensor], num_outs: int = 5,
+    all_sum=None,
+) -> tuple[list[torch.Tensor], Params]:
+    """``([P2..P6], new_stats)`` with train-mode batch norms (statistics of
+    the global batch when ``all_sum`` sums over processes)."""
+    return _fpn(params, stats, feats, num_outs,
+                lambda x, p, s: batch_norm_train(x, p, s, all_sum=all_sum))
 
 
 def convert_torch_fpn(

@@ -1,14 +1,19 @@
 """RoI heads and text-embedding classifiers of the DP detector (port of
-``oadp_tpu/models/heads.py``, inference path).
+``oadp_tpu/models/heads.py``).
 
 * :func:`classifier_forward`: a normalized linear projection, cosine logits
   against frozen CLIP text embeddings (+ a background embedding), then
   the ViLD temperature (``'vild'``) or a scaler and bias (``'affine'``).
-* :func:`convfc_forward`: mmdet's ``Shared{2FC,4Conv1FC}BBoxHead`` towers
-  (eval-mode batch norm). RoI features are ``(R, C, roi, roi)`` and are
-  flattened (C, H, W) as torch flattens them, so the first fc's rows are
-  in that order (``oadp_tpu`` flattens (H, W, C);
-  ``models/detector.py:from_jax_params`` permutes its rows).
+  In train mode the novel columns are ``NEG_INF`` and ``'vild'`` divides by
+  ``scaler_train``. The text embeddings never take a gradient, nor does a
+  ``freeze_bg`` background (both detached). Logits stay fp32: a novel
+  logit of ``-1e10 / 0.007`` goes through ``log_softmax`` unharmed.
+* :func:`convfc_forward` / :func:`convfc_forward_train`: mmdet's
+  ``Shared{2FC,4Conv1FC}BBoxHead`` towers, their batch norms on the running
+  statistics or on the batch's (over the valid RoI rows only). RoI features
+  are ``(R, C, roi, roi)`` and are flattened (C, H, W) as torch flattens
+  them, so the first fc's rows are in that order (``oadp_tpu`` flattens
+  (H, W, C); ``models/detector.py:from_jax_params`` permutes its rows).
 * :func:`global_head_forward`: mean-pooled last FPN level -> classifier.
 
 Linear weights are ``(in, out)``, as in ``oadp_tpu``.
@@ -21,6 +26,7 @@ __all__ = [
     'HeadConfig',
     'init_convfc_head',
     'convfc_forward',
+    'convfc_forward_train',
     'init_global_head',
     'global_head_forward',
     'convert_torch_convfc_head',
@@ -33,7 +39,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from .layers import batch_norm, conv, init_bn, init_conv, normal, state_tensor, uniform
+from .layers import (
+    batch_norm, batch_norm_train, conv, init_bn, init_conv, normal, state_tensor, uniform,
+)
 
 Params = dict[str, Any]
 NEG_INF = -1e10
@@ -77,18 +85,22 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def classifier_forward(
-    params: Params, x: torch.Tensor, config: ClassifierConfig,
+    params: Params, x: torch.Tensor, config: ClassifierConfig, train: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits (N, K[+1]), projection (N, D))``, the projection
-    L2-normalized in fp32 (eval mode: ``scaler_val`` for ``'vild'``)."""
+    """Returns ``(logits (N, K[+1]), projection (N, D))``, both fp32, the
+    projection L2-normalized."""
     proj = x @ params['linear']['w'].to(x.dtype) + params['linear']['b'].to(x.dtype)
     proj = _l2_normalize(proj.float())
-    emb = params['embeddings']
+    emb = params['embeddings'].detach()
     if 'bg' in params:
-        emb = torch.cat([emb, _l2_normalize(params['bg'])])
+        bg = params['bg'].detach() if config.freeze_bg else params['bg']
+        emb = torch.cat([emb, _l2_normalize(bg)])
     logits = proj @ emb.T
+    if train:
+        k = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where((k >= config.num_bases) & (k < config.num_all), NEG_INF, logits)
     if config.mode == 'vild':
-        logits = logits / config.scaler_val
+        logits = logits / (config.scaler_train if train else config.scaler_val)
     elif config.mode == 'affine':
         logits = logits * config.scaler - config.bias
     return logits, proj
@@ -135,23 +147,44 @@ def init_convfc_head(
     return params, stats
 
 
-def convfc_forward(
-    params: Params, stats: Params, x: torch.Tensor, config: HeadConfig,
-) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
-    """``x (R, C, roi, roi)`` -> ``(cls_logits, reg_deltas | None,
-    projection)``."""
+def _convfc(params: Params, stats: Params, x: torch.Tensor, config: HeadConfig,
+            train: bool, norm) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, Params]:
+    """``norm(x, p, s) -> (y, new_s)`` after every conv."""
+    new_stats: Params = {'convs': []}
     for p, s in zip(params['convs'], stats['convs']):
-        x = F.relu(batch_norm(conv(x, p['conv'], padding=1), p['bn'], s['bn']))
+        x, ns = norm(conv(x, p['conv'], padding=1), p['bn'], s['bn'])
+        new_stats['convs'].append({'bn': ns})
+        x = F.relu(x)
     x = x.reshape(x.shape[0], -1)  # (C, H, W) flatten
     for p in params['fcs']:
         x = F.relu(x @ p['w'].to(x.dtype) + p['b'].to(x.dtype))
-    logits, proj = classifier_forward(params['cls'], x, config.classifier)
+    logits, proj = classifier_forward(params['cls'], x, config.classifier, train)
     if config.suppress_bg_logit:
         logits = torch.cat([logits[:, :-1], torch.full_like(logits[:, -1:], NEG_INF)], 1)
     reg = None
     if 'reg' in params:
         reg = x @ params['reg']['w'].to(x.dtype) + params['reg']['b'].to(x.dtype)
-    return logits, reg, proj
+    return logits, reg, proj, new_stats
+
+
+def convfc_forward(
+    params: Params, stats: Params, x: torch.Tensor, config: HeadConfig,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """``x (R, C, roi, roi)`` -> ``(cls_logits, reg_deltas | None,
+    projection)``, eval mode."""
+    return _convfc(params, stats, x, config, False,
+                   lambda y, p, s: (batch_norm(y, p, s), s))[:3]
+
+
+def convfc_forward_train(
+    params: Params, stats: Params, x: torch.Tensor, config: HeadConfig,
+    valid: torch.Tensor | None = None, all_sum=None,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, Params]:
+    """Train mode: ``(cls_logits, reg_deltas | None, projection,
+    new_stats)``; the batch norms' statistics over the rows that ``valid``
+    marks (of the global batch when ``all_sum`` sums over processes)."""
+    return _convfc(params, stats, x, config, True,
+                   lambda y, p, s: batch_norm_train(y, p, s, mask=valid, all_sum=all_sum))
 
 
 def init_global_head(
@@ -161,10 +194,10 @@ def init_global_head(
 
 
 def global_head_forward(
-    params: Params, feats: list[torch.Tensor], config: ClassifierConfig,
+    params: Params, feats: list[torch.Tensor], config: ClassifierConfig, train: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean-pool the last FPN map (NCHW) -> classifier."""
-    return classifier_forward(params['cls'], feats[-1].mean(dim=(2, 3)), config)
+    return classifier_forward(params['cls'], feats[-1].mean(dim=(2, 3)), config, train)
 
 
 def convert_torch_convfc_head(

@@ -4,8 +4,9 @@ norm and max pooling (port of ``oadp_tpu/models/layers.py``).
 Conventions: activations are NCHW, convolution kernels OIHW (PyTorch's
 ``Conv2d`` layout), parameters and batch-norm statistics are plain dicts of
 tensors with ``oadp_tpu``'s keys (``w``/``b``, ``scale``/``bias``,
-``mean``/``var``). Only eval-mode batch norm is here: the inference path
-never updates running statistics. Random init draws from a
+``mean``/``var``). Batch norm comes in two forms: :func:`batch_norm` on the
+running statistics, and :func:`batch_norm_train` on the batch's, which
+returns the new running statistics. Random init draws from a
 ``torch.Generator`` (not ``oadp_tpu``'s draws); shapes and bounds are
 ``oadp_tpu``'s.
 """
@@ -16,6 +17,7 @@ __all__ = [
     'conv',
     'init_conv',
     'batch_norm',
+    'batch_norm_train',
     'init_bn',
     'max_pool',
 ]
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch default
 
 
 def state_tensor(value) -> torch.Tensor:
@@ -82,6 +85,47 @@ def batch_norm(
     inv = torch.rsqrt(stats['var'] + eps) * p['scale'].float()
     out = (x.float() - stats['mean'].reshape(shape)) * inv.reshape(shape)
     return (out + p['bias'].float().reshape(shape)).to(x.dtype)
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    p: Params,
+    stats: Params,
+    mask: torch.Tensor | None = None,
+    all_sum=None,
+    momentum: float = BN_MOMENTUM,
+    eps: float = BN_EPS,
+) -> tuple[torch.Tensor, Params]:
+    """Train-mode batch norm over dim 1: normalises with the batch's
+    statistics (biased variance, fp32) and returns ``(out, new_stats)``, the
+    running statistics moved by ``momentum`` towards the batch mean and the
+    unbiased variance, as torch's ``BatchNorm`` moves them.
+
+    ``mask`` (bool over dim 0) leaves padded rows out of the statistics
+    (mmdet never pads RoI batches). ``all_sum`` sums the per-channel sums and
+    the count over the processes of a run before each division, so that the
+    statistics are those of the global batch (mmcv ``SyncBN``; ``oadp_tpu``
+    gets them from one program over its mesh)."""
+    xf = x.float()
+    dims = [0] + list(range(2, x.ndim))
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    total = (lambda t: t) if all_sum is None else all_sum
+    if mask is None:
+        m = None
+        n = xf.new_tensor(float(xf.numel() // xf.shape[1]))
+    else:
+        m = mask.reshape((-1,) + (1,) * (x.ndim - 1)).float()
+        n = m.sum() * float(torch.Size(x.shape[2:]).numel())
+    n = total(n).clamp(min=1.0)
+    mean = total((xf if m is None else xf * m).sum(dims)) / n
+    sq = (xf - mean.reshape(shape)).square()
+    var = total((sq if m is None else sq * m).sum(dims)) / n
+    unbiased = var * n / (n - 1).clamp(min=1.0)
+    new_stats = {'mean': (1 - momentum) * stats['mean'] + momentum * mean.detach(),
+                 'var': (1 - momentum) * stats['var'] + momentum * unbiased.detach()}
+    inv = torch.rsqrt(var + eps) * p['scale'].float()
+    out = (xf - mean.reshape(shape)) * inv.reshape(shape) + p['bias'].float().reshape(shape)
+    return out.to(x.dtype), new_stats
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Class-agnostic FCN mask head (port of ``oadp_tpu/models/mask_head.py``,
-inference path; the loss comes with training).
+"""Class-agnostic FCN mask head and its loss (port of
+``oadp_tpu/models/mask_head.py``).
 
 mmdet's ``FCNMaskHead`` as the OV-LVIS config sets it: 4 x (3x3 conv 256 +
 ReLU), a 2x transposed-conv upsample + ReLU, 1x1 logits, one mask channel,
-28 x 28 masks from 14 x 14 RoI features. The upsample keeps
+28 x 28 masks from 14 x 14 RoI features; the loss is the per-pixel BCE over
+the positive RoIs. The upsample keeps
 ``ConvTranspose2d``'s ``(in, out, kH, kW)`` weight layout.
 """
 
@@ -11,6 +12,7 @@ __all__ = [
     'MaskHeadConfig',
     'init_mask_head',
     'mask_head_forward',
+    'mask_loss',
     'convert_torch_mask_head',
 ]
 
@@ -20,6 +22,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..base.losses import binary_cross_entropy
 from .layers import conv, init_conv, state_tensor
 
 Params = dict[str, Any]
@@ -56,6 +59,21 @@ def mask_head_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
     up = F.conv_transpose2d(x, params['upsample']['w'].to(x.dtype), stride=2)
     x = F.relu(up + params['upsample']['b'].to(x.dtype)[:, None, None])
     return conv(x, params['logits'])[:, 0]
+
+
+def mask_loss(
+    logits: torch.Tensor,  # (R, m, m)
+    targets: torch.Tensor,  # (R, m, m) float 0/1
+    pos_mask: torch.Tensor,  # (R,)
+    all_sum=None,
+) -> torch.Tensor:
+    """mmdet's mask CE: the per-pixel BCE averaged over the pixels and the
+    positive RoIs (of every process, with ``all_sum``)."""
+    weights = pos_mask[:, None, None].float().expand(logits.shape)
+    n_pos = pos_mask.sum().float()
+    n_pos = (n_pos if all_sum is None else all_sum(n_pos)).clamp(min=1.0)
+    return binary_cross_entropy(logits, targets, weights,
+                                n_pos * (logits.shape[1] * logits.shape[2]))
 
 
 def convert_torch_mask_head(state: dict, prefix: str = 'roi_head.mask_head.') -> Params:

@@ -1,12 +1,14 @@
-"""ResNet-50 backbone in PyTorch, NCHW (port of ``oadp_tpu/models/resnet.py``,
-inference path).
+"""ResNet-50 backbone in PyTorch, NCHW (port of ``oadp_tpu/models/resnet.py``).
 
 mmdet's ``ResNet`` as the DP configs set it: depth 50, four stages, all
 four outputs, ``style='pytorch'`` (stride in the 3x3 conv) or ``'caffe'``
 (stride in the first 1x1), ``norm_eval=True`` (batch norm on its running
-statistics). Every convolution's eval-mode batch norm is folded into it
+statistics, in training too, while its affine trains) and
+``frozen_stages=1`` (the stem and stage 1 take no gradient: their parameters
+are detached). Every convolution's eval-mode batch norm is folded into it
 (:func:`_conv_bn_eval`). The paddings are explicit integers, as in
-``oadp_tpu``.
+``oadp_tpu``. Training with ``norm_eval=False`` is not ported: no DP config
+sets it.
 
 :func:`convert_torch_resnet` reads a torchvision / mmdet ``backbone.*``
 state dict straight into this tree (OIHW weights kept).
@@ -26,6 +28,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .clip import map_params
 from .layers import BN_EPS, conv, init_bn, init_conv, max_pool, state_tensor
 
 Params = dict[str, Any]
@@ -125,16 +128,24 @@ def resnet_forward(
     images: torch.Tensor,  # (B, 3, H, W) normalized
     config: ResNetConfig = ResNetConfig(),
 ) -> list[torch.Tensor]:
-    """Returns ``[C2, C3, C4, C5]`` (eval mode: ``norm_eval`` keeps every
-    BN on its running statistics)."""
-    x = _conv_bn_eval(images, params['stem']['conv'], params['stem']['bn'],
-                      stats['stem']['bn'], stride=2, padding=3)
+    """Returns ``[C2, C3, C4, C5]`` (``norm_eval``: every BN on its running
+    statistics). The stages up to ``frozen_stages`` read detached
+    parameters."""
+
+    def frozen(tree, stage: int):
+        if config.frozen_stages < stage:
+            return tree
+        return map_params(tree, torch.Tensor.detach)
+
+    stem = frozen(params['stem'], 0)
+    x = _conv_bn_eval(images, stem['conv'], stem['bn'], stats['stem']['bn'], stride=2,
+                      padding=3)
     x = max_pool(F.relu(x), 3, 2, 1)
     outs = []
     for i in range(4):
         name = f'layer{i + 1}'
         stride = 1 if i == 0 else 2
-        for b, (bp, bs) in enumerate(zip(params[name], stats[name])):
+        for b, (bp, bs) in enumerate(zip(frozen(params[name], i + 1), stats[name])):
             x = _bottleneck(x, bp, bs, stride if b == 0 else 1, config.style)
         outs.append(x)
     return outs

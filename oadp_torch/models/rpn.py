@@ -1,21 +1,26 @@
-"""RPN head: the conv tower and proposal generation (port of
-``oadp_tpu/models/rpn.py``, inference path; the loss comes with training).
+"""RPN head: the conv tower, its losses and proposal generation (port of
+``oadp_tpu/models/rpn.py``).
 
 mmdet's ``RPNHead``: 3x3 conv + ReLU, 1x1 sigmoid objectness, 1x1 deltas;
-proposals by per-level top-k, decode, clip, level-aware NMS (0.7) and the
-top ``max_per_img``. Per-level outputs are flattened in (y, x, a) order,
-``AnchorGenerator.grid_anchors``'s order, so the NCHW outputs are permuted
-to (B, H, W, A) first.
+anchor targets (pos 0.7, neg 0.3, min pos 0.3 with low-quality matches) and
+256 random samples at a positive fraction of 0.5, averaged per image and
+then over images; proposals by per-level top-k, decode, clip, level-aware
+NMS (0.7) and the top ``max_per_img``. Per-level outputs are flattened in
+(y, x, a) order, ``AnchorGenerator.grid_anchors``'s order, so the NCHW
+outputs are permuted to (B, H, W, A) first.
 """
 
-__all__ = ['init_rpn_params', 'rpn_forward', 'rpn_proposals', 'convert_torch_rpn']
+__all__ = ['init_rpn_params', 'rpn_forward', 'rpn_loss', 'rpn_proposals',
+           'convert_torch_rpn']
 
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.coder import clip_boxes, decode_deltas
+from ..base.losses import binary_cross_entropy
+from ..ops.assign import max_iou_assign, random_sample
+from ..ops.coder import clip_boxes, decode_deltas, encode_deltas
 from ..ops.nms import NEG_INF, batched_nms
 from .layers import conv, normal, state_tensor
 
@@ -52,6 +57,51 @@ def rpn_forward(
         scores.append(s.reshape(b, -1))
         deltas.append(d.reshape(b, -1, 4))
     return scores, deltas
+
+
+def _anchor_valid(anchors: torch.Tensor, img_hw: torch.Tensor) -> torch.Tensor:
+    """Anchors whose centres lie inside the resized image (not in the
+    canvas padding): mmdet generates anchors for the unpadded shape."""
+    cx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    cy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    return (cx < img_hw[1]) & (cy < img_hw[0])
+
+
+def rpn_loss(
+    draws: torch.Tensor,  # (B, N) uniform draws of the sampler
+    scores: list[torch.Tensor],  # per level (B, N_l)
+    deltas: list[torch.Tensor],  # per level (B, N_l, 4)
+    anchors: torch.Tensor,  # (N, 4) all levels concatenated
+    gt_boxes: torch.Tensor,  # (B, G, 4)
+    gt_valid: torch.Tensor,  # (B, G)
+    img_hw: torch.Tensor,  # (B, 2)
+    num_samples: int = 256,
+    pos_fraction: float = 0.5,
+    all_sum=None,
+) -> dict[str, torch.Tensor]:
+    """``loss_rpn_cls`` and ``loss_rpn_bbox``: each image's loss over its
+    sampled anchors, then the mean over images (``all_sum`` counts the
+    images of every process)."""
+    score = torch.cat(scores, 1)
+    delta = torch.cat(deltas, 1)
+    cls, reg = [], []
+    for i in range(score.shape[0]):
+        assigned = max_iou_assign(anchors, _anchor_valid(anchors, img_hw[i]), gt_boxes[i],
+                                  gt_valid[i], pos_iou_thr=0.7, neg_iou_thr=0.3,
+                                  min_pos_iou=0.3, match_low_quality=True)
+        inds, sel_valid, is_pos = random_sample(draws[i], assigned, num_samples, pos_fraction)
+        inds = inds.long()
+        sel_gt = gt_boxes[i][(assigned[inds] - 1).clamp(min=0).long()]
+        targets = encode_deltas(anchors[inds], sel_gt)
+        n_total = sel_valid.sum().float()
+        cls.append(binary_cross_entropy(score[i][inds], is_pos.float(), sel_valid.float(),
+                                        n_total))
+        reg.append(((delta[i][inds] - targets).abs().sum(-1) * is_pos.float()).sum()
+                   / n_total.clamp(min=1.0))
+    n = score.new_tensor(float(score.shape[0]), dtype=torch.float32)
+    n = n if all_sum is None else all_sum(n)
+    return {'loss_rpn_cls': torch.stack(cls).sum() / n,
+            'loss_rpn_bbox': torch.stack(reg).sum() / n}
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

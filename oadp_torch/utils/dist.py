@@ -1,18 +1,29 @@
-"""Process rank and world size for the OAKE per-rank interleave.
+"""Processes of a run: rank, world size, process-group set-up and the
+collectives of data-parallel training.
 
-The reference initializes an NCCL process group at the top of every
-entry point (``oadp/oake/base.py:122-126``); OAKE itself needs no
-collectives, only each process's rank and the process count to shard
-the image index space (``oadp_tpu/oake/base.py:153``). They come from
-``torch.distributed`` when a process group is initialised, else from the
-``RANK``/``WORLD_SIZE`` environment variables that ``torchrun`` sets,
-else a single process (0 of 1).
+The reference initializes an NCCL process group at the top of every entry
+point (``oadp/dp/train.py:61-63``, ``oadp/oake/base.py:122-126``).
+:func:`maybe_initialize_distributed` does so when ``torchrun``'s environment
+is set (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL for
+a run on the card, gloo on the CPU. ``oadp_tpu`` calls
+``jax.distributed.initialize`` instead.
+
+:func:`rank` and :func:`world_size` come from the process group when one is
+initialised, else from ``RANK``/``WORLD_SIZE``, else a single process (0 of
+1); the OAKE pipelines shard their image index space by them.
+
+:class:`Collective` holds the sums that make a data-parallel step equal to
+one step over the global batch, as ``oadp_tpu``'s one program over its mesh
+is: differentiable sums and gathers (the batch-norm statistics, the loss
+counts and the Gram matrix of the block distillation span every process),
+and the average of the gradients (what ``DistributedDataParallel`` does).
 """
 
-__all__ = ['rank', 'world_size']
+__all__ = ['rank', 'world_size', 'maybe_initialize_distributed', 'Collective']
 
 import os
 
+import torch
 import torch.distributed as dist
 
 
@@ -30,3 +41,70 @@ def world_size() -> int:
     if _initialized():
         return dist.get_world_size()
     return int(os.environ.get('WORLD_SIZE', 1))
+
+
+def maybe_initialize_distributed(device: torch.device) -> bool:
+    """Initialise the default process group from ``torchrun``'s environment
+    when it names more than one process (NCCL for ``cuda``, gloo
+    otherwise); a CUDA process takes the card ``LOCAL_RANK``. Returns
+    whether a process group is initialised."""
+    if _initialized():
+        return True
+    if int(os.environ.get('WORLD_SIZE', 1)) <= 1:
+        return False
+    if device.type == 'cuda':
+        torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
+    dist.init_process_group('nccl' if device.type == 'cuda' else 'gloo')
+    return True
+
+
+class Collective:
+    """The collectives of one data-parallel run over ``world`` processes
+    (the default process group); with one process each is the identity."""
+
+    def __init__(self, world: int = 1) -> None:
+        self.world = world
+
+    @classmethod
+    def of_run(cls) -> 'Collective':
+        return cls(world_size() if _initialized() else 1)
+
+    @property
+    def all_sum(self):
+        """:meth:`sum`, or None when there is nothing to sum over."""
+        return self.sum if self.world > 1 else None
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the processes; its gradient is the sum of
+        the processes' gradients."""
+        if self.world == 1:
+            return t
+        from torch.distributed.nn.functional import all_reduce
+        return all_reduce(t)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` concatenated along dim 0 in rank order,
+        differentiable. Each process writes its rows into its slot of a zero
+        buffer and the buffers are summed, so only ``all_reduce`` is needed
+        (gloo has no reduce-scatter for a gather's gradient)."""
+        if self.world == 1:
+            return t
+        if t.dtype == torch.bool:
+            return self.gather(t.to(torch.uint8)).bool()
+        slots = [torch.zeros_like(t)] * self.world
+        slots[rank()] = t
+        return self.sum(torch.cat(slots))
+
+    @torch.no_grad()
+    def average(self, tensors: list[torch.Tensor]) -> None:
+        """Average ``tensors`` (the gradients) over the processes in place,
+        as one flat buffer."""
+        if self.world == 1 or not tensors:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        flat /= self.world
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()

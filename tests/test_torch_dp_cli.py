@@ -2,8 +2,8 @@
 on the same synthetic data and the same mmdet-layout checkpoint
 (``chip_smoke.mmdet_state_dict`` at small widths, as ``model.pretrained``),
 ``DRY_RUN=1``, on the CPU: the same metrics dict and the same DUMP records.
-Also the CLI's refusals: no card without ``model.device='cpu'``, and a
-checkpoint other than ``none``."""
+Also the CLI's refusal of the default card where there is none, and a
+checkpoint of the port's trainer read in place of ``model.pretrained``."""
 
 import pathlib
 
@@ -119,9 +119,40 @@ def test_cuda_default_without_card_raises(dry_run):
         ttest.main([str(cfg), 'none'])
 
 
-def test_trained_checkpoint_not_yet_read(dry_run):
+def test_trained_checkpoint_not_yet_read(runs, dry_run, monkeypatch):
+    """(Named for the refusal it replaces: ``dp.test`` reads checkpoints of
+    the port's trainer now.) A checkpoint written by ``Trainer.save`` with
+    the params and statistics that ``model.pretrained`` gives, read through
+    ``latest.txt`` with no ``model.pretrained``: the same metrics as the
+    ``none`` run, and the same DUMP records bit for bit (the metrics of
+    random weights are 0 whatever the weights)."""
+    from oadp_torch.base import Globals, coco
     from oadp_torch.dp import test as ttest
+    from oadp_torch.dp.builder import build_detector
+    from oadp_torch.dp.trainer import Trainer, TrainState, sgd_init
+    from oadp_torch.utils import Config
 
-    _, cfg = dry_run
-    with pytest.raises(NotImplementedError, match='queue 1, item 4'):
-        ttest.main([str(cfg), 'work_dirs/oadp/iter_40000.pth', *CPU])
+    _, out = runs
+    root, cfg = dry_run
+    Globals.categories = coco
+    bundle = build_detector(Config.load(cfg).model, coco)
+    work = root / 'work_dirs' / 'saved'
+    work.mkdir(parents=True)
+    Trainer(bundle, Config(), None, work).save(
+        TrainState(bundle.params, bundle.stats, sgd_init(bundle.params), 5))
+    assert (work / 'ckpt_5.pth').exists()
+    # the config's own weights are random: only the checkpoint's can match
+    got = ttest.main([str(cfg), str(work / 'latest.txt'), *CPU, '.model.pretrained:None'])
+    want = out['torch']
+    assert set(got) == set(want) and 'COCO_48_17_bbox_mAP_50' in got
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 1e-9, (k, got[k], want[k])
+    monkeypatch.setenv('DUMP', str(root / 'dump_ckpt'))
+    assert ttest.main([str(cfg), str(work / 'latest.txt'), *CPU, '.model.pretrained:None']) == {}
+    want = sorted((root / 'dump_torch').glob('*.pth'))
+    got = sorted((root / 'dump_ckpt').glob('*.pth'))
+    assert [p.name for p in got] == [p.name for p in want] and len(got) == 3
+    for g, w in zip(got, want):
+        rg, rw = load_pth(g), load_pth(w)
+        for k in rw:
+            np.testing.assert_array_equal(np.asarray(rg[k]), np.asarray(rw[k]), err_msg=k)

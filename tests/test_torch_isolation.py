@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``oadp_torch`` nor ``chip_smoke.py``
-imports ``jax``, ``oadp_tpu`` or ``regex``, and the CLI and evaluator
-modules import in a process where none of them can be imported at all."""
+imports ``jax``, ``oadp_tpu`` or ``regex``, and the CLI, evaluator and
+trainer modules import in a process where none of them can be imported at
+all."""
 
 import ast
 import pathlib
@@ -39,7 +40,8 @@ def test_cli_modules_import_without_jax():
         "import oadp_torch.oake.objects, oadp_torch.oake.globals, oadp_torch.oake.blocks, "
         "oadp_torch.prompts.vild, oadp_torch.prompts.detpro, oadp_torch.dp.coco_eval, "
         "oadp_torch.dp.lvis_eval, oadp_torch.dp.test, oadp_torch.dp.evaluator, "
-        "oadp_torch.models.detector, chip_smoke; "
+        "oadp_torch.models.detector, oadp_torch.dp.train, oadp_torch.dp.trainer, "
+        "oadp_torch.dp.synthetic, oadp_torch.base.losses, oadp_torch.ops.assign, chip_smoke; "
         "print('ok')" % (FORBIDDEN,)
     )
     out = subprocess.run(
