@@ -211,7 +211,10 @@ def build_train_step(
                 losses['loss_clip_global'] = losses['loss_clip_global'] / world
             total = sum(v for k, v in losses.items() if k.startswith('loss'))
             grads = _gradients(total * coll.world, leaves)
-        coll.average([g for g in grads if g is not None])
+        # an unused leaf's None becomes zeros: every process averages the
+        # same list of tensors
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        coll.average(grads)
         it = iter(grads)
         grad_tree = _like(params, [next(it) if t else None for t in flags])
         lr = lr_at(step, base_lr, milestones, warmup_iters, warmup_ratio)

@@ -172,8 +172,9 @@ def test_forward_train_losses(case):
     (losses, _, _), (want, _, _), _ = _forward(case)
     assert set(losses) == set(want)
     for k in want:
-        if k in ('acc',) or k.startswith('recall'):
-            assert float(losses[k]) == pytest.approx(float(want[k]), abs=1e-4), k
+        if k == 'acc' or k.startswith('recall'):
+            # counts, equal but for the fp32 rounding of the macro sum's order
+            assert float(losses[k]) == pytest.approx(float(want[k]), rel=1e-6), k
         else:
             rel_close(losses[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
     assert float(losses['loss_cls'].detach()) > 0 and float(losses['loss_rpn_cls'].detach()) > 0
