@@ -272,7 +272,7 @@ class _Loader:
             yield dict(self.batches[i])
 
 
-def _fit(work, max_iters, resume=None):
+def _trainer(work, schedule: dict, evaluator=None):
     from oadp_torch.dp.builder import DetectorBundle
     from oadp_torch.utils import Config
 
@@ -283,12 +283,41 @@ def _fit(work, max_iters, resume=None):
     params, stats = tdet.init_detector(torch.Generator().manual_seed(0), cfg, emb)
     trainer_cfg = Config(dict(
         optimizer=dict(lr=0.02, paramwise=dict(bbox_head=dict(lr_mult=0.5))),
+        log_config=dict(interval=1), seed=5, **schedule))
+    return ttrainer.Trainer(DetectorBundle(cfg, params, stats), trainer_cfg, _Loader(3), work,
+                            evaluator=evaluator)
+
+
+def _fit(work, max_iters, resume=None):
+    trainer = _trainer(work, dict(
         lr_config=dict(by_epoch=False, step=[3], warmup_iters=2),
         runner=dict(type='IterBasedRunner', max_iters=max_iters),
-        log_config=dict(interval=1), checkpoint_config=dict(by_epoch=False, interval=2),
-        evaluation=dict(interval=10 ** 9), seed=5))
-    trainer = ttrainer.Trainer(DetectorBundle(cfg, params, stats), trainer_cfg, _Loader(3), work)
+        checkpoint_config=dict(by_epoch=False, interval=2), evaluation=dict(interval=10 ** 9)))
     return trainer.fit(None if resume is None else ttrainer.Trainer.restore(resume))
+
+
+def test_epoch_based_hooks(tmp_path):
+    """An epoch-based run (3 batches an epoch, 2 epochs): a checkpoint at
+    each epoch's end, the eval hook every epoch, the lr milestone counted
+    in epochs."""
+    calls = []
+
+    class Evaluator:
+        def run(self, params, stats):
+            calls.append(len(calls))
+            return {}
+
+    trainer = _trainer(tmp_path, dict(
+        lr_config=dict(by_epoch=True, step=[1], warmup_iters=1),
+        runner=dict(type='EpochBasedRunner', max_epochs=2),
+        checkpoint_config=dict(by_epoch=True, interval=1), evaluation=dict(interval=1)),
+        Evaluator())
+    assert trainer._milestone_iters(3) == (3,)
+    state = trainer.fit()
+    assert state.step == 6 and calls == [0, 1]
+    assert sorted(p.name for p in tmp_path.glob('ckpt_*.pth')) == ['ckpt_3.pth', 'ckpt_6.pth']
+    assert ttrainer.lr_at(2, 0.02, (3,), 1) == pytest.approx(0.02)
+    assert ttrainer.lr_at(3, 0.02, (3,), 1) == pytest.approx(0.002)
 
 
 def test_resume_is_bit_exact(tmp_path):
