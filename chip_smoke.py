@@ -1391,6 +1391,7 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_ITERS, RESUME_AT, TIMED_FROM = 20, 10, 5
+PROFILED = (14, 18)  # the resumed run's torch.profiler window [start, stop)
 TRAIN_STEP = 300  # the card-vs-CPU step: past the distillation warm-ups' start
 
 
@@ -1521,11 +1522,21 @@ def _log_lines(path: pathlib.Path) -> dict[int, dict]:
     return out
 
 
-def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=None):
+def _to_cpu(x):
+    """A tensor, or a list or tuple of them, on the CPU."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=None,
+              rpn_inputs=None):
     """One train step of ``bundle``'s params (copied) on ``device`` in
     ``dtype``: ``(losses, params before, params after, proposals)``, every
     sampled index set appended to ``captured``. ``proposals`` (the RPN's
-    output of another run) replaces this run's RPN proposals."""
+    output of another run) replaces this run's RPN proposals; otherwise
+    ``rpn_inputs`` (a list) takes the arguments of this run's
+    ``rpn_proposals`` call, on the CPU."""
     from oadp_torch.dp import builder as B
     from oadp_torch.dp import trainer as TR
     from oadp_torch.models import detector as DET
@@ -1553,6 +1564,8 @@ def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=N
         return out
 
     def props(*a, **k):
+        if proposals is None and rpn_inputs is not None:
+            rpn_inputs.append((_to_cpu(a), k))
         out = (rpn_proposals(*a, **k) if proposals is None
                else tuple(t.to(device) for t in proposals))
         kept.append([t.cpu() for t in out])
@@ -1568,6 +1581,38 @@ def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=N
         DET.random_sample = RPN.random_sample = sample
         RPN.rpn_proposals = rpn_proposals
     return losses, before, params, kept[0]
+
+
+def _proposal_diff(cpu_props, card_props, cpu_in, card_in) -> dict:
+    """The card's own RPN proposals against the CPU's (rows equal within
+    1e-3, valid flags) and what sets them apart: the two devices' largest
+    objectness difference over all anchors, the score gap between the two
+    sides' proposals at each differing row, whether the card's proposal of
+    such a row is elsewhere among the CPU's, and a replay of the CPU's
+    ``rpn_proposals`` on the card's own inputs against the card's output."""
+    from oadp_torch.models import rpn as RPN
+
+    def rows(a, b):
+        return (a[0] - b[0]).abs().amax(-1) <= 1e-3
+
+    same = rows(card_props, cpu_props)
+    replay = RPN.rpn_proposals(*card_in[0], **card_in[1])
+    replay_same = rows(replay, card_props)
+    noise = max(float((torch.sigmoid(a.double()) - torch.sigmoid(b.double())).abs().max())
+                for a, b in zip(cpu_in[0][0], card_in[0][0]))
+    diff = []
+    for b, r in (~same).nonzero().tolist():
+        card_box = card_props[0][b, r]
+        diff.append(dict(
+            row=r, card_score=float(card_props[1][b, r]), cpu_score=float(cpu_props[1][b, r]),
+            score_gap=abs(float(card_props[1][b, r]) - float(cpu_props[1][b, r])),
+            card_box_among_cpu=bool(((cpu_props[0][b] - card_box).abs().amax(-1)
+                                     <= 1e-3).any())))
+    return dict(rows_equal=int(same.sum()), rows=int(same.numel()),
+                valid_equal=bool(torch.equal(card_props[2], cpu_props[2])),
+                objectness_max_abs_diff=noise, differing_rows=diff,
+                replay_rows_equal=int(replay_same.sum()),
+                replay_valid_equal=bool(torch.equal(replay[2], card_props[2])))
 
 
 def _step_diff(want_losses, got_losses, want, got, flags) -> dict:
@@ -1605,11 +1650,14 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
     width on phase 4's images and OAKE records, bf16: 20 iterations straight
     (checkpoints at 10 and 20; steps and stages timed with CUDA events from
     step 5; peak memory), a resume from the iteration-10 checkpoint to 20
-    (a ``torch.profiler`` window over 4 of its steps for the device's idle
-    share), ``python -m oadp_torch.dp.test`` on the trained checkpoint; the
-    launch counts at 0 before and after. Then RoIAlign forward and backward
-    at the step's shapes, and one step (fp32, TF32 off) on the card against
-    the CPU from the same params, image and draws, and in bf16."""
+    whose logged losses are held to the straight run's (a ``torch.profiler``
+    window over 4 of its steps for the device's idle share),
+    ``python -m oadp_torch.dp.test`` on the trained checkpoint; the launch
+    counts at 0 before and after. Then RoIAlign forward and backward at the
+    step's shapes, and one step (fp32, TF32 off) on the card against the CPU
+    from the same params, image and draws (the RCNN side on the CPU's
+    proposals; the card's own proposals held to the CPU's and to the CPU's
+    proposal code replayed on the card's RPN outputs), and in bf16."""
     import os
 
     from oadp_torch.base import coco, lvis
@@ -1668,12 +1716,18 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
         TR._start_profiler, TR._stop_profiler = start, stop
         try:
             t0 = time.perf_counter()
-            resumed = dp_train.main([
-                'smoke_resumed', str(cfg_path), '--override',
-                f".trainer.resume_from:'{work / f'ckpt_{RESUME_AT}.pth'}'",
-                f".trainer.profile:{{'start': 14, 'stop': 18, 'dir': '{root / 'trace'}'}}"])
+            with _StepClock(()) as res_clock:
+                resumed = dp_train.main([
+                    'smoke_resumed', str(cfg_path), '--override',
+                    f".trainer.resume_from:'{work / f'ckpt_{RESUME_AT}.pth'}'",
+                    f".trainer.profile:{{'start': {PROFILED[0]}, 'stop': {PROFILED[1]}, "
+                    f"'dir': '{root / 'trace'}'}}"])
             torch.cuda.synchronize()
             resumed_s = time.perf_counter() - t0
+            # the profiled steps' CUDA-event times (the resumed run starts at
+            # RESUME_AT)
+            profiled_ms = [s.elapsed_time(e) for s, e in
+                           res_clock.steps[PROFILED[0] - RESUME_AT:PROFILED[1] - RESUME_AT]]
         finally:
             TR._start_profiler, TR._stop_profiler = start_prof, stop_prof
         captured = {}
@@ -1712,6 +1766,19 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
         raise AssertionError(f'dp_train: resume at {resumed.step} with lr '
                              f'{[res_logs[s]["lr"] for s in (15, 20)]} against '
                              f'{[logs[s]["lr"] for s in (15, 20)]}')
+    # the resumed run's losses are the straight run's: params, momentum, the
+    # generator and the loader position restored (1e-3 rel for the card's
+    # atomic adds, 1e-4 abs for the log's 4 decimals)
+    resume_diff, bad = {}, {}
+    for s in (15, 20):
+        for k, want in logs[s].items():
+            if k == 'total' or k.startswith('loss'):
+                d = resume_diff[f'{k}@{s}'] = abs(res_logs[s][k] - want)
+                if d > 1e-3 * abs(want) + 1e-4:
+                    bad[f'{k}@{s}'] = (want, res_logs[s][k])
+    log(json.dumps({'dp_train_resume_abs_diff': resume_diff}))
+    if bad:
+        raise AssertionError(f'dp_train: resumed losses differ from the straight run: {bad}')
     cfg = Config.load(cfg_path)
     cfg.model.device = 'cpu'
     init = B.build_detector(cfg.model, coco, seed=0)
@@ -1739,12 +1806,18 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
     if 'COCO_48_17_bbox_mAP_50' not in metrics:
         raise AssertionError(f'dp.test on the trained checkpoint: {sorted(metrics)}')
 
-    # the device's idle share over the resumed run's profiled steps
+    # the device's idle share over the resumed run's profiled steps: against
+    # their wall (which holds the profiler's own host work), their CUDA-event
+    # times, and as many unprofiled median steps of the straight run
     prof = prof_box['prof']
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    window = dict(steps=4, wall_ms=prof_box['wall_ms'], device_busy_ms=busy_ms,
-                  device_idle_share=1 - busy_ms / prof_box['wall_ms'])
+    n_prof = PROFILED[1] - PROFILED[0]
+    window = dict(steps=n_prof, wall_ms=prof_box['wall_ms'], device_busy_ms=busy_ms,
+                  device_idle_share=1 - busy_ms / prof_box['wall_ms'],
+                  step_event_ms=profiled_ms,
+                  idle_share_of_step_events=1 - busy_ms / sum(profiled_ms),
+                  idle_share_of_unprofiled_median=1 - busy_ms / (n_prof * timing['ms_per_step']))
 
     # RoIAlign at the step's shapes: a bf16 pyramid of 2 landscape images and
     # 2 x (512 + 512 + 128) RoIs, forward and backward (the scatter-add)
@@ -1784,30 +1857,35 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device('cuda')
     samples = {'cpu': [], 'card': []}
+    rpn_in = {'cpu': [], 'card': []}
     t0 = time.perf_counter()
     cpu_losses, *cpu, cpu_props = _one_step(cfg, init, batch, draws, torch.device('cpu'),
-                                            torch.float32, samples['cpu'])
+                                            torch.float32, samples['cpu'],
+                                            rpn_inputs=rpn_in['cpu'])
     cpu_s = time.perf_counter() - t0
     # the card on the CPU's proposals: the RPN's scores sit in near-ties
     # (random weights), where rounding can reorder a few candidates before the
     # NMS; both sides' own proposals are compared apart
     card_losses, *card_run, card_props = _one_step(cfg, init, batch, draws, cuda, torch.float32,
                                                samples['card'], proposals=cpu_props)
-    free_losses, *free, free_props = _one_step(cfg, init, batch, draws, cuda, torch.float32, [])
+    free_losses, *free, free_props = _one_step(cfg, init, batch, draws, cuda, torch.float32, [],
+                                               rpn_inputs=rpn_in['card'])
     cmp = dict(samplers=len(samples['cpu']), samples_identical=len(samples['cpu']) == len(
         samples['card']) and all(torch.equal(a, b) for x, y in zip(samples['cpu'], samples['card'])
                                  for a, b in zip(x, y)), cpu_s=cpu_s,
                losses_cpu={k: float(v) for k, v in cpu_losses.items() if k != 'lr'},
                **_step_diff(cpu_losses, card_losses, cpu, card_run, flags))
-    same = (free_props[0] - cpu_props[0]).abs().amax(-1) <= 1e-3
-    cmp['own_proposals'] = dict(
-        rows_equal=int(same.sum()), rows=int(same.numel()),
-        valid_equal=bool(torch.equal(free_props[2], cpu_props[2])),
-        **{k: v for k, v in _step_diff(cpu_losses, free_losses, cpu, free, flags).items()
-           if k != 'loss_rel'})
+    cmp['own_proposals'] = _proposal_diff(cpu_props, free_props, rpn_in['cpu'][0],
+                                          rpn_in['card'][0])
+    cmp['own_proposals'].update(
+        {k: v for k, v in _step_diff(cpu_losses, free_losses, cpu, free, flags).items()
+         if k != 'loss_rel'})
     log(json.dumps({'dp_train_card_vs_cpu': cmp}))
+    own = cmp['own_proposals']
     if (not cmp['samples_identical'] or cmp['loss_max_rel'] > 1e-3
-            or cmp['update_min_cosine'] < 0.999):
+            or cmp['update_min_cosine'] < 0.999 or not own['valid_equal']
+            or own['rows_equal'] < 0.99 * own['rows'] or not own['replay_valid_equal']
+            or own['replay_rows_equal'] < 0.99 * own['rows']):
         raise AssertionError(f'dp_train card vs CPU: {cmp}')
     # bf16 on the card's fp32 proposals, against that fp32 step
     bf_losses, *bf, _ = _one_step(cfg, init, batch, draws, cuda, torch.bfloat16, [],
@@ -1861,7 +1939,8 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
                nms_calls_per_step=timing['nms_calls_per_step'], profiled=window,
                peak_memory_gb=peak_gb, roi_align=roi_align, straight_s=straight_s,
                resumed_s=resumed_s, test_s=test_s, test_detections=n_dets, test_metrics=metrics,
-               last_log=logs[TRAIN_ITERS], leaves=moves, card_vs_cpu=cmp, bf16_vs_fp32=bf16,
+               last_log=logs[TRAIN_ITERS], resume_max_abs_diff=max(resume_diff.values()),
+               leaves=moves, card_vs_cpu=cmp, bf16_vs_fp32=bf16,
                lvis_step=lvis_res,
                launches=launches, phase_s=time.perf_counter() - t_phase)
     return res

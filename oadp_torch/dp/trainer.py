@@ -44,6 +44,7 @@ import torch
 
 from ..models import detector as DET
 from ..models.clip import map_params
+from ..oake.encoders import resolve_device
 from ..utils import Collective, Config, logger, rank, world_size
 from . import datasets
 from .builder import DetectorBundle, canvas_anchors
@@ -168,8 +169,10 @@ def sgd_update(
 
 
 def _gradients(objective: torch.Tensor, leaves: list[torch.Tensor]) -> list:
-    """The backward pass: d objective / d leaf (None where unused)."""
-    return list(torch.autograd.grad(objective, leaves, allow_unused=True))
+    """The backward pass: d objective / d leaf (zeros where unused, so that
+    every process averages the same list of tensors)."""
+    return list(torch.autograd.grad(objective, leaves, allow_unused=True,
+                                    materialize_grads=True))
 
 
 def build_train_step(
@@ -211,9 +214,6 @@ def build_train_step(
                 losses['loss_clip_global'] = losses['loss_clip_global'] / world
             total = sum(v for k, v in losses.items() if k.startswith('loss'))
             grads = _gradients(total * coll.world, leaves)
-        # an unused leaf's None becomes zeros: every process averages the
-        # same list of tensors
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         coll.average(grads)
         it = iter(grads)
         grad_tree = _like(params, [next(it) if t else None for t in flags])
@@ -241,7 +241,8 @@ class TrainState:
 
 class Trainer:
     """Iteration- or epoch-based training with log, checkpoint and eval
-    hooks, on ``device``; with a process group, one data-parallel process
+    hooks, on ``device`` (the card unless the caller asks for the CPU; the
+    bundle is moved there); with a process group, one data-parallel process
     of the run (its loader holds its share of each global batch)."""
 
     def __init__(
@@ -252,16 +253,16 @@ class Trainer:
         work_dir,
         evaluator=None,
         bf16: bool = False,
-        device: torch.device | str = 'cpu',
+        device: torch.device | str = 'cuda',
         coll: Collective | None = None,
     ) -> None:
-        self.bundle = bundle
+        self.device = resolve_device(device)
+        self.bundle = bundle.to(self.device)
         self.cfg = trainer_cfg
         self.loader = train_loader
         self.work_dir = pathlib.Path(work_dir)
         self.evaluator = evaluator
         self.dtype = torch.bfloat16 if bf16 else torch.float32
-        self.device = torch.device(device)
         self.coll = coll or Collective.of_run()
 
         opt = trainer_cfg.get('optimizer', Config())

@@ -138,7 +138,7 @@ def test_trained_checkpoint_not_yet_read(runs, dry_run, monkeypatch):
     bundle = build_detector(Config.load(cfg).model, coco)
     work = root / 'work_dirs' / 'saved'
     work.mkdir(parents=True)
-    Trainer(bundle, Config(), None, work).save(
+    Trainer(bundle, Config(), None, work, device='cpu').save(
         TrainState(bundle.params, bundle.stats, sgd_init(bundle.params), 5))
     assert (work / 'ckpt_5.pth').exists()
     # the config's own weights are random: only the checkpoint's can match

@@ -272,7 +272,7 @@ class _Loader:
             yield dict(self.batches[i])
 
 
-def _trainer(work, schedule: dict, evaluator=None):
+def _trainer(work, schedule: dict, evaluator=None, device='cpu'):
     from oadp_torch.dp.builder import DetectorBundle
     from oadp_torch.utils import Config
 
@@ -285,7 +285,7 @@ def _trainer(work, schedule: dict, evaluator=None):
         optimizer=dict(lr=0.02, paramwise=dict(bbox_head=dict(lr_mult=0.5))),
         log_config=dict(interval=1), seed=5, **schedule))
     return ttrainer.Trainer(DetectorBundle(cfg, params, stats), trainer_cfg, _Loader(3), work,
-                            evaluator=evaluator)
+                            evaluator=evaluator, device=device)
 
 
 def _fit(work, max_iters, resume=None):
@@ -318,6 +318,24 @@ def test_epoch_based_hooks(tmp_path):
     assert sorted(p.name for p in tmp_path.glob('ckpt_*.pth')) == ['ckpt_3.pth', 'ckpt_6.pth']
     assert ttrainer.lr_at(2, 0.02, (3,), 1) == pytest.approx(0.02)
     assert ttrainer.lr_at(3, 0.02, (3,), 1) == pytest.approx(0.002)
+
+
+def test_trainer_defaults_to_the_card(tmp_path):
+    """``Trainer`` runs on the card unless asked for the CPU: without one it
+    raises rather than train on the CPU; asked for the CPU, it holds the
+    bundle there."""
+    from oadp_torch.utils import Config
+
+    trainer = _trainer(tmp_path, {})
+    assert trainer.device == torch.device('cpu')
+    assert all(p.device.type == 'cpu' for _, p in _items(trainer.bundle.params))
+    if torch.cuda.is_available():
+        trainer = ttrainer.Trainer(trainer.bundle, Config(), None, tmp_path)
+        assert trainer.device.type == 'cuda'
+        assert all(p.device.type == 'cuda' for _, p in _items(trainer.bundle.params))
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            ttrainer.Trainer(trainer.bundle, Config(), None, tmp_path)
 
 
 def test_resume_is_bit_exact(tmp_path):
