@@ -23,14 +23,16 @@ Phases, in order; any failure exits nonzero:
    rows with a large per-row mean and outlier columns, as CLIP residual
    streams carry;
 4. main path, each part with the launch counts set to 0 just before it
-   and checked just after: the OAKE objects, globals and blocks CLIs
-   (``oadp_torch.oake``) at full ViT-B/32 width (random weights from seed
-   0, bf16) on synthetic images with 1000 proposals each, every record
-   checked; the surgery encoder's split wiring (``objects_step`` on 999
-   crops: kernels 4 and 5 only) against its fused wiring on the same
-   crops (cosine >= 0.99) and timed beside it; CPU fp32 re-encodes of
-   crops, a whole image (globals) and blocks against the card (cosine
-   >= 0.99); images/s of a warm second run of each CLI;
+   and checked just after (12 launches of each of its kernels a
+   dispatch, every other kernel 0): the OAKE objects, globals and blocks
+   CLIs (``oadp_torch.oake``) at full ViT-B/32 width (random weights from
+   seed 0, bf16) on 4 synthetic images with 1000 proposals each, every
+   record checked; the surgery encoder's split wiring (``objects_step``
+   on 999 crops: kernels 4 and 5 only) against its fused wiring on the
+   first 1000 of the same crops (kernels 1 and 2; cosine >= 0.99), both
+   timed; CPU fp32 re-encodes of crops (fused and split), a whole image
+   (globals) and blocks against the card (cosine >= 0.99); images/s of a
+   warm second run of each CLI;
 5. ViLD prompts: a random fp16 CLIP checkpoint in the OpenAI layout (both
    towers at ViT-B/32 width, seed 0) and a synthetic merges file of a
    CLIP vocabulary's size, then the prompt CLI (``oadp_torch.prompts.vild``)
@@ -50,9 +52,11 @@ Phases, in order; any failure exits nonzero:
    ``python -m oadp_torch.dp.test`` with ``configs/dp/oadp_ov_coco.py`` at
    full width, phase 5's ``vild.pth`` as the prompts, fp32 (TF32 off),
    twice (images/s of the warm run, its evaluator loop and its COCO
-   evaluation apart), then with bf16 activations; every image's
-   detections checked (finite, inside the image, known labels, at most
-   300, scores descending) and the OV-COCO metric keys; OV-LVIS Mask
+   evaluation apart), then with bf16 activations, then once more fp32
+   with ``DUMP=<dir>`` (one logit record an image, each checked: phase
+   8's input); every image's detections checked (finite, inside the
+   image, known labels, at most 300, scores descending) and the OV-COCO
+   metric keys; OV-LVIS Mask
    R-CNN (``configs/dp/oadp_ov_lvis.py``, C = 1203) on 2 images with the
    LVIS bbox and segm evaluation, masks (300, 28, 28) in [0, 1];
    ``simple_test`` on one image by stage (CUDA events; backbone + FPN, RPN
@@ -87,10 +91,27 @@ Phases, in order; any failure exits nonzero:
    on the card against the CPU from the same params, image and draws, the
    card on the CPU's proposals: identical samples, losses within max rel
    1e-3 (above 1e-5), every trainable leaf's update with cosine >= 0.999;
-   the card on its own proposals and in bf16 are printed beside it. Last,
-   one OV-LVIS Mask R-CNN train step (``configs/dp/oadp_ov_lvis.py``, C =
-   1203, masks) on the card in bf16 on a synthetic batch at the LVIS train
-   batch's sizes: finite losses, every mask-head leaf moved.
+   the card on its own proposals and in bf16 are printed beside it. Then
+   one bf16 step with ``--override .model.backbone.norm_eval:False``:
+   finite losses, and the running statistics of every backbone stage
+   moved (the frozen stem and stage 1 too, as ``oadp_tpu`` trains them).
+   Last, one OV-LVIS Mask R-CNN train step (``configs/dp/oadp_ov_lvis.py``,
+   C = 1203, masks) on the card in bf16 on a synthetic batch at the LVIS
+   train batch's sizes: finite losses, every mask-head leaf moved;
+8. calibration, with the launch counts at 0 before it and checked at 0
+   after (no fused kernel is on this path): ``python -m
+   oadp_torch.dp.test_calibrate`` on the card over phase 6's 8 DUMP
+   records (C = 65 + background, 1000 proposals an image, 300
+   detections; its JSON line checked), ``python -m
+   oadp_torch.dp.calibrate_sweep`` for 5 TPE trials, and the card's
+   ``CalibrationRunner`` against the CPU's on the same records at the
+   defaults and two perturbed settings: identical labels, rows and valid
+   flags, scores within max rel 1e-5, equal OV-COCO metrics dicts. One
+   32-image ``rescore`` batch (the 8 records 4 times) timed with CUDA
+   events, its device time and idle share from ``torch.profiler``, its
+   NMS passes counted; the COCO evaluation's seconds for the 8 images;
+   an estimate (so labelled) of one trial over the 4,952 OV-COCO val
+   images. All of it on the ``calibration`` line.
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1126,7 +1147,10 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     OV-COCO width (fp32, twice: the second run warm) and OV-LVIS Mask
     R-CNN width, with every launch count at 0 before and after; the stages
     of one ``simple_test`` call timed; the card against the CPU on one
-    image; one bf16 pass against fp32."""
+    image; one bf16 pass against fp32. A third fp32 run writes DUMP records
+    (phase 8's input)."""
+    import os
+
     from oadp_torch.base import coco, lvis
     from oadp_torch.dp import builder as B
     from oadp_torch.dp import test as dp_test
@@ -1137,6 +1161,7 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     from oadp_torch.models import rpn as RPN
     from oadp_torch.ops import nms as NMS
     from oadp_torch.ops.coder import clip_boxes, decode_deltas
+    from oadp_torch.utils import load_pth
 
     repo = pathlib.Path(__file__).resolve().parent
     captured: dict = {}
@@ -1169,6 +1194,7 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
                                        DP_SIZES[:N_LVIS_IMAGES], seed=1, lvis=True)
     coco_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_coco.py'), root, coco_img,
                           coco_ann, prompts, ckpt)
+    dump_dir = root / 'dump'
     lvis_cfg = _dp_config(str(repo / 'configs/dp/oadp_ov_lvis.py'), root, lvis_img,
                           lvis_ann, prompts, ckpt)
 
@@ -1196,6 +1222,16 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
         torch.cuda.synchronize()
         bf16_wall = time.perf_counter() - t0
         bf16_results = captured['results']
+        # DUMP mode (fp32): the per-image logit records that phase 8
+        # calibrates
+        os.environ['DUMP'] = str(dump_dir)
+        try:
+            t0 = time.perf_counter()
+            dump_metrics = dp_test.main([str(coco_cfg), 'none'])
+            torch.cuda.synchronize()
+            dump_s = time.perf_counter() - t0
+        finally:
+            del os.environ['DUMP']
         lvis_walls = []
         for _ in range(2):
             captured.clear()
@@ -1217,6 +1253,21 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     coco_ds = CocoDetDataset(str(coco_ann), str(coco_img), coco, test_mode=True)
     lvis_ds = CocoDetDataset(str(lvis_ann), str(lvis_img), lvis, test_mode=True)
     res['coco_detections'] = _check_detections(coco_results, coco_ds, 300)
+    records = sorted(dump_dir.glob('*.pth'))
+    if dump_metrics != {} or [p.name for p in records] != [
+            f'{info["id"]:012d}.pth' for info in coco_ds.images]:
+        raise AssertionError(f'DUMP run: metrics {dump_metrics}, records {records}')
+    for path in records:
+        rec = load_pth(path)
+        n = len(rec['bboxes'])
+        if (sorted(rec) != ['bbox_logits', 'bboxes', 'object_logits', 'objectness']
+                or not 0 < n <= 1000 or rec['bbox_logits'].shape != (n, coco.num_all + 1)
+                or rec['object_logits'].shape != (n, coco.num_all + 1)
+                or not np.isfinite(rec['bboxes']).all()):
+            raise AssertionError(f'DUMP record {path.name}: '
+                                 f'{ {k: v.shape for k, v in rec.items()} }')
+    res.update(dump_records=len(records), dump_s=dump_s, dump_dir=str(dump_dir),
+               coco_config=str(coco_cfg))
     res['bf16_detections'] = _check_detections(bf16_results, coco_ds, 300)
     res['lvis_detections'] = _check_detections(lvis_results, lvis_ds, 300)
     for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
@@ -1530,13 +1581,14 @@ def _to_cpu(x):
 
 
 def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=None,
-              rpn_inputs=None):
+              rpn_inputs=None, stats_out=None):
     """One train step of ``bundle``'s params (copied) on ``device`` in
     ``dtype``: ``(losses, params before, params after, proposals)``, every
     sampled index set appended to ``captured``. ``proposals`` (the RPN's
     output of another run) replaces this run's RPN proposals; otherwise
     ``rpn_inputs`` (a list) takes the arguments of this run's
-    ``rpn_proposals`` call, on the CPU."""
+    ``rpn_proposals`` call, on the CPU. ``stats_out`` (a list) takes the
+    step's new batch-norm statistics."""
     from oadp_torch.dp import builder as B
     from oadp_torch.dp import trainer as TR
     from oadp_torch.models import detector as DET
@@ -1574,12 +1626,14 @@ def _one_step(config, bundle, batch, draws, device, dtype, captured, proposals=N
     DET.random_sample = RPN.random_sample = keep
     RPN.rpn_proposals = props
     try:
-        params, _, _, losses = step_fn(params, stats, TR.sgd_init(params),
-                                       trainer.device_batch(batch), TRAIN_STEP,
-                                       {k: v.to(device) for k, v in draws.items()})
+        params, new_stats, _, losses = step_fn(params, stats, TR.sgd_init(params),
+                                               trainer.device_batch(batch), TRAIN_STEP,
+                                               {k: v.to(device) for k, v in draws.items()})
     finally:
         DET.random_sample = RPN.random_sample = sample
         RPN.rpn_proposals = rpn_proposals
+    if stats_out is not None:
+        stats_out.append(new_stats)
     return losses, before, params, kept[0]
 
 
@@ -1897,6 +1951,35 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
     if not all(math.isfinite(v) for v in list(bf16['losses'].values()) + bf_cos):
         raise AssertionError(f'dp_train bf16: {bf16}')
 
+    # one bf16 step with --override .model.backbone.norm_eval:False: every
+    # backbone batch norm trains, the frozen stem's and layer1's too (as in
+    # oadp_tpu), so the running statistics of every stage move
+    bn_cfg = Config.load(cfg_path)
+    bn_cfg.override({'.model.backbone.norm_eval': False, '.model.device': 'cpu'})
+    bn_init = B.build_detector(bn_cfg.model, coco, seed=0)
+    bn_init.load_pretrained(bn_cfg.trainer.load_from)
+    if bn_init.config.backbone.norm_eval:
+        raise AssertionError('model.backbone.norm_eval:False did not reach the backbone')
+    bn_stats = []
+    t0 = time.perf_counter()
+    bn_losses, *_ = _one_step(bn_cfg, bn_init, batch, draws, cuda, torch.bfloat16, [],
+                              stats_out=bn_stats)
+    bn_s = time.perf_counter() - t0
+    stages_moved = {
+        stage: sum(not torch.equal(a, b.cpu()) for a, b in zip(
+            TR._leaves(bn_init.stats['backbone'][stage]),
+            TR._leaves(bn_stats[0]['backbone'][stage])))
+        for stage in bn_init.stats['backbone']}
+    stages_total = {stage: len(TR._leaves(bn_init.stats['backbone'][stage]))
+                    for stage in bn_init.stats['backbone']}
+    bn_train = dict(losses={k: float(v) for k, v in bn_losses.items() if k != 'lr'},
+                    step_s=bn_s, backbone_stats_moved=stages_moved,
+                    backbone_stats_total=stages_total)
+    log(json.dumps({'dp_train_backbone_bn_train': bn_train}))
+    if (not all(math.isfinite(v) for v in bn_train['losses'].values())
+            or stages_moved != stages_total or len(stages_total) != 5):
+        raise AssertionError(f'dp_train norm_eval=False step: {bn_train}')
+
     # one OV-LVIS Mask R-CNN step (C = 1203, masks) on the card, bf16, on a
     # synthetic batch at the LVIS train batch's sizes with a triangle polygon
     # in each gt box: finite losses, the mask head's leaves moved
@@ -1941,9 +2024,166 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
                resumed_s=resumed_s, test_s=test_s, test_detections=n_dets, test_metrics=metrics,
                last_log=logs[TRAIN_ITERS], resume_max_abs_diff=max(resume_diff.values()),
                leaves=moves, card_vs_cpu=cmp, bf16_vs_fp32=bf16,
-               lvis_step=lvis_res,
+               backbone_bn_train=bn_train, lvis_step=lvis_res,
                launches=launches, phase_s=time.perf_counter() - t_phase)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: calibration (python -m oadp_torch.dp.test_calibrate and
+# python -m oadp_torch.dp.calibrate_sweep) on phase 6's DUMP records
+# ---------------------------------------------------------------------------
+
+VAL_IMAGES = 4952  # OV-COCO val: the split the reference's sweep scores
+PERTURBED = (  # two settings off the defaults, inside the sweep's space
+    dict(bbox_base_scaler=1.3, bbox_novel_scaler=0.4, bbox_novel_gamma=0.7,
+         object_base_gamma=0.25, objectness_gamma=0.5),
+    dict(bbox_base_gamma=0.8, object_base_scaler=0.6, object_novel_scaler=1.4,
+         object_novel_gamma=0.2, objectness_gamma=1.0),
+)
+
+
+def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
+                     root: pathlib.Path) -> dict:
+    """The calibration trial and sweep CLIs on the card over phase 6's 8
+    full-width OV-COCO DUMP records, with the launch counts at 0 before and
+    checked at 0 after (no fused kernel is on this path); the card's
+    ``CalibrationRunner`` against the CPU's on the same records at the
+    defaults and two perturbed settings; one 32-image ``rescore`` batch
+    (the 8 records 4 times) timed with CUDA events and ``torch.profiler``,
+    its NMS passes counted; the COCO evaluation's seconds for the 8
+    images and an estimate of a whole OV-COCO val trial."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from oadp_torch.dp import calibrate_sweep as SW
+    from oadp_torch.dp import test_calibrate as TC
+    from oadp_torch.ops import nms as NMS
+    from oadp_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    line = TC.main(['smoke_calibration', str(config), str(dump)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep = SW.main([str(config), str(dump), '--trials', '5', '--seed', '0',
+                     '--output', str(root / 'calibration.json')])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+
+    cfg = Config.load(config)
+    t0 = time.perf_counter()
+    runner = TC.CalibrationRunner(cfg, str(dump))
+    load_s = time.perf_counter() - t0
+    cpu = TC.CalibrationRunner(cfg, str(dump), device='cpu')
+    m = len(runner.image_ids)
+    if runner.device.type != 'cuda' or runner.bboxes.shape != (m, 1000, 4) or m != 8:
+        raise AssertionError(f'calibration runner: {runner.device}, '
+                             f'{tuple(runner.bboxes.shape)}')
+    settings = {'defaults': dict(TC.DEFAULT_PARAMS)}
+    for i, p in enumerate(PERTURBED):
+        settings[f'perturbed_{i + 1}'] = dict(TC.DEFAULT_PARAMS, **p)
+    vs_cpu = {}
+    for name, params in settings.items():
+        got = [t.cpu() for t in runner.rescore_batch(params, 0, m)]
+        want = cpu.rescore_batch(params, 0, m)
+        ok = want[3]
+        same = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+        boxes_equal = torch.equal(got[0][..., :4], want[0][..., :4])
+        rel = float(((got[0][..., 4] - want[0][..., 4]).abs()
+                     / want[0][..., 4].abs().clamp(min=1e-30))[ok].max())
+        metrics, cpu_metrics = runner.run_trial(params), cpu.run_trial(params)
+        vs_cpu[name] = dict(labels_rows_valid_identical=same, boxes_identical=boxes_equal,
+                            detections=int(ok.sum()), score_max_rel=rel,
+                            metrics_equal=metrics == cpu_metrics,
+                            mAP_50=metrics['COCO_48_bbox_mAP_50'])
+        for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
+            if key not in metrics:
+                raise AssertionError(f'calibration metrics lack {key}: {sorted(metrics)}')
+    log(json.dumps({'calibration_card_vs_cpu': vs_cpu}))
+    if not all(v['labels_rows_valid_identical'] and v['boxes_identical'] and v['metrics_equal']
+               and v['score_max_rel'] <= 1e-5 and v['detections'] > 0
+               for v in vs_cpu.values()):
+        raise AssertionError(f'calibration card vs CPU: {vs_cpu}')
+    if (line['metric'] != 'COCO_48_bbox_mAP_50' or not math.isfinite(line['value'])
+            or line['params'] != TC.DEFAULT_PARAMS):
+        raise AssertionError(f'calibration CLI line: {line}')
+    history = json.loads((root / 'calibration.json').read_text())['history']
+    if len(history) != 5 or history[0]['params'] != TC.DEFAULT_PARAMS or not all(
+            math.isfinite(h['COCO_48_bbox_mAP_50']) for h in history):
+        raise AssertionError(f'calibration sweep: {history}')
+
+    # one 32-image rescore batch at full width: the 8 records 4 times
+    params = dict(TC.DEFAULT_PARAMS)
+    big = copy.copy(runner)
+    for name in ('bboxes', 'bbox_logits', 'object_logits', 'objectness', 'valid'):
+        setattr(big, name, torch.cat([getattr(runner, name)] * 4))
+    big.image_ids = runner.image_ids * 4
+    b = len(big.image_ids)
+
+    def batch():
+        return big.rescore_batch(params, 0, b)
+
+    batch()
+    torch.cuda.synchronize()
+    reps = 5
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        batch()
+    end.record()
+    torch.cuda.synchronize()
+    batch_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            batch()
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 2 / 1e3
+    passes = []
+    greedy = NMS._greedy_keep
+
+    def counted(sup, alive):
+        keep, n = greedy(sup, alive)
+        passes.append(n)
+        return keep, n
+
+    NMS._greedy_keep = counted
+    try:
+        batch()
+    finally:
+        NMS._greedy_keep = greedy
+    # a trial's two host parts: the batch's detection dicts, the evaluation
+    t0 = time.perf_counter()
+    big.detections(params)
+    batch_with_dicts_s = time.perf_counter() - t0
+    dets = runner.detections(params)
+    t0 = time.perf_counter()
+    runner.evaluate(dets)
+    eval_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    log(json.dumps({'launches': {'calibration': launches}}))
+    if any(launches.values()):
+        raise AssertionError(f'calibration: fused kernels launched {launches}')
+    return dict(
+        card=card, records=m, proposals=1000, classes=runner.categories.num_all + 1, cli_s=cli_s,
+        cli_line=line, sweep_trials=len(history), sweep_s=sweep_s,
+        sweep_best=sweep['best_value'], load_s=load_s, card_vs_cpu=vs_cpu,
+        rescore_batch=dict(images=b, ms=batch_ms, device_busy_ms=busy_ms,
+                           device_idle_share=1 - busy_ms / batch_ms,
+                           nms_passes=passes, nms_passes_mean=float(np.mean(passes)),
+                           with_detection_dicts_s=batch_with_dicts_s),
+        coco_eval_s=eval_s, coco_eval_images=m, detections=len(dets),
+        estimate_val_trial_s=VAL_IMAGES / b * batch_with_dicts_s + eval_s * VAL_IMAGES / m,
+        estimate_basis=(f'ESTIMATE, not measured: {VAL_IMAGES}/{b} batches x the {b}-image '
+                        f'batch with its detection dicts + the COCO evaluation of the {m} '
+                        f'images x {VAL_IMAGES}/{m} (random weights: 300 detections an '
+                        'image, synthetic ground truth)'),
+        launches=launches, phase_s=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -1975,7 +2215,11 @@ def main() -> int:
         dp = dp_path(A, card, prompts, tmp / 'dp')
         log(json.dumps({'dp_path': dp}))
         train = dp_train_path(A, card, tmp / 'train', tmp / 'oake', tmp / 'dp', prompts)
-    log(json.dumps({'dp_train': train}))
+        log(json.dumps({'dp_train': train}))
+        (tmp / 'calibration').mkdir()
+        calibration = calibration_path(A, card, pathlib.Path(dp['coco_config']),
+                                       pathlib.Path(dp['dump_dir']), tmp / 'calibration')
+    log(json.dumps({'calibration': calibration}))
 
     both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
     kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count

@@ -139,8 +139,9 @@ def build_detector(
     model_cfg: Config, categories: Categories, seed: int = 0,
 ) -> DetectorBundle:
     """``model_cfg`` mirrors the reference model config surface: prompts,
-    scalers, head toggles, optional size overrides. The bundle is on the
-    CPU."""
+    scalers, head toggles, optional size overrides, and
+    ``backbone.norm_eval`` (False trains the backbone's batch norms). The
+    bundle is on the CPU."""
     emb_dim = model_cfg.get('sizes', {}).get('embedding_dim', 512)
     bbox_prompts = load_prompts(model_cfg.get('prompts', 'data/prompts/vild.pth'),
                                 categories, embedding_dim=emb_dim)
@@ -164,6 +165,9 @@ def build_detector(
         **model_cfg.get('overrides', {}),
     )
     config = _apply_size_overrides(config, model_cfg)
+    if 'norm_eval' in model_cfg.get('backbone', {}):
+        config = dataclasses.replace(config, backbone=dataclasses.replace(
+            config.backbone, norm_eval=bool(model_cfg.backbone.norm_eval)))
     params, stats = DET.init_detector(
         torch.Generator().manual_seed(seed), config,
         torch.from_numpy(bbox_prompts['embeddings']), torch.from_numpy(ml['embeddings']))

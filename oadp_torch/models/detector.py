@@ -195,7 +195,8 @@ def init_detector(
 
 def _extract(params: Params, stats: Params, images: torch.Tensor,
              config: DetectorConfig) -> list[torch.Tensor]:
-    feats = RN.resnet_forward(params['backbone'], stats['backbone'], images, config.backbone)
+    feats, _ = RN.resnet_forward(params['backbone'], stats['backbone'], images,
+                                 config.backbone)
     return FP.fpn_forward(params['fpn'], stats['fpn'], feats, num_outs=5)
 
 
@@ -294,14 +295,12 @@ def forward_train(
     take the global batch's statistics, and the block relation loss and the
     recalls are computed on the gathered rows and divided by the world
     size. ``loss_clip_global`` is the local sum, as in ``oadp_tpu``."""
-    if not config.backbone.norm_eval:
-        raise NotImplementedError('training with backbone.norm_eval=False is not ported')
     all_sum = coll.all_sum
     b = batch['images'].shape[0]
-    feats = RN.resnet_forward(params['backbone'], stats['backbone'], batch['images'],
-                              config.backbone)
+    feats, bb_stats = RN.resnet_forward(params['backbone'], stats['backbone'],
+                                        batch['images'], config.backbone, True, all_sum)
     pyramid, fpn_stats = FP.fpn_forward_train(params['fpn'], stats['fpn'], feats, 5, all_sum)
-    new_stats: Params = {'backbone': stats['backbone'], 'fpn': fpn_stats}
+    new_stats: Params = {'backbone': bb_stats, 'fpn': fpn_stats}
     gt_boxes, gt_valid = batch['gt_boxes'], batch['gt_valid']
 
     # --- RPN --------------------------------------------------------------

@@ -7,8 +7,12 @@ statistics, in training too, while its affine trains) and
 ``frozen_stages=1`` (the stem and stage 1 take no gradient: their parameters
 are detached). Every convolution's eval-mode batch norm is folded into it
 (:func:`_conv_bn_eval`). The paddings are explicit integers, as in
-``oadp_tpu``. Training with ``norm_eval=False`` is not ported: no DP config
-sets it.
+``oadp_tpu``.
+
+Training with ``norm_eval=False`` (no DP config sets it) normalises every
+batch norm with the batch's statistics and moves its running statistics, in
+the frozen stages too, as ``oadp_tpu`` does (mmdet keeps frozen stages in
+eval mode: a deviation of ``oadp_tpu`` that the port reproduces).
 
 :func:`convert_torch_resnet` reads a torchvision / mmdet ``backbone.*``
 state dict straight into this tree (OIHW weights kept).
@@ -29,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from .clip import map_params
-from .layers import BN_EPS, conv, init_bn, init_conv, max_pool, state_tensor
+from .layers import (
+    BN_EPS, batch_norm_train, conv, init_bn, init_conv, max_pool, state_tensor,
+)
 
 Params = dict[str, Any]
 
@@ -108,18 +114,35 @@ def _conv_bn_eval(x, cp: Params, bp: Params, bs: Params, stride: int = 1,
     return out + b.to(out.dtype)[:, None, None]
 
 
-def _bottleneck(x, p: Params, s: Params, stride: int, style: str) -> torch.Tensor:
+def _conv_bn(x, cp: Params, bp: Params, bs: Params, stride: int = 1, padding: int = 0,
+             train: bool = False, all_sum=None) -> tuple[torch.Tensor, Params]:
+    """Conv and batch norm: ``(out, new_stats)``. Eval mode folds the batch
+    norm into the conv and keeps ``bs``; train mode normalises with the
+    batch's statistics (summed over processes by ``all_sum``)."""
+    if not train:
+        return _conv_bn_eval(x, cp, bp, bs, stride=stride, padding=padding), bs
+    return batch_norm_train(conv(x, cp, stride=stride, padding=padding), bp, bs,
+                            all_sum=all_sum)
+
+
+def _bottleneck(x, p: Params, s: Params, stride: int, style: str, train: bool = False,
+                all_sum=None) -> tuple[torch.Tensor, Params]:
     stride1, stride2 = (stride, 1) if style == 'caffe' else (1, stride)
-    out = F.relu(_conv_bn_eval(x, p['conv1'], p['bn1'], s['bn1'], stride=stride1))
-    out = F.relu(_conv_bn_eval(out, p['conv2'], p['bn2'], s['bn2'], stride=stride2,
-                               padding=1))
-    out = _conv_bn_eval(out, p['conv3'], p['bn3'], s['bn3'])
+    new: Params = {}
+    out, new['bn1'] = _conv_bn(x, p['conv1'], p['bn1'], s['bn1'], stride=stride1,
+                               train=train, all_sum=all_sum)
+    out, new['bn2'] = _conv_bn(F.relu(out), p['conv2'], p['bn2'], s['bn2'], stride=stride2,
+                               padding=1, train=train, all_sum=all_sum)
+    out, new['bn3'] = _conv_bn(F.relu(out), p['conv3'], p['bn3'], s['bn3'], train=train,
+                               all_sum=all_sum)
     if 'downsample' in p:
-        identity = _conv_bn_eval(x, p['downsample']['conv'], p['downsample']['bn'],
-                                 s['downsample']['bn'], stride=stride)
+        identity, ds = _conv_bn(x, p['downsample']['conv'], p['downsample']['bn'],
+                                s['downsample']['bn'], stride=stride, train=train,
+                                all_sum=all_sum)
+        new['downsample'] = {'bn': ds}
     else:
         identity = x
-    return F.relu(out + identity)
+    return F.relu(out + identity), new
 
 
 def resnet_forward(
@@ -127,10 +150,17 @@ def resnet_forward(
     stats: Params,
     images: torch.Tensor,  # (B, 3, H, W) normalized
     config: ResNetConfig = ResNetConfig(),
-) -> list[torch.Tensor]:
-    """Returns ``[C2, C3, C4, C5]`` (``norm_eval``: every BN on its running
-    statistics). The stages up to ``frozen_stages`` read detached
-    parameters."""
+    train: bool = False,
+    all_sum=None,
+) -> tuple[list[torch.Tensor], Params]:
+    """Returns ``([C2, C3, C4, C5], new_stats)``. The stages up to
+    ``frozen_stages`` read detached parameters. With ``norm_eval`` (or not
+    ``train``) every batch norm runs on its running statistics and
+    ``new_stats`` is ``stats``; training without ``norm_eval`` gives every
+    stage's batch norms the global batch's statistics (``all_sum`` sums
+    their moments over processes, as ``models/fpn.py:fpn_forward_train``
+    does)."""
+    train_bn = train and not config.norm_eval
 
     def frozen(tree, stage: int):
         if config.frozen_stages < stage:
@@ -138,17 +168,21 @@ def resnet_forward(
         return map_params(tree, torch.Tensor.detach)
 
     stem = frozen(params['stem'], 0)
-    x = _conv_bn_eval(images, stem['conv'], stem['bn'], stats['stem']['bn'], stride=2,
-                      padding=3)
+    x, stem_bn = _conv_bn(images, stem['conv'], stem['bn'], stats['stem']['bn'], stride=2,
+                          padding=3, train=train_bn, all_sum=all_sum)
+    new_stats: Params = {'stem': {'bn': stem_bn}}
     x = max_pool(F.relu(x), 3, 2, 1)
     outs = []
     for i in range(4):
         name = f'layer{i + 1}'
         stride = 1 if i == 0 else 2
+        new_stats[name] = []
         for b, (bp, bs) in enumerate(zip(frozen(params[name], i + 1), stats[name])):
-            x = _bottleneck(x, bp, bs, stride if b == 0 else 1, config.style)
+            x, ns = _bottleneck(x, bp, bs, stride if b == 0 else 1, config.style, train_bn,
+                                all_sum)
+            new_stats[name].append(ns)
         outs.append(x)
-    return outs
+    return outs, new_stats if train_bn else stats
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@
 * host work (JPEG decode + resample-weight building) overlaps device
   compute through a small prefetch window, and each batch's embeddings
   are fetched one batch later;
-* ``val`` runs first, then ``train`` (reference ``base.py:136-152``).
+* ``val`` runs first, then ``train`` (reference ``base.py:136-152``);
+* ``profile='<dir>'`` traces each split with ``torch.profiler`` (host and,
+  on a card, device activity) into a TensorBoard trace file in ``<dir>``,
+  where ``oadp_tpu`` writes a ``jax.profiler`` trace.
 
 The entry points run on ``model.device`` (default ``'cuda'``; a run
 without a CUDA device raises unless it asks for ``'cpu'``). ``model.dtype``
@@ -30,6 +33,7 @@ from typing import Any, Iterator
 
 import numpy as np
 import PIL.Image
+import torch
 
 from ..utils import (
     Config,
@@ -106,10 +110,7 @@ class BaseOakePipeline(ABC):
             vit=model_cfg.get('vit'),
             device=device,
         )
-        if config.get('profile'):
-            raise NotImplementedError(
-                'the profile option is not ported to oadp_torch yet'
-            )
+        self.device = device
         self.steps = OakeSteps(self.model, self.pad, self.pad)
         self.log_interval = int(config.get('log', {}).get('interval', 50))
 
@@ -212,6 +213,11 @@ class BaseOakePipeline(ABC):
         items = self._items(dataset, output_dir, auto_fix, extra)
         start = time.time()
         done = 0
+
+        # Optional torch.profiler trace (config: profile='trace_dir'), the
+        # counterpart of oadp_tpu's jax.profiler trace; the reference has no
+        # tracing at all.
+        profiler = self._start_profiler(self.config.get('profile'))
 
         # Bounded prefetch: one producer thread runs host prep (JPEG
         # decode + weight building, all GIL-releasing C/numpy) while the
@@ -318,11 +324,36 @@ class BaseOakePipeline(ABC):
         producer.join()
         if save_error:
             raise save_error[0]
+        if profiler is not None:
+            self._stop_profiler(profiler, pathlib.Path(self.config.profile))
         elapsed = time.time() - start
         logger.info(
             '[%s] split done: %d images in %.1fs (%.2f img/s)',
             self.name, done, elapsed, done / max(elapsed, 1e-6),
         )
+
+    def _start_profiler(self, profile_dir) -> 'torch.profiler.profile | None':
+        """A started ``torch.profiler`` over the host and, on a card, the
+        device, that writes a TensorBoard trace into ``profile_dir`` when it
+        stops; None without ``profile_dir``."""
+        if not profile_dir:
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(profile_dir)),
+        )
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_dir: pathlib.Path) -> None:
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        traces = sorted(profile_dir.glob('*.pt.trace.json'), key=lambda p: p.stat().st_mtime)
+        logger.info('profiler trace written to %s', traces[-1] if traces else profile_dir)
 
     def run(self) -> None:
         config = self.config

@@ -129,8 +129,8 @@ def test_resnet_matches(style):
     x = np.random.default_rng(2).standard_normal((2, 64, 96, 3)).astype(np.float32)
     want, _ = jax.jit(lambda p, s, x: jresnet.resnet_forward(
         p, s, x, jresnet.ResNetConfig(**cfg)))(jax_tree(p), jax_tree(s), jnp.asarray(x))
-    got = tresnet.resnet_forward(p, s, nchw(x), tresnet.ResNetConfig(**cfg))
-    assert len(got) == 4
+    got, got_stats = tresnet.resnet_forward(p, s, nchw(x), tresnet.ResNetConfig(**cfg))
+    assert len(got) == 4 and got_stats is s
     for g, w in zip(got, want):
         close(g, w, nhwc=True)
 

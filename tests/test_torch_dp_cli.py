@@ -5,7 +5,12 @@ on the same synthetic data and the same mmdet-layout checkpoint
 Also the CLI's refusal of the default card where there is none, and a
 checkpoint of the port's trainer read in place of ``model.pretrained``."""
 
+import json
+import os
 import pathlib
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +39,7 @@ validator = dict(
 )
 """
 CPU = ['--override', ".model.device:'cpu'"]
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope='module')
@@ -119,28 +125,34 @@ def test_cuda_default_without_card_raises(dry_run):
         ttest.main([str(cfg), 'none'])
 
 
-def test_trained_checkpoint_not_yet_read(runs, dry_run, monkeypatch):
-    """(Named for the refusal it replaces: ``dp.test`` reads checkpoints of
-    the port's trainer now.) A checkpoint written by ``Trainer.save`` with
-    the params and statistics that ``model.pretrained`` gives, read through
-    ``latest.txt`` with no ``model.pretrained``: the same metrics as the
-    ``none`` run, and the same DUMP records bit for bit (the metrics of
-    random weights are 0 whatever the weights)."""
+def _save_checkpoint(cfg: pathlib.Path, work: pathlib.Path) -> pathlib.Path:
+    """A checkpoint written by ``Trainer.save`` with the params and
+    statistics that ``model.pretrained`` gives; returns its ``latest.txt``."""
     from oadp_torch.base import Globals, coco
-    from oadp_torch.dp import test as ttest
     from oadp_torch.dp.builder import build_detector
     from oadp_torch.dp.trainer import Trainer, TrainState, sgd_init
     from oadp_torch.utils import Config
 
-    _, out = runs
-    root, cfg = dry_run
     Globals.categories = coco
     bundle = build_detector(Config.load(cfg).model, coco)
-    work = root / 'work_dirs' / 'saved'
-    work.mkdir(parents=True)
+    work.mkdir(parents=True, exist_ok=True)
     Trainer(bundle, Config(), None, work, device='cpu').save(
         TrainState(bundle.params, bundle.stats, sgd_init(bundle.params), 5))
     assert (work / 'ckpt_5.pth').exists()
+    return work / 'latest.txt'
+
+
+def test_trained_checkpoint_read_like_pretrained(runs, dry_run, monkeypatch):
+    """A checkpoint of the port's trainer with the params and statistics
+    that ``model.pretrained`` gives, read through ``latest.txt`` with no
+    ``model.pretrained``: the same metrics as the ``none`` run, and the same
+    DUMP records bit for bit (the metrics of random weights are 0 whatever
+    the weights)."""
+    from oadp_torch.dp import test as ttest
+
+    _, out = runs
+    root, cfg = dry_run
+    work = _save_checkpoint(cfg, root / 'work_dirs' / 'saved').parent
     # the config's own weights are random: only the checkpoint's can match
     got = ttest.main([str(cfg), str(work / 'latest.txt'), *CPU, '.model.pretrained:None'])
     want = out['torch']
@@ -154,5 +166,57 @@ def test_trained_checkpoint_not_yet_read(runs, dry_run, monkeypatch):
     assert [p.name for p in got] == [p.name for p in want] and len(got) == 3
     for g, w in zip(got, want):
         rg, rw = load_pth(g), load_pth(w)
+        for k in rw:
+            np.testing.assert_array_equal(np.asarray(rg[k]), np.asarray(rw[k]), err_msg=k)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _two_processes(root: pathlib.Path, argv: list[str], *overrides: str, **env) -> dict:
+    """Two gloo processes of ``python -m oadp_torch.dp.test`` (torchrun's
+    environment); returns rank 0's metrics dict."""
+    base = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
+                WORLD_SIZE='2', PYTHONPATH=str(REPO), OMP_NUM_THREADS='1', DRY_RUN='1', **env)
+    code = ('import json, sys; from oadp_torch.dp import test; '
+            'print("METRICS " + json.dumps(test.main(sys.argv[1:])))')
+    procs = [subprocess.Popen([sys.executable, '-c', code, *argv, *CPU, *overrides], cwd=root,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    lines = [[ln for ln in out.splitlines() if ln.startswith('METRICS ')] for out in outs]
+    assert all(len(x) == 1 for x in lines), outs
+    assert json.loads(lines[1][0][8:]) == {}  # rank 1 returns nothing: rank 0 evaluates
+    return json.loads(lines[0][0][8:])
+
+
+def test_two_processes_equal_one_process(runs, dry_run):
+    """``dp.test`` over two gloo processes (each loads its share of the 3
+    images, the second's last batch a padded repeat): rank 0 merges every
+    rank's detections through the checkpoint's directory after
+    ``torch.distributed.barrier`` and gives the one-process metrics; in DUMP
+    mode the two ranks' records together are the one-process DUMP."""
+    _, out = runs
+    root, cfg = dry_run
+    ckpt = _save_checkpoint(cfg, root / 'work_dirs' / 'saved_2p')
+    got = _two_processes(root, [str(cfg), str(ckpt)], '.model.pretrained:None')
+    want = out['torch']
+    assert set(got) == set(want) and 'COCO_48_17_bbox_mAP_50' in got
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 1e-9, (k, got[k], want[k])
+    assert not list((ckpt.parent / 'eval_gather').glob('*.pkl'))  # rank 0 removed the parts
+    assert _two_processes(root, [str(cfg), 'none'], DUMP=str(root / 'dump_2p')) == {}
+    want = sorted((root / 'dump_torch').glob('*.pth'))
+    got = sorted((root / 'dump_2p').glob('*.pth'))
+    assert [p.name for p in got] == [p.name for p in want] and len(got) == 3
+    for g, w in zip(got, want):
+        rg, rw = load_pth(g), load_pth(w)
+        assert set(rg) == set(rw)
         for k in rw:
             np.testing.assert_array_equal(np.asarray(rg[k]), np.asarray(rw[k]), err_msg=k)

@@ -156,17 +156,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(root: pathlib.Path, cfg: pathlib.Path, world: int, device: str) -> pathlib.Path:
+def _run_ranks(root: pathlib.Path, cfg: pathlib.Path, world: int, device: str,
+               overrides: tuple[str, ...] = (), tag: str = '') -> pathlib.Path:
     """``world`` processes of ``python -m oadp_torch.dp.train`` for one
     iteration in fp32 (torchrun's environment; gloo on the CPU, NCCL on
-    cards, TF32 off); returns the run's work dir."""
+    cards, TF32 off), with ``overrides`` of the config; returns the run's
+    work dir."""
     env = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(world), PYTHONPATH=str(REPO), OMP_NUM_THREADS='1',
                NVIDIA_TF32_OVERRIDE='0')
-    name = f'ddp_{device}'
+    name = f'ddp_{device}{tag}'
     procs = [subprocess.Popen(
         [sys.executable, '-m', 'oadp_torch.dp.train', name, str(cfg), '--override',
-         f".model.device:'{device}'", '.trainer.runner.max_iters:1', '.trainer.bf16:False'],
+         f".model.device:'{device}'", '.trainer.runner.max_iters:1', '.trainer.bf16:False',
+         *overrides],
         cwd=root, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = [p.communicate(timeout=300)[0] for p in procs]
@@ -178,7 +181,8 @@ def _run_ranks(root: pathlib.Path, cfg: pathlib.Path, world: int, device: str) -
     return work
 
 
-def _one_process_step(cfg_path: pathlib.Path, world: int, device: str = 'cpu'):
+def _one_process_step(cfg_path: pathlib.Path, world: int, device: str = 'cpu',
+                      overrides: dict | None = None):
     """The first step of a ``world``-process run, in this process: the
     ranks' first batches concatenated, each rank's draws from its own
     generator, ``loss_clip_global`` divided by ``world``."""
@@ -192,7 +196,7 @@ def _one_process_step(cfg_path: pathlib.Path, world: int, device: str = 'cpu'):
     from oadp_torch.models import detector as DET
 
     config = Config.load(cfg_path)
-    config.override({'.model.device': device})
+    config.override({'.model.device': device, **(overrides or {})})
     config.trainer.dataloader['samples_per_gpu'] = 1
     Globals.categories = coco
     bundle = build_detector(config.model, coco, seed=config.trainer.seed).to(torch.device(device))
@@ -223,7 +227,8 @@ def _one_process_step(cfg_path: pathlib.Path, world: int, device: str = 'cpu'):
     return params, stats, bufs
 
 
-def _check_first_step(work: pathlib.Path, cfg: pathlib.Path, world: int, device: str):
+def _check_first_step(work: pathlib.Path, cfg: pathlib.Path, world: int, device: str,
+                      overrides: dict | None = None):
     """The run's step-1 checkpoint against one process's step: after one
     step the momentum buffers are the gradients (+ weight decay), so the
     averaged gradient is held to the one-process gradient."""
@@ -231,7 +236,7 @@ def _check_first_step(work: pathlib.Path, cfg: pathlib.Path, world: int, device:
 
     got = Trainer.restore(work / 'latest.txt')
     assert got.step == 1
-    params, stats, bufs = _one_process_step(cfg, world, device)
+    params, stats, bufs = _one_process_step(cfg, world, device, overrides)
     n_moved = 0
     for g, w in zip(_leaves(got.bufs), _leaves(bufs)):
         scale = float(w.abs().max())
@@ -253,6 +258,27 @@ def test_two_process_step_equals_one_process_step(dry_run):
     _check_first_step(work, cfg, 2, 'cpu')
     metrics = ttest.main([str(cfg), str(work / 'latest.txt'), '--override', CPU])
     assert 'COCO_48_17_bbox_mAP_50' in metrics
+
+
+def test_two_process_step_backbone_bn_train(dry_run):
+    """The same with ``model.backbone.norm_eval=False``: every backbone
+    batch norm (the frozen stages' too) takes the global batch's statistics,
+    so both ranks' new backbone statistics equal one process's on the
+    concatenated batch, and they moved."""
+    from oadp_torch.dp.trainer import Trainer, _leaves
+    from oadp_torch.utils import Config
+
+    root, cfg = dry_run
+    work = _run_ranks(root, cfg, 2, 'cpu', ('.model.backbone.norm_eval:False',), '_bn_train')
+    _check_first_step(work, cfg, 2, 'cpu', {'.model.backbone.norm_eval': False})
+    from oadp_torch.base import coco
+    from oadp_torch.dp.builder import build_detector
+
+    config = Config.load(cfg)
+    config.override({'.model.device': 'cpu'})
+    before = build_detector(config.model, coco, seed=config.trainer.seed).stats['backbone']
+    after = Trainer.restore(work / 'latest.txt').stats['backbone']
+    assert all(not torch.equal(a, b) for a, b in zip(_leaves(before), _leaves(after)))
 
 
 @pytest.mark.cuda

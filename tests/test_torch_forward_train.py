@@ -43,10 +43,14 @@ def rel_close(got: torch.Tensor, want, rtol=1e-5, atol=1e-7, err_msg=''):
 
 
 def _mini_config(module, num_bases, num_all, **kw):
-    """``tests/test_detector.py``'s tiny geometry in either package."""
+    """``tests/test_detector.py``'s tiny geometry in either package;
+    ``norm_eval=False`` trains the backbone's batch norms."""
+    kw = dict(kw)
+    norm_eval = kw.pop('norm_eval', True)
     config = module.DetectorConfig.build(num_bases, num_all, backbone_style='caffe',
                                          **TRAIN_CFG, **kw)
-    backbone = dataclasses.replace(config.backbone, base_channels=8, blocks=(1, 1, 1, 1))
+    backbone = dataclasses.replace(config.backbone, base_channels=8, blocks=(1, 1, 1, 1),
+                                   norm_eval=norm_eval)
 
     def head(h, convs=True):
         extra = dict(in_channels=32, conv_channels=32) if convs else dict(in_channels=32)
@@ -120,6 +124,11 @@ def _torch_batch(batch):
 
 CASES = {
     'ov_coco': (48, 65, dict(), False),
+    # every backbone stage's batch norm in train mode, the frozen ones too,
+    # on the batch of seed 2: on seed 1's a pre-ReLU value of the bbox head's
+    # first conv sits at +2.1e-6 here and -2.9e-6 in oadp_tpu (a rounding
+    # tie), which moves that conv's gradient by 5e-3 of its largest
+    'ov_coco_backbone_bn_train': (48, 65, dict(norm_eval=False, batch_seed=2), False),
     'ov_lvis_masks': (866, 1203, dict(with_mask=True, head_cls_mode='vild',
                                       vild_scaler_train=0.01, vild_scaler_val=0.007,
                                       global_vild_scaler=(0.007, 0.01)), True),
@@ -134,13 +143,15 @@ def _forward(case: str, step: int = 300):
     from oadp_torch.dp import builder as tbuilder
 
     nb, na, kw, masks = CASES[case]
+    kw = dict(kw)
+    batch_seed = kw.pop('batch_seed', 1)
     jcfg, tcfg = _mini_config(jdet, nb, na, **kw), _mini_config(tdet, nb, na, **kw)
     rng = np.random.default_rng(0)
     emb = rng.standard_normal((na, EMB_DIM)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
     jparams, jstats = jdet.init_detector(jax.random.key(0), jcfg, jnp.asarray(emb))
     jparams, jstats = jax.tree.map(np.asarray, jparams), jax.tree.map(np.asarray, jstats)
-    batch = _train_batch(na, masks=masks)
+    batch = _train_batch(na, masks=masks, seed=batch_seed)
     janchors = [jnp.asarray(a) for a in jbuilder.canvas_anchors(jcfg, (CANVAS, CANVAS))]
     key = jax.random.key(3)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -184,11 +195,16 @@ def test_forward_train_losses(case):
 
 @pytest.mark.parametrize('case', list(CASES))
 def test_forward_train_new_stats(case):
-    (_, new_stats, _), (_, want, _), _ = _forward(case)
+    (_, new_stats, _), (_, want, _), (_, jstats) = _forward(case)
     want_t = tdet.from_jax_params(want, want)[1]
     for path, got in _items(new_stats):
         np.testing.assert_allclose(got.detach().numpy(), _at(want_t, path).numpy(), atol=1e-5,
                                    rtol=0, err_msg=str(path))
+    # the backbone's statistics move iff its batch norms train
+    before = tdet.from_jax_params(jstats, jstats)[1]['backbone']
+    moved = [not torch.equal(got, _at(before, path))
+             for path, got in _items(new_stats['backbone'])]
+    assert all(moved) if not CASES[case][2].get('norm_eval', True) else not any(moved)
 
 
 @pytest.mark.parametrize('case', list(CASES))

@@ -225,3 +225,20 @@ def test_blocks_step_matches_oadp_tpu(setup):
     assert got.dtype == np.float16 and got.shape == ref.shape == (2 + len(coords), 32)
     assert _cos(got, ref) > 0.9999
     np.testing.assert_allclose(got.astype(np.float32), ref.astype(np.float32), atol=2e-3)
+
+
+def test_profile_writes_trace_and_same_records(setup):
+    """``profile=<dir>``: a ``torch.profiler`` trace in ``<dir>``, and records
+    bit-identical to the run without it."""
+    from oadp_torch.utils import load_pth
+
+    trace_dir = setup['root'] / 'trace'
+    out = _run(setup, 'oadp_torch', 'globals', 'profiled_globals',
+               f'.profile:{str(trace_dir)!r}')
+    traces = list(trace_dir.glob('*.pt.trace.json'))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    ref = setup['root'] / 'out' / 'oadp_torch_globals'
+    assert _files(out) == _files(ref) and len(_files(out)) == len(setup['data']['ids'])
+    for name in _files(ref):
+        got, want = load_pth(out / name), load_pth(ref / name)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), name
