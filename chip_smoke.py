@@ -24,7 +24,9 @@ Phases, in order; any failure exits nonzero:
    streams carry;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
-   dispatch, every other kernel 0): the OAKE objects, globals and blocks
+   dispatch, but 11 of kernel 4 on the split wiring, whose last layer
+   computes the side row alone; every other kernel 0; the table in
+   ``main_path``): the OAKE objects, globals and blocks
    CLIs (``oadp_torch.oake``) at full ViT-B/32 width (random weights from
    seed 0, bf16) on 4 synthetic images with 1000 proposals each, every
    record checked; the surgery encoder's split wiring (``objects_step``

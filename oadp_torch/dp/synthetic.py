@@ -86,18 +86,16 @@ def make_train_step(
     trainable,
     base_lr: float = 0.02,
     milestones: tuple = (30000,),
-    world: int | None = None,
     coll=None,
 ):
     """Adapter over :func:`dp.trainer.build_train_step`, the trainer's own
     step, returning the total loss instead of the loss dict. ``coll`` (a
-    ``utils.dist.Collective``) spans a multi-process step; ``world``
-    defaults to its world size."""
+    ``utils.dist.Collective``) spans a multi-process step."""
     from ..utils import Collective
     from .trainer import build_train_step
 
     inner = build_train_step(config, anchors, lr_mults, trainable, base_lr=base_lr,
-                             milestones=milestones, world=world, coll=coll or Collective())
+                             milestones=milestones, coll=coll or Collective())
 
     def train_step(params, stats, bufs, batch, step, draws):
         params, new_stats, bufs, losses = inner(params, stats, bufs, batch, step, draws)

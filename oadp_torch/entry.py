@@ -10,21 +10,22 @@ ViT-B/32 weights on the card in bf16. It raises without a card.
 
 ``dryrun_multichip(n)`` runs one full OADP train step (ResNet + FPN + RPN +
 RCNN + the OV heads with every loss, and the torch-SGD update) at mini
-widths over exactly ``n`` processes: gloo on the CPU (``oadp_tpu``'s dry run
-is a CPU mesh), or NCCL with ``device='cuda'``, one card a process. The
+widths over exactly ``n`` processes: NCCL, one card a process, or gloo on
+the CPU with ``device='cpu'`` (``oadp_tpu``'s dry run is a CPU mesh). The
 batch is split over the processes and the step's sums and gradient average
 span them (``utils/dist.py``). It raises rather than run on fewer.
 
-    python -m oadp_torch.entry [n]    # the dry run on n (default 8)
-                                      # processes, then entry() on the card
+    python -m oadp_torch.entry [n]               # the NCCL dry run on n cards
+                                                 # (default: every card),
+                                                 # then entry() on the card
+    python -m oadp_torch.entry [n] --device cpu  # the gloo dry run alone
+                                                 # (default n: 8)
 """
 
 __all__ = ['entry', 'dryrun_multichip']
 
+import argparse
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import torch
@@ -84,41 +85,23 @@ def _mini_detector_config():
         global_cls=dataclasses.replace(cfg.global_cls, in_features=16, embedding_dim=8))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
-def dryrun_multichip(n_devices: int, device: str = 'cpu') -> None:
+def dryrun_multichip(n_devices: int, device: str = 'cuda') -> None:
     """One full OADP train step at mini widths over exactly ``n_devices``
-    processes (gloo on the CPU, NCCL on ``n_devices`` cards); raises if any
-    process fails, if the loss is not finite, or if there are fewer cards
-    than processes."""
+    processes (NCCL, one card a process; gloo with ``device='cpu'``);
+    raises if any process fails, if the loss is not finite, or if there are
+    fewer cards than processes."""
+    from .utils import spawn_ranks
+
     if device not in ('cpu', 'cuda'):
         raise ValueError(f"device must be 'cpu' or 'cuda', not {device!r}")
     if device == 'cuda' and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f'a {n_devices}-process NCCL dry run needs {n_devices} CUDA '
                            f'devices; torch sees {torch.cuda.device_count()}')
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(n_devices), OMP_NUM_THREADS='1',
-               PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get('PYTHONPATH')])))
     code = f'from oadp_torch import entry; entry._dryrun_rank({int(n_devices)}, {device!r})'
-    procs = [subprocess.Popen([sys.executable, '-c', code], cwd=repo,
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(n_devices)]
-    try:
-        outs = [p.communicate(timeout=900)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise RuntimeError(f'dry run rank {r} of {n_devices} failed (rc={p.returncode}):\n'
-                               f'{out[-4000:]}')
+    spawn_ranks(n_devices, ['-c', code], repo, env=dict(
+        OMP_NUM_THREADS='1',
+        PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get('PYTHONPATH')]))))
 
 
 def _dryrun_rank(n_devices: int, device: str) -> None:
@@ -134,7 +117,11 @@ def _dryrun_rank(n_devices: int, device: str) -> None:
     from .utils import Collective, maybe_initialize_distributed, rank, world_size
 
     dev = torch.device(device)
-    if not maybe_initialize_distributed(dev) or world_size() != n_devices:
+    if not maybe_initialize_distributed(dev):  # one process: a group of one all the same
+        if dev.type == 'cuda':
+            torch.cuda.set_device(0)
+        dist.init_process_group('nccl' if dev.type == 'cuda' else 'gloo')
+    if world_size() != n_devices:
         raise RuntimeError(f'the dry run must span {n_devices} processes, not {world_size()}')
     if dev.type == 'cuda':
         dev = torch.device('cuda', torch.cuda.current_device())
@@ -171,12 +158,23 @@ def _dryrun_rank(n_devices: int, device: str) -> None:
 
 
 def main(argv=None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    n = int(argv[0]) if argv else 8
-    dryrun_multichip(n)
-    print(f'dryrun ok ({n}-process gloo data-parallel step)', flush=True)
-    fn, args = entry()
-    out = fn(*args)
+    p = argparse.ArgumentParser(prog='python -m oadp_torch.entry', description=(
+        'the dry run of one train step over n processes, then entry() on the card'))
+    p.add_argument('n', nargs='?', type=int,
+                   help='processes (default: every card; 8 with --device cpu)')
+    p.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
+                   help="'cpu': the dry run on gloo processes alone (entry() needs a card)")
+    args = p.parse_args(argv)
+    if args.device == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu for the gloo dry run")
+    n = args.n or (torch.cuda.device_count() if args.device == 'cuda' else 8)
+    dryrun_multichip(n, args.device)
+    backend = 'NCCL' if args.device == 'cuda' else 'gloo'
+    print(f'dryrun ok ({n}-process {backend} data-parallel step)', flush=True)
+    if args.device == 'cpu':
+        return
+    fn, example = entry()
+    out = fn(*example)
     if out.shape != (BATCH, 512) or not torch.isfinite(out).all():
         raise AssertionError(f'entry: {tuple(out.shape)} embeddings, finite: '
                              f'{bool(torch.isfinite(out).all())}')

@@ -1,5 +1,5 @@
 from .config import Config, DictAction, parse_override
-from .dist import Collective, maybe_initialize_distributed, rank, world_size
+from .dist import Collective, maybe_initialize_distributed, rank, spawn_ranks, world_size
 from .logging import add_file_handler, logger
 from .pth import PthAccessLayer, load_pth, save_pth
 from .store import Store
@@ -10,6 +10,7 @@ __all__ = [
     'parse_override',
     'Collective',
     'maybe_initialize_distributed',
+    'spawn_ranks',
     'rank',
     'world_size',
     'add_file_handler',

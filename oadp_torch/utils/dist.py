@@ -12,6 +12,10 @@ a run on the card, gloo on the CPU. ``oadp_tpu`` calls
 initialised, else from ``RANK``/``WORLD_SIZE``, else a single process (0 of
 1); the OAKE pipelines shard their image index space by them.
 
+:func:`spawn_ranks` starts the ``n`` processes of such a run on this host
+with ``torchrun``'s environment, as the dry run and the multi-process tests
+do.
+
 :class:`Collective` holds the sums that make a data-parallel step equal to
 one step over the global batch, as ``oadp_tpu``'s one program over its mesh
 is: differentiable sums and gathers (the batch-norm statistics, the loss
@@ -19,9 +23,12 @@ counts and the Gram matrix of the block distillation span every process),
 and the average of the gradients (what ``DistributedDataParallel`` does).
 """
 
-__all__ = ['rank', 'world_size', 'maybe_initialize_distributed', 'Collective']
+__all__ = ['rank', 'world_size', 'maybe_initialize_distributed', 'spawn_ranks', 'Collective']
 
 import os
+import socket
+import subprocess
+import sys
 
 import torch
 import torch.distributed as dist
@@ -56,6 +63,36 @@ def maybe_initialize_distributed(device: torch.device) -> bool:
         torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
     dist.init_process_group('nccl' if device.type == 'cuda' else 'gloo')
     return True
+
+
+def spawn_ranks(n: int, argv: list[str], cwd, env: dict | None = None,
+                timeout: float = 900) -> list[str]:
+    """Run ``python argv`` as ``n`` processes of one run on this host
+    (``torchrun``'s environment: ``MASTER_ADDR``/``MASTER_PORT`` on a free
+    local port, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``), with ``env``
+    over this process's environment. Returns each rank's output (stdout and
+    stderr); raises if any rank fails. Kills every rank still running when
+    it returns or raises."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    base = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                WORLD_SIZE=str(n), **(env or {}))
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=cwd,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f'rank {r} of {n} failed (rc={p.returncode}):\n{out[-4000:]}')
+    return outs
 
 
 class Collective:

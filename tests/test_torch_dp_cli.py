@@ -6,11 +6,7 @@ Also the CLI's refusal of the default card where there is none, and a
 checkpoint of the port's trainer read in place of ``model.pretrained``."""
 
 import json
-import os
 import pathlib
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -170,26 +166,15 @@ def test_trained_checkpoint_read_like_pretrained(runs, dry_run, monkeypatch):
             np.testing.assert_array_equal(np.asarray(rg[k]), np.asarray(rw[k]), err_msg=k)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _two_processes(root: pathlib.Path, argv: list[str], *overrides: str, **env) -> dict:
     """Two gloo processes of ``python -m oadp_torch.dp.test`` (torchrun's
     environment); returns rank 0's metrics dict."""
-    base = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
-                WORLD_SIZE='2', PYTHONPATH=str(REPO), OMP_NUM_THREADS='1', DRY_RUN='1', **env)
+    from oadp_torch.utils import spawn_ranks
+
     code = ('import json, sys; from oadp_torch.dp import test; '
             'print("METRICS " + json.dumps(test.main(sys.argv[1:])))')
-    procs = [subprocess.Popen([sys.executable, '-c', code, *argv, *CPU, *overrides], cwd=root,
-                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    outs = spawn_ranks(2, ['-c', code, *argv, *CPU, *overrides], root, timeout=300, env=dict(
+        PYTHONPATH=str(REPO), OMP_NUM_THREADS='1', DRY_RUN='1', **env))
     lines = [[ln for ln in out.splitlines() if ln.startswith('METRICS ')] for out in outs]
     assert all(len(x) == 1 for x in lines), outs
     assert json.loads(lines[1][0][8:]) == {}  # rank 1 returns nothing: rank 0 evaluates

@@ -12,9 +12,6 @@ import json
 import os
 import pathlib
 import re
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -150,31 +147,19 @@ def test_cuda_default_without_card_raises(dry_run):
 # ---------------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _run_ranks(root: pathlib.Path, cfg: pathlib.Path, world: int, device: str,
                overrides: tuple[str, ...] = (), tag: str = '') -> pathlib.Path:
     """``world`` processes of ``python -m oadp_torch.dp.train`` for one
     iteration in fp32 (torchrun's environment; gloo on the CPU, NCCL on
     cards, TF32 off), with ``overrides`` of the config; returns the run's
     work dir."""
-    env = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(world), PYTHONPATH=str(REPO), OMP_NUM_THREADS='1',
-               NVIDIA_TF32_OVERRIDE='0')
+    from oadp_torch.utils import spawn_ranks
+
     name = f'ddp_{device}{tag}'
-    procs = [subprocess.Popen(
-        [sys.executable, '-m', 'oadp_torch.dp.train', name, str(cfg), '--override',
-         f".model.device:'{device}'", '.trainer.runner.max_iters:1', '.trainer.bf16:False',
-         *overrides],
-        cwd=root, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    spawn_ranks(world, ['-m', 'oadp_torch.dp.train', name, str(cfg), '--override',
+                        f".model.device:'{device}'", '.trainer.runner.max_iters:1',
+                        '.trainer.bf16:False', *overrides], root, timeout=300,
+                env=dict(PYTHONPATH=str(REPO), OMP_NUM_THREADS='1', NVIDIA_TF32_OVERRIDE='0'))
     work = root / 'work_dirs' / 'dry_run' / name
     assert (work / 'train.log').exists() and (work / f'train.rank{world - 1}.log').exists()
     assert f'{world} process(es)' in (work / 'train.log').read_text()

@@ -1,6 +1,6 @@
 """``oadp_torch.entry`` against ``__graft_entry__.py`` on the CPU: the dry run
-of a full train step over two gloo processes; ``entry()``'s refusal of the
-default card where there is none; and its OAKE-objects forward step (fp32,
+of a full train step over two gloo processes and over one; the refusal of
+the default card where there is none, by ``entry()`` and by the CLI; and its OAKE-objects forward step (fp32,
 the CPU) against ``__graft_entry__.entry()``'s on the same inputs with the
 same ViT-B/32 weights (a random state dict of ``tests/oracles``)."""
 
@@ -14,7 +14,24 @@ torch.set_num_threads(1)
 def test_dryrun_two_processes():
     from oadp_torch import entry
 
-    entry.dryrun_multichip(2)
+    entry.dryrun_multichip(2, device='cpu')
+
+
+def test_dryrun_one_process():
+    """A group of one process runs the same step (the default on a host
+    with one card)."""
+    from oadp_torch import entry
+
+    entry.dryrun_multichip(1, device='cpu')
+
+
+def test_main_refuses_default_card_where_there_is_none():
+    from oadp_torch import entry
+
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device runs')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        entry.main(['2'])
 
 
 def test_dryrun_refuses_more_cards_than_present():
