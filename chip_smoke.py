@@ -21,7 +21,20 @@ Phases, in order; any failure exits nonzero:
    out-projection; for kernel 3: LN pass, fused QKV product and
    attention). Kernels 1 and 3 are also held to their plain versions on
    rows with a large per-row mean and outlier columns, as CLIP residual
-   streams carry;
+   streams carry. Then ``greedy_nms`` (``csrc/nms.cu``) against its plain
+   version on the card, identical keep sets required: the RPN's two
+   ``batched_nms`` calls at the train canvas (8,819 candidates an image,
+   IoU 0.7, 1000 kept), ``multiclass_nms`` at OV-COCO (65 x 1000, IoU 0.5,
+   300 a class) and OV-LVIS (1203 x 1000, shared and per-class boxes), each
+   entry's outputs also held to the entry with the plain version on the
+   card and (but for OV-LVIS) on the CPU; and adversarial cases (score
+   ties, a 2,000-box suppression chain, zero-area and identical boxes, n
+   of 1, 63, 64 and 65, all dead, a small cap). Each main-path shape timed
+   (device and events ms) beside the plain version, with its bound (bytes
+   over 3.35 TB/s, or 14 fp32 operations an IoU pair the inputs need over
+   67 TFLOP/s) and the kernel's clock cycles by part (tests against the
+   kept list, IoU words, serial decisions); no PyTorch call computes
+   greedy NMS, so no library time;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
    dispatch, but 11 of kernel 4 on the split wiring, whose last layer
@@ -46,8 +59,10 @@ Phases, in order; any failure exits nonzero:
    templates on the card against the same on the CPU (cosine >= 0.99999,
    max abs <= 2e-4); the native COCO matcher built with g++ and held to
    its Python version on random cases;
-6. DP inference, with the launch counts at 0 before it and checked at 0
-   after (no fused kernel is on this path): a random mmdet-layout
+6. DP inference, with the launch counts at 0 before it and checked after
+   (no attention kernel; ``greedy_nms`` once for each RPN call and each
+   ``multiclass_nms``, two an image; no plain greedy pass loop on the
+   card): a random mmdet-layout
    detector checkpoint (ResNet-50 + FPN + RPN + the bbox, object and mask
    heads, seed 0) and 8 synthetic COCO-size images (landscape and
    portrait: both canvases) with the 65 OV-COCO categories, then
@@ -63,8 +78,8 @@ Phases, in order; any failure exits nonzero:
    LVIS bbox and segm evaluation, masks (300, 28, 28) in [0, 1];
    ``simple_test`` on one image by stage (CUDA events; backbone + FPN, RPN
    head, proposals + NMS, RoIAlign, the two heads, ``multiclass_nms``,
-   the rest; the NMS's IoU and passes apart, and its pass counts) with
-   the device's idle share from ``torch.profiler``, for OV-COCO and
+   the rest; the NMS kernel's calls apart, and its launches) with the
+   device's idle share from ``torch.profiler``, for OV-COCO and
    OV-LVIS; the card against the CPU on one image, fp32: RPN logits, the
    pre-NMS probs on the card's proposals (max rel <= 1e-3 above 1e-4),
    ``multiclass_nms`` and ``batched_nms`` on the card over the CPU's exact
@@ -72,7 +87,9 @@ Phases, in order; any failure exits nonzero:
    CPU's top 100 with a card detection of the same label, IoU >= 0.99,
    |score difference| <= 1e-3); bf16 activations against fp32 on the same
    proposals (pre-NMS probs cosine >= 0.999);
-7. DP training, with the launch counts at 0 before and after: a COCO
+7. DP training, with the launch counts at 0 before and checked after (no
+   attention kernel, ``greedy_nms`` once an image of a step and twice an
+   image of ``dp.test``, no plain greedy pass loop on the card): a COCO
    train annotation file for phase 4's images (3-8 boxes each over the 48
    base classes), then ``python -m oadp_torch.dp.train`` with
    ``configs/dp/oadp_ov_coco.py`` at full width on those images and the
@@ -86,8 +103,8 @@ Phases, in order; any failure exits nonzero:
    backbone's running statistics unchanged (``norm_eval``), the FPN's and
    heads' moved. Printed on the ``dp_train`` line: ms per step (CUDA
    events, median of iterations 5-20), images/s, ms by stage (backbone,
-   FPN, RPN head, RPN loss with assign and sample, proposals + NMS with
-   their passes, RCNN sampling, RoIAlign, the three heads, the global
+   FPN, RPN head, RPN loss with assign and sample, proposals + NMS (the
+   kernel's calls apart, and its launches), RCNN sampling, RoIAlign, the three heads, the global
    head, backward, SGD update), peak memory, RoIAlign's forward and
    backward at the step's 2 x 1152 RoIs. Then one fp32 step (TF32 off)
    on the card against the CPU from the same params, image and draws, the
@@ -100,8 +117,9 @@ Phases, in order; any failure exits nonzero:
    Last, one OV-LVIS Mask R-CNN train step (``configs/dp/oadp_ov_lvis.py``,
    C = 1203, masks) on the card in bf16 on a synthetic batch at the LVIS
    train batch's sizes: finite losses, every mask-head leaf moved;
-8. calibration, with the launch counts at 0 before it and checked at 0
-   after (no fused kernel is on this path): ``python -m
+8. calibration, with the launch counts at 0 before the CLIs and checked
+   after them (no attention kernel, ``greedy_nms`` once an image of a
+   trial, no plain greedy pass loop on the card): ``python -m
    oadp_torch.dp.test_calibrate`` on the card over phase 6's 8 DUMP
    records (C = 65 + background, 1000 proposals an image, 300
    detections; its JSON line checked), ``python -m
@@ -111,7 +129,7 @@ Phases, in order; any failure exits nonzero:
    flags, scores within max rel 1e-5, equal OV-COCO metrics dicts. One
    32-image ``rescore`` batch (the 8 records 4 times) timed with CUDA
    events, its device time and idle share from ``torch.profiler``, its
-   NMS passes counted; the COCO evaluation's seconds for the 8 images;
+   NMS launches counted and timed; the COCO evaluation's seconds for the 8 images;
    an estimate (so labelled) of one trial over the 4,952 OV-COCO val
    images. All of it on the ``calibration`` line.
 
@@ -454,6 +472,235 @@ def check_kernels(A, gen) -> dict:
     return results
 
 
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: ``ops/attention.py``'s five and
+    ``ops/nms.py``'s ``greedy_nms``."""
+    from oadp_torch.ops import attention, nms
+
+    attention.reset_launches()
+    nms.reset_launches()
+
+
+def launch_counts() -> dict:
+    from oadp_torch.ops import attention, nms
+
+    return {**attention.LAUNCHES, **nms.LAUNCHES}
+
+
+# greedy_nms: the IoU of a pair and its comparison, in fp32 outside the
+# tensor cores: 2 max, 2 min, 2 subtractions and 2 clamps (the overlap), 1
+# product (inter), 1 addition and 1 subtraction (union), 1 clamp, 1
+# division, 1 comparison
+IOU_FLOP = 14
+PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores
+RPN_CANVAS, RPN_HW = (832, 1344), [(800, 1199), (800, 1333)]
+RPN_PRE, RPN_MAX, RPN_IOU = 2000, 1000, 0.7  # the OV-COCO train config's RPN NMS
+
+
+def _captured_keep(fn):
+    """``fn()`` (an entry point of ``ops/nms.py``) and the arguments of each
+    ``greedy_keep_sorted`` call it made."""
+    from oadp_torch.ops import nms as NMS
+
+    seen = []
+    keep_fn = NMS.greedy_keep_sorted
+
+    def capture(*a, **k):
+        seen.append((a, k))
+        return keep_fn(*a, **k)
+
+    NMS.greedy_keep_sorted = capture
+    try:
+        out = fn()
+    finally:
+        NMS.greedy_keep_sorted = keep_fn
+    return out, seen
+
+
+def _needed_pairs(keep, alive, max_keep: int) -> int:
+    """The IoU pairs these inputs need: each kept candidate against the
+    alive ones after it, up to the scan's end (the max_keep-th kept, else
+    the last alive)."""
+    n = alive.shape[1]
+    pos = torch.arange(n, device=alive.device)
+    last_kept = torch.where(keep, pos, -1).amax(1)
+    last_alive = torch.where(alive, pos, -1).amax(1)
+    end = torch.where(keep.sum(1) >= max_keep, last_kept, last_alive) + 1
+    acum = alive.long().cumsum(1)
+    total = acum.gather(1, (end - 1).clamp(min=0)[:, None]) * (end > 0)[:, None]
+    return int(((total - acum) * keep).sum())
+
+
+def _rpn_inputs(gen, dev):
+    """RPN head outputs at the train canvas (random logits and deltas, two
+    images) with the canvas's anchors: ``rpn_proposals`` takes the top 2000
+    of each level, 8,819 candidates an image."""
+    from oadp_torch.ops.anchors import AnchorGenerator
+
+    sizes = [(-(-RPN_CANVAS[0] // s), -(-RPN_CANVAS[1] // s)) for s in (4, 8, 16, 32, 64)]
+    anchors = [torch.from_numpy(a).float().to(dev)
+               for a in AnchorGenerator().grid_anchors(sizes)]
+    scores = [torch.randn(2, len(a), device=dev, generator=gen) for a in anchors]
+    deltas = [0.2 * torch.randn(2, len(a), 4, device=dev, generator=gen) for a in anchors]
+    return scores, deltas, anchors, torch.tensor(RPN_HW, device=dev)
+
+
+def _det_inputs(gen, dev, classes: int, per_class: bool, n: int = 1000):
+    """A detector's ``n`` decoded boxes on an 800 x 1199 image, clustered
+    round 40 objects, and softmax scores over ``classes`` + background,
+    zero on 5% of the rows (proposals that were not valid)."""
+    centre = torch.rand(40, 2, device=dev, generator=gen) * torch.tensor([1199., 800.], device=dev)
+    size = 30 + 270 * torch.rand(40, 2, device=dev, generator=gen)
+    k = torch.randint(0, 40, (n,), device=dev, generator=gen)
+    jitter = 1 + 0.15 * torch.randn(n, 2, device=dev, generator=gen)
+    c, s = centre[k], size[k] * jitter
+    boxes = torch.cat([c - s / 2, c + s / 2], 1).clamp(min=0)
+    if per_class:
+        boxes = (boxes[:, None] + 4 * torch.randn(n, classes, 4, device=dev, generator=gen)
+                 ).clamp(min=0).reshape(n, classes * 4)
+    scores = torch.softmax(2 * torch.randn(n, classes + 1, device=dev, generator=gen), -1)
+    scores = scores * (torch.rand(n, 1, device=dev, generator=gen) > 0.05)
+    return boxes, scores
+
+
+def _adversarial(gen, dev) -> dict:
+    """``nms`` inputs (boxes, scores, iou, max_out) that stress the scan."""
+    from oadp_torch.ops import nms as NMS
+
+    def clustered(n):
+        b, _ = _det_inputs(gen, dev, 1, False, n)
+        return b
+
+    def rand(n):
+        return torch.rand(n, device=dev, generator=gen)
+
+    chain_x = 4 * torch.arange(2000, device=dev, dtype=torch.float32)[:, None]
+    chain = torch.cat([chain_x, 0 * chain_x, chain_x + 10, 0 * chain_x + 10], 1)
+    mixed = clustered(1000)
+    mixed[::2, 2] = mixed[::2, 0]  # zero width
+    mixed[1::4] = mixed[1]  # one box, many times
+    mixed[3::8] = mixed[3, :1]  # points
+    cases = {
+        'ties': (clustered(1000), torch.round(4 * rand(1000)) / 4, 0.5, 1000),
+        'chain_2000': (chain, torch.linspace(1, 0, 2000, device=dev), 0.3, 2000),
+        'identical_zero_area': (mixed, rand(1000), 0.5, 1000),
+        'all_dead': (clustered(1000), torch.full((1000,), NMS.NEG_INF, device=dev), 0.5, 300),
+        'all_alive_capped': (clustered(1000), rand(1000), 0.5, 50),
+    }
+    for n in (1, 63, 64, 65):
+        cases[f'n_{n}'] = (clustered(n), rand(n), 0.5, n)
+    return cases
+
+
+def check_nms(gen) -> dict:
+    """``greedy_nms`` against its plain version on the card (identical keep
+    sets) at the main path's shapes, each through its entry point (the
+    RPN's ``batched_nms`` calls that ``rpn_proposals`` makes at the train
+    canvas, ``multiclass_nms`` at OV-COCO and OV-LVIS width), whose outputs
+    are held to the same entry with the plain version on the card and, but
+    for OV-LVIS, on the CPU; and on adversarial cases. Each main-path shape
+    timed beside the plain version, with its bound and the kernel's cycles
+    by part."""
+    from oadp_torch.models import rpn as RPN
+    from oadp_torch.ops import nms as NMS
+
+    dev = torch.device('cuda')
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    def held(name, entry, args, timed_shape=True, cpu=True):
+        """The entry point on the card against itself with the plain
+        version on the card and (``cpu``) on the CPU, on the same inputs,
+        and its kernel call against the plain version."""
+        out, ((a, k),) = _captured_keep(lambda: entry(*args))
+        keep_fn = NMS.greedy_keep_sorted
+        NMS.greedy_keep_sorted = NMS.greedy_keep_sorted_plain
+        try:
+            plain_out = entry(*args)
+        finally:
+            NMS.greedy_keep_sorted = keep_fn
+        if not same(out, plain_out) or cpu and not same(
+                out, entry(*(t.cpu() if torch.is_tensor(t) else t for t in args))):
+            raise AssertionError(f'greedy_nms {name}: the outputs differ')
+        keep = NMS.greedy_keep_sorted(*a, **k)
+        plain = NMS.greedy_keep_sorted_plain(*a, **k)
+        if not torch.equal(keep, plain):
+            raise AssertionError(f'greedy_nms {name}: keep sets differ in '
+                                 f'{int((keep != plain).sum())} places')
+        return _nms_row(name, a, k, keep, timed_shape)
+
+    results = {}
+    # the RPN's batched_nms calls at the train canvas, one an image, as
+    # rpn_proposals makes them
+    rpn_args = []
+    rpn_nms = RPN.batched_nms
+    RPN.batched_nms = lambda *a: rpn_args.append(a) or rpn_nms(*a)
+    try:
+        RPN.rpn_proposals(*_rpn_inputs(gen, dev), nms_pre=RPN_PRE, max_per_img=RPN_MAX,
+                          iou_threshold=RPN_IOU)
+    finally:
+        RPN.batched_nms = rpn_nms
+    rpn = [held(f'rpn_train_image_{i}', NMS.batched_nms, a) for i, a in enumerate(rpn_args)]
+    results['rpn_train'] = dict(rpn[0], image_1=rpn[1])
+    for name, classes, per_class in (('ov_coco', 65, False), ('ov_lvis', 1203, False),
+                                     ('ov_lvis_per_class', 1203, True)):
+        boxes, sc = _det_inputs(gen, dev, classes, per_class)
+        # the CPU holds OV-COCO; OV-LVIS's (1203, 1000, 1000) plain passes
+        # on the CPU would take minutes
+        results[name] = held(name, NMS.multiclass_nms, (boxes, sc, 0.0, 0.5, 300, classes),
+                             cpu=classes == 65)
+    adversarial = {}
+    for name, args in _adversarial(gen, dev).items():
+        row = held(name, NMS.nms, args, timed_shape=False)
+        adversarial[name] = {k: row[k] for k in ('problems', 'candidates', 'kept', 'identical')}
+    results['adversarial'] = adversarial
+    log(json.dumps({'nms_adversarial': adversarial}))
+    return results
+
+
+def _nms_row(name, a, k, keep, timed_shape) -> dict:
+    """One kernel call's shape, keep count and, for a main-path shape, its
+    times (device, events), the plain version's, its bound and its cycles
+    by part (thread 0 of each block: the tiles' IoU words, the serial
+    decisions, the suppression passes)."""
+    from oadp_torch.ops import nms as NMS
+
+    boxes, alive, thr, max_keep = a
+    order = k.get('order')
+    p, n = alive.shape
+    row = dict(name=f'greedy_nms({name})', problems=p, candidates=n, iou=thr, max_keep=max_keep,
+               shared_boxes=order is not None, kept=int(keep.sum()), identical=True,
+               max_abs_err=0.0)
+    if not timed_shape:
+        return row
+
+    def kernel():
+        return NMS.greedy_keep_sorted(*a, **k)
+
+    def plain():
+        return NMS.greedy_keep_sorted_plain(*a, **k)
+
+    nbytes = boxes.numel() * 4 + (order.numel() * 8 if order is not None else 0) + 2 * p * n
+    pairs = _needed_pairs(keep, alive, max_keep)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, IOU_FLOP * pairs / PEAK_FP32
+    cycles = torch.zeros(p, 3, dtype=torch.int64, device=alive.device)
+    NMS._greedy_nms(boxes, alive, thr, max_keep, order, cycles=cycles)
+    parts = cycles.sum(0).tolist()
+    share = {part: c / max(1, sum(parts)) for part, c in
+             zip(('iou_words', 'serial_decisions', 'suppression'), parts)}
+    dev_ms = device_ms(kernel, 20)
+    row.update(
+        kernel_device_ms=dev_ms, kernel_ms=timed(kernel, 20), plain_ms=timed(plain, 3),
+        library_ms=None, bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by='operations' if t_ops >= t_bytes else 'bytes', bytes=nbytes, iou_pairs=pairs,
+        cycles_by_part=dict(zip(share, parts)), cycle_share=share,
+        # one block: its cycles are the launch's, so the shares split its time
+        serial_decisions_ms=dev_ms * share['serial_decisions'] if p == 1 else None)
+    log(json.dumps({'nms_check': row}))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -533,7 +780,7 @@ def _unit_rows(name, emb, rows: int) -> None:
         raise AssertionError(f'{name}: not unit rows')
 
 
-def main_path(A, card: str, root: pathlib.Path) -> dict:
+def main_path(card: str, root: pathlib.Path) -> dict:
     """The OAKE CLIs (objects, globals, blocks) and the split-wiring
     objects step, each driven with every launch count set to 0 just before
     it and read just after."""
@@ -564,10 +811,10 @@ def main_path(A, card: str, root: pathlib.Path) -> dict:
         """``fn()`` with the launch counts from 0; checks them against
         ``expect`` (every kernel not named there: 0 launches)."""
         torch.cuda.synchronize()
-        A.reset_launches()
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = launch_counts()
         want = {k: expect().get(k, 0) for k in launches}
         log(json.dumps({'launches': {label: launches}, 'dispatches': dict(calls)}))
         if launches != want or not all(expect().values()):
@@ -759,7 +1006,7 @@ def write_bpe(path: pathlib.Path, seed: int = 0) -> None:
         f.write('\n'.join(['#version: synthetic', *lines]) + '\n')
 
 
-def vild_path(A, out: pathlib.Path) -> dict:
+def vild_path(out: pathlib.Path) -> dict:
     """The ViLD prompt CLI on the card at full text-tower width, its record
     (``out``, phase 6's prompt file) checked; the builder on a few names
     against the CPU; the native matcher."""
@@ -795,7 +1042,7 @@ def vild_path(A, out: pathlib.Path) -> dict:
         vild.build_vild_prompts = timed_build
         try:
             torch.cuda.synchronize()
-            A.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             vild.main(['--checkpoint', str(ckpt), '--bpe', str(bpe), '--output', str(out),
                        '--device', 'cuda'])
@@ -803,7 +1050,7 @@ def vild_path(A, out: pathlib.Path) -> dict:
             cli_s = time.perf_counter() - t0
         finally:
             vild.build_vild_prompts = build
-        launches = dict(A.LAUNCHES)
+        launches = launch_counts()
         log(json.dumps({'launches': {'vild': launches}}))
         if any(launches.values()):
             raise AssertionError(f'vild: the text encoder launched fused kernels {launches}')
@@ -1086,11 +1333,63 @@ class _StageClock:
                 for name, ev in self.events.items()}
 
 
+class _NmsWatch:
+    """While entered: the calls of ``ops/nms.py:greedy_keep_sorted`` by
+    device (on the card, one ``greedy_nms`` launch each), the calls of the
+    plain pass loop ``_greedy_keep`` on a CUDA tensor (none: the card takes
+    the kernel) and the pass counts of those on the CPU."""
+
+    def __enter__(self):
+        from oadp_torch.ops import nms as NMS
+
+        self.module = NMS
+        self.calls = {'cuda': 0, 'cpu': 0}
+        self.plain_on_card, self.cpu_passes = 0, []
+        self.saved = keep_fn, greedy = NMS.greedy_keep_sorted, NMS._greedy_keep
+        self.launches0 = NMS.LAUNCHES['greedy_nms']
+
+        def counted_keep(boxes, *a, **k):
+            self.calls[boxes.device.type] += 1
+            return keep_fn(boxes, *a, **k)
+
+        def counted_greedy(sup, alive):
+            keep, passes = greedy(sup, alive)
+            if sup.is_cuda:
+                self.plain_on_card += 1
+            else:
+                self.cpu_passes.append(passes)
+            return keep, passes
+
+        NMS.greedy_keep_sorted, NMS._greedy_keep = counted_keep, counted_greedy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.greedy_keep_sorted, self.module._greedy_keep = self.saved
+
+    @property
+    def launches(self) -> int:
+        return self.module.LAUNCHES['greedy_nms'] - self.launches0
+
+
+def _check_dp_launches(label: str, launches: dict, expected: int, watch: _NmsWatch) -> None:
+    """A DP path's launch gates: no attention kernel, ``expected``
+    ``greedy_nms`` launches (one an NMS call on the card), and no plain
+    greedy pass loop on the card."""
+    fused = {k: v for k, v in launches.items() if k != 'greedy_nms'}
+    if (any(fused.values()) or launches['greedy_nms'] != expected
+            or watch.calls['cuda'] != expected or watch.plain_on_card):
+        raise AssertionError(
+            f'{label}: launches {launches}, {expected} greedy_nms expected; NMS calls '
+            f'{watch.calls}, plain pass loops on the card {watch.plain_on_card}')
+
+
 def _time_simple_test(run, canvas, reps: int = 5) -> dict:
-    """``run()`` (one ``simple_test`` call on the card) timed by stage with
-    CUDA events over ``reps`` warm calls (the NMS internals, nested in the
-    proposal and detection stages, reported beside them), and the device's
-    busy time from ``torch.profiler`` over two more."""
+    """``run()`` (one ``simple_test`` call on the card, one image) timed by
+    stage with CUDA events over ``reps`` warm calls (the NMS kernel's calls,
+    nested in the proposal and detection stages, reported beside them), the
+    device's busy time from ``torch.profiler`` over two more, and one more
+    call with its NMS calls and ``greedy_nms`` launches counted (one RPN
+    call and one ``multiclass_nms``, no plain pass loop on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     from oadp_torch.models import detector as DET
@@ -1104,7 +1403,7 @@ def _time_simple_test(run, canvas, reps: int = 5) -> dict:
               ('rpn_proposals_nms', RPN, 'rpn_proposals'),
               ('roi_align', RA, 'roi_align_fpn'), ('two_heads', H, 'convfc_forward'),
               ('multiclass_nms', NMS, 'multiclass_nms'), ('mask_head', MH, 'mask_head_forward'))
-    nested = (('nms_iou', NMS, '_suppression'), ('nms_passes', NMS, '_greedy_keep'))
+    nested = (('nms_kernel', NMS, 'greedy_keep_sorted'),)
     run()
     torch.cuda.synchronize()
     with _StageClock(stages + nested + (('simple_test', DET, 'simple_test'),)) as clock:
@@ -1123,28 +1422,19 @@ def _time_simple_test(run, canvas, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 2 / 1e3
-    # one more call with the passes of every greedy loop counted: the
-    # proposals' NMS first, then each class chunk of the detections'
-    passes = []
-    greedy = NMS._greedy_keep
-
-    def counted(sup, alive):
-        keep, n = greedy(sup, alive)
-        passes.append(n)
-        return keep, n
-
-    NMS._greedy_keep = counted
-    try:
+    with _NmsWatch() as watch:
         run()
-    finally:
-        NMS._greedy_keep = greedy
+        torch.cuda.synchronize()
+    counts = dict(calls=watch.calls['cuda'], launches=watch.launches,
+                  plain_on_card=watch.plain_on_card)
+    if counts != dict(calls=2, launches=2, plain_on_card=0):
+        raise AssertionError(f'simple_test NMS: {counts}, want 2 calls and launches')
     return dict(canvas=canvas, simple_test_ms=total, wall_ms=wall_ms, stage_ms=stage_ms,
                 nms_inner_ms=inner, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / wall_ms,
-                nms_passes=dict(proposals=passes[0], detections=passes[1:]))
+                device_idle_share=1 - busy_ms / wall_ms, nms_per_call=counts)
 
 
-def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
+def dp_path(card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     """DP inference through ``python -m oadp_torch.dp.test`` at full
     OV-COCO width (fp32, twice: the second run warm) and OV-LVIS Mask
     R-CNN width, with every launch count at 0 before and after; the stages
@@ -1203,7 +1493,8 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
         timed_run, keep_results, keep_outputs)
     torch.cuda.synchronize()
-    A.reset_launches()
+    reset_launches()
+    watch = _NmsWatch().__enter__()
     try:
         walls = []
         for _ in range(2):  # cold, then warm
@@ -1245,12 +1536,14 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
         lvis_loop_s = captured['run_s'] - captured['metrics_s']
         lvis_eval_s = captured['metrics_s']
     finally:
+        watch.__exit__()
         DetEvaluator.run, DetEvaluator._metrics, DetEvaluator.forward = (
             run_fn, metrics_fn, forward_fn)
-    launches = dict(A.LAUNCHES)
-    log(json.dumps({'launches': {'dp': launches}}))
-    if any(launches.values()):
-        raise AssertionError(f'dp: fused kernels launched {launches}')
+    launches = launch_counts()
+    log(json.dumps({'launches': {'dp': launches}, 'nms_calls': watch.calls}))
+    # each image: one RPN NMS, one multiclass_nms; OV-COCO run 4 times
+    # (fp32 twice, bf16, DUMP), OV-LVIS twice
+    _check_dp_launches('dp', launches, 2 * (4 * len(DP_SIZES) + 2 * N_LVIS_IMAGES), watch)
 
     coco_ds = CocoDetDataset(str(coco_ann), str(coco_img), coco, test_mode=True)
     lvis_ds = CocoDetDataset(str(lvis_ann), str(lvis_img), lvis, test_mode=True)
@@ -1381,12 +1674,17 @@ def dp_path(A, card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     cmp['boxes_max_abs'], _ = _rel_err(card_boxes, cpu_boxes)
     nms_args = dict(score_thr=config.rcnn_score_thr, iou_threshold=config.rcnn_nms_iou,
                     max_per_img=config.rcnn_max_per_img, num_classes=config.num_all)
-    with torch.inference_mode():
+    with torch.inference_mode(), _NmsWatch() as cpu_watch:
         cpu_nms = NMS.multiclass_nms(cpu_boxes, cpu_probs, **nms_args)
         card_nms = NMS.multiclass_nms(cpu_boxes.cuda(), cpu_probs.cuda(), **nms_args)
         cpu_rpn = NMS.batched_nms(*rpn_args[0])
         card_rpn = NMS.batched_nms(*(a.cuda() if torch.is_tensor(a) else a
                                      for a in rpn_args[0]))
+    # the CPU's plain passes (multiclass_nms, then batched_nms)
+    cmp['cpu_nms_passes'] = cpu_watch.cpu_passes
+    if cpu_watch.plain_on_card or cpu_watch.launches != 2:
+        raise AssertionError(f'dp card vs CPU NMS: {cpu_watch.launches} launches, '
+                             f'{cpu_watch.plain_on_card} plain pass loops on the card')
     cmp['multiclass_nms_identical'] = all(
         torch.equal(a.cpu(), b) for a, b in zip(card_nms[1:], cpu_nms[1:]))
     cmp['multiclass_nms_kept'] = int(cpu_nms[3].sum())
@@ -1498,13 +1796,15 @@ def _train_config(repo: pathlib.Path, root: pathlib.Path, oake: pathlib.Path, dp
 
 class _StepClock(_StageClock):
     """CUDA events around each train step and, from step ``TIMED_FROM`` on,
-    around the stage functions it calls, with the greedy NMS's passes
+    around the stage functions it calls (``nested``: timed apart, inside
+    another stage), with the ``greedy_nms`` launches of those steps
     counted."""
 
-    def __init__(self, stages):
-        super().__init__(stages)
+    def __init__(self, stages, nested=()):
+        super().__init__(stages + nested)
+        self.nested = [name for name, _, _ in nested]
         self.steps: list = []
-        self.passes: list[int] = []
+        self.launches: list[int] = []
         self.timed = False
 
     def __enter__(self):
@@ -1512,9 +1812,8 @@ class _StepClock(_StageClock):
         from oadp_torch.ops import nms as NMS
 
         super().__enter__()
-        self.saved += [(TR.Trainer, '_step_for', TR.Trainer._step_for),
-                       (NMS, '_greedy_keep', NMS._greedy_keep)]
-        step_for, greedy = TR.Trainer._step_for, NMS._greedy_keep
+        self.saved.append((TR.Trainer, '_step_for', TR.Trainer._step_for))
+        step_for = TR.Trainer._step_for
         clock = self
 
         def timed_step_for(trainer, canvas, epoch_len):
@@ -1522,21 +1821,18 @@ class _StepClock(_StageClock):
 
             def step(*a, **k):
                 clock.timed = len(clock.steps) >= TIMED_FROM
+                launches = NMS.LAUNCHES['greedy_nms']
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
                 out = step_fn(*a, **k)
                 end.record()
                 clock.steps.append((start, end))
+                if clock.timed:
+                    clock.launches.append(NMS.LAUNCHES['greedy_nms'] - launches)
                 return out
             return step, anchors
 
-        def counted(sup, alive):
-            keep, n = greedy(sup, alive)
-            if clock.timed:
-                clock.passes.append(n)
-            return keep, n
-
-        TR.Trainer._step_for, NMS._greedy_keep = timed_step_for, counted
+        TR.Trainer._step_for = timed_step_for
         return self
 
     def _wrap(self, name, fn):
@@ -1552,11 +1848,11 @@ class _StepClock(_StageClock):
         timed = ms[TIMED_FROM:]
         n = len(timed)
         stage = self.ms(n)
+        inner = {name: stage.pop(name) for name in self.nested}
         return dict(step_ms=ms, timed_steps=n, ms_per_step=float(np.median(timed)),
                     mean_ms_per_step=float(np.mean(timed)), stage_ms=stage,
-                    stage_sum_ms=sum(stage.values()),
-                    nms_passes_per_step=sum(self.passes) / n,
-                    nms_calls_per_step=len(self.passes) / n)
+                    stage_sum_ms=sum(stage.values()), nested_ms=inner,
+                    nms_launches_per_step=sum(self.launches) / n)
 
 
 def _log_lines(path: pathlib.Path) -> dict[int, dict]:
@@ -1700,7 +1996,7 @@ def _update_cosines(a_before, a_after, b_before, b_after, flags) -> list[float]:
     return out
 
 
-def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib.Path,
+def dp_train_path(card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib.Path,
                   prompts: pathlib.Path) -> dict:
     """DP training through ``python -m oadp_torch.dp.train`` at full OV-COCO
     width on phase 4's images and OAKE records, bf16: 20 iterations straight
@@ -1729,6 +2025,7 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
     from oadp_torch.models import heads as H
     from oadp_torch.models import resnet as RN
     from oadp_torch.models import rpn as RPN
+    from oadp_torch.ops import nms as NMS
     from oadp_torch.ops import roi_align as RA
     from oadp_torch.utils import Config
 
@@ -1757,12 +2054,13 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
         prof_box['wall_ms'] = (time.perf_counter() - prof_box['t0']) * 1e3
         stop_prof(prof, device, out_dir)
 
+    torch.cuda.synchronize()
+    reset_launches()
+    watch = _NmsWatch().__enter__()
     try:
-        torch.cuda.synchronize()
-        A.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with _StepClock(stages) as clock:
+        with _StepClock(stages, (('nms_kernel', NMS, 'greedy_keep_sorted'),)) as clock:
             straight = dp_train.main(['smoke_train', str(cfg_path)])
         torch.cuda.synchronize()
         straight_s = time.perf_counter() - t0
@@ -1801,12 +2099,16 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
             test_s = time.perf_counter() - t0
         finally:
             DetEvaluator._metrics = metrics_fn
-        launches = dict(A.LAUNCHES)
+        launches = launch_counts()
     finally:
+        watch.__exit__()
         os.chdir(cwd)
-    log(json.dumps({'launches': {'dp_train': launches}}))
-    if any(launches.values()):
-        raise AssertionError(f'dp_train: fused kernels launched {launches}')
+    log(json.dumps({'launches': {'dp_train': launches}, 'nms_calls': watch.calls}))
+    # one RPN NMS an image of a train step (batch 2): the straight run and
+    # the resumed one; then dp.test: one RPN NMS and one multiclass_nms an
+    # image
+    _check_dp_launches('dp_train', launches, 2 * (2 * TRAIN_ITERS - RESUME_AT)
+                       + 2 * len(DP_SIZES), watch)
 
     # the runs' gates: finite logged losses, a resume that continues, frozen
     # leaves and the backbone's statistics unchanged, the rest moved
@@ -2020,8 +2322,8 @@ def dp_train_path(A, card: str, root: pathlib.Path, oake: pathlib.Path, dp: path
                mean_ms_per_step=timing['mean_ms_per_step'], timed_steps=timing['timed_steps'],
                step_ms=timing['step_ms'], stage_ms=timing['stage_ms'],
                stage_sum_ms=timing['stage_sum_ms'],
-               nms_passes_per_step=timing['nms_passes_per_step'],
-               nms_calls_per_step=timing['nms_calls_per_step'], profiled=window,
+               nms_kernel_ms_per_step=timing['nested_ms']['nms_kernel'],
+               nms_launches_per_step=timing['nms_launches_per_step'], profiled=window,
                peak_memory_gb=peak_gb, roi_align=roi_align, straight_s=straight_s,
                resumed_s=resumed_s, test_s=test_s, test_detections=n_dets, test_metrics=metrics,
                last_log=logs[TRAIN_ITERS], resume_max_abs_diff=max(resume_diff.values()),
@@ -2045,16 +2347,17 @@ PERTURBED = (  # two settings off the defaults, inside the sweep's space
 )
 
 
-def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
+def calibration_path(card: str, config: pathlib.Path, dump: pathlib.Path,
                      root: pathlib.Path) -> dict:
     """The calibration trial and sweep CLIs on the card over phase 6's 8
     full-width OV-COCO DUMP records, with the launch counts at 0 before and
-    checked at 0 after (no fused kernel is on this path); the card's
+    checked after (one ``greedy_nms`` launch an image of a trial, no
+    attention kernel, no plain greedy pass loop on the card); the card's
     ``CalibrationRunner`` against the CPU's on the same records at the
     defaults and two perturbed settings; one 32-image ``rescore`` batch
     (the 8 records 4 times) timed with CUDA events and ``torch.profiler``,
-    its NMS passes counted; the COCO evaluation's seconds for the 8
-    images and an estimate of a whole OV-COCO val trial."""
+    its NMS launches counted and timed; the COCO evaluation's seconds for
+    the 8 images and an estimate of a whole OV-COCO val trial."""
     import copy
 
     from torch.profiler import ProfilerActivity, profile
@@ -2066,16 +2369,21 @@ def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
-    A.reset_launches()
-    t0 = time.perf_counter()
-    line = TC.main(['smoke_calibration', str(config), str(dump)])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sweep = SW.main([str(config), str(dump), '--trials', '5', '--seed', '0',
-                     '--output', str(root / 'calibration.json')])
-    torch.cuda.synchronize()
-    sweep_s = time.perf_counter() - t0
+    reset_launches()
+    with _NmsWatch() as watch:
+        t0 = time.perf_counter()
+        line = TC.main(['smoke_calibration', str(config), str(dump)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep = SW.main([str(config), str(dump), '--trials', '5', '--seed', '0',
+                         '--output', str(root / 'calibration.json')])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log(json.dumps({'launches': {'calibration': launches}, 'nms_calls': watch.calls}))
+    # one multiclass_nms an image of a trial: the CLI's trial, the sweep's 5
+    _check_dp_launches('calibration', launches, len(DP_SIZES) * (1 + 5), watch)
 
     cfg = Config.load(config)
     t0 = time.perf_counter()
@@ -2092,7 +2400,8 @@ def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
     vs_cpu = {}
     for name, params in settings.items():
         got = [t.cpu() for t in runner.rescore_batch(params, 0, m)]
-        want = cpu.rescore_batch(params, 0, m)
+        with _NmsWatch() as cpu_watch:
+            want = cpu.rescore_batch(params, 0, m)
         ok = want[3]
         same = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
         boxes_equal = torch.equal(got[0][..., :4], want[0][..., :4])
@@ -2102,7 +2411,8 @@ def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
         vs_cpu[name] = dict(labels_rows_valid_identical=same, boxes_identical=boxes_equal,
                             detections=int(ok.sum()), score_max_rel=rel,
                             metrics_equal=metrics == cpu_metrics,
-                            mAP_50=metrics['COCO_48_bbox_mAP_50'])
+                            mAP_50=metrics['COCO_48_bbox_mAP_50'],
+                            cpu_nms_passes_mean=float(np.mean(cpu_watch.cpu_passes)))
         for key in ('COCO_48_17_bbox_mAP_50', 'COCO_48_bbox_mAP_50', 'COCO_17_bbox_mAP_50'):
             if key not in metrics:
                 raise AssertionError(f'calibration metrics lack {key}: {sorted(metrics)}')
@@ -2146,19 +2456,16 @@ def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
         torch.cuda.synchronize()
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 2 / 1e3
-    passes = []
-    greedy = NMS._greedy_keep
-
-    def counted(sup, alive):
-        keep, n = greedy(sup, alive)
-        passes.append(n)
-        return keep, n
-
-    NMS._greedy_keep = counted
-    try:
+    # the batch's NMS: one launch an image, timed apart
+    with _NmsWatch() as batch_watch, _StageClock(
+            (('nms_kernel', NMS, 'greedy_keep_sorted'),)) as clock:
         batch()
-    finally:
-        NMS._greedy_keep = greedy
+        torch.cuda.synchronize()
+    nms_counts = dict(calls=batch_watch.calls['cuda'], launches=batch_watch.launches,
+                      plain_on_card=batch_watch.plain_on_card)
+    if nms_counts != dict(calls=b, launches=b, plain_on_card=0):
+        raise AssertionError(f'rescore batch NMS: {nms_counts}, want {b} calls and launches')
+    nms_ms = clock.ms(1)['nms_kernel']
     # a trial's two host parts: the batch's detection dicts, the evaluation
     t0 = time.perf_counter()
     big.detections(params)
@@ -2167,17 +2474,13 @@ def calibration_path(A, card: str, config: pathlib.Path, dump: pathlib.Path,
     t0 = time.perf_counter()
     runner.evaluate(dets)
     eval_s = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
-    log(json.dumps({'launches': {'calibration': launches}}))
-    if any(launches.values()):
-        raise AssertionError(f'calibration: fused kernels launched {launches}')
     return dict(
         card=card, records=m, proposals=1000, classes=runner.categories.num_all + 1, cli_s=cli_s,
         cli_line=line, sweep_trials=len(history), sweep_s=sweep_s,
         sweep_best=sweep['best_value'], load_s=load_s, card_vs_cpu=vs_cpu,
         rescore_batch=dict(images=b, ms=batch_ms, device_busy_ms=busy_ms,
                            device_idle_share=1 - busy_ms / batch_ms,
-                           nms_passes=passes, nms_passes_mean=float(np.mean(passes)),
+                           nms=nms_counts, nms_kernel_ms=nms_ms,
                            with_detection_dicts_s=batch_with_dicts_s),
         coco_eval_s=eval_s, coco_eval_images=m, detections=len(dets),
         estimate_val_trial_s=VAL_IMAGES / b * batch_with_dicts_s + eval_s * VAL_IMAGES / m,
@@ -2205,21 +2508,22 @@ def main() -> int:
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
+    nms_check = check_nms(gen)
     # one directory for phases 4-7: phase 7 trains on phase 4's images and
     # OAKE records, from phase 6's checkpoint, with phase 5's prompts
     with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent / 'build') as tmp:
         tmp = pathlib.Path(tmp)
         for sub in ('oake', 'dp', 'train'):
             (tmp / sub).mkdir()
-        path = main_path(A, card, tmp / 'oake')
+        path = main_path(card, tmp / 'oake')
         prompts = tmp / 'vild.pth'
-        vild_path(A, prompts)
-        dp = dp_path(A, card, prompts, tmp / 'dp')
+        vild_path(prompts)
+        dp = dp_path(card, prompts, tmp / 'dp')
         log(json.dumps({'dp_path': dp}))
-        train = dp_train_path(A, card, tmp / 'train', tmp / 'oake', tmp / 'dp', prompts)
+        train = dp_train_path(card, tmp / 'train', tmp / 'oake', tmp / 'dp', prompts)
         log(json.dumps({'dp_train': train}))
         (tmp / 'calibration').mkdir()
-        calibration = calibration_path(A, card, pathlib.Path(dp['coco_config']),
+        calibration = calibration_path(card, pathlib.Path(dp['coco_config']),
                                        pathlib.Path(dp['dump_dir']), tmp / 'calibration')
     log(json.dumps({'calibration': calibration}))
 
@@ -2258,6 +2562,21 @@ def main() -> int:
                     'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
                     'kernel_device_ms_by_part') if k in res[shape]}
         kernels.append(entry)
+    nms_launches = {'dp': dp['launches']['greedy_nms'],
+                    'dp_train': train['launches']['greedy_nms'],
+                    'calibration': calibration['launches']['greedy_nms']}
+    rpn = nms_check['rpn_train']
+    kernels.append(dict(
+        name='greedy_nms', route='cuda', source='oadp_torch/csrc/nms.cu',
+        replaces='oadp_tpu/ops/nms.py:38 / :187 (lax.while_loop NMS, not a Pallas kernel)',
+        launches=sum(nms_launches.values()), launches_by_phase=nms_launches,
+        max_abs_err=0.0, ms=rpn['kernel_ms'], plain_ms=rpn['plain_ms'], bound_ms=rpn['bound_ms'],
+        bound_by=rpn['bound_by'], library_ms=None, device_ms=rpn['kernel_device_ms'],
+        library_device_ms=None, shape=rpn['name'],
+        **{name: {k: nms_check[name][k] for k in (
+            'name', 'problems', 'candidates', 'kept', 'kernel_ms', 'kernel_device_ms',
+            'plain_ms', 'bound_ms', 'bound_by', 'cycle_share')}
+           for name in ('ov_coco', 'ov_lvis', 'ov_lvis_per_class')}))
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

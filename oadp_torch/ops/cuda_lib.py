@@ -128,6 +128,11 @@ def library() -> ctypes.CDLL:
                 p,  # stream
             ]
             lib.oadp_ln_qkv_attention.restype = i
+            lib.oadp_greedy_nms.argtypes = [
+                i, i, p, p, p, ctypes.c_float, i,  # P, n, boxes, order, alive, thr, max_keep
+                p, p, p, p,  # keep, kept_ws, cycles, stream
+            ]
+            lib.oadp_greedy_nms.restype = i
             lib.oadp_error_string.argtypes = [i]
             lib.oadp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -312,6 +312,255 @@ def test_multiclass_nms_class_chunks_identical(case, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# greedy_keep_sorted: the kernel's function, its IoU order and its scan
+# ---------------------------------------------------------------------------
+
+
+def _sorted_problem(boxes, scores):
+    order = np.argsort(-scores.astype(np.float32), kind='stable')
+    return boxes[order], scores[order] > tnms.NEG_INF / 2, order
+
+
+@pytest.mark.parametrize('cap', ['max_out', 'half'])
+@pytest.mark.parametrize('case', NMS_CASES + ['all_dead'])
+def test_greedy_keep_sorted_matches_reference_nms(case, cap):
+    """The first ``max_keep`` of the greedy set on the CPU are
+    ``oadp_tpu``'s ``nms`` keeps at ``max_out = max_keep``, also with the cap
+    below the keep count."""
+    if case == 'all_dead':
+        boxes, scores, thr, max_out = _nms_case('random')
+        scores = np.full_like(scores, tnms.NEG_INF)
+    else:
+        boxes, scores, thr, max_out = _nms_case(case)
+    sboxes, alive, order = _sorted_problem(boxes, scores)
+    full = tnms.greedy_keep_sorted(torch.from_numpy(sboxes)[None], torch.from_numpy(alive)[None],
+                                   thr, len(boxes))[0].numpy()
+    max_keep = max_out if cap == 'max_out' else max(1, int(full.sum()) // 2)
+    got = tnms.greedy_keep_sorted(torch.from_numpy(sboxes)[None], torch.from_numpy(alive)[None],
+                                  thr, max_keep)[0].numpy()
+    j_idx, j_valid = jax.jit(lambda b, s: jnms.nms(b, s, thr, max_keep))(
+        jnp.asarray(boxes), jnp.asarray(scores))
+    np.testing.assert_array_equal(order[got], np.asarray(j_idx)[np.asarray(j_valid)])
+    assert got.sum() == min(max_keep, full.sum())
+    if case == 'all_dead':
+        assert not full.any()
+
+
+@pytest.mark.parametrize('case', ['shared', 'per_class_boxes', 'lvis_1203', 'ties',
+                                  'no_survivors', 'few_candidates'])
+def test_greedy_keep_sorted_matches_reference_multiclass(case):
+    """Per-class keep sets (shared boxes read through ``order``, or each
+    class's own boxes) equal ``oadp_tpu``'s ``_sorted_block_nms_lazy``,
+    whole and cut to ``max_per_img``."""
+    boxes, scores, c, max_per_img = _mc_case(case)
+    n = scores.shape[0]
+    sc = np.where(scores[:, :c] > 0.0, scores[:, :c], tnms.NEG_INF).T.astype(np.float32)
+    order = np.argsort(-sc, axis=-1, kind='stable')
+    sc_sorted = np.take_along_axis(sc, order, -1)
+    if boxes.shape[1] == 4:
+        sboxes = boxes[order]
+        got = tnms.greedy_keep_sorted(torch.from_numpy(boxes), torch.from_numpy(
+            sc_sorted > tnms.NEG_INF / 2), 0.5, n, order=torch.from_numpy(order))
+    else:
+        sboxes = np.take_along_axis(boxes.reshape(n, c, 4).transpose(1, 0, 2),
+                                    order[..., None], 1)
+        got = tnms.greedy_keep_sorted(torch.from_numpy(sboxes), torch.from_numpy(
+            sc_sorted > tnms.NEG_INF / 2), 0.5, n)
+    want = np.asarray(jnms._sorted_block_nms_lazy(jnp.asarray(sboxes), jnp.asarray(sc_sorted),
+                                                  0.5, 64))
+    np.testing.assert_array_equal(got.numpy(), want)
+    capped = tnms.greedy_keep_sorted(torch.from_numpy(sboxes), torch.from_numpy(
+        sc_sorted > tnms.NEG_INF / 2), 0.5, max_per_img).numpy()
+    np.testing.assert_array_equal(capped, want & (np.cumsum(want, -1) <= max_per_img))
+
+
+def _area_np(b):
+    return (np.maximum(b[..., 2] - b[..., 0], np.float32(0))
+            * np.maximum(b[..., 3] - b[..., 1], np.float32(0)))
+
+
+def _iou_kernel_order(a, b):
+    """``csrc/nms.cu``'s IoU in numpy fp32, one rounding an operation, in
+    its order: clamped overlap, inter, union ``(area_a + area_b) - inter``
+    floored at 1e-6, one division; 0 where inter is 0."""
+    w = np.maximum(np.minimum(a[:, None, 2], b[None, :, 2])
+                   - np.maximum(a[:, None, 0], b[None, :, 0]), np.float32(0))
+    h = np.maximum(np.minimum(a[:, None, 3], b[None, :, 3])
+                   - np.maximum(a[:, None, 1], b[None, :, 1]), np.float32(0))
+    inter = w * h
+    union = np.maximum((_area_np(a)[:, None] + _area_np(b)[None]) - inter, np.float32(1e-6))
+    with np.errstate(divide='ignore', invalid='ignore'):
+        return np.where(inter == 0, np.float32(0), inter / union)
+
+
+def _near_threshold_pairs(rng, thr, n=4000):
+    """Box pairs whose IoU sits at the threshold: b is a shifted along x
+    by the shift that gives IoU = thr for equal boxes, plus a few ulps."""
+    a = _boxes(rng, n, span=1000.0)
+    w = a[:, 2] - a[:, 0]
+    shift = w * (1 - thr) / (1 + thr)
+    b = a.copy()
+    b[:, [0, 2]] += (shift * (1 + rng.integers(-4, 5, n) * 2e-7))[:, None].astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize('thr', [0.3, 0.5, 0.7])
+def test_kernel_iou_order_is_pair_iou_bit_for_bit(thr):
+    rng = np.random.default_rng(21)
+    a, b = _near_threshold_pairs(rng, thr)
+    pairs = [(a, b), (_boxes(rng, 300, True), _boxes(rng, 200, True))]
+    near = 0
+    for x, y in pairs:
+        want = tnms._pair_iou(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+        got = _iou_kernel_order(x, y)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got > np.float32(thr),
+                                      (tnms._pair_iou(torch.from_numpy(x), torch.from_numpy(y))
+                                       > thr).numpy())
+        near += int((np.abs(got - np.float32(thr)) <= 4e-7).sum())
+    assert near >= 100  # the pairs do reach the threshold's last bits
+
+
+def _kernel_model(sboxes, alive, thr, max_keep):
+    """``csrc/nms.cu``'s walk in numpy, 64 candidates a tile: the tile's
+    64-bit word of removed rows (dead, past n, or suppressed by a box of
+    the kept list), its upper-triangle words, the tile decided serially
+    from them (find the next available row, keep it, clear what it
+    suppresses), its kept rows appended to the kept list; the walk ends
+    after the last alive candidate or at ``max_keep``."""
+    n = len(alive)
+    sup = _iou_kernel_order(sboxes, sboxes) > np.float32(thr)
+    end = int(np.flatnonzero(alive)[-1]) + 1 if alive.any() else 0
+    keep, kept_list = np.zeros(n, bool), []
+    full = (1 << 64) - 1
+    base = 0
+    while base < end and len(kept_list) < max_keep:
+        cols = range(base, min(base + 64, n))
+        rem = full
+        for j in cols:
+            if alive[j] and not sup[kept_list, j].any():
+                rem &= ~(1 << (j - base))
+        diag = [0] * 64
+        for i in cols:
+            if not rem >> (i - base) & 1:
+                for j in range(i + 1, cols.stop):
+                    diag[i - base] |= int(sup[i, j]) << (j - base)
+        todo = ~rem & full
+        while todo and len(kept_list) < max_keep:
+            i = (todo & -todo).bit_length() - 1
+            kept_list.append(base + i)
+            todo &= ~diag[i] & full
+            todo &= todo - 1
+        base += 64
+    keep[kept_list] = True
+    return keep
+
+
+def _scan_case(name, n, rng):
+    alive = np.ones(n, bool)
+    thr = 0.5
+    if name == 'clustered':
+        boxes = _boxes(rng, n, clustered=True)
+    elif name == 'chain':  # each box suppresses the next only: every other kept
+        x = np.arange(n, dtype=np.float32)[:, None] * 4
+        boxes = np.concatenate([x, 0 * x, x + 10, 0 * x + 10], 1).astype(np.float32)
+        thr = 0.3
+    elif name == 'identical':
+        boxes = np.tile(np.asarray([[5, 5, 25, 30]], np.float32), (n, 1))
+    elif name == 'zero_area':
+        boxes = _boxes(rng, n, clustered=True)
+        boxes[::2, 2] = boxes[::2, 0]  # x1 == x0
+        boxes[1::3] = boxes[1::3, :1].repeat(4, 1)  # points
+    elif name == 'holes':  # dead candidates inside the alive range
+        boxes = _boxes(rng, n, clustered=True)
+        alive = rng.random(n) > 0.3
+    elif name == 'all_dead':
+        boxes = _boxes(rng, n)
+        alive[:] = False
+    else:
+        raise KeyError(name)
+    return boxes, alive, thr
+
+
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize('case', ['clustered', 'chain', 'identical', 'zero_area', 'holes',
+                                  'all_dead'])
+def test_kernel_scan_model_matches_greedy_keep(case, n):
+    rng = np.random.default_rng(n)
+    boxes, alive, thr = _scan_case(case, n, rng)
+    want = tnms.greedy_keep_sorted_plain(torch.from_numpy(boxes)[None],
+                                         torch.from_numpy(alive)[None], thr, n)[0].numpy()
+    np.testing.assert_array_equal(_kernel_model(boxes, alive, thr, n), want)
+    cap = max(1, int(want.sum()) // 3)
+    np.testing.assert_array_equal(_kernel_model(boxes, alive, thr, cap),
+                                  want & (np.cumsum(want) <= cap))
+    if case == 'chain':
+        assert want[::2].all() and not want[1::2].any()
+    if case == 'identical':
+        assert want.sum() == 1
+
+
+def test_greedy_keep_sorted_checks_before_building():
+    """Shapes and types are refused before the kernel is built; a CPU
+    tensor takes the plain version and launches nothing."""
+    tnms.reset_launches()
+    boxes = torch.zeros((2, 5, 4), device='meta')
+    with pytest.raises(ValueError):
+        tnms.greedy_keep_sorted(boxes, torch.zeros((2, 6), dtype=torch.bool, device='meta'),
+                                0.5, 3)
+    with pytest.raises(TypeError):
+        tnms.greedy_keep_sorted(boxes.double(), torch.zeros((2, 5), dtype=torch.bool,
+                                                            device='meta'), 0.5, 3)
+    with pytest.raises(ValueError):
+        tnms.greedy_keep_sorted(boxes[0], torch.zeros((2, 5), dtype=torch.bool, device='meta'),
+                                0.5, 3, order=torch.zeros((2, 4), dtype=torch.int64,
+                                                          device='meta'))
+    b, s, thr, max_out = _nms_case('clustered')
+    tnms.nms(torch.from_numpy(b), torch.from_numpy(s), thr, max_out)
+    assert tnms.LAUNCHES == {'greedy_nms': 0}
+
+
+@pytest.mark.cuda
+def test_greedy_nms_kernel_matches_plain_on_card():
+    """The kernel against the plain version on the card: identical keep
+    sets over random, clustered and adversarial problems, capped and not,
+    for sorted and shared (``order``) boxes, and the three entry points."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(5)
+    for case in ['clustered', 'chain', 'identical', 'zero_area', 'holes', 'all_dead']:
+        # 9000 uncapped: the kept list past shared memory, in a workspace
+        for n in [1, 63, 64, 65, 129, 2049, 5000] + [9000] * (case in ('clustered', 'identical')):
+            boxes, alive, thr = _scan_case(case, n, rng)
+            for cap in (n, max(1, n // 7)):
+                args = (torch.from_numpy(boxes)[None].to(dev), torch.from_numpy(alive)[None].to(dev),
+                        thr, cap)
+                assert torch.equal(tnms.greedy_keep_sorted(*args),
+                                   tnms.greedy_keep_sorted_plain(*args)), (case, n, cap)
+    for c, n in [(65, 1000), (300, 300)]:
+        boxes = torch.from_numpy(_boxes(rng, n, clustered=True)).to(dev)
+        sc = torch.from_numpy(rng.random((c, n)).astype(np.float32)).to(dev)
+        order = torch.sort(-sc, dim=-1, stable=True).indices
+        alive = torch.from_numpy(rng.random((c, n)) > 0.2).to(dev)
+        for cap in (n, 100):
+            assert torch.equal(tnms.greedy_keep_sorted(boxes, alive, 0.5, cap, order=order),
+                               tnms.greedy_keep_sorted_plain(boxes, alive, 0.5, cap, order=order))
+    for case in NMS_CASES:
+        b, s, thr, max_out = _nms_case(case)
+        want = tnms.nms(torch.from_numpy(b), torch.from_numpy(s), thr, max_out)
+        got = tnms.nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev), thr, max_out)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
+    for case in ['shared', 'per_class_boxes', 'lvis_1203', 'ties']:
+        b, s, c, m = _mc_case(case)
+        want = tnms.multiclass_nms(torch.from_numpy(b), torch.from_numpy(s), 0.0, 0.5, m, c)
+        got = tnms.multiclass_nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev),
+                                  0.0, 0.5, m, c)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # RoIAlign
 # ---------------------------------------------------------------------------
 
