@@ -11,7 +11,13 @@ Phases, in order; any failure exits nonzero:
    its plain version, a PyTorch library yardstick and its bound: kernels
    1-2 at the objects dispatch (2048 crops), kernel 3 at the globals and
    a production blocks batch, kernels 4-5 at the split path's 999 crops
-   and at 2048. Each kernel gets its K-major weights and fp32 LayerNorm
+   and at 2048, and the two ``ln_gemm`` routes of the fused layers' glue
+   (``ln_mlp_residual``, the x-stream MLP ``x + proj(quick_gelu(fc(LN
+   x)))``; ``out_proj_residual``, the stock encoder's ``x + a @ W + b``)
+   at the rows of the dispatches that take each (``ln_mlp_residual`` at
+   the objects 2048 x 197, blocks 728 x 50 and globals 16 x 50 rows,
+   ``out_proj_residual`` at the blocks and globals rows), also on their
+   residual deltas (``out - x``). Each kernel gets its K-major weights and fp32 LayerNorm
    parameters prepared once, as the encoders hold them, and the library
    yardstick its transposed weights once. Two times per call for the
    kernel and for the yardstick: CUDA events around back-to-back calls
@@ -19,9 +25,13 @@ Phases, in order; any failure exits nonzero:
    ``torch.profiler`` (the sum of the call's kernel durations; for
    kernel 1 also by part: LN pass, QKV product, attention,
    out-projection; for kernel 3: LN pass, fused QKV product and
-   attention). Kernels 1 and 3 are also held to their plain versions on
-   rows with a large per-row mean and outlier columns, as CLIP residual
-   streams carry. Then ``greedy_nms`` (``csrc/nms.cu``) against its plain
+   attention; for ``ln_mlp_residual``: LN pass, fc with quick_gelu, proj
+   with the residual). Kernels 1 and 3 and ``ln_mlp_residual`` are also
+   held to their plain versions on rows with a large per-row mean and
+   outlier columns, as CLIP residual streams carry; where the output
+   carries the residual (kernel 1, ``ln_mlp_residual``), also to within
+   0.125 beyond one bf16 unit in the last place, as the residual swamps
+   the delta in a cosine. Then ``greedy_nms`` (``csrc/nms.cu``) against its plain
    version on the card, identical keep sets required: the RPN's two
    ``batched_nms`` calls at the train canvas (8,819 candidates an image,
    IoU 0.7, 1000 kept), ``multiclass_nms`` at OV-COCO (65 x 1000, IoU 0.5,
@@ -29,7 +39,9 @@ Phases, in order; any failure exits nonzero:
    entry's outputs also held to the entry with the plain version on the
    card and (but for OV-LVIS) on the CPU; and adversarial cases (score
    ties, a 2,000-box suppression chain, zero-area and identical boxes, n
-   of 1, 63, 64 and 65, all dead, a small cap). Each main-path shape timed
+   of 1, 63, 64 and 65, all dead, a small cap, boxes with NaN
+   coordinates, which suppress nothing, in ``nms`` and in OV-COCO's
+   ``multiclass_nms``). Each main-path shape timed
    (device and events ms) beside the plain version, with its bound (bytes
    over 3.35 TB/s, or 14 fp32 operations an IoU pair the inputs need over
    67 TFLOP/s) and the kernel's clock cycles by part (tests against the
@@ -37,9 +49,10 @@ Phases, in order; any failure exits nonzero:
    greedy NMS, so no library time;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
-   dispatch, but 11 of kernel 4 on the split wiring, whose last layer
-   computes the side row alone; every other kernel 0; the table in
-   ``main_path``): the OAKE objects, globals and blocks
+   dispatch, but 11 of kernel 4 on the split wiring and 11 of
+   ``ln_mlp_residual`` on the fused one, whose last layers compute the
+   side row alone; every other kernel 0; the table in ``main_path``):
+   the OAKE objects, globals and blocks
    CLIs (``oadp_torch.oake``) at full ViT-B/32 width (random weights from
    seed 0, bf16) on 4 synthetic images with 1000 proposals each, every
    record checked; the surgery encoder's split wiring (``objects_step``
@@ -196,15 +209,19 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    if total_us <= 0:
-        raise AssertionError('torch.profiler recorded no device time')
+    for attempt in range(3):  # a profiling session once returned no kernel records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            break
+        log(f'device_ms: profiler session {attempt + 1} of 3 recorded no device time')
+    else:
+        raise AssertionError('torch.profiler recorded no device time in three sessions')
     if part_of is None:
         return total_us / iters / 1e3
     split = {}
@@ -214,20 +231,23 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
     return total_us / iters / 1e3, split
 
 
-def _part(name: str) -> str:
-    """The part of kernel 1 or 3 a kernel belongs to, by its (mangled or
-    demangled) name: the LN pass, kernel 3's fused QKV product and
-    attention, the QKV product, attention, the out-projection (the product
-    with the residual epilogue, template argument 2)."""
-    if 'ln_qkv_attention_kernel' in name:
-        return 'qkv_attention'
-    if 'layer_norm' in name:
-        return 'ln'
-    if 'attention_kernel' in name:
-        return 'attention'
-    if 'gemm_kernel' in name:
-        return 'out_projection' if ('ELi2E' in name or ', 2>' in name) else 'qkv'
-    return 'other'
+# the parts of a kernel's device time, by profile_kernels' name of each
+# kernel: kernels 1 and 3 (the LN pass, kernel 3's fused QKV product and
+# attention, the QKV product, attention, the out-projection: ln_gemm with
+# the residual epilogue), and ln_mlp_residual (the LN pass, fc with the
+# quick_gelu epilogue, proj with the residual epilogue)
+LAYER_PARTS = {'ln_qkv_attention_kernel': 'qkv_attention', 'layer_norm_kernel': 'ln',
+               'attention_kernel': 'attention', 'ln_gemm': 'qkv',
+               'ln_gemm_residual': 'out_projection'}
+MLP_PARTS = {'layer_norm_kernel': 'ln', 'ln_gemm_gelu': 'fc_gelu',
+             'ln_gemm_residual': 'proj_residual'}
+
+
+def parts_of(parts: dict):
+    """A kernel's name -> its part in ``parts``, or ``other``."""
+    from oadp_torch.profile_kernels import _kernel_part
+
+    return lambda name: parts.get(_kernel_part(name), 'other')
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -243,6 +263,26 @@ def compare(got, want) -> tuple[float, float]:
             g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
         ).min()))
     return err, cos
+
+
+# the most that an output of rows with a large mean may differ from its
+# plain version beyond one bf16 unit in the last place: on random rows
+# the residual deltas of the H100's kernels differ by at most 0.0625,
+# where an MLP or attention delta left out or gone wrong differs by
+# several tenths to units
+LARGE_MEAN_EXCESS = 0.125
+
+
+def bf16_excess(got, want) -> float:
+    """The largest ``|got - want|`` beyond one bf16 unit in the last place
+    of the larger of the two: what is left of the error once each side's
+    rounding of ``x + delta`` to bf16 is taken out. On rows with a large
+    mean the residual ``x`` swamps a delta's error in a cosine; in this
+    measure the delta's error stands alone."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() - ulp).max())
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -339,12 +379,14 @@ def check_kernels(A, gen) -> dict:
     fold = dict(out_w=out_w, out_b=out_b)
     prep = dict(qkv_wt=lib_w['qkv'], ln32=ln32)
     lm_args = (offset(x), offset(y), *args[2:])
-    lm_err, lm_cos = compare(
-        A.fused_surgery_layer(*lm_args, **fold, **prep, out_wt=lib_w['out']),
-        A.fused_surgery_layer_plain(*lm_args, **fold))
-    if lm_cos < 0.999:
-        raise AssertionError(f'fused_surgery_layer: cosine {lm_cos} < 0.999 on large-mean rows')
-    del lm_args
+    lm_got = A.fused_surgery_layer(*lm_args, **fold, **prep, out_wt=lib_w['out'])
+    lm_want = A.fused_surgery_layer_plain(*lm_args, **fold)
+    (lm_err, lm_cos), lm_excess = compare(lm_got, lm_want), max(
+        bf16_excess(g, w) for g, w in zip(lm_got, lm_want))
+    if lm_cos < 0.999 or lm_excess > LARGE_MEAN_EXCESS:
+        raise AssertionError(f'fused_surgery_layer: cosine {lm_cos} < 0.999 or bf16 excess '
+                             f'{lm_excess} > {LARGE_MEAN_EXCESS} on large-mean rows')
+    del lm_args, lm_got, lm_want
     k1 = record(
         'fused_surgery_layer',
         lambda: A.fused_surgery_layer(*args, **fold, **prep, out_wt=lib_w['out']),
@@ -353,7 +395,8 @@ def check_kernels(A, gen) -> dict:
         flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
         + 4 * b * HEADS * n * HD + 2 * b * (n + 1) * D * D,
         nbytes=2 * act_bytes - 4 * bias.numel() + w_bytes + 2 * (D * D + D),
-        iters=5, part_of=_part, large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
+        iters=5, part_of=parts_of(LAYER_PARTS), large_mean_max_abs_err=lm_err,
+        large_mean_cosine=lm_cos, large_mean_bf16_excess=lm_excess,
     )
     k1_side = record(
         'fused_surgery_layer(with_main=False)',
@@ -362,7 +405,7 @@ def check_kernels(A, gen) -> dict:
         lambda: lib_k1(False),
         flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
         nbytes=act_bytes + 2 * y.numel() + w_bytes,
-        iters=5, part_of=_part,
+        iters=5, part_of=parts_of(LAYER_PARTS),
     )
     del x, y, bias, mask, lib_mask, args
     torch.cuda.empty_cache()
@@ -385,6 +428,68 @@ def check_kernels(A, gen) -> dict:
         nbytes=2 * (2 * yy.numel() + fc_w.numel() + proj_w.numel() + 6 * D),
         iters=50,
     )
+
+    # the fused layers' glue on ln_gemm: the x-stream MLP (ln_mlp_residual,
+    # 11 an objects dispatch, 12 a globals or blocks dispatch) at the
+    # objects, blocks and globals rows, and the stock encoder's
+    # out-projection (out_proj_residual, 12 a globals or blocks dispatch)
+    # at the blocks and globals rows; ln_gemm picks its tile width by M
+    mlp_prep = dict(fc_wt=lib_w['fc'], proj_wt=lib_w['proj'], ln32=ln32)
+    mlp_w_bytes = 2 * (fc_w.numel() + fc_b.numel() + proj_w.numel() + proj_b.numel()) + 8 * D
+    xs, op = {}, {}
+    for b5, n5 in ((OBJ_BATCH, N_OBJ), (BLOCKS_BATCH, N_GLOB), (GLOB_BATCH, N_GLOB)):
+        m5 = b5 * n5
+        iters5 = {OBJ_BATCH: 5, BLOCKS_BATCH: 20, GLOB_BATCH: 50}[b5]
+        xm, am = r(b5, n5, D), r(b5, n5, D)
+        mlp_args = (xm, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
+        entries = {'ln_mlp_residual': (lambda: A.ln_mlp_residual(*mlp_args, **mlp_prep),
+                                       lambda: A.ln_mlp_residual_plain(*mlp_args))}
+        if b5 != OBJ_BATCH:  # no objects layer takes out_proj_residual
+            entries['out_proj_residual'] = (
+                lambda: A.out_proj_residual(xm, am, out_w, out_b, out_wt=lib_w['out']),
+                lambda: A.out_proj_residual_plain(xm, am, out_w, out_b))
+
+        def lib_mlp():  # the route before ln_gemm took it: F.layer_norm, cuBLAS, quick_gelu, add
+            h = F.linear(F.layer_norm(xm, (D,), ln_s, ln_b), lib_w['fc'], fc_b)
+            return xm + F.linear(h * torch.sigmoid(1.702 * h), lib_w['proj'], proj_b)
+
+        # the residual deltas too: the output's x would hide the MLP's error
+        delta = {}
+        for name, (kernel, plain) in entries.items():
+            delta[name] = compare(kernel().float() - xm.float(), plain().float() - xm.float())
+            if delta[name][1] < 0.999:
+                raise AssertionError(f'{name}(M={m5}): residual delta cosine {delta[name][1]}')
+        # on large-mean rows the output's rounding swamps the delta: held
+        # beyond one bf16 unit in the last place instead
+        lm5 = (offset(xm), *mlp_args[1:])
+        lm_got, lm_want = A.ln_mlp_residual(*lm5, **mlp_prep), A.ln_mlp_residual_plain(*lm5)
+        (lm_err, lm_cos), lm_excess = compare(lm_got, lm_want), bf16_excess(lm_got, lm_want)
+        if lm_cos < 0.999 or lm_excess > LARGE_MEAN_EXCESS:
+            raise AssertionError(f'ln_mlp_residual(M={m5}): cosine {lm_cos} < 0.999 or bf16 '
+                                 f'excess {lm_excess} > {LARGE_MEAN_EXCESS} on large-mean rows')
+        del lm5, lm_got, lm_want
+        xs[b5] = record(
+            f'ln_mlp_residual(M={m5})', *entries['ln_mlp_residual'], lib_mlp,
+            flops=4 * m5 * D * 4 * D,
+            nbytes=2 * 2 * xm.numel() + mlp_w_bytes,  # x read, out written, the weights
+            iters=iters5, part_of=parts_of(MLP_PARTS),
+            residual_delta_max_abs_err=delta['ln_mlp_residual'][0],
+            residual_delta_cosine=delta['ln_mlp_residual'][1],
+            large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
+            large_mean_bf16_excess=lm_excess,
+        )
+        if 'out_proj_residual' in entries:
+            op[b5] = record(
+                f'out_proj_residual(M={m5})', *entries['out_proj_residual'],
+                lambda: xm + F.linear(am, lib_w['out'], out_b),
+                flops=2 * m5 * D * D,
+                nbytes=2 * (3 * xm.numel() + D * D + D),  # x and a read, out written, W and b
+                iters=iters5,
+                residual_delta_max_abs_err=delta['out_proj_residual'][0],
+                residual_delta_cosine=delta['out_proj_residual'][1],
+            )
+        del xm, am, mlp_args, entries
+        torch.cuda.empty_cache()
 
     # kernel 3: every layer of the stock encoder, at the globals batch and
     # at a production blocks batch (24 wholes + 704 blocks)
@@ -413,7 +518,7 @@ def check_kernels(A, gen) -> dict:
             lib_k3,
             flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
             nbytes=2 * 2 * x3.numel() + w_bytes,
-            iters=50 if b3 == GLOB_BATCH else 10, part_of=_part,
+            iters=50 if b3 == GLOB_BATCH else 10, part_of=parts_of(LAYER_PARTS),
             large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
         )
         del x3, a3
@@ -468,6 +573,9 @@ def check_kernels(A, gen) -> dict:
         'fused_ln_qkv_attention': dict(k3[GLOB_BATCH], blocks_batch=k3[BLOCKS_BATCH]),
         'fused_mha_qkv': dict(k4[SPLIT_BATCH], objects_batch=k4[OBJ_BATCH]),
         'fused_side_attention': dict(k5[SPLIT_BATCH], objects_batch=k5[OBJ_BATCH]),
+        'ln_mlp_residual': dict(xs[OBJ_BATCH], blocks_batch=xs[BLOCKS_BATCH],
+                                globals_batch=xs[GLOB_BATCH]),
+        'out_proj_residual': dict(op[BLOCKS_BATCH], globals_batch=op[GLOB_BATCH]),
     })
     return results
 
@@ -580,7 +688,17 @@ def _adversarial(gen, dev) -> dict:
     mixed[::2, 2] = mixed[::2, 0]  # zero width
     mixed[1::4] = mixed[1]  # one box, many times
     mixed[3::8] = mixed[3, :1]  # points
+    nan = float('nan')
+    nan_boxes = clustered(1000)
+    rows = torch.arange(3, 1000, 7, device=dev)
+    nan_boxes[rows, rows % 4] = nan  # one coordinate of every 7th box
+    nan_boxes[500] = nan
     cases = {
+        # the highest-scored box is NaN: its IoU with every box is NaN, so
+        # it suppresses nothing and all three are kept
+        'nan_box': (torch.tensor([[nan] * 4, [0, 0, 10, 10], [20, 20, 30, 30]], device=dev),
+                    torch.tensor([0.9, 0.8, 0.7], device=dev), 0.5, 3),
+        'nan_boxes': (nan_boxes, rand(1000), 0.5, 1000),
         'ties': (clustered(1000), torch.round(4 * rand(1000)) / 4, 0.5, 1000),
         'chain_2000': (chain, torch.linspace(1, 0, 2000, device=dev), 0.3, 2000),
         'identical_zero_area': (mixed, rand(1000), 0.5, 1000),
@@ -606,8 +724,13 @@ def check_nms(gen) -> dict:
 
     dev = torch.device('cuda')
 
+    def equal(x, y) -> bool:  # a NaN box equal to itself
+        x, y = x.cpu(), y.cpu()
+        return torch.equal(x, y) or (x.shape == y.shape and x.dtype == y.dtype and bool(
+            ((x == y) | (x.isnan() & y.isnan())).all()))
+
     def same(a, b) -> bool:
-        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+        return all(equal(x, y) for x, y in zip(a, b))
 
     def held(name, entry, args, timed_shape=True, cpu=True):
         """The entry point on the card against itself with the plain
@@ -654,6 +777,16 @@ def check_nms(gen) -> dict:
     for name, args in _adversarial(gen, dev).items():
         row = held(name, NMS.nms, args, timed_shape=False)
         adversarial[name] = {k: row[k] for k in ('problems', 'candidates', 'kept', 'identical')}
+    if adversarial['nan_box']['kept'] != 3:
+        raise AssertionError(f'greedy_nms nan_box: {adversarial["nan_box"]["kept"]} kept, not 3')
+    # NaN boxes with finite scores among OV-COCO's multiclass candidates
+    boxes, sc = _det_inputs(gen, dev, 65, False)
+    rows = torch.arange(0, boxes.shape[0], 11, device=dev)
+    boxes[rows, rows % 4] = float('nan')
+    row = held('ov_coco_nan_boxes', NMS.multiclass_nms, (boxes, sc, 0.0, 0.5, 300, 65),
+               timed_shape=False)
+    adversarial['ov_coco_nan_boxes'] = {
+        k: row[k] for k in ('problems', 'candidates', 'kept', 'identical')}
     results['adversarial'] = adversarial
     log(json.dumps({'nms_adversarial': adversarial}))
     return results
@@ -828,16 +961,19 @@ def main_path(card: str, root: pathlib.Path) -> dict:
                                ('blocks', 'blocks'))}
     override = ['--override', ".model.device:'cuda'", ".model.dtype:'bfloat16'"]
 
+    def stock(name):  # a stock-encoder dispatch: kernel 3 and both ln_gemm routes
+        return {k: 12 * calls[name] for k in (
+            'fused_ln_qkv_attention', 'ln_mlp_residual', 'out_proj_residual')}
+
     objects, l_obj = driven('objects', lambda: O.main(
         ['smoke_objects', str(cfgs['objects']), *override]), lambda: {
             'fused_surgery_layer': 12 * calls['objects'],
-            'fused_ln_mlp_rows': 12 * calls['objects']})
+            'fused_ln_mlp_rows': 12 * calls['objects'],
+            'ln_mlp_residual': 11 * calls['objects']})
     globals_, l_glob = driven('globals', lambda: G.main(
-        ['smoke_globals', str(cfgs['globals']), *override]), lambda: {
-            'fused_ln_qkv_attention': 12 * calls['globals']})
+        ['smoke_globals', str(cfgs['globals']), *override]), lambda: stock('globals'))
     blocks, l_blocks = driven('blocks', lambda: BL.main(
-        ['smoke_blocks', str(cfgs['blocks']), *override]), lambda: {
-            'fused_ln_qkv_attention': 12 * calls['blocks']})
+        ['smoke_blocks', str(cfgs['blocks']), *override]), lambda: stock('blocks'))
     dispatches = dict(calls)
     cfg = objects.model.config
     if (cfg.width, cfg.layers, cfg.heads, objects.model.surgery_config.tokens) != (
@@ -881,7 +1017,7 @@ def main_path(card: str, root: pathlib.Path) -> dict:
             'fused_mha_qkv': 11, 'fused_side_attention': 12})
     fused, _ = driven('fused', lambda: card_steps.objects_step(
         image, meta[:nb + 1], masks[:nb + 1], k_pad).float().cpu().numpy(), lambda: {
-            'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12})
+            'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12, 'ln_mlp_residual': 11})
     split_vs_fused = _min_cos(split, fused[:nb])
     split_ms = _wall_ms(lambda: card_steps.objects_step(image, meta[:nb], masks[:nb], k_pad))
     fused_ms = _wall_ms(
@@ -2539,6 +2675,11 @@ def main() -> int:
                           'oadp_torch/csrc/attention.cu', ['split']),
         'fused_side_attention': ('oadp_tpu/ops/attention.py:587',
                                  'oadp_torch/csrc/attention.cu', ['split']),
+        'ln_mlp_residual': ('oadp_tpu/models/clip.py:289 _mlp (XLA, not a Pallas kernel)',
+                            'oadp_torch/csrc/ln_gemm.cu', ['objects', 'globals', 'blocks']),
+        'out_proj_residual': ('oadp_tpu/models/clip.py:318 _block_fused out-projection '
+                              '(XLA, not a Pallas kernel)', 'oadp_torch/csrc/ln_gemm.cu',
+                              ['globals', 'blocks']),
     }
     kernels = []
     for name, res in checks.items():
@@ -2555,11 +2696,15 @@ def main() -> int:
         )
         if 'kernel_device_ms_by_part' in res:
             entry['device_ms_by_part'] = res['kernel_device_ms_by_part']
-        for shape in ('side_only', 'blocks_batch', 'objects_batch'):
+        for key in ('residual_delta_cosine', 'large_mean_bf16_excess'):
+            if key in res:
+                entry[key] = res[key]
+        for shape in ('side_only', 'blocks_batch', 'globals_batch', 'objects_batch'):
             if shape in res:
                 entry[shape] = {k: res[shape][k] for k in (
                     'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                     'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
+                    'residual_delta_cosine', 'large_mean_bf16_excess',
                     'kernel_device_ms_by_part') if k in res[shape]}
         kernels.append(entry)
     nms_launches = {'dp': dp['launches']['greedy_nms'],

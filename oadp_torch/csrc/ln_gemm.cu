@@ -5,7 +5,11 @@
 // outside the per-head attention -- the QKV projection after LayerNorm
 // (_surgery_layer_kernel, _ln_qkv_attn_kernel), the folded out-projection
 // with its residual add (_surgery_layer_kernel with out_w), and both halves
-// of the row MLP (_row_mlp_kernel).
+// of the row MLP (_row_mlp_kernel) -- and the encoder glue that oadp_tpu
+// leaves to XLA (oadp_tpu/models/clip.py:_mlp and _block_fused's
+// out-projection): the x-stream MLP of every fused layer and the stock
+// encoder's out-projection with their residuals (ops/attention.py:
+// ln_mlp_residual, out_proj_residual).
 //
 //   A (M, K) row-major; Wt (N, K) the weight K-major, as the OpenAI state
 //   dict holds it (the caller prepares it once, oadp_torch/models/clip.py);
@@ -23,7 +27,12 @@
 // card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
 // The out-projection with its residual (N = 768) is 0.48 TFLOP against
 // 1.86 GB (A and R read, C written): 0.48 ms of operations, 0.56 ms of
-// bytes, so its epilogue's bytes weigh as much as its products.
+// bytes, so its epilogue's bytes weigh as much as its products. The
+// x-stream MLP's two products at that M (768 -> 3072 with quick_gelu,
+// 3072 -> 768 with the residual) are 1.9 TFLOP each, bound by operations;
+// the consumers run each tile's epilogue between its products, so the
+// quick_gelu (fast exp and divide) and the residual add to the products'
+// time (PERF.md).
 // Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
 // output tiles of 128 x BN (BN 256, 128 or 64 by shape and epilogue, see
 // pick_tile_n), N tiles fastest so the blocks that read one A row-panel run
@@ -199,9 +208,9 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
       __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(buf + swz(r, jn) + 4 * t);
       float v0 = acc[jn * 4 + 2 * h] + bb.x;
       float v1 = acc[jn * 4 + 2 * h + 1] + bb.y;
-      if (EPI == EPI_GELU) {
-        v0 = v0 / (1.f + expf(-1.702f * v0));
-        v1 = v1 / (1.f + expf(-1.702f * v1));
+      if (EPI == EPI_GELU) {  // fast exp and divide: a few fp32 ulps, far below bf16's
+        v0 = __fdividef(v0, 1.f + __expf(-1.702f * v0));
+        v1 = __fdividef(v1, 1.f + __expf(-1.702f * v1));
       }
       if (EPI == EPI_RESIDUAL) {
         const float2 rr = __bfloat1622float2(*dst);

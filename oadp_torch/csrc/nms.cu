@@ -22,7 +22,10 @@
 // the clamped max/min overlap, union = (area_a + area_b) - inter clamped at
 // 1e-6f, then one IEEE division, compared with the fp32 threshold (torch
 // compares an fp32 tensor with a Python float in fp32). inter == 0 gives
-// an IoU of 0 with no division.
+// an IoU of 0 with no division. Max, min and the clamps propagate NaN, as
+// torch.maximum, torch.minimum and clamp do (fmaxf and fminf return the
+// other operand): a box with a NaN coordinate has a NaN IoU with every box,
+// which is not > thr, so it suppresses nothing and nothing suppresses it.
 //
 // Design: the reference's blocked form, lazily, from the front. A block
 // walks its problem in 64-candidate tiles and keeps the boxes of what it
@@ -60,18 +63,22 @@ namespace {
 constexpr int TILE = 64;
 constexpr int SMEM_KEPT = 8192;  // most kept boxes held in shared memory (160 KB)
 
+// max and min that return NaN when either operand is NaN
+__device__ __forceinline__ float nan_max(float a, float b) { return a > b || a != a ? a : b; }
+__device__ __forceinline__ float nan_min(float a, float b) { return a < b || a != a ? a : b; }
+
 __device__ __forceinline__ float box_area(float4 b) {
-  return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f), fmaxf(__fsub_rn(b.w, b.y), 0.f));
+  return __fmul_rn(nan_max(__fsub_rn(b.z, b.x), 0.f), nan_max(__fsub_rn(b.w, b.y), 0.f));
 }
 
 // IoU(a, b) > thr, evaluated as ops/nms.py:_pair_iou evaluates it
 __device__ __forceinline__ bool suppresses(float4 a, float area_a, float4 b, float area_b,
                                            float thr) {
-  const float w = fmaxf(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 0.f);
-  const float h = fmaxf(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 0.f);
+  const float w = nan_max(__fsub_rn(nan_min(a.z, b.z), nan_max(a.x, b.x)), 0.f);
+  const float h = nan_max(__fsub_rn(nan_min(a.w, b.w), nan_max(a.y, b.y)), 0.f);
   const float inter = __fmul_rn(w, h);
-  if (inter == 0.f) return 0.f > thr;
-  const float uni = fmaxf(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-6f);
+  if (inter == 0.f) return 0.f > thr;  // a NaN inter is not 0: it goes on to a NaN IoU
+  const float uni = nan_max(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-6f);
   return __fdiv_rn(inter, uni) > thr;
 }
 

@@ -12,9 +12,13 @@ the encoders pass them to the fused layers explicitly. Both image
 encoders pick their wiring by shape alone, as ``oadp_tpu``'s gates do on
 the TPU, on every device (see :func:`image_encoder` and
 :func:`image_encoder_surgery`). The fused entry points run their CUDA
-kernels on the card and their plain versions on the CPU. The QKV and
-out-projections and the MLPs that ``oadp_tpu`` leaves to XLA are
-``torch`` matmuls here, and the patch embedding is a block product (see
+kernels on the card and their plain versions on the CPU. In the fused
+layers, the x-stream MLP and the stock encoder's out-projection, which
+``oadp_tpu`` leaves to XLA, run on ``ln_gemm`` too
+(:func:`~oadp_torch.ops.attention.ln_mlp_residual`,
+:func:`~oadp_torch.ops.attention.out_proj_residual`); elsewhere (the
+split wiring, :func:`_block`, the text encoder) the projections and MLPs
+are ``torch`` matmuls, and the patch embedding is a block product (see
 :func:`_embed_patches`).
 
 The text encoder (:func:`text_encoder`) goes through no fused entry
@@ -307,10 +311,19 @@ def _layer_norm(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
-    h = torch.addmm(p['fc_b'], x.reshape(-1, x.shape[-1]), p['fc_w'])
-    h = h.mul_(torch.sigmoid(1.702 * h))  # quick_gelu
-    out = torch.addmm(p['proj_b'], h, p['proj_w'])
-    return out.reshape(x.shape)
+    return A.mlp_plain(x, p['fc_w'], p['fc_b'], p['proj_w'], p['proj_b'])
+
+
+def _ln_mlp_residual(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``x + _mlp(_layer_norm(x, ln_2))`` of a fused layer, through
+    :func:`~oadp_torch.ops.attention.ln_mlp_residual` (``ln_gemm`` on the
+    card, the same plain order on the CPU)."""
+    mlp, kern = p['mlp'], p.get('kernel', {})
+    return A.ln_mlp_residual(
+        x, p['ln_2']['scale'], p['ln_2']['bias'],
+        mlp['fc_w'], mlp['fc_b'], mlp['proj_w'], mlp['proj_b'],
+        fc_wt=kern.get('fc_wt'), proj_wt=kern.get('proj_wt'), ln32=kern.get('ln_2'),
+    )
 
 
 def _embed_patches(images, params: Params, config: ViTConfig):
@@ -403,15 +416,16 @@ def _block(x: torch.Tensor, p: Params, heads: int,
 
 def _block_fused(x: torch.Tensor, p: Params, heads: int) -> torch.Tensor:
     """A residual block with kernel 3 for LN → QKV → attention
-    (``oadp_tpu``'s ``_block_fused``)."""
+    (``oadp_tpu``'s ``_block_fused``), then the out-projection and the MLP,
+    each with its residual, on ``ln_gemm``."""
     attn, kern = p['attn'], p.get('kernel', {})
     a = A.fused_ln_qkv_attention(
         x, p['ln_1']['scale'], p['ln_1']['bias'], attn['qkv_w'], attn['qkv_b'],
         heads, 1.0 / math.sqrt(x.shape[-1] // heads),
         qkv_wt=kern.get('qkv_wt'), ln32=kern.get('ln_1'),
     )
-    x = x + (a @ attn['out_w'] + attn['out_b'])
-    return x + _mlp(_layer_norm(x, p['ln_2']), p['mlp'])
+    x = A.out_proj_residual(x, a, attn['out_w'], attn['out_b'], out_wt=kern.get('out_wt'))
+    return _ln_mlp_residual(x, p)
 
 
 def image_encoder(
@@ -425,8 +439,9 @@ def image_encoder(
 
     The wiring follows ``oadp_tpu``'s gate on the TPU (``_use_fused_block``),
     by shape alone and the same on every device: every block through
-    kernel 3 (:func:`_block_fused`, softmax clamped at 80) iff ``D % 128
-    == 0``, else through :func:`_block` (exact softmax)."""
+    kernel 3 (:func:`_block_fused`, softmax clamped at 80, the
+    out-projection and MLP on ``ln_gemm``) iff ``D % 128 == 0``, else
+    through :func:`_block` (exact softmax)."""
     x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
     heads = config.heads
     block_fn = (_block_fused
@@ -474,8 +489,9 @@ def image_encoder_surgery(
 
     The wiring follows ``oadp_tpu``'s gates on the TPU (``:448-454``), by
     shape alone and the same on every device, because it decides where
-    bf16 rounds: the fused wiring (kernels 1 and 2) iff ``D % 128 == 0``
-    and the crop batch ``B % 8 == 0``; else the split wiring (``:499-557``)
+    bf16 rounds: the fused wiring (kernels 1 and 2, and the x-stream MLP
+    on ``ln_gemm``) iff ``D % 128 == 0`` and the crop batch ``B % 8 == 0``;
+    else the split wiring (``:499-557``)
     with the QKV and out-projections as matmuls, the main stream through
     kernel 4 and the side row through kernel 5 (or, where ``D % 128 !=
     0``, the logits-concat softmax).
@@ -525,7 +541,7 @@ def image_encoder_surgery(
                 ln32=kern.get('ln_2'),
             )
             if not last:
-                x = x + _mlp(_layer_norm(x, block['ln_2']), mlp)
+                x = _ln_mlp_residual(x, block)
             continue
         ln_x = _layer_norm(x, block['ln_1'])
         if last:

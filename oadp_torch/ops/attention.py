@@ -45,6 +45,14 @@ by instruction issue), and at N = 197 the crops a 128-row tile touches
 take more shared memory than is left beside the product's ring
 (:func:`ln_qkv_attention_fits`), so kernel 1 keeps the two families.
 ``LAUNCHES`` counts each entry point's kernel launches.
+
+Two entry points carry work that ``oadp_tpu`` leaves to XLA, not to a
+Pallas kernel, on ``ln_gemm``: :func:`ln_mlp_residual`, the x-stream MLP
+``x + proj(quick_gelu(fc(LN x)))`` of every fused encoder layer
+(``oadp_tpu/models/clip.py:_mlp``), and :func:`out_proj_residual`, the
+stock encoder's out-projection ``x + a @ W + b``. Their plain versions
+keep ``models/clip.py``'s rounding order (bf16 products, quick_gelu on the
+rounded hidden), so the CPU path computes what it computed before.
 """
 
 __all__ = [
@@ -67,13 +75,19 @@ __all__ = [
     'kmajor',
     'layer_norm',
     'ln_fp32',
+    'ln_mlp_residual',
+    'ln_mlp_residual_plain',
     'ln_qkv_attention_fits',
+    'mlp_plain',
+    'out_proj_residual',
+    'out_proj_residual_plain',
     'reset_launches',
 ]
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_lib
 
@@ -88,6 +102,8 @@ LAUNCHES = {
     'fused_ln_qkv_attention': 0,
     'fused_mha_qkv': 0,
     'fused_side_attention': 0,
+    'ln_mlp_residual': 0,
+    'out_proj_residual': 0,
 }
 
 _EPI_NONE, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
@@ -260,6 +276,27 @@ def fused_ln_qkv_attention_plain(
     """Plain version of :func:`fused_ln_qkv_attention`."""
     qkv = _proj(layer_norm(x, ln_scale, ln_bias), qkv_w, qkv_b).to(x.dtype)
     return _main_attention(qkv, heads, scale)
+
+
+def mlp_plain(x, fc_w, fc_b, proj_w, proj_b):
+    """``proj(quick_gelu(fc(x)))`` over ``(..., D)`` rows as
+    ``oadp_tpu``'s ``_mlp`` under XLA: each product rounded to the
+    activation type, quick_gelu on the rounded hidden."""
+    h = torch.addmm(fc_b, x.reshape(-1, x.shape[-1]), fc_w)
+    h = h.mul_(torch.sigmoid(1.702 * h))
+    return torch.addmm(proj_b, h, proj_w).reshape(x.shape)
+
+
+def ln_mlp_residual_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b):
+    """Plain version of :func:`ln_mlp_residual`: ``models/clip.py``'s
+    ``x + _mlp(_layer_norm(x))``."""
+    h = F.layer_norm(x, x.shape[-1:], ln_scale.to(x.dtype), ln_bias.to(x.dtype), 1e-5)
+    return x + mlp_plain(h, fc_w, fc_b, proj_w, proj_b)
+
+
+def out_proj_residual_plain(x, a, out_w, out_b):
+    """Plain version of :func:`out_proj_residual`."""
+    return x + (a @ out_w + out_b)
 
 
 def fused_mha_qkv_plain(qkv, heads: int, scale: float):
@@ -515,19 +552,88 @@ def fused_ln_mlp_rows(
         return fused_ln_mlp_rows_plain(
             y, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b
         )
-    name = 'fused_ln_mlp_rows'
-    _check_cuda(name, y, fc_b, proj_b)
-    b, d = y.shape
+    return _ln_mlp('fused_ln_mlp_rows', y, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b,
+                   fc_wt, proj_wt, ln32)
+
+
+def _ln_mlp(name, x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, fc_wt, proj_wt, ln32):
+    """``x + proj(quick_gelu(fc(LN x)))`` over the ``(..., D)`` rows of a
+    CUDA tensor in three launches, counted under ``name``: the LN pass,
+    ``ln_gemm`` with the quick_gelu epilogue into a ``(M, 4D)`` hidden,
+    ``ln_gemm`` with the residual epilogue."""
+    _check_cuda(name, x, fc_b, proj_b)
+    d = x.shape[-1]
     hidden = fc_w.shape[1]
     if fc_w.shape != (d, hidden) or proj_w.shape != (hidden, d):
         raise ValueError(f'{name}: shape mismatch')
     fc_wt = _prepared(name, fc_w, fc_wt)
     proj_wt = _prepared(name, proj_w, proj_wt)
     ln = _prepared_ln(name, ln_scale, ln_bias, ln32)
-    h = torch.empty((b, hidden), dtype=y.dtype, device=y.device)
-    _ln_gemm(y, fc_wt, fc_b, h, ln32=ln, epilogue=_EPI_GELU)
-    out = torch.empty_like(y)
-    _ln_gemm(h, proj_wt, proj_b, out, epilogue=_EPI_RESIDUAL, residual=y)
+    rows = x.view(-1, d)
+    h = torch.empty((rows.shape[0], hidden), dtype=x.dtype, device=x.device)
+    _ln_gemm(rows, fc_wt, fc_b, h, ln32=ln, epilogue=_EPI_GELU)
+    out = torch.empty_like(x)
+    _ln_gemm(h, proj_wt, proj_b, out.view(-1, d), epilogue=_EPI_RESIDUAL, residual=rows)
+    LAUNCHES[name] += 1
+    return out
+
+
+def ln_mlp_residual(
+    x: torch.Tensor,  # (..., D) residual-stream rows (pre-LN)
+    ln_scale, ln_bias,  # (D,)
+    fc_w, fc_b,  # (D, 4D), (4D,)
+    proj_w, proj_b,  # (4D, D), (D,)
+    *,
+    fc_wt=None,  # (4D, D) K-major copy of fc_w (CUDA; made here if None)
+    proj_wt=None,  # (D, 4D) K-major copy of proj_w
+    ln32=None,  # fp32 (ln_scale, ln_bias)
+):
+    """``x + proj(quick_gelu(fc(LN(x))))`` over every ``(..., D)`` row:
+    the x-stream MLP of a fused encoder layer.
+
+    Replaces ``oadp_tpu/models/clip.py:_mlp`` with its LayerNorm and
+    residual (``x + _mlp(_layer_norm(x, ln_2))``), which runs under XLA
+    outside any Pallas kernel. On the H100 (bf16): kernel 2's three
+    launches over all M rows, with the prepared weights (no copy per
+    call); the hidden ``(M, 4D)`` is written once in bf16 and read once,
+    and quick_gelu acts on the fp32 accumulator, where the plain version
+    rounds the hidden first. At an objects dispatch (2048 crops x 197
+    tokens, D = 768) it is 3.81 TFLOP: bound by operations at about 3.85
+    ms a layer.
+    """
+    if x.device.type == 'cpu':
+        return ln_mlp_residual_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b)
+    return _ln_mlp('ln_mlp_residual', x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b,
+                   fc_wt, proj_wt, ln32)
+
+
+def out_proj_residual(
+    x: torch.Tensor,  # (..., D) residual-stream rows
+    a: torch.Tensor,  # (..., D) attention output
+    out_w, out_b,  # (D, D), (D,)
+    *,
+    out_wt=None,  # (D, D) K-major copy of out_w (CUDA; made here if None)
+):
+    """``x + a @ out_w + out_b``: the out-projection and residual of a
+    stock encoder layer after kernel 3.
+
+    Replaces the XLA product at ``oadp_tpu/models/clip.py:_block_fused``
+    (``x + (a @ attn['out_w'] + attn['out_b'])``). On the H100 (bf16): one
+    ``ln_gemm`` launch with the residual epilogue (the residual tiles
+    loaded by TMA, no LayerNorm). At a blocks dispatch (728 crops x 50
+    tokens) it is 43 GFLOP on 169 MB: bound by bytes at about 0.05 ms.
+    """
+    if x.device.type == 'cpu':
+        return out_proj_residual_plain(x, a, out_w, out_b)
+    name = 'out_proj_residual'
+    _check_cuda(name, x, a, out_b)
+    d = x.shape[-1]
+    if a.shape != x.shape or out_w.shape != (d, d) or out_b.shape != (d,):
+        raise ValueError(f'{name}: shape mismatch')
+    out_wt = _prepared(name, out_w, out_wt)
+    out = torch.empty_like(x)
+    _ln_gemm(a.view(-1, d), out_wt, out_b, out.view(-1, d), epilogue=_EPI_RESIDUAL,
+             residual=x.view(-1, d))
     LAUNCHES[name] += 1
     return out
 

@@ -7,9 +7,11 @@ keeps the named parts, default all):
 
 * ``gemm``: the ``ln_gemm`` product alone at the objects QKV shape
   (2048 x 197 rows, 768 -> 2304), with and without the LN pass, beside
-  ``torch.mm`` (cuBLAS) on the same operands; and at kernel 2's two
-  products (2048 rows, 768 -> 3072 and 3072 -> 768), each at every tile
-  width (``tile_n`` 256, 128, 64) beside the width the kernel picks; and
+  ``torch.mm`` (cuBLAS) on the same operands; at kernel 2's two products
+  (2048 rows, 768 -> 3072 and 3072 -> 768); and at the objects x-stream
+  MLP's two (2048 x 197 rows, 768 -> 3072, also with the quick_gelu
+  epilogue, and 3072 -> 768), each at every tile width (``tile_n`` 256,
+  128, 64) beside the width the kernel picks; and
   (``gemm_residual``) kernel 1's out-projection with its residual (2048 x
   197 rows, 768 -> 768, x + main @ W + b) at every width beside
   ``torch.addmm`` plus the add, with its bound;
@@ -24,8 +26,10 @@ keeps the named parts, default all):
   tokens (main rows, side row, both) beside
   ``F.scaled_dot_product_attention`` on the main rows;
 * ``dispatch``: one objects dispatch (2 images x 1024 crops, full
-  ViT-B/32, bf16, random weights from seed 0): its wall time and the
-  CUDA time by kernel from ``torch.profiler``;
+  ViT-B/32, bf16, random weights from seed 0): its wall time, the CUDA
+  time by kernel from ``torch.profiler`` and by part (the port's kernels
+  by family and ``ln_gemm`` epilogue; cuBLAS products, PyTorch's
+  LayerNorm and elementwise kernels), and the entry points' launches;
 * ``split_dispatch`` and ``fused_dispatch``: ``objects_step`` on 999
   crops of one image (the surgery encoder's split wiring, kernels 4 and
   5) and on the first 1000 of the same crops (the fused wiring, kernels 1
@@ -67,11 +71,40 @@ def _timed(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _kernel_part(name: str) -> str:
+    """The part a CUDA kernel of an encoder dispatch belongs to, by its
+    (mangled or demangled) name: the port's kernels (namespace ``oadp``)
+    by family, ``ln_gemm`` by epilogue (template argument 0, 1, 2); then
+    PyTorch's library products (cuBLAS's ``nvjet``, CUTLASS and xmma
+    kernels), LayerNorm and elementwise kernels."""
+    if 'oadp' in name:
+        if 'gemm_kernel' in name:
+            for epi, part in (('1', 'ln_gemm_gelu'), ('2', 'ln_gemm_residual')):
+                if f'ELi{epi}E' in name or f', {epi}>' in name:
+                    return part
+            return 'ln_gemm'
+        for kernel in ('ln_qkv_attention_kernel', 'attention_kernel', 'layer_norm_kernel'):
+            if kernel in name:
+                return kernel
+        return 'oadp_other'
+    low = name.lower()
+    if any(k in low for k in ('nvjet', 'gemm', 'cutlass', 'xmma', 'cublas', 'sm90_')):
+        return 'cublas_gemm'
+    if 'layer_norm' in low:
+        return 'torch_layer_norm'
+    if 'elementwise' in low:
+        return 'torch_elementwise'
+    return 'other'
+
+
 def _breakdown(step) -> dict:
     """Wall time of ``step`` (host clock, synchronised, after two warm
-    calls) and the CUDA time by kernel of one more call from
-    ``torch.profiler``."""
+    calls), and of one more call the CUDA time by kernel and by part
+    (:func:`_kernel_part`) from ``torch.profiler`` and the entry points'
+    launches (``ops/attention.py``'s ``LAUNCHES``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .ops import attention as A
 
     for _ in range(2):
         step()
@@ -81,15 +114,23 @@ def _breakdown(step) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    A.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    launches = {k: v for k, v in A.LAUNCHES.items() if v}
     # kernels only: an operator's row repeats the time of the kernels it ran
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: -e.self_device_time_total)
+    parts = {}
+    for e in events:
+        part = parts.setdefault(_kernel_part(e.key), dict(ms=0.0, calls=0))
+        part['ms'] += e.self_device_time_total / 1e3
+        part['calls'] += e.count
     return dict(wall_ms=wall_ms,
                 cuda_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                by_part=parts, launches=launches,
                 top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                           calls=e.count) for e in events[:20]])
 
@@ -199,7 +240,8 @@ def main(argv=None) -> int:
     if 'gemm' in only:
         ln = A.ln_fp32(torch.ones(d, device=dev), torch.zeros(d, device=dev))
         for rows, k_in, n_out, iters in ((m, d, 3 * d, 10), (b, d, 4 * d, 200),
-                                         (b, 4 * d, d, 200)):
+                                         (b, 4 * d, d, 200), (m, d, 4 * d, 5),
+                                         (m, 4 * d, d, 5)):
             x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
             w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
             wt, wb = A.kmajor(w), torch.zeros(n_out, device=dev).bfloat16()
@@ -212,9 +254,12 @@ def main(argv=None) -> int:
             if k_in <= 1024:
                 gemm['ln_gemm_with_ln_ms'] = _timed(
                     lambda: A._ln_gemm(x, wt, wb, out, ln32=ln), iters)
+            if (rows, n_out) == (m, 4 * d):  # the x-stream fc with its quick_gelu epilogue
+                gemm['ln_gemm_gelu_ms'] = _timed(
+                    lambda: A._ln_gemm(x, wt, wb, out, epilogue=A._EPI_GELU), iters)
             emit('gemm', shape=[rows, k_in, n_out], **gemm,
                  **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
-                    if 'with_ln' not in k})
+                    if 'with_ln' not in k and 'gelu' not in k})
             del x, out
         # kernel 1's out-projection with its residual (x_out = x + main @ W
         # + b): bound by its bytes as much as by its products

@@ -299,9 +299,12 @@ def test_launch_counters_only_count_cuda_launches():
     q = _packed(rng, 2, 5, 2)
     ta.fused_mha_qkv(torch.from_numpy(q['qkv']), 2, 0.125)
     ta.fused_side_attention(*_side_args(q, torch.from_numpy), 2)
+    x, s, w = (torch.from_numpy(p[k]) for k in ('x', 's', 'ow'))
+    ta.ln_mlp_residual(x, s, s, w, s, w, s)
+    ta.out_proj_residual(x, x, w, s)
     assert set(ta.LAUNCHES) == {
         'fused_surgery_layer', 'fused_ln_mlp_rows', 'fused_ln_qkv_attention',
-        'fused_mha_qkv', 'fused_side_attention'}
+        'fused_mha_qkv', 'fused_side_attention', 'ln_mlp_residual', 'out_proj_residual'}
     assert ta.LAUNCHES == {k: 0 for k in ta.LAUNCHES}
 
 
@@ -321,6 +324,11 @@ def test_wrappers_refuse_non_bf16_on_other_devices():
     with pytest.raises(ValueError):
         ta.fused_side_attention(qkv[..., :128], qkv[..., 128:256], rows, rows, rows,
                                 torch.empty((2, 5), device='meta'), 2)
+    fc, proj = torch.empty((128, 512), device='meta'), torch.empty((512, 128), device='meta')
+    with pytest.raises(ValueError):
+        ta.ln_mlp_residual(x, w[:, 0], w[:, 1], fc, fc[0], proj, proj[0])
+    with pytest.raises(ValueError):
+        ta.out_proj_residual(x, x, w[:, :128], w[0, :128])
 
 
 @pytest.mark.cuda

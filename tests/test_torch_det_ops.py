@@ -234,11 +234,27 @@ def _nms_case(name):
         rng = np.random.default_rng(0)
         return (rng.uniform(0, 50000, (3250, 4)).astype(np.float32),
                 rng.random(3250).astype(np.float32), 0.5, 300)
+    if name == 'nan_box':  # the highest-scored box is NaN: it suppresses nothing
+        boxes = np.asarray([[np.nan] * 4, [0, 0, 10, 10], [20, 20, 30, 30]], np.float32)
+        return boxes, np.asarray([0.9, 0.8, 0.7], np.float32), 0.5, 3
+    if name == 'nan_scattered':
+        return (_nan_boxes(rng, _boxes(rng, 300, True)), rng.random(300).astype(np.float32),
+                0.5, 300)
     raise KeyError(name)
 
 
+def _nan_boxes(rng, boxes, every=7):
+    """``boxes`` with one coordinate (x0, y0, x1, y1 in turn) of every
+    ``every``-th box NaN, and one box NaN whole."""
+    boxes = boxes.copy()
+    rows = np.arange(rng.integers(0, every), len(boxes), every)
+    boxes[rows, np.arange(len(rows)) % 4] = np.nan
+    boxes[rng.integers(0, len(boxes))] = np.nan
+    return boxes
+
+
 NMS_CASES = ['random', 'clustered', 'more_than_max_out', 'ties', 'invalid', 'chain',
-             'oscillating']
+             'oscillating', 'nan_box', 'nan_scattered']
 
 
 @pytest.mark.parametrize('case', NMS_CASES)
@@ -251,6 +267,8 @@ def test_nms_keep_sets_identical(case):
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
     if case == 'chain':
         assert list(t_idx.numpy()[t_valid.numpy()]) == [0, 2]
+    if case == 'nan_box':
+        assert list(t_idx.numpy()[t_valid.numpy()]) == [0, 1, 2]
 
 
 @pytest.mark.parametrize('case', ['random', 'clustered', 'ties'])
@@ -268,10 +286,13 @@ def test_batched_nms_keep_sets_identical(case):
 def _mc_case(name):
     rng = np.random.default_rng(8)
     c, n = {'shared': (65, 150), 'per_class_boxes': (65, 60), 'lvis_1203': (1203, 24),
-            'ties': (20, 100), 'no_survivors': (65, 50), 'few_candidates': (3, 40)}[name]
+            'ties': (20, 100), 'no_survivors': (65, 50), 'few_candidates': (3, 40),
+            'nan_boxes': (20, 100)}[name]
     boxes = _boxes(rng, n, clustered=True)
     if name == 'per_class_boxes':
         boxes = np.concatenate([_boxes(rng, n, clustered=True) for _ in range(c)], 1)
+    if name == 'nan_boxes':  # NaN boxes among the candidates, with finite scores
+        boxes = _nan_boxes(rng, boxes)
     scores = (rng.random((n, c + 1)) ** 4).astype(np.float32)
     scores[rng.random((n, c + 1)) < 0.3] = 0.0
     if name == 'ties':
@@ -282,7 +303,7 @@ def _mc_case(name):
 
 
 @pytest.mark.parametrize('case', ['shared', 'per_class_boxes', 'lvis_1203', 'ties',
-                                  'no_survivors', 'few_candidates'])
+                                  'no_survivors', 'few_candidates', 'nan_boxes'])
 def test_multiclass_nms_identical(case):
     boxes, scores, c, max_per_img = _mc_case(case)
     want = jnms.multiclass_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.0, 0.5,
@@ -293,6 +314,8 @@ def test_multiclass_nms_identical(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if case == 'no_survivors':
         assert not got[3].any()
+    if case == 'nan_boxes':  # kept, and in the top max_per_img
+        assert np.isnan(got[0][:, :4].numpy()).any()
 
 
 @pytest.mark.parametrize('case', ['lvis_1203', 'per_class_boxes'])
@@ -347,7 +370,7 @@ def test_greedy_keep_sorted_matches_reference_nms(case, cap):
 
 
 @pytest.mark.parametrize('case', ['shared', 'per_class_boxes', 'lvis_1203', 'ties',
-                                  'no_survivors', 'few_candidates'])
+                                  'no_survivors', 'few_candidates', 'nan_boxes'])
 def test_greedy_keep_sorted_matches_reference_multiclass(case):
     """Per-class keep sets (shared boxes read through ``order``, or each
     class's own boxes) equal ``oadp_tpu``'s ``_sorted_block_nms_lazy``,
@@ -374,23 +397,36 @@ def test_greedy_keep_sorted_matches_reference_multiclass(case):
     np.testing.assert_array_equal(capped, want & (np.cumsum(want, -1) <= max_per_img))
 
 
+def _nan_max(a, b):
+    """``csrc/nms.cu:nan_max``, ``a > b || a != a ? a : b``."""
+    return np.where((a > b) | (a != a), a, b)
+
+
+def _nan_min(a, b):
+    """``csrc/nms.cu:nan_min``, ``a < b || a != a ? a : b``."""
+    return np.where((a < b) | (a != a), a, b)
+
+
 def _area_np(b):
-    return (np.maximum(b[..., 2] - b[..., 0], np.float32(0))
-            * np.maximum(b[..., 3] - b[..., 1], np.float32(0)))
+    zero = np.float32(0)
+    return _nan_max(b[..., 2] - b[..., 0], zero) * _nan_max(b[..., 3] - b[..., 1], zero)
 
 
 def _iou_kernel_order(a, b):
-    """``csrc/nms.cu``'s IoU in numpy fp32, one rounding an operation, in
-    its order: clamped overlap, inter, union ``(area_a + area_b) - inter``
-    floored at 1e-6, one division; 0 where inter is 0."""
-    w = np.maximum(np.minimum(a[:, None, 2], b[None, :, 2])
-                   - np.maximum(a[:, None, 0], b[None, :, 0]), np.float32(0))
-    h = np.maximum(np.minimum(a[:, None, 3], b[None, :, 3])
-                   - np.maximum(a[:, None, 1], b[None, :, 1]), np.float32(0))
+    """``csrc/nms.cu``'s IoU in numpy fp32 with the kernel's helpers
+    (``box_area``, ``suppresses``), one rounding an operation, in its
+    order: clamped overlap, inter, union ``(area_a + area_b) - inter``
+    floored at 1e-6, one division; 0 where inter is 0 (a NaN inter is
+    not)."""
+    zero = np.float32(0)
+    w = _nan_max(_nan_min(a[:, None, 2], b[None, :, 2]) - _nan_max(a[:, None, 0], b[None, :, 0]),
+                 zero)
+    h = _nan_max(_nan_min(a[:, None, 3], b[None, :, 3]) - _nan_max(a[:, None, 1], b[None, :, 1]),
+                 zero)
     inter = w * h
-    union = np.maximum((_area_np(a)[:, None] + _area_np(b)[None]) - inter, np.float32(1e-6))
+    union = _nan_max((_area_np(a)[:, None] + _area_np(b)[None]) - inter, np.float32(1e-6))
     with np.errstate(divide='ignore', invalid='ignore'):
-        return np.where(inter == 0, np.float32(0), inter / union)
+        return np.where(inter == 0, zero, inter / union)
 
 
 def _near_threshold_pairs(rng, thr, n=4000):
@@ -408,12 +444,13 @@ def _near_threshold_pairs(rng, thr, n=4000):
 def test_kernel_iou_order_is_pair_iou_bit_for_bit(thr):
     rng = np.random.default_rng(21)
     a, b = _near_threshold_pairs(rng, thr)
-    pairs = [(a, b), (_boxes(rng, 300, True), _boxes(rng, 200, True))]
+    pairs = [(a, b), (_boxes(rng, 300, True), _boxes(rng, 200, True)),
+             (_nan_boxes(rng, _boxes(rng, 300, True)), _nan_boxes(rng, _boxes(rng, 200, True)))]
     near = 0
     for x, y in pairs:
         want = tnms._pair_iou(torch.from_numpy(x), torch.from_numpy(y)).numpy()
         got = _iou_kernel_order(x, y)
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, want)  # NaN where want is NaN
         np.testing.assert_array_equal(got > np.float32(thr),
                                       (tnms._pair_iou(torch.from_numpy(x), torch.from_numpy(y))
                                        > thr).numpy())
@@ -477,14 +514,18 @@ def _scan_case(name, n, rng):
     elif name == 'all_dead':
         boxes = _boxes(rng, n)
         alive[:] = False
+    elif name == 'nan':  # NaN coordinates: such a box suppresses nothing
+        boxes = _nan_boxes(rng, _boxes(rng, n, clustered=True))
     else:
         raise KeyError(name)
     return boxes, alive, thr
 
 
+SCAN_CASES = ['clustered', 'chain', 'identical', 'zero_area', 'holes', 'all_dead', 'nan']
+
+
 @pytest.mark.parametrize('n', [1, 63, 64, 65, 127, 128, 129, 300])
-@pytest.mark.parametrize('case', ['clustered', 'chain', 'identical', 'zero_area', 'holes',
-                                  'all_dead'])
+@pytest.mark.parametrize('case', SCAN_CASES)
 def test_kernel_scan_model_matches_greedy_keep(case, n):
     rng = np.random.default_rng(n)
     boxes, alive, thr = _scan_case(case, n, rng)
@@ -529,7 +570,7 @@ def test_greedy_nms_kernel_matches_plain_on_card():
         pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
     dev = torch.device('cuda')
     rng = np.random.default_rng(5)
-    for case in ['clustered', 'chain', 'identical', 'zero_area', 'holes', 'all_dead']:
+    for case in SCAN_CASES:
         # 9000 uncapped: the kept list past shared memory, in a workspace
         for n in [1, 63, 64, 65, 129, 2049, 5000] + [9000] * (case in ('clustered', 'identical')):
             boxes, alive, thr = _scan_case(case, n, rng)
@@ -551,12 +592,15 @@ def test_greedy_nms_kernel_matches_plain_on_card():
         want = tnms.nms(torch.from_numpy(b), torch.from_numpy(s), thr, max_out)
         got = tnms.nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev), thr, max_out)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
-    for case in ['shared', 'per_class_boxes', 'lvis_1203', 'ties']:
+    for case in ['shared', 'per_class_boxes', 'lvis_1203', 'ties', 'nan_boxes']:
         b, s, c, m = _mc_case(case)
         want = tnms.multiclass_nms(torch.from_numpy(b), torch.from_numpy(s), 0.0, 0.5, m, c)
         got = tnms.multiclass_nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev),
                                   0.0, 0.5, m, c)
-        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
+        for g, w in zip(got, want):  # NaN boxes come out where they went in
+            g = g.cpu()
+            assert g.shape == w.shape and g.dtype == w.dtype, case
+            assert torch.equal(g, w) or bool(((g == w) | (g.isnan() & w.isnan())).all()), case
     torch.cuda.synchronize()
 
 
