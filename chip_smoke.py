@@ -17,7 +17,9 @@ Phases, in order; any failure exits nonzero:
    at the rows of the dispatches that take each (``ln_mlp_residual`` at
    the objects 2048 x 197, blocks 728 x 50 and globals 16 x 50 rows,
    ``out_proj_residual`` at the blocks and globals rows), also on their
-   residual deltas (``out - x``). Each kernel gets its K-major weights and fp32 LayerNorm
+   residual deltas (``out - x``), with the ``ln_gemm`` plan each launch
+   took (schedule and tile width; ``ops/attention.py:ln_gemm_plan``,
+   recorded by ``plans_of``). Each kernel gets its K-major weights and fp32 LayerNorm
    parameters prepared once, as the encoders hold them, and the library
    yardstick its transposed weights once. Two times per call for the
    kernel and for the yardstick: CUDA events around back-to-back calls
@@ -285,6 +287,23 @@ def bf16_excess(got, want) -> float:
     return float(((g - w).abs() - ulp).max())
 
 
+def plans_of(A, fn) -> list[dict]:
+    """The ``ln_gemm`` plans (schedule and tile width) that one call
+    of ``fn`` launches, in order."""
+    taken, launch = [], A._ln_gemm
+
+    def recorded(*args, **kwargs):
+        taken.append(launch(*args, **kwargs))
+        return taken[-1]
+
+    A._ln_gemm = recorded
+    try:
+        fn()
+    finally:
+        A._ln_gemm = launch
+    return [p._asdict() for p in taken]
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
@@ -341,7 +360,7 @@ def check_kernels(A, gen) -> dict:
         if part_of is not None:
             dev, extra['kernel_device_ms_by_part'] = dev
         res = dict(
-            name=name, max_abs_err=err, cosine=cos,
+            name=name, max_abs_err=err, cosine=cos, plans=plans_of(A, kernel),
             kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
             library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
             kernel_device_ms=dev,
@@ -2696,7 +2715,7 @@ def main() -> int:
         )
         if 'kernel_device_ms_by_part' in res:
             entry['device_ms_by_part'] = res['kernel_device_ms_by_part']
-        for key in ('residual_delta_cosine', 'large_mean_bf16_excess'):
+        for key in ('residual_delta_cosine', 'large_mean_bf16_excess', 'plans'):
             if key in res:
                 entry[key] = res[key]
         for shape in ('side_only', 'blocks_batch', 'globals_batch', 'objects_batch'):
@@ -2705,7 +2724,7 @@ def main() -> int:
                     'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                     'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
                     'residual_delta_cosine', 'large_mean_bf16_excess',
-                    'kernel_device_ms_by_part') if k in res[shape]}
+                    'kernel_device_ms_by_part', 'plans') if k in res[shape]}
         kernels.append(entry)
     nms_launches = {'dp': dp['launches']['greedy_nms'],
                     'dp_train': train['launches']['greedy_nms'],

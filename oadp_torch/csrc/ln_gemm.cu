@@ -24,35 +24,63 @@
 //
 // Bound on the H100: the QKV GEMM of the objects encoder (M = 2048 x 197,
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
-// card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
-// The out-projection with its residual (N = 768) is 0.48 TFLOP against
-// 1.86 GB (A and R read, C written): 0.48 ms of operations, 0.56 ms of
-// bytes, so its epilogue's bytes weigh as much as its products. The
-// x-stream MLP's two products at that M (768 -> 3072 with quick_gelu,
-// 3072 -> 768 with the residual) are 1.9 TFLOP each, bound by operations;
-// the consumers run each tile's epilogue between its products, so the
-// quick_gelu (fast exp and divide) and the residual add to the products'
-// time (PERF.md).
-// Design: a persistent, warp-specialised wgmma GEMM. One block per SM walks
-// output tiles of 128 x BN (BN 256, 128 or 64 by shape and epilogue, see
-// pick_tile_n), N tiles fastest so the blocks that read one A row-panel run
-// together; a second segment's tiles follow the first's. Its first
-// warpgroup gives up registers (setmaxnreg) and one thread of it issues TMA
-// loads of the 128 x 64 A and BN x 64 W k-tiles (128-byte swizzle) into a
-// ring of 3-8 stages, each guarded by a full and an empty mbarrier; it runs
-// ahead into the next tile while the consumers finish the current one. Two
-// consumer warpgroups of 64 rows each wait on the full barrier, issue wgmma
-// m64nBNk16 straight from shared memory, keep one wgmma group in flight
-// across k-tiles (wait_group 1) and release a stage as soon as the group
-// that read it has retired. The epilogue adds bias, quick_gelu or the
-// residual in fp32 and rounds once to bf16 into swizzled 64 x 64 staging
-// tiles, which TMA stores write out. The residual comes by TMA as well:
-// early in each tile's k-loop, the consumer thread that issued the previous
-// tile's stores waits until they have read their staging tiles and loads
-// the tile's R blocks into them (one 64 x 64 block per 64 columns, on the
-// warpgroup's own mbarrier), so R is in shared memory when the epilogue
-// starts and is added in place, in the layout the epilogue writes, with no
-// load from global memory.
+// card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations;
+// so are the x-stream MLP's two products at that M (768 -> 3072 with
+// quick_gelu, 3072 -> 768 with the residual, 1.9 TFLOP each). The
+// out-projection with its residual (N = 768, K = 768) is 0.48 TFLOP
+// against 1.86 GB: its bytes weigh as much as its products. At the globals
+// rows (M = 800) every product is a few microseconds, bound by how fast the
+// few busy SMs pull their operands through L2.
+//
+// Design: a persistent, warp-specialised wgmma GEMM, one block per SM. Its
+// first warpgroup gives up registers (setmaxnreg) and one thread of it
+// issues TMA loads of the A and W k-tiles (64 deep, 128-byte swizzle) into
+// a ring of 3-8 stages, each guarded by a full and an empty mbarrier,
+// running ahead through tile boundaries. The two consumer warpgroups issue
+// wgmma m64nBNk16 straight from shared memory, keep one wgmma group in
+// flight across k-tiles (wait_group 1), release a stage as soon as the
+// group that read it has retired, and run the epilogue: bias, quick_gelu
+// (__expf, __fdividef) or the residual in fp32, rounded once to bf16 into
+// swizzled 64 x 64 staging tiles that TMA stores write out. The residual
+// comes by TMA into those staging tiles early in each tile's k-loop, so it
+// is added in place. Tiles are walked N fastest, a second segment's after
+// the first's. Two schedules share all of this (the caller picks one, with
+// its tile width, per launch: ops/attention.py:ln_gemm_plan, from rates
+// measured by oadp_torch/profile_kernels.py gemm):
+//   cooperative (gemm_kernel): both consumers work one 128 x BN tile, 64
+//     rows each, and run its epilogue together before either issues the
+//     next tile's first wgmma, so the tensor cores idle for every epilogue
+//     (quick_gelu's two special-function operations an element cost about
+//     a fifth of the fc's time). Each 128 x 256 tile reads the fewest bytes
+//     through L2 per product.
+//   ping-pong (pingpong_kernel): each consumer owns whole 64 x 256 tiles,
+//     every other tile of the block's walk, and a pair of mbarriers makes
+//     their main loops take turns: one issues its tile's wgmmas while the
+//     other runs the previous tile's epilogue and stores, so the epilogue
+//     leaves the tensor cores' path. The ring's stages are consumed in tile
+//     order, and a consumer waits on its first stage only after the other
+//     has issued its main loop, so it never waits on a fill two rounds
+//     ahead (which mbarrier parity cannot tell apart). 64-row tiles alone
+//     would read each W k-tile through L2 for half the rows; so the blocks
+//     run in clusters of two, which take the two 64-row halves of a
+//     128 x 256 tile, each loading half of its W k-tile, multicast by TMA
+//     into both (a stage is refilled once the consumers of both blocks
+//     have released it): the bytes through L2 per product are the
+//     cooperative tile's. (Without clusters, or at 64 or 128 columns,
+//     ping-pong ran slower than the cooperative tile at every shape the
+//     encoders run: PERF.md.)
+// Which launch takes which (PERF.md section 6, profile_kernels.py gemm on
+// an H100): ping-pong only for the x-stream fc with quick_gelu at the
+// objects and blocks rows, where every block gets four tiles or more and
+// the hidden epilogue (quick_gelu's two special-function operations an
+// element) pays for ping-pong's products running ~10% below the
+// cooperative 128 x 256 tile's (each W k-tile written into shared memory
+// serves 64 rows, not 128): without quick_gelu the cooperative tile is
+// faster (kernel 1), and a block with one or two tiles has nothing to
+// alternate with (kernel 2, the globals rows). The cooperative
+// width follows the waves: 256 for the objects proj (K = 3072), 128 for
+// the residual at K = 768, kernel 2 and the blocks proj, 64 and 256 at
+// the globals rows.
 // The LN prologue stays a one-warp-a-row pass that writes LN(A) in bf16
 // (both segments in one launch), which the product then reads: normalising
 // on the product's A path was measured slower in every form tried -- an
@@ -61,7 +89,6 @@
 // N = 2304 each A k-tile is normalised again for each of the nine column
 // tiles, and the read-only statistics pass those forms need costs most of
 // what the pass saves (PERF.md).
-// Rates against cuBLAS: oadp_torch/profile_kernels.py.
 #include <algorithm>
 
 #include "common.cuh"
@@ -69,24 +96,28 @@
 namespace oadp {
 namespace {
 
-constexpr int BM = 128, BK = 64;
+constexpr int BK = 64;
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+enum Schedule { COOPERATIVE = 0, PINGPONG = 1 };
 
-// Shared memory: the k-tile ring, then per consumer warpgroup its bf16
-// 64 x 64 staging tiles for the TMA stores (the residual epilogue keeps one
-// per 64 columns, R lands there; the others alternate two), then the
-// barriers: full and empty per stage, one R barrier per consumer.
-template <int BN, int EPI>
+// Shared memory: the k-tile ring (a stage holds a block's TM x 64 A k-tile
+// and its BN x 64 W k-tile), then per consumer warpgroup its bf16 64 x 64
+// staging tiles for the TMA stores (the residual epilogue keeps one per 64
+// columns, R lands there; the others alternate two), then the barriers:
+// full and empty per stage, then per consumer one for its R blocks and
+// (ping-pong) one for its turn.
+template <int BN, int EPI, int PP>
 struct Tile {
-  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int TM = PP ? 64 : 128;  // a block's rows of a tile
+  static constexpr int A_BYTES = TM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
-  static constexpr int BAR_BYTES = (2 * 8 + 2) * 8;
+  static constexpr int BAR_BYTES = (2 * 8 + 4) * 8;
   static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
@@ -95,18 +126,54 @@ struct Tile {
   static_assert(STAGES >= 3, "the ring needs three stages");
 };
 
-// One row set of a launch. Its tiles are [first, first + m tiles x tiles_n)
-// of the launch's walk.
+// One row set of a launch. Its units are [first, first + row units x
+// tiles_n) of the launch's walk; a unit is one tile (cooperative), or the
+// pair of vertically adjacent tiles a cluster's blocks share (ping-pong).
 struct Seg {
   int M, N, tiles_n, first;
   const bf16* bias;  // (N,): the segment's column slice
 };
 
 struct Params {
-  CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice, C, R
+  CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice (BN / CL rows a box), C, R
   Seg seg[2];
-  int segs, tiles, K;
+  int segs, units, K;
 };
+
+// The two blocks of a cluster: a barrier over all their threads, this
+// block's rank in it, an arrive on the mbarrier at `bar`'s offset in block
+// `peer`, and a TMA load that lands at `dst`'s offset in both blocks and
+// completes its bytes on the mbarrier at `bar`'s offset in each.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int peer) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(peer)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "h"(static_cast<uint16_t>(0x3))
+      : "memory");
+}
 
 // d (64 x 128 fp32 per warpgroup) += A (64 x 16, shared) * B (128 x 16, shared)^T,
 // both K-major with the 128-byte swizzle.
@@ -178,14 +245,17 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t desc_a, uint64_t d
 }
 
 struct TileAt {
-  int s, m0, n0;  // segment, first row and column
+  int s, m0, n0;  // segment, this block's first row and column
 };
 
-template <int BN>
-__device__ __forceinline__ TileAt tile_at(const Params& p, int tile) {
-  const int s = p.segs > 1 && tile >= p.seg[1].first ? 1 : 0;
-  const int local = tile - p.seg[s].first;
-  return {s, (local / p.seg[s].tiles_n) * BM, (local % p.seg[s].tiles_n) * BN};
+// The tile of block `rank` of a cluster of CL in unit `unit`; with CL = 2
+// its rows may lie wholly past M (the second tile of a segment's last
+// unit), and then its loads bring zeros and its stores write nothing.
+template <int BN, int TM, int CL>
+__device__ __forceinline__ TileAt tile_at(const Params& p, int unit, int rank) {
+  const int s = p.segs > 1 && unit >= p.seg[1].first ? 1 : 0;
+  const int local = unit - p.seg[s].first;
+  return {s, (CL * (local / p.seg[s].tiles_n) + rank) * TM, (local % p.seg[s].tiles_n) * BN};
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -222,9 +292,16 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
   }
 }
 
-template <int BN, int EPI>
-__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  using T = Tile<BN, EPI>;
+// The body of both schedules (PP: ping-pong, in clusters of CL = 2
+// blocks; cooperative: CL = 1). Named barrier 1 + cw: a consumer's own
+// epilogue. Ping-pong's turns: consumer cw's warps arrive on turn[cw] once
+// they have issued a main loop (so every fill it read has landed), and the
+// other consumer waits on it before its next main loop; an mbarrier, so
+// that a fault traps rather than hangs.
+template <int BN, int EPI, int PP>
+__device__ __forceinline__ void gemm_body(const Params& p) {
+  using T = Tile<BN, EPI, PP>;
+  constexpr int CL = PP ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -232,18 +309,26 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BARS);
   uint64_t* empty = full + T::STAGES;
   uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
+  uint64_t* turn = rfull + 2;
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
-      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+      mbar_init(&full[s], 1);  // the producer's arrive, plus the TMA bytes
+      // one arrive per consumer warp that reads the stage: both consumers'
+      // (cooperative), or one consumer's in each block of the cluster
+      mbar_init(&empty[s], 8);
     }
-    mbar_init(&rfull[0], 1);
-    mbar_init(&rfull[1], 1);
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&rfull[c], 1);
+      mbar_init(&turn[c], 4);  // one arrive per warp of the consumer
+    }
     mbar_init_fence();
   }
-  __syncthreads();
+  if (CL > 1)
+    cluster_sync();  // both blocks' barriers are ready before either loads
+  else
+    __syncthreads();
 
   const int KT = p.K / BK;
 
@@ -251,16 +336,22 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     // producer: one thread keeps the ring full, through tile boundaries
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
+      const int rank = CL > 1 ? cluster_rank() : 0;
       int stage = 0;
       unsigned phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const TileAt at = tile_at<BN>(p, tile);
+      for (int unit = blockIdx.x / CL; unit < p.units; unit += gridDim.x / CL) {
+        const TileAt at = tile_at<BN, T::TM, CL>(p, unit, rank);
         for (int kt = 0; kt < KT; ++kt) {
+          // free in this block (and the peer: this block's W half lands in both)
           mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
           unsigned char* dst = ring + stage * T::STAGE;
           mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
           tma_load_2d(dst, &p.a[at.s], &full[stage], kt * BK, at.m0);
-          tma_load_2d(dst + T::A_BYTES, &p.w[at.s], &full[stage], kt * BK, at.n0);
+          if (CL > 1)
+            tma_load_2d_multicast(dst + T::A_BYTES + rank * (BN / 2) * 128, &p.w[at.s],
+                                  &full[stage], kt * BK, at.n0 + rank * (BN / 2));
+          else
+            tma_load_2d(dst + T::A_BYTES, &p.w[at.s], &full[stage], kt * BK, at.n0);
           if (++stage == T::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -270,23 +361,40 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int rank = CL > 1 ? cluster_rank() : 0;
+    const int first = blockIdx.x / CL, units_step = gridDim.x / CL;  // the block's walk
+    const int cw = wg - 1;
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
     float acc[BN / 2];
     int stage = 0, stores = 0;
-    unsigned phase = 0, rphase = 0;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const TileAt at = tile_at<BN>(p, tile);
+    unsigned phase = 0, rphase = 0, tphase = 0;
+    // cooperative: every unit of the walk, this consumer's 64 rows of it;
+    // ping-pong: units i = cw, cw + 2, ... of the walk, all 64 rows
+    for (int i = PP ? cw : 0, unit = first + i * units_step; unit < p.units;
+         i += PP ? 2 : 1, unit += (PP ? 2 : 1) * units_step) {
+      const TileAt at = tile_at<BN, T::TM, CL>(p, unit, rank);
+      const int m0 = at.m0 + (PP ? 0 : cw * 64);
       const int N = p.seg[at.s].N;
       const bf16* bias = p.seg[at.s].bias;
+      if (PP) {
+        // the other consumer has issued unit i - 1's main loop, so every
+        // fill before this unit's has landed; this unit's k-tiles start at
+        // position i x KT of the ring's sequence
+        if (i > 0) {
+          mbar_wait(&turn[cw ^ 1], tphase);
+          tphase ^= 1;
+        }
+        stage = (i * KT) % T::STAGES;
+        phase = ((i * KT) / T::STAGES) & 1;
+      }
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
-        const unsigned char* a_s = ring + stage * T::STAGE + cw * 64 * 128;
+        const unsigned char* a_s = ring + stage * T::STAGE + (PP ? 0 : cw * 64 * 128);
         const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
         fence_acc<BN / 2>(acc);
         wgmma_fence();
@@ -295,28 +403,35 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
           wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
         wgmma_commit();
         if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
-          // R of this tile into the staging tiles, once the stores of the
-          // previous tile have read them
+          // R of this tile into the staging tiles, once the stores of
+          // this consumer's previous tile have read them
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
           mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
 #pragma unroll
           for (int cc = 0; cc < T::OUT_TILES; ++cc)
-            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64,
-                        at.m0 + cw * 64);
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64, m0);
         }
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
         fence_acc<BN / 2>(acc);
-        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        if (held >= 0 && lane == 0) {
+          mbar_arrive(&empty[held]);
+          if (CL > 1) mbar_arrive_peer(&empty[held], rank ^ 1);
+        }
         held = stage;
         if (++stage == T::STAGES) {
           stage = 0;
           phase ^= 1;
         }
       }
+      // the other consumer's next main loop may start behind this one's
+      if (PP && lane == 0 && unit + units_step < p.units) mbar_arrive(&turn[cw]);
       wgmma_wait<0>();
       fence_acc<BN / 2>(acc);
-      if (lane == 0) mbar_arrive(&empty[held]);
+      if (lane == 0) {
+        mbar_arrive(&empty[held]);
+        if (CL > 1) mbar_arrive_peer(&empty[held], rank ^ 1);
+      }
 
       // Epilogue, 64 columns at a time, each block stored by TMA as soon
       // as it is staged (rows past M, columns past N are not written).
@@ -338,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
         fence_proxy_async();  // the staging writes, before the TMA store reads them
         named_barrier(1 + cw, 128);
         if (ctid == 0) {
-          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, at.m0 + cw * 64);
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, m0);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
@@ -346,6 +461,17 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant_
     // the staging tiles must outlive the stores' reads of them
     if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
+  if (CL > 1) cluster_sync();  // no block leaves while its peer may still signal it
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
+  gemm_body<BN, EPI, 0>(p);
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1) pingpong_kernel(const __grid_constant__ Params p) {
+  gemm_body<BN, EPI, 1>(p);
 }
 
 // The host side of one segment.
@@ -356,20 +482,30 @@ struct SegArgs {
   bf16* c;
 };
 
-template <int BN, int EPI>
+// Launches one schedule's kernel over the segments. `units` is the unit
+// count the caller's plan expects (ops/attention.py:ln_gemm_units); a
+// launch whose walk would differ is refused.
+template <int BN, int EPI, int PP>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
-                   cudaStream_t stream) {
-  using T = Tile<BN, EPI>;
+                   int units, cudaStream_t stream) {
+  using T = Tile<BN, EPI, PP>;
+  constexpr int CL = PP ? 2 : 1;
+  const auto kernel = [] {
+    if constexpr (PP)
+      return pingpong_kernel<BN, EPI>;
+    else
+      return gemm_kernel<BN, EPI>;
+  }();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);  // once
   cudaError_t e = attr;
   if (e != cudaSuccess) return e;
   Params p = {};
   p.segs = nseg;
   p.K = K;
   const uint64_t k_bytes[1] = {(uint64_t)K * 2};
-  const uint32_t box_a[2] = {BK, BM}, box_w[2] = {BK, BN}, box_c[2] = {64, 64};
-  int tiles = 0;
+  const uint32_t box_a[2] = {BK, T::TM}, box_w[2] = {BK, BN / CL}, box_c[2] = {64, 64};
+  int walk = 0;
   for (int s = 0; s < nseg; ++s) {
     const SegArgs& g = segs[s];
     const uint64_t n_bytes[1] = {(uint64_t)g.N * 2};
@@ -386,52 +522,48 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
     p.seg[s].M = g.M;
     p.seg[s].N = g.N;
     p.seg[s].tiles_n = (g.N + BN - 1) / BN;
-    p.seg[s].first = tiles;
+    p.seg[s].first = walk;
     p.seg[s].bias = bias + g.col0;
-    tiles += ((g.M + BM - 1) / BM) * p.seg[s].tiles_n;
+    const int row_tiles = (g.M + T::TM - 1) / T::TM;
+    walk += ((row_tiles + CL - 1) / CL) * p.seg[s].tiles_n;
   }
-  p.tiles = tiles;
-  const int grid = std::min(tiles, sm_count());
-  gemm_kernel<BN, EPI><<<grid, THREADS, T::SMEM, stream>>>(p);
+  if (walk != units) return cudaErrorInvalidValue;
+  p.units = units;
+  if constexpr (CL == 1) {
+    kernel<<<std::min(units, sm_count()), THREADS, T::SMEM, stream>>>(p);
+  } else {  // clusters of CL blocks, as many as can be resident at once
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = CL;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = T::SMEM;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    static const int resident = [&] {  // once
+      int n = 0;
+      return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
+    }();
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    cfg.gridDim = dim3(CL * std::min(units, resident));
+    if ((e = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return e;
+  }
   return cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, int PP>
 cudaError_t launch_epilogue(int epilogue, int K, const bf16* Wt, const bf16* bias,
-                            const SegArgs* segs, int nseg, cudaStream_t s) {
+                            const SegArgs* segs, int nseg, int units, cudaStream_t s) {
   switch (epilogue) {
-    case EPI_NONE: return launch<BN, EPI_NONE>(K, Wt, bias, segs, nseg, s);
-    case EPI_GELU: return launch<BN, EPI_GELU>(K, Wt, bias, segs, nseg, s);
-    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL>(K, Wt, bias, segs, nseg, s);
+    case EPI_NONE: return launch<BN, EPI_NONE, PP>(K, Wt, bias, segs, nseg, units, s);
+    case EPI_GELU: return launch<BN, EPI_GELU, PP>(K, Wt, bias, segs, nseg, units, s);
+    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL, PP>(K, Wt, bias, segs, nseg, units, s);
   }
   return cudaErrorInvalidValue;
-}
-
-// The tile width whose last wave ends first: waves x BN / rate(BN), the
-// time of one block's tiles, with rate(BN) the width's products per second
-// relative to the best width (oadp_torch/profile_kernels.py, H100 at 700 W):
-// without a residual at the objects QKV shape 1, 0.87, 0.51 for 256, 128,
-// 64 (wider tiles read fewer bytes through L2 per product); with it, at the
-// objects out-projection, 0.93, 1, 0.67 (its R staging leaves the 256-wide
-// tile three ring stages). Large products take the fastest width, a short
-// one (kernel 2's 2048 rows) the width that fills the SMs.
-int pick_tile_n(const SegArgs* segs, int nseg, int epilogue) {
-  constexpr int widths[3] = {256, 128, 64};
-  constexpr double rate[2][3] = {{1.0, 0.87, 0.51}, {0.93, 1.0, 0.67}};
-  const double* r = rate[epilogue == EPI_RESIDUAL];
-  int best = 256;
-  double best_cost = 0.0;
-  for (int i = 0; i < 3; ++i) {
-    long long tiles = 0;
-    for (int s = 0; s < nseg; ++s)
-      tiles += (long long)((segs[s].M + BM - 1) / BM) * ((segs[s].N + widths[i] - 1) / widths[i]);
-    const double cost = (double)((tiles + sm_count() - 1) / sm_count()) * widths[i] / r[i];
-    if (i == 0 || cost < best_cost) {
-      best = widths[i];
-      best_cost = cost;
-    }
-  }
-  return best;
 }
 
 }  // namespace
@@ -444,12 +576,15 @@ extern "C" {
 // whole K-major weight; segment s reads its rows col0_s .. col0_s + N_s and
 // bias[col0_s ..]. The second segment is absent when A1 == nullptr.
 // gamma == nullptr means no LayerNorm; otherwise ln_out (M0 + M1, K)
-// receives LN of both segments' rows and the product reads it. tile_n: 64,
-// 128 or 256, or 0 to pick by shape.
+// receives LN of both segments' rows and the product reads it. The plan
+// (ops/attention.py:ln_gemm_plan): schedule 0 cooperative (tile_n 64, 128
+// or 256) or 1 ping-pong (tile_n 256), and the walk's unit count it
+// expects.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, const void* Wt,
-                 const void* bias, int epilogue, int tile_n, const void* A0, int M0, int N0,
-                 int col00, const void* R0, void* C0, const void* A1, int M1, int N1, int col01,
-                 const void* R1, void* C1, void* stream) {
+                 const void* bias, int epilogue, int schedule, int tile_n, int units,
+                 const void* A0, int M0, int N0, int col00, const void* R0, void* C0,
+                 const void* A1, int M1, int N1, int col01, const void* R1, void* C1,
+                 void* stream) {
   using namespace oadp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SegArgs segs[2] = {
@@ -458,6 +593,8 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, con
       {static_cast<const bf16*>(A1), M1, N1, col01, static_cast<const bf16*>(R1),
        static_cast<bf16*>(C1)}};
   const int nseg = A1 != nullptr ? 2 : 1;
+  if (schedule != COOPERATIVE && (schedule != PINGPONG || tile_n != 256))
+    return cudaErrorInvalidValue;
   if (gamma != nullptr) {
     const int rows = M0 + (nseg > 1 ? M1 : 0), rows_per_block = 8;  // 256 threads, a warp a row
     bf16* ln = static_cast<bf16*>(ln_out);
@@ -470,10 +607,11 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, con
   }
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
-  switch (tile_n == 0 ? pick_tile_n(segs, nseg, epilogue) : tile_n) {
-    case 64: return launch_epilogue<64>(epilogue, K, w, b, segs, nseg, s);
-    case 128: return launch_epilogue<128>(epilogue, K, w, b, segs, nseg, s);
-    case 256: return launch_epilogue<256>(epilogue, K, w, b, segs, nseg, s);
+  if (schedule == PINGPONG) return launch_epilogue<256, 1>(epilogue, K, w, b, segs, nseg, units, s);
+  switch (tile_n) {
+    case 64: return launch_epilogue<64, 0>(epilogue, K, w, b, segs, nseg, units, s);
+    case 128: return launch_epilogue<128, 0>(epilogue, K, w, b, segs, nseg, units, s);
+    case 256: return launch_epilogue<256, 0>(epilogue, K, w, b, segs, nseg, units, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -21,7 +21,9 @@ The kernels (``oadp_torch/csrc``) are two families and one fused kernel:
   LayerNorm prologue (fp32 statistics, eps 1e-5) and an epilogue of
   none, quick_gelu or a residual add (the residual loaded by TMA); a
   persistent TMA + wgmma GEMM, which takes up to two row sets a launch
-  (the surgery layer's x rows and y rows);
+  (the surgery layer's x rows and y rows), in one of two schedules
+  (cooperative or ping-pong) at the tile width that :func:`ln_gemm_plan`
+  picks for the launch;
 * ``attention``: persistent blocks over the (crop, head) items, Q, K and
   V of an item loaded by TMA while the previous item is computed,
   optional main rows and an optional side row (the OAKE masked attention
@@ -56,6 +58,8 @@ rounded hidden), so the CPU path computes what it computed before.
 """
 
 __all__ = [
+    'GEMM_RATES',
+    'GemmPlan',
     'LAUNCHES',
     'fused_ln_mlp_rows',
     'fused_ln_mlp_rows_plain',
@@ -75,6 +79,8 @@ __all__ = [
     'kmajor',
     'layer_norm',
     'ln_fp32',
+    'ln_gemm_plan',
+    'ln_gemm_units',
     'ln_mlp_residual',
     'ln_mlp_residual_plain',
     'ln_qkv_attention_fits',
@@ -84,7 +90,9 @@ __all__ = [
     'reset_launches',
 ]
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -368,15 +376,91 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+class GemmPlan(NamedTuple):
+    """How ``ln_gemm`` carries one launch: its schedule (``'cooperative'``:
+    both consumer warpgroups on one 128-row tile, 64, 128 or 256 columns
+    wide; ``'pingpong'``: each on its own 64 x 256 tiles, their main loops
+    taking turns, the blocks in clusters of two that share each W k-tile
+    by TMA multicast) and its tile width."""
+    schedule: str
+    tile_n: int
+
+    @property
+    def rows(self) -> int:
+        """A block's rows of a tile."""
+        return 128 if self.schedule == 'cooperative' else 64
+
+    @property
+    def cluster(self) -> int:
+        """Blocks a unit of the walk takes: the cluster's."""
+        return 1 if self.schedule == 'cooperative' else 2
+
+
+_SCHEDULES = {'cooperative': 0, 'pingpong': 1}
+
+#: ``ln_gemm``'s plans and their products' rates, TFLOP/s on the whole
+#: card, by epilogue: none (768 -> 2304), quick_gelu (768 -> 3072), the
+#: residual at K <= 1024 (768 -> 768) and at deeper K (3072 -> 768); each
+#: the mean over the plan's device times at M = 403,456 and 36,400 (none:
+#: 403,456 only), two readings a shape, in ``oadp_torch/profile_kernels.py
+#: --only gemm`` runs on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+#: section 6)
+GEMM_RATES = {
+    GemmPlan('cooperative', 256): (677.9, 538.9, 459.2, 665.7),
+    GemmPlan('cooperative', 128): (590.9, 524.6, 507.0, 636.1),
+    GemmPlan('cooperative', 64): (464.9, 370.2, 404.7, 494.0),
+    GemmPlan('pingpong', 256): (616.0, 571.2, 483.7, 590.9),
+}
+
+#: the fewest tiles a block must get for ping-pong: its consumers take
+#: turns only between tiles, so a block's first fill and last epilogue
+#: are never hidden (kernel 2's fc, 2.9 tiles a block, and the globals
+#: rows' fc, 1.3, ran 5% and 12% slower than the best cooperative plan;
+#: the blocks rows' fc, 52 a block, 9% faster)
+PINGPONG_MIN_TILES = 4
+
+
+def ln_gemm_units(plan: GemmPlan, segs) -> int:
+    """The units of ``plan``'s walk over row sets ``segs`` (``(M, N)``
+    each): per row set, its row tiles (of ``plan.rows``; in a cluster,
+    pairs of them) times its column tiles. The kernel walks them N
+    fastest, a second row set's after the first's."""
+    return sum(-(-m // (plan.rows * plan.cluster)) * -(-n // plan.tile_n) for m, n in segs)
+
+
+def ln_gemm_plan(segs, k: int, epilogue: int, sms: int) -> GemmPlan:
+    """The plan whose last wave ends first for an ``ln_gemm`` launch over
+    row sets ``segs`` (``(M, N)`` each) with depth ``k`` and ``epilogue``
+    (0 none, 1 quick_gelu, 2 residual) on a card of ``sms``
+    multiprocessors: waves x a block's tile / its rate in
+    :data:`GEMM_RATES` (the residual's by depth), ping-pong only where
+    every block gets :data:`PINGPONG_MIN_TILES` tiles."""
+    column = epilogue + (epilogue == _EPI_RESIDUAL and k > 1024)
+
+    def cost(plan):
+        blocks = ln_gemm_units(plan, segs) * plan.cluster
+        if plan.schedule == 'pingpong' and blocks < PINGPONG_MIN_TILES * sms:
+            return math.inf
+        waves = -(-blocks // (sms - sms % plan.cluster))
+        return waves * plan.rows * plan.tile_n / GEMM_RATES[plan][column]
+
+    return min(GEMM_RATES, key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
-             col0: int = 0, tile_n: int = 0, rows2=None):
+             col0: int = 0, plan: GemmPlan | None = None, rows2=None) -> GemmPlan:
     """``out = epilogue(LN?(a2d) @ wt[col0:col0+N].T + bias[col0:col0+N])``
     with ``N = out.shape[1]``; ``wt`` is the K-major weight (out, in) and
     ``ln32`` the fp32 LayerNorm pair. ``rows2``, ``(a2d, out, residual,
     col0)``, is a second row set of the same launches (same weight, K,
     LayerNorm and epilogue). Nothing is copied: each row slice of ``wt``
-    and slice of ``bias`` is read in place. ``tile_n`` (64, 128, 256)
-    overrides the kernel's choice of tile width."""
+    and slice of ``bias`` is read in place. ``plan`` overrides
+    :func:`ln_gemm_plan`'s choice; the plan launched is returned."""
     k = a2d.shape[1]
     sets = [(a2d, out, residual, col0)] + ([rows2] if rows2 is not None else [])
     for a, o, r, c0 in sets:
@@ -386,9 +470,12 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                 or c0 + n > bias.shape[0] or o.shape[0] != m
                 or (r is not None and r.shape != o.shape)
                 or (r is None) != (epilogue != _EPI_RESIDUAL)
-                or tile_n not in (0, 64, 128, 256)):
+                or (plan is not None and plan not in GEMM_RATES)):
             raise ValueError(f'ln_gemm: unsupported shape M={m} K={k} N={n} '
-                             f'wt={tuple(wt.shape)}')
+                             f'wt={tuple(wt.shape)} plan={plan}')
+    segs = [(a.shape[0], o.shape[1]) for a, o, _, _ in sets]
+    if plan is None:
+        plan = ln_gemm_plan(segs, k, epilogue, _sm_count(a2d.device.index or 0))
     lib = cuda_lib.library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     gamma = beta = ln_out = None
@@ -402,8 +489,10 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                      c0, ptr(r), ptr(o)]
     cuda_lib.check(lib.oadp_ln_gemm(
         k, ptr(gamma), ptr(beta), ptr(ln_out), wt.data_ptr(), bias.data_ptr(), epilogue,
-        tile_n, *seg_args, _stream(),
+        _SCHEDULES[plan.schedule], plan.tile_n, ln_gemm_units(plan, segs),
+        *seg_args, _stream(),
     ), 'ln_gemm')
+    return plan
 
 
 def _attention(q, k, v, heads: int, scale: float, out=None,

@@ -108,7 +108,8 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.oadp_ln_gemm.argtypes = [
-                i, p, p, p, p, p, i, i,  # K, gamma, beta, ln_out, Wt, bias, epilogue, tile_n
+                i, p, p, p, p, p, i,  # K, gamma, beta, ln_out, Wt, bias, epilogue
+                i, i, i,  # the plan: schedule, tile_n, units
                 p, i, i, i, p, p,  # A0, M0, N0, col0_0, R0, C0
                 p, i, i, i, p, p,  # A1, M1, N1, col0_1, R1, C1
                 p,  # stream

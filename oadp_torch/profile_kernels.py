@@ -5,16 +5,19 @@
 Prints JSON lines, each with the card's name and power limit (``--only``
 keeps the named parts, default all):
 
-* ``gemm``: the ``ln_gemm`` product alone at the objects QKV shape
-  (2048 x 197 rows, 768 -> 2304), with and without the LN pass, beside
-  ``torch.mm`` (cuBLAS) on the same operands; at kernel 2's two products
-  (2048 rows, 768 -> 3072 and 3072 -> 768); and at the objects x-stream
-  MLP's two (2048 x 197 rows, 768 -> 3072, also with the quick_gelu
-  epilogue, and 3072 -> 768), each at every tile width (``tile_n`` 256,
-  128, 64) beside the width the kernel picks; and
-  (``gemm_residual``) kernel 1's out-projection with its residual (2048 x
-  197 rows, 768 -> 768, x + main @ W + b) at every width beside
-  ``torch.addmm`` plus the add, with its bound;
+* ``gemm``: ``ln_gemm`` without LayerNorm under every plan of
+  ``ops/attention.py``'s ``GEMM_RATES`` (cooperative at each tile width,
+  ping-pong) beside the plan ``ln_gemm_plan`` picks, at each product the
+  encoders run: kernel 1's QKV (2048 x 197 rows, 768 -> 2304) and
+  out-projection with its residual (768 -> 768), kernel 2's fc with
+  quick_gelu (2048 rows, 768 -> 3072) and proj with the residual (3072 ->
+  768), the x-stream MLP's two at the objects (2048 x 197), blocks (728 x
+  50) and globals (16 x 50) rows, and the stock out-projection at the
+  blocks and globals rows; each with the library route for the same
+  function (``torch.addmm``, then quick_gelu or the residual add) and
+  ``torch.mm`` alone, device ms from ``torch.profiler``, TFLOP/s and share
+  of the bound (``gemm`` lines, and ``gemm_residual`` for the residual
+  epilogue);
 * ``ln_qkv``: kernel 3 (``fused_ln_qkv_attention``) at the globals (16)
   and blocks (728) batches of 50 tokens, by kernel (device time from
   ``torch.profiler``), beside the two families' route (the LN pass,
@@ -49,6 +52,7 @@ Needs one CUDA device; exits nonzero without one.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,15 +78,15 @@ def _timed(fn, iters: int = 10) -> float:
 def _kernel_part(name: str) -> str:
     """The part a CUDA kernel of an encoder dispatch belongs to, by its
     (mangled or demangled) name: the port's kernels (namespace ``oadp``)
-    by family, ``ln_gemm`` by epilogue (template argument 0, 1, 2); then
-    PyTorch's library products (cuBLAS's ``nvjet``, CUTLASS and xmma
-    kernels), LayerNorm and elementwise kernels."""
+    by family, ``ln_gemm``'s two schedules (``gemm_kernel``,
+    ``pingpong_kernel``) by epilogue (their template argument 1: 0, 1 or
+    2); then PyTorch's library products (cuBLAS's ``nvjet``, CUTLASS and
+    xmma kernels), LayerNorm and elementwise kernels."""
     if 'oadp' in name:
-        if 'gemm_kernel' in name:
-            for epi, part in (('1', 'ln_gemm_gelu'), ('2', 'ln_gemm_residual')):
-                if f'ELi{epi}E' in name or f', {epi}>' in name:
-                    return part
-            return 'ln_gemm'
+        gemm = re.search(r'(?:gemm|pingpong)_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)', name)
+        if gemm:
+            return {'1': 'ln_gemm_gelu', '2': 'ln_gemm_residual'}.get(
+                gemm.group(1) or gemm.group(2), 'ln_gemm')
         for kernel in ('ln_qkv_attention_kernel', 'attention_kernel', 'layer_norm_kernel'):
             if kernel in name:
                 return kernel
@@ -207,6 +211,52 @@ def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: in
             coords), len(plan.blocks) * images
 
 
+def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
+    """``ln_gemm`` without LayerNorm at one shape and epilogue under every
+    plan of ``A.GEMM_RATES``, beside the plan ``A.ln_gemm_plan`` picks and
+    the library route for the same function (``torch.addmm``, then
+    quick_gelu or the residual add) and ``torch.mm`` alone: device ms a
+    call (``torch.profiler``), TFLOP/s and share of the bound (bytes over
+    3.35 TB/s or operations over 989 TFLOP/s, whichever is larger)."""
+    x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
+    wt, wb = A.kmajor(w), (0.02 * torch.randn(n_out, device=dev, generator=gen)).bfloat16()
+    out = torch.empty(rows, n_out, device=dev).bfloat16()
+    res = (torch.randn(rows, n_out, device=dev, generator=gen).bfloat16()
+           if epilogue == A._EPI_RESIDUAL else None)
+    iters = max(5, min(200, int(2e11 / (rows * k_in * n_out))))
+    flops = 2 * rows * k_in * n_out
+    nbytes = 2 * (rows * k_in + k_in * n_out + n_out + rows * n_out * (1 + (res is not None)))
+    bound = 1e3 * max(flops / 989e12, nbytes / 3.35e12)
+
+    def library():
+        h = torch.addmm(wb, x, w)
+        if epilogue == A._EPI_GELU:
+            return h * torch.sigmoid(1.702 * h)
+        return h.add_(res) if res is not None else h
+
+    def kernel(plan=None):
+        return lambda: A._ln_gemm(x, wt, wb, out, epilogue=epilogue, residual=res, plan=plan)
+
+    ms = {_plan_name(p): _device_ms(kernel(p), iters)['total'] for p in A.GEMM_RATES}
+    pick = A.ln_gemm_plan([(rows, n_out)], k_in, epilogue,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    ms['library'] = _device_ms(library, iters)['total']
+    ms['torch_mm'] = _device_ms(lambda: torch.mm(x, w), iters)['total']
+    kind = 'gemm_residual' if res is not None else 'gemm'
+    return kind, dict(
+        shape=[rows, k_in, n_out], epilogue=epilogue, plan=_plan_name(pick),
+        plan_device_ms=ms[_plan_name(pick)], plan_events_ms=_timed(kernel(), iters),
+        device_ms=ms, bound_ms=bound, bound_by='operations' if flops / 989e12 >= nbytes / 3.35e12
+        else 'bytes', tflops={k: flops / v / 1e9 for k, v in ms.items()},
+        bound_share={k: bound / v for k, v in ms.items()})
+
+
+def _plan_name(plan) -> str:
+    """``cooperative256``, ``cooperative64``, ``pingpong256``."""
+    return f'{plan.schedule}{plan.tile_n}'
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -238,45 +288,20 @@ def main(argv=None) -> int:
     b, n, d, heads = 2048, 197, 768, 12
     m = b * n
     if 'gemm' in only:
-        ln = A.ln_fp32(torch.ones(d, device=dev), torch.zeros(d, device=dev))
-        for rows, k_in, n_out, iters in ((m, d, 3 * d, 10), (b, d, 4 * d, 200),
-                                         (b, 4 * d, d, 200), (m, d, 4 * d, 5),
-                                         (m, 4 * d, d, 5)):
-            x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
-            w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
-            wt, wb = A.kmajor(w), torch.zeros(n_out, device=dev).bfloat16()
-            out = torch.empty(rows, n_out, device=dev).bfloat16()
-            flops = 2 * rows * k_in * n_out
-            gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-                lambda t=t: A._ln_gemm(x, wt, wb, out, tile_n=t), iters)
-                for t in (0, 256, 128, 64)}
-            gemm['torch_mm_ms'] = _timed(lambda: torch.mm(x, w), iters)
-            if k_in <= 1024:
-                gemm['ln_gemm_with_ln_ms'] = _timed(
-                    lambda: A._ln_gemm(x, wt, wb, out, ln32=ln), iters)
-            if (rows, n_out) == (m, 4 * d):  # the x-stream fc with its quick_gelu epilogue
-                gemm['ln_gemm_gelu_ms'] = _timed(
-                    lambda: A._ln_gemm(x, wt, wb, out, epilogue=A._EPI_GELU), iters)
-            emit('gemm', shape=[rows, k_in, n_out], **gemm,
-                 **{k.replace('_ms', '_tflops'): flops / v / 1e9 for k, v in gemm.items()
-                    if 'with_ln' not in k and 'gelu' not in k})
-            del x, out
-        # kernel 1's out-projection with its residual (x_out = x + main @ W
-        # + b): bound by its bytes as much as by its products
-        main = torch.randn(m, d, device=dev, generator=gen).bfloat16()
-        res = torch.randn(m, d, device=dev, generator=gen).bfloat16()
-        w = (torch.randn(d, d, device=dev, generator=gen) * d ** -0.5).bfloat16()
-        wt, wb = A.kmajor(w), torch.zeros(d, device=dev).bfloat16()
-        out = torch.empty(m, d, device=dev).bfloat16()
-        res_gemm = {f'ln_gemm_tile{t or "_auto"}_ms': _timed(
-            lambda t=t: A._ln_gemm(main, wt, wb, out, epilogue=A._EPI_RESIDUAL, residual=res,
-                                   tile_n=t)) for t in (0, 256, 128, 64)}
-        res_gemm['torch_addmm_add_ms'] = _timed(lambda: torch.addmm(wb, main, w).add_(res))
-        emit('gemm_residual', shape=[m, d, d], **res_gemm,
-             bound_ms=1e3 * max(2 * m * d * d / 989e12, 2 * 3 * m * d / 3.35e12),
-             **{k.replace('_ms', '_tflops'): 2 * m * d * d / v / 1e9
-                for k, v in res_gemm.items()})
-        del main, res, out
+        # (M, K, N, epilogue, what): kernel 1's QKV and out-projection,
+        # kernel 2's two products, the x-stream MLP's two at the objects,
+        # blocks and globals rows, and the stock out-projection
+        shapes = [(m, d, 3 * d, A._EPI_NONE, 'kernel 1 qkv'),
+                  (m, d, d, A._EPI_RESIDUAL, 'kernel 1 out-projection'),
+                  (b, d, 4 * d, A._EPI_GELU, 'kernel 2 fc'),
+                  (b, 4 * d, d, A._EPI_RESIDUAL, 'kernel 2 proj')]
+        for rows in (m, 728 * 50, 16 * 50):
+            shapes += [(rows, d, 4 * d, A._EPI_GELU, 'ln_mlp_residual fc'),
+                       (rows, 4 * d, d, A._EPI_RESIDUAL, 'ln_mlp_residual proj')]
+        shapes += [(rows, d, d, A._EPI_RESIDUAL, 'out_proj_residual') for rows in (728 * 50, 800)]
+        for rows, k_in, n_out, epi, what in shapes:
+            kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi)
+            emit(kind, what=what, **fields)
 
     if 'attention' in only:
         qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()

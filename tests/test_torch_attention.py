@@ -331,6 +331,85 @@ def test_wrappers_refuse_non_bf16_on_other_devices():
         ta.out_proj_residual(x, x, w[:, :128], w[0, :128])
 
 
+def _ln_gemm_walk(plan, segs, grid):
+    """Every tile a consumer warpgroup of ``ln_gemm`` writes, as the kernel
+    walks them (``csrc/ln_gemm.cu:gemm_body``) with ``grid`` blocks:
+    ``(block, consumer, row set, first row, first column)`` of each 64-row
+    tile. A block takes units ``block // cluster``, plus ``grid // cluster``
+    at a time; cooperative consumers split each unit's 128 rows, ping-pong
+    consumers take alternate units, and block rank ``block % 2`` of a
+    ping-pong cluster the rank-th 64-row half of the unit's 128 rows."""
+    cl, rows = plan.cluster, plan.rows
+    bounds, walk = [], 0  # (first unit, column tiles) of each row set
+    for m, n in segs:
+        bounds.append((walk, -(-n // plan.tile_n)))
+        walk += ta.ln_gemm_units(plan, [(m, n)])
+    for block in range(grid):
+        for i, unit in enumerate(range(block // cl, walk, grid // cl)):
+            s = 1 if len(bounds) > 1 and unit >= bounds[1][0] else 0
+            local, tiles_n = unit - bounds[s][0], bounds[s][1]
+            m0 = (cl * (local // tiles_n) + block % cl) * rows
+            n0 = (local % tiles_n) * plan.tile_n
+            if plan.schedule == 'cooperative':
+                yield from ((block, c, s, m0 + 64 * c, n0) for c in range(2))
+            else:
+                yield block, i % 2, s, m0, n0
+
+
+_OBJ, _BLOCKS, _GLOB = 2048 * 197, 728 * 50, 16 * 50
+
+
+@pytest.mark.parametrize('launch, segs, k, epilogue, plan', [
+    # an objects dispatch (2048 crops of 197 tokens, the y rows riding in
+    # kernel 1's launches): kernel 1's QKV, its side-only QKV (the K and V
+    # columns of the x rows) and its out-projection, kernel 2's fc and
+    # proj, and the x-stream MLP's fc and proj
+    ('objects qkv', [(_OBJ, 2304), (2048, 2304)], 768, 0, 'cooperative256'),
+    ('objects side-only qkv', [(_OBJ, 1536), (2048, 2304)], 768, 0, 'cooperative256'),
+    ('objects out-projection', [(_OBJ, 768), (2048, 768)], 768, 2, 'cooperative128'),
+    ('objects kernel 2 fc', [(2048, 3072)], 768, 1, 'cooperative128'),
+    ('objects kernel 2 proj', [(2048, 768)], 3072, 2, 'cooperative128'),
+    ('objects x-stream fc', [(_OBJ, 3072)], 768, 1, 'pingpong256'),
+    ('objects x-stream proj', [(_OBJ, 768)], 3072, 2, 'cooperative256'),
+    # a blocks dispatch (728 crops of 50 tokens) and a globals one (16):
+    # the x-stream MLP and the stock out-projection
+    ('blocks x-stream fc', [(_BLOCKS, 3072)], 768, 1, 'pingpong256'),
+    ('blocks x-stream proj', [(_BLOCKS, 768)], 3072, 2, 'cooperative128'),
+    ('blocks out-projection', [(_BLOCKS, 768)], 768, 2, 'cooperative128'),
+    ('globals x-stream fc', [(_GLOB, 3072)], 768, 1, 'cooperative256'),
+    ('globals x-stream proj', [(_GLOB, 768)], 3072, 2, 'cooperative64'),
+    ('globals out-projection', [(_GLOB, 768)], 768, 2, 'cooperative64'),
+])
+def test_ln_gemm_plan_by_launch(launch, segs, k, epilogue, plan):
+    """The plan of each ``ln_gemm`` launch of the three dispatches at
+    ViT-B/32 width on 132 SMs, and its walk as the kernel takes it: every
+    64-row tile of every row set is written by exactly one consumer of one
+    block (no plan splits K, so bias and residual are added once), and
+    only the second 64-row half of a row set's last 128 rows (the second
+    cooperative consumer's, or a cluster's second block's) lies past M;
+    ping-pong consumers take a block's tiles in turn."""
+    got = ta.ln_gemm_plan(segs, k, epilogue, 132)
+    assert f'{got.schedule}{got.tile_n}' == plan
+    grid = got.cluster * min(ta.ln_gemm_units(got, segs), 132 // got.cluster)
+    written = {}
+    for block, consumer, s, m0, n0 in _ln_gemm_walk(got, segs, grid):
+        m, n = segs[s]
+        assert m0 % 64 == 0 and n0 < n
+        if m0 >= m:  # the second half of a row set's last 128 rows
+            assert (m0 // 64) % 2 == 1 and m0 - 64 < m
+            assert consumer == 1 if got.schedule == 'cooperative' else block % 2 == 1
+            continue
+        key = (s, m0, n0)
+        assert key not in written, f'{key} written twice'
+        written[key] = (block, consumer)
+    assert len(written) == sum(-(-m // 64) * -(-n // got.tile_n) for m, n in segs)
+    if got.schedule == 'pingpong':
+        turns = {}
+        for block, consumer in written.values():
+            turns.setdefault(block, []).append(consumer)
+        assert all(sorted(set(c)) == [0, 1] for c in turns.values())
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version, bf16, on the card."""
@@ -432,64 +511,103 @@ def test_attention_main_and_side_rows_on_card(b):
         _assert_close_on_card(g, w, atol=0.05)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('m, k, n, epilogue, col0, ln, tile_n', [
-    (333, 768, 768, 0, 0, True, 0),
-    (333, 768, 3072, 1, 0, True, 0),
-    (333, 3072, 768, 2, 0, False, 0),
-    (2048, 768, 3072, 1, 0, True, 128),
-    (2048, 3072, 768, 2, 0, False, 64),
-    (1000, 768, 2304, 0, 0, True, 256),
-    (130, 768, 1536, 0, 768, True, 0),
-    (77, 768, 768, 2, 0, False, 64),
-])
-def test_ln_gemm_on_card(m, k, n, epilogue, col0, ln, tile_n):
-    """``ln_gemm`` against its plain version in bf16: M not a multiple of
-    the 128-row tile, N = 768 and 3072 with each epilogue, a column slice
-    (``col0``) of a prepared weight, and each tile width."""
-    dev = _card()
-    rng = np.random.default_rng(40 + m + n)
+def _plan(spec):
+    """A plan from its short name: ``auto`` (the plan function's), ``c256``
+    (cooperative, 256 wide), ``p256`` (ping-pong)."""
+    if spec == 'auto':
+        return None
+    return ta.GemmPlan('cooperative' if spec[0] == 'c' else 'pingpong', int(spec[1:]))
 
-    def r(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
-    x = r(m, k).bfloat16()
-    w = r(k, col0 + n, scale=k ** -0.5).bfloat16()
-    wb = r(col0 + n, scale=0.05).bfloat16()
-    res = r(m, n).bfloat16()
-    scale, shift = 1 + r(k, scale=0.1), r(k, scale=0.1)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(scale, shift) if ln else None,
-                epilogue=epilogue, residual=res if epilogue == 2 else None,
-                col0=col0, tile_n=tile_n)
-    h = ta.layer_norm(x, scale, shift) if ln else x
-    want = ta._proj(h, w[:, col0:], wb[col0:])
+def _ln_gemm_want(x, w, wb, col0, epilogue, res, ln=None):
+    h = ta.layer_norm(x, *ln) if ln is not None else x
+    want = ta._proj(h, w[:, col0:col0 + res.shape[1]], wb[col0:col0 + res.shape[1]])
     if epilogue == 1:
         want = want * torch.sigmoid(1.702 * want)
     if epilogue == 2:
         want = res.float() + want
-    torch.cuda.synchronize()
-    _assert_close_on_card(out, want.bfloat16(), atol=0.05)
+    return want.bfloat16()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m, n, col0, tile_n', [
-    (197 * 5 + 3, 768, 0, 0),
-    (197 * 5 + 3, 768, 0, 256),
-    (197 * 5 + 3, 768, 0, 128),
-    (197 * 5 + 3, 768, 0, 64),
-    (197 * 5 + 3, 2304, 0, 256),
-    (197 * 5 + 3, 2304, 0, 128),
-    (130, 768, 768, 0),
-    (130, 768, 768, 64),
+@pytest.mark.parametrize('m, m2, k, n, epilogue, col0, ln, plan', [
+    (333, 0, 768, 768, 0, 0, True, 'auto'),
+    (333, 0, 768, 3072, 1, 0, True, 'auto'),
+    (333, 0, 3072, 768, 2, 0, False, 'auto'),
+    (2048, 0, 768, 3072, 1, 0, True, 'c128'),
+    (2048, 0, 3072, 768, 2, 0, False, 'c64'),
+    (1000, 0, 768, 2304, 0, 0, True, 'c256'),
+    (130, 0, 768, 1536, 0, 768, True, 'auto'),
+    (77, 0, 768, 768, 2, 0, False, 'c64'),
+    # ping-pong: the globals rows (M = 800), M off both tile heights, two
+    # row sets, a column slice
+    (800, 0, 768, 3072, 1, 0, True, 'p256'),
+    (800, 0, 3072, 768, 2, 0, False, 'p256'),
+    (800, 0, 768, 768, 2, 0, False, 'p256'),
+    (197 * 5 + 3, 0, 768, 3072, 1, 0, True, 'p256'),
+    (197 * 5 + 3, 0, 3072, 768, 2, 0, False, 'p256'),
+    (77, 0, 768, 768, 0, 0, True, 'p256'),
+    (77, 0, 768, 768, 2, 0, False, 'p256'),
+    (130, 0, 768, 1536, 0, 768, True, 'p256'),
+    (130, 0, 768, 768, 2, 768, False, 'p256'),
+    (197 * 5 + 3, 130, 768, 2304, 0, 0, True, 'p256'),
+    (197 * 5 + 3, 77, 768, 768, 2, 0, False, 'p256'),
+    (800, 77, 768, 1536, 0, 768, True, 'p256'),
+    (800, 77, 768, 1536, 0, 768, True, 'c128'),
 ])
-def test_ln_gemm_residual_on_card(m, n, col0, tile_n):
-    """The residual epilogue, R loaded by TMA into the staging tiles and
-    added there, against its plain version in bf16: M off the 128-row tile,
-    N = 768 and 2304, a column slice (``col0``) of a prepared weight, and
-    each tile width."""
+def test_ln_gemm_on_card(m, m2, k, n, epilogue, col0, ln, plan):
+    """``ln_gemm`` against its plain version in bf16: M not a multiple of
+    either tile height, N = 768 and 3072 with each epilogue, a column slice
+    (``col0``) of a prepared weight, each schedule and tile width, and a
+    second row set (``m2`` rows, the whole weight from column
+    0) in the same launch; the launch takes the plan it was given."""
     dev = _card()
-    rng = np.random.default_rng(60 + m + n + col0 + tile_n)
+    rng = np.random.default_rng(40 + m + n + m2)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    x, x2 = r(m, k).bfloat16(), r(max(m2, 1), k).bfloat16()
+    w = r(k, col0 + n, scale=k ** -0.5).bfloat16()
+    wb = r(col0 + n, scale=0.05).bfloat16()
+    res, res2 = r(m, n).bfloat16(), r(max(m2, 1), col0 + n).bfloat16()
+    lnp = (1 + r(k, scale=0.1), r(k, scale=0.1)) if ln else None
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    out2 = torch.empty((max(m2, 1), col0 + n), dtype=torch.bfloat16, device=dev)
+    rows2 = (x2, out2, res2 if epilogue == 2 else None, 0) if m2 else None
+    took = ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(*lnp) if ln else None,
+                       epilogue=epilogue, residual=res if epilogue == 2 else None,
+                       col0=col0, plan=_plan(plan), rows2=rows2)
+    torch.cuda.synchronize()
+    assert plan == 'auto' or took == _plan(plan)
+    _assert_close_on_card(out, _ln_gemm_want(x, w, wb, col0, epilogue, res, lnp), atol=0.05)
+    if m2:
+        _assert_close_on_card(out2, _ln_gemm_want(x2, w, wb, 0, epilogue, res2, lnp), atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, n, col0, plan', [
+    (197 * 5 + 3, 768, 0, 'auto'),
+    (197 * 5 + 3, 768, 0, 'c256'),
+    (197 * 5 + 3, 768, 0, 'c128'),
+    (197 * 5 + 3, 768, 0, 'c64'),
+    (197 * 5 + 3, 2304, 0, 'c256'),
+    (197 * 5 + 3, 2304, 0, 'c128'),
+    (130, 768, 768, 'auto'),
+    (130, 768, 768, 'c64'),
+    (197 * 5 + 3, 768, 0, 'p256'),
+    (197 * 5 + 3, 2304, 0, 'p256'),
+    (800, 768, 0, 'p256'),
+    (77, 768, 0, 'p256'),
+    (130, 768, 768, 'p256'),
+])
+def test_ln_gemm_residual_on_card(m, n, col0, plan):
+    """The residual epilogue, R loaded by TMA into the staging tiles and
+    added there, against its plain version in bf16: M off both tile
+    heights, N = 768 and 2304, a column slice (``col0``) of a prepared
+    weight, each schedule and tile width."""
+    dev = _card()
+    rng = np.random.default_rng(60 + m + n + col0 + len(plan))
 
     def r(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
@@ -500,30 +618,32 @@ def test_ln_gemm_residual_on_card(m, n, col0, tile_n):
     res = r(m, n).bfloat16()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ta._ln_gemm(x, ta.kmajor(w), wb, out, epilogue=2, residual=res, col0=col0,
-                tile_n=tile_n)
-    want = (res.float() + ta._proj(x, w[:, col0:], wb[col0:])).bfloat16()
+                plan=_plan(plan))
     torch.cuda.synchronize()
-    _assert_close_on_card(out, want, atol=0.05)
+    _assert_close_on_card(out, _ln_gemm_want(x, w, wb, col0, 2, res), atol=0.05)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('k, rows, epilogue, tile_n', [
-    (768, 'random', 0, 0),
-    (768, 'large_mean', 0, 0),
-    (1024, 'large_mean', 0, 0),
-    (768, 'large_mean', 1, 128),
-    (1024, 'random', 0, 64),
-    (768, 'large_mean', 0, 256),
-    (1024, 'large_mean', 1, 256),
+@pytest.mark.parametrize('k, rows, epilogue, plan', [
+    (768, 'random', 0, 'auto'),
+    (768, 'large_mean', 0, 'auto'),
+    (1024, 'large_mean', 0, 'auto'),
+    (768, 'large_mean', 1, 'c128'),
+    (1024, 'random', 0, 'c64'),
+    (768, 'large_mean', 0, 'c256'),
+    (1024, 'large_mean', 1, 'c256'),
+    (768, 'large_mean', 1, 'p256'),
+    (1024, 'large_mean', 0, 'p256'),
+    (768, 'random', 1, 'p256'),
 ])
-def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, tile_n):
+def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, plan):
     """``ln_gemm`` with LayerNorm against the plain LN and product in bf16:
     K = 768 and 1024, rows with a per-row offset of +-50 and +-100 outlier
-    columns (a CLIP residual stream), each tile width, with and without
-    quick_gelu."""
+    columns (a CLIP residual stream), each schedule and tile width, with
+    and without quick_gelu."""
     dev = _card()
     m, n = 197 * 5 + 3, 2304
-    rng = np.random.default_rng(80 + k + tile_n + epilogue)
+    rng = np.random.default_rng(80 + k + len(plan) + epilogue)
     xs = rng.standard_normal((m, k)).astype(np.float32)
     if rows == 'large_mean':
         xs = _offset_rows(rng, xs)
@@ -534,15 +654,12 @@ def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, tile_n):
 
     w = r(k, n, scale=k ** -0.5).bfloat16()
     wb = r(n, scale=0.05).bfloat16()
-    scale, shift = 1 + r(k, scale=0.1), r(k, scale=0.1)
+    lnp = (1 + r(k, scale=0.1), r(k, scale=0.1))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(scale, shift), epilogue=epilogue,
-                tile_n=tile_n)
-    want = ta._proj(ta.layer_norm(x, scale, shift), w, wb)
-    if epilogue == 1:
-        want = want * torch.sigmoid(1.702 * want)
+    ta._ln_gemm(x, ta.kmajor(w), wb, out, ln32=ta.ln_fp32(*lnp), epilogue=epilogue,
+                plan=_plan(plan))
     torch.cuda.synchronize()
-    _assert_close_on_card(out, want.bfloat16(), atol=0.05)
+    _assert_close_on_card(out, _ln_gemm_want(x, w, wb, 0, epilogue, out, lnp), atol=0.05)
 
 
 @pytest.mark.cuda

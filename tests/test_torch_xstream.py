@@ -246,6 +246,11 @@ def test_out_proj_residual_on_card(shape):
     ('_ZN4oadp12_GLOBAL__N_111gemm_kernelILi128ELi2EEEvNS0_6ParamsE', 'ln_gemm_residual'),
     ('void oadp::(anonymous namespace)::gemm_kernel<64, 0>(oadp::(anonymous namespace)::Params)',
      'ln_gemm'),
+    ('void oadp::(anonymous namespace)::pingpong_kernel<256, 1>(oadp::(anonymous '
+     'namespace)::Params)', 'ln_gemm_gelu'),
+    ('_ZN4oadp12_GLOBAL__N_115pingpong_kernelILi256ELi2EEEvNS0_6ParamsE', 'ln_gemm_residual'),
+    ('void oadp::(anonymous namespace)::pingpong_kernel<256, 0>(oadp::(anonymous '
+     'namespace)::Params)', 'ln_gemm'),
     ('void oadp::layer_norm_kernel(__nv_bfloat16 const*, int, __nv_bfloat16 const*, int, int)',
      'layer_norm_kernel'),
     ('void oadp::(anonymous namespace)::ln_qkv_attention_kernel<3>(oadp::Params)',
@@ -260,8 +265,9 @@ def test_out_proj_residual_on_card(shape):
 ])
 def test_profile_parts_by_kernel_name(name, part):
     """``profile_kernels``' split of a dispatch by part: the port's kernels
-    (``ln_gemm`` by epilogue, the LN pass) apart from PyTorch's cuBLAS,
-    LayerNorm and elementwise kernels of the same names."""
+    (``ln_gemm``'s two schedules by epilogue, the LN pass) apart from
+    PyTorch's cuBLAS, LayerNorm and elementwise kernels of the same
+    names."""
     from oadp_torch import profile_kernels
 
     assert profile_kernels._kernel_part(name) == part
