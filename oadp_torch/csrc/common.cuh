@@ -152,6 +152,70 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Clusters: a barrier over every thread of the cluster's blocks (whole,
+// or split into its arrive and its wait, the wait acquiring what the
+// other blocks wrote before their arrive), this block's rank in the
+// cluster, an arrive on the mbarrier at `bar`'s offset in block `peer`,
+// and a store or an OR of a 32-bit word at `p`'s offset in block `peer`'s
+// shared memory (mapa: the same offset in the peer's window).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int peer) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(peer)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_peer_u32(const void* p, int peer, uint32_t v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.u32 [remote], %2;\n"
+      "}\n" ::"r"(smem_u32(p)),
+      "r"(peer), "r"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void or_peer_u32(const void* p, int peer, uint32_t v) {
+  uint32_t old;
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "atom.shared::cluster.or.b32 %0, [remote], %3;\n"
+      "}\n"
+      : "=r"(old)
+      : "r"(smem_u32(p)), "r"(peer), "r"(v)
+      : "memory");
+}
+
+// Wait until every cp.async of this thread has landed in shared memory.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");

@@ -140,31 +140,9 @@ struct Params {
   int segs, units, K;
 };
 
-// The two blocks of a cluster: a barrier over all their threads, this
-// block's rank in it, an arrive on the mbarrier at `bar`'s offset in block
-// `peer`, and a TMA load that lands at `dst`'s offset in both blocks and
-// completes its bytes on the mbarrier at `bar`'s offset in each.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int peer) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(peer)
-      : "memory");
-}
-
+// A TMA load that lands at `dst`'s offset in both blocks of a cluster and
+// completes its bytes on the mbarrier at `bar`'s offset in each (the
+// cluster helpers are in common.cuh).
 __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
                                                       uint64_t* bar, int c0, int c1) {
   asm volatile(

@@ -80,7 +80,7 @@ def rescore(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The calibrated ensemble ``bbox_scores * object_scores *
     clip(objectness, 1e-12) ** objectness_gamma`` (zero on rows that are
-    not valid), then ``multiclass_nms`` image by image. Returns ``(dets
+    not valid), then one ``multiclass_nms`` over the batch. Returns ``(dets
     (B, M, 5), labels (B, M), rows (B, M), valid (B, M))``."""
     p = torch.as_tensor(params, dtype=torch.float32).to(bboxes.device)
     bb_s, bn_s, bb_g, bn_g, ob_s, on_s, ob_g, on_g, obj_g = p.unbind()
@@ -90,10 +90,9 @@ def rescore(
     o = objectness.float().clamp(min=1e-12) ** obj_g
     ensemble = bbox_scores * object_scores * o[..., None]
     ensemble = torch.where(valid[..., None], ensemble, 0.0)
-    outs = [multiclass_nms(bx.float(), sc, score_thr=score_thr, iou_threshold=iou_threshold,
-                           max_per_img=max_per_img, num_classes=num_all)
-            for bx, sc in zip(bboxes, ensemble)]
-    return tuple(torch.stack(t) for t in zip(*outs))
+    return multiclass_nms(bboxes.float(), ensemble, score_thr=score_thr,
+                          iou_threshold=iou_threshold, max_per_img=max_per_img,
+                          num_classes=num_all)
 
 
 class CalibrationRunner:

@@ -425,12 +425,11 @@ def simple_test(
     boxes = decode_deltas(proposals.reshape(-1, 4), reg,
                           stds=config.bbox_reg_stds).reshape(b, n, 4)
     boxes = clip_boxes(boxes, batch['img_hw'])
-    outs = [NMS.multiclass_nms(
-        boxes[i], torch.where(prop_valid[i][:, None], probs[i], 0.0),
+    dets, det_labels, det_rows, det_valid = NMS.multiclass_nms(
+        boxes, torch.where(prop_valid[..., None], probs, 0.0),
         score_thr=config.rcnn_score_thr, iou_threshold=config.rcnn_nms_iou,
         max_per_img=config.rcnn_max_per_img, num_classes=config.num_all,
-    ) for i in range(b)]
-    dets, det_labels, det_rows, det_valid = (torch.stack(t) for t in zip(*outs))
+    )
     masks = None
     if config.with_mask:
         mc = config.mask_head

@@ -104,13 +104,6 @@ def rpn_loss(
             'loss_rpn_bbox': torch.stack(reg).sum() / n}
 
 
-def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` largest of ``x (N,)``, ties to the lower index first (as
-    ``jax.lax.top_k``; ``torch.topk`` promises no order among ties)."""
-    values, indices = torch.sort(x, descending=True, stable=True)
-    return values[:k], indices[:k]
-
-
 def rpn_proposals(
     scores: list[torch.Tensor],  # per level (B, N_l)
     deltas: list[torch.Tensor],  # per level (B, N_l, 4)
@@ -121,29 +114,30 @@ def rpn_proposals(
     iou_threshold: float = 0.7,
     min_bbox_size: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns ``(boxes (B, max_per_img, 4), scores, valid)``."""
-    out_boxes, out_scores, out_valid = [], [], []
-    for i in range(img_hw.shape[0]):
-        cand_boxes, cand_scores, cand_ids = [], [], []
-        for lvl, (sc, dl, anc) in enumerate(zip(scores, deltas, level_anchors)):
-            k = min(nms_pre, sc.shape[1])
-            top_sc, top_i = _top_k(torch.sigmoid(sc[i]), k)
-            boxes = decode_deltas(anc[top_i], dl[i][top_i])
-            cand_boxes.append(clip_boxes(boxes, img_hw[i]))
-            cand_scores.append(top_sc)
-            cand_ids.append(torch.full((k,), lvl, dtype=torch.int32, device=sc.device))
-        boxes = torch.cat(cand_boxes)
-        sc = torch.cat(cand_scores)
-        ids = torch.cat(cand_ids)
-        w = boxes[:, 2] - boxes[:, 0]
-        h = boxes[:, 3] - boxes[:, 1]
-        sc = torch.where((w > min_bbox_size) & (h > min_bbox_size), sc, NEG_INF)
-        idx, valid = batched_nms(boxes, sc, ids, iou_threshold, max_per_img)
-        idx = idx.long()
-        out_boxes.append(boxes[idx])
-        out_scores.append(torch.where(valid, sc[idx], 0.0))
-        out_valid.append(valid)
-    return torch.stack(out_boxes), torch.stack(out_scores), torch.stack(out_valid)
+    """Returns ``(boxes (B, max_per_img, 4), scores, valid)``: the batch's
+    per-level top-k, decode and clip at once, then one level-aware
+    ``batched_nms`` over its images (``oadp_tpu`` vmaps the same per image)."""
+    cand_boxes, cand_scores, cand_ids = [], [], []
+    for lvl, (sc, dl, anc) in enumerate(zip(scores, deltas, level_anchors)):
+        k = min(nms_pre, sc.shape[1])
+        # ties to the lower index first, as jax.lax.top_k (torch.topk
+        # promises no order among ties)
+        top_sc, top_i = torch.sort(torch.sigmoid(sc), dim=-1, descending=True, stable=True)
+        top_sc, top_i = top_sc[:, :k], top_i[:, :k]
+        boxes = decode_deltas(anc[top_i], torch.gather(dl, 1, top_i[..., None].expand(-1, -1, 4)))
+        cand_boxes.append(clip_boxes(boxes, img_hw))
+        cand_scores.append(top_sc)
+        cand_ids.append(torch.full_like(top_i, lvl, dtype=torch.int32))
+    boxes = torch.cat(cand_boxes, 1)
+    sc = torch.cat(cand_scores, 1)
+    ids = torch.cat(cand_ids, 1)
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    sc = torch.where((w > min_bbox_size) & (h > min_bbox_size), sc, NEG_INF)
+    idx, valid = batched_nms(boxes, sc, ids, iou_threshold, max_per_img)
+    idx = idx.long()
+    return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.where(valid, torch.gather(sc, 1, idx), 0.0), valid)
 
 
 def convert_torch_rpn(state: dict, prefix: str = 'rpn_head.') -> Params:

@@ -130,7 +130,9 @@ def library() -> ctypes.CDLL:
             ]
             lib.oadp_ln_qkv_attention.restype = i
             lib.oadp_greedy_nms.argtypes = [
-                i, i, p, p, p, ctypes.c_float, i,  # P, n, boxes, order, alive, thr, max_keep
+                i, i, i, p, p, p,  # P, n, group, boxes, order, alive
+                ctypes.c_float, i,  # thr, max_keep
+                i, i, i,  # the plan: cluster, threads, tile
                 p, p, p, p,  # keep, kept_ws, cycles, stream
             ]
             lib.oadp_greedy_nms.restype = i

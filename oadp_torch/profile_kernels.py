@@ -42,6 +42,16 @@ keeps the named parts, default all):
   one ``blocks_step`` of 24 (``configs/oake/blocks.py``'s batch): 24
   wholes and their 624 blocks padded to 704, the 728-crop blocks batch of
   ``chip_smoke.py``, broken down the same way;
+* ``nms``: ``greedy_nms`` (``csrc/nms.cu``) at the main path's shapes,
+  as the callers batch it: the RPN's train problem (8,819 candidates at
+  the train canvas, IoU 0.7, 1000 kept) at B = 1 and 2, OV-COCO's
+  ``multiclass_nms`` (65 classes x 1000, IoU 0.5, 300 kept) at B = 1 and
+  32, OV-LVIS's (1203 x 1000) at B = 2: under every plan the kernel is
+  built for (``ops/nms.py:NMS_PLANS``), its device ms from
+  ``torch.profiler`` and its clock cycles by part (a problem's mean:
+  tests against the kept list, column words, the barriers, the
+  decisions), keep sets held to the plain version's, beside the plan
+  ``nms_plan`` picks;
 * ``text``: one batch of the ViLD prompt builder (256 rows of 77
   tokens) through the full CLIP text tower (width 512, 12 layers, 8
   heads, fp32 products without TF32, random weights from seed 0), broken
@@ -252,6 +262,86 @@ def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
         bound_share={k: bound / v for k, v in ms.items()})
 
 
+def _nms_problems(dev, gen):
+    """The ``greedy_keep_sorted`` arguments of each ``nms`` probe shape:
+    ``rpn_proposals`` on random logits and deltas at the train canvas
+    (the top 2000 of each level), ``multiclass_nms`` on boxes clustered
+    round 40 objects of an 800 x 1199 image with softmax scores."""
+    from .ops import nms as NMS
+    from .ops.anchors import AnchorGenerator
+    from .models import rpn as RPN
+
+    def captured(fn):
+        seen = []
+        keep_fn = NMS.greedy_keep_sorted
+        NMS.greedy_keep_sorted = lambda *a, **k: seen.append((a, k)) or keep_fn(*a, **k)
+        try:
+            fn()
+        finally:
+            NMS.greedy_keep_sorted = keep_fn
+        return seen[0]
+
+    canvas = (832, 1344)
+    sizes = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in (4, 8, 16, 32, 64)]
+    anchors = [torch.from_numpy(a).float().to(dev) for a in AnchorGenerator().grid_anchors(sizes)]
+
+    def rpn(images):
+        scores = [torch.randn(images, len(a), device=dev, generator=gen) for a in anchors]
+        deltas = [0.2 * torch.randn(images, len(a), 4, device=dev, generator=gen)
+                  for a in anchors]
+        hw = torch.tensor([[800, 1199], [800, 1333]] * images, device=dev)[:images]
+        return captured(lambda: RPN.rpn_proposals(scores, deltas, anchors, hw, nms_pre=2000,
+                                                  max_per_img=1000, iou_threshold=0.7))
+
+    def det(images, classes, n=1000):
+        centre = torch.rand(images, 40, 2, device=dev, generator=gen) * torch.tensor(
+            [1199., 800.], device=dev)
+        size = 30 + 270 * torch.rand(images, 40, 2, device=dev, generator=gen)
+        k = torch.randint(0, 40, (images, n, 1), device=dev, generator=gen).expand(-1, -1, 2)
+        jitter = 1 + 0.15 * torch.randn(images, n, 2, device=dev, generator=gen)
+        c, sz = torch.gather(centre, 1, k), torch.gather(size, 1, k) * jitter
+        boxes = torch.cat([c - sz / 2, c + sz / 2], -1).clamp(min=0)
+        scores = torch.softmax(2 * torch.randn(images, n, classes + 1, device=dev,
+                                               generator=gen), -1)
+        return captured(lambda: NMS.multiclass_nms(boxes, scores, 0.0, 0.5, 300, classes))
+
+    return [('rpn_train_b1', rpn(1)), ('rpn_train_b2', rpn(2)), ('ov_coco_b1', det(1, 65)),
+            ('ov_coco_b32', det(32, 65)), ('ov_lvis_b2', det(2, 1203))]
+
+
+def _nms_probe(dev, gen, emit) -> None:
+    from .ops import nms as NMS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = ('kept_tests', 'iou_words', 'barriers', 'decisions')
+    for shape, (a, k) in _nms_problems(dev, gen):
+        boxes, alive, thr, max_keep = a
+        p, n = alive.shape
+        want = NMS.greedy_keep_sorted_plain(*a, **k)
+        by_plan = {}
+        for plan in NMS.NMS_PLANS:
+            got = NMS._greedy_nms(*a, **k, plan=plan)
+            cycles = torch.zeros(p, 4, dtype=torch.int64, device=dev)
+            NMS._greedy_nms(*a, **k, plan=plan, cycles=cycles)
+            total = cycles.sum(0).tolist()
+            by_plan[_nms_plan_name(plan)] = dict(
+                identical=bool(torch.equal(got, want)),
+                device_ms=_device_ms(lambda: NMS._greedy_nms(*a, **k, plan=plan), 20)['total'],
+                cycles_per_problem={q: c / p for q, c in zip(parts, total)})
+        picked = NMS.nms_plan(p, n, sms)
+        emit('nms', shape=shape, problems=p, candidates=n, iou=thr, max_keep=max_keep,
+             kept=int(want.sum()), plan=_nms_plan_name(picked),
+             fastest=min(by_plan, key=lambda name: by_plan[name]['device_ms']),
+             by_plan=by_plan)
+        if not all(r['identical'] for r in by_plan.values()):
+            raise AssertionError(f'greedy_nms {shape}: a plan\'s keep sets differ')
+
+
+def _nms_plan_name(plan) -> str:
+    """``c8t1024x64``: cluster, threads, tile."""
+    return f'c{plan.cluster}t{plan.threads}x{plan.tile}'
+
+
 def _plan_name(plan) -> str:
     """``cooperative256``, ``cooperative64``, ``pingpong256``."""
     return f'{plan.schedule}{plan.tile_n}'
@@ -261,7 +351,7 @@ def main(argv=None) -> int:
     import argparse
 
     parts = ('gemm', 'attention', 'ln_qkv', 'patch_embed', 'dispatch', 'globals_dispatch',
-             'blocks_dispatch', 'text')
+             'blocks_dispatch', 'text', 'nms')
     ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
     ap.add_argument('--only', default=','.join(parts),
                     help=f'comma-separated parts of {parts}')
@@ -303,6 +393,8 @@ def main(argv=None) -> int:
             kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi)
             emit(kind, what=what, **fields)
 
+    if 'nms' in only:
+        _nms_probe(dev, gen, emit)
     if 'attention' in only:
         qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
         qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()

@@ -101,6 +101,34 @@ def test_rescore_equal_oadp_tpu(classes, setting):
     assert not np.isin(rows, np.arange(59, 64)).any()
 
 
+@pytest.mark.parametrize('classes', list(CLASSES))
+def test_rescore_is_one_nms_call_a_batch(classes, monkeypatch):
+    """``rescore`` puts a batch's B x C keep-set problems into one
+    ``greedy_keep_sorted`` call (on the card, one ``greedy_nms`` launch),
+    with an image that has no valid row, and its outputs equal
+    ``oadp_tpu``'s and ``rescore`` image by image."""
+    from oadp_torch.ops import nms as tnms
+
+    nb, na = CLASSES[classes]
+    rec = _records(na, b=5, seed=3)
+    rec['valid'][2] = False
+    p = [SETTINGS['perturbed'][k] for k in tc.DEFAULT_PARAMS]
+    kw = dict(num_bases=nb, num_all=na, max_per_img=100, score_thr=0.0, iou_threshold=0.5)
+    calls = []
+    keep_fn = tnms.greedy_keep_sorted
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted',
+                        lambda *a, **k: calls.append(a[1].shape) or keep_fn(*a, **k))
+    got = tc.rescore(*(torch.from_numpy(rec[k]) for k in rec), p, **kw)
+    assert calls == [(5 * na, rec['bboxes'].shape[1])]
+    _check_same(got, jc.rescore(*(jnp.asarray(rec[k]) for k in rec), jnp.asarray(p, jnp.float32),
+                                **kw))
+    assert not got[3][2].any() and got[3][0].any()
+    for i in range(5):
+        one = tc.rescore(*(torch.from_numpy(rec[k][i:i + 1]) for k in rec), p, **kw)
+        for g, w in zip(got, one):
+            assert torch.equal(g[i:i + 1], w)
+
+
 # ---------------------------------------------------------------------------
 # the runner and the CLI on dp.test's DUMP records
 # ---------------------------------------------------------------------------

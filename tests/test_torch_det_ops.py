@@ -458,38 +458,44 @@ def test_kernel_iou_order_is_pair_iou_bit_for_bit(thr):
     assert near >= 100  # the pairs do reach the threshold's last bits
 
 
-def _kernel_model(sboxes, alive, thr, max_keep):
-    """``csrc/nms.cu``'s walk in numpy, 64 candidates a tile: the tile's
-    64-bit word of removed rows (dead, past n, or suppressed by a box of
-    the kept list), its upper-triangle words, the tile decided serially
-    from them (find the next available row, keep it, clear what it
-    suppresses), its kept rows appended to the kept list; the walk ends
-    after the last alive candidate or at ``max_keep``."""
+def _kernel_model(sboxes, alive, thr, max_keep, cl=1, tile=64):
+    """``csrc/nms.cu``'s walk in numpy for a cluster of ``cl`` blocks and
+    ``tile`` candidates a tile: the kept list dealt round-robin over the
+    blocks' slices (kept candidate g in slice g % cl), each slice's hits on
+    the tile's alive columns OR-ed into one word, the tile's column words
+    (bit i of column j: i < j, both alive, i suppresses j), and the tile
+    decided as every block decides it, in passes: keep each undecided
+    column that no kept or undecided column before it suppresses, drop each
+    one that a kept column suppresses, until none is undecided; the kept
+    columns past ``max_keep`` cut, the rest dealt to the slices in order.
+    The walk ends after the last alive candidate or at ``max_keep``."""
     n = len(alive)
     sup = _iou_kernel_order(sboxes, sboxes) > np.float32(thr)
     end = int(np.flatnonzero(alive)[-1]) + 1 if alive.any() else 0
-    keep, kept_list = np.zeros(n, bool), []
-    full = (1 << 64) - 1
+    keep, slices, count = np.zeros(n, bool), [[] for _ in range(cl)], 0
     base = 0
-    while base < end and len(kept_list) < max_keep:
-        cols = range(base, min(base + 64, n))
-        rem = full
-        for j in cols:
-            if alive[j] and not sup[kept_list, j].any():
-                rem &= ~(1 << (j - base))
-        diag = [0] * 64
-        for i in cols:
-            if not rem >> (i - base) & 1:
-                for j in range(i + 1, cols.stop):
-                    diag[i - base] |= int(sup[i, j]) << (j - base)
-        todo = ~rem & full
-        while todo and len(kept_list) < max_keep:
-            i = (todo & -todo).bit_length() - 1
-            kept_list.append(base + i)
-            todo &= ~diag[i] & full
-            todo &= todo - 1
-        base += 64
-    keep[kept_list] = True
+    while base < end and count < max_keep:
+        cols = np.arange(base, min(base + tile, n))
+        live = alive[cols]
+        hit = np.zeros(len(cols), bool)
+        for kept_slice in slices:
+            hit |= live & sup[np.ix_(kept_slice, cols)].any(0)
+        words = (sup[np.ix_(cols, cols)] & np.triu(np.ones((len(cols),) * 2, bool), 1)
+                 & live[:, None] & live[None, :])  # [i, j]
+        und, kept = live & ~hit, np.zeros(len(cols), bool)
+        while und.any():
+            by_kept = (words & kept[:, None]).any(0)
+            by_und = (words & und[:, None]).any(0)
+            new_kept, dropped = und & ~by_kept & ~by_und, und & by_kept
+            assert new_kept.any() or dropped.any()  # the first undecided is decided
+            kept |= new_kept
+            und &= ~(new_kept | dropped)
+        kept &= np.cumsum(kept) <= max_keep - count
+        for j in np.flatnonzero(kept):
+            slices[count % cl].append(base + j)
+            count += 1
+        keep[cols] = kept
+        base += tile
     return keep
 
 
@@ -541,6 +547,175 @@ def test_kernel_scan_model_matches_greedy_keep(case, n):
         assert want.sum() == 1
 
 
+@pytest.mark.parametrize('tile', [64, 128])
+@pytest.mark.parametrize('cl', [1, 2, 8, 16])
+@pytest.mark.parametrize('case', SCAN_CASES)
+def test_cluster_walk_model_matches_greedy_keep(case, cl, tile):
+    """The kernel's walk for a problem spread over a cluster of ``cl``
+    blocks equals the greedy keep set, whole and cut to ``max_keep``."""
+    for n in (1, 63, 64, 65, 129, 300):
+        rng = np.random.default_rng(n + 7 * cl)
+        boxes, alive, thr = _scan_case(case, n, rng)
+        want = tnms.greedy_keep_sorted_plain(torch.from_numpy(boxes)[None],
+                                             torch.from_numpy(alive)[None], thr, n)[0].numpy()
+        np.testing.assert_array_equal(_kernel_model(boxes, alive, thr, n, cl, tile), want)
+        for cap in {1, max(1, int(want.sum()) // 3), max(1, int(want.sum()) - 1)}:
+            np.testing.assert_array_equal(_kernel_model(boxes, alive, thr, cap, cl, tile),
+                                          want & (np.cumsum(want) <= cap), err_msg=f'{n} {cap}')
+
+
+def test_grouped_plain_matches_per_image_loop(monkeypatch):
+    """Shared box sets (one an image, ``P // S`` classes each) in one call
+    of the plain version equal the call image by image, also when its
+    blocks of problems straddle images."""
+    rng = np.random.default_rng(12)
+    b, c, n = 3, 5, 70
+    boxes = np.stack([_boxes(rng, n, clustered=True) for _ in range(b)])
+    boxes[2] = _nan_boxes(rng, boxes[2])
+    order = np.argsort(-rng.random((b * c, n)), axis=-1, kind='stable')
+    alive = rng.random((b * c, n)) > 0.2
+    alive[c:2 * c] = False  # an image with no alive candidate
+    args = [torch.from_numpy(x) for x in (boxes, alive, order)]
+    for cap in (n, 9):
+        want = torch.cat([tnms.greedy_keep_sorted_plain(
+            args[0][i], args[1][i * c:(i + 1) * c], 0.5, cap, order=args[2][i * c:(i + 1) * c])
+            for i in range(b)])
+        got = tnms.greedy_keep_sorted(args[0], args[1], 0.5, cap, order=args[2])
+        assert torch.equal(got, want)
+        monkeypatch.setattr(tnms, '_BLOCK_ELEMENTS', n * n * 3)  # 3 problems a block
+        assert torch.equal(tnms.greedy_keep_sorted_plain(args[0], args[1], 0.5, cap,
+                                                         order=args[2]), want)
+        monkeypatch.undo()
+    assert not want[c:2 * c].any() and want.any()
+
+
+def _batch(rng, case, b=3, n=200):
+    """A batch of ``b`` images' boxes ``(b, n, 4)`` and scores ``(b, n)``:
+    ``dead`` has no alive candidate in image 1, ``nan`` NaN boxes in image
+    2 only."""
+    boxes = np.stack([_boxes(rng, n, clustered=i % 2 == 0) for i in range(b)])
+    scores = rng.random((b, n)).astype(np.float32)
+    if case == 'dead':
+        scores[1] = tnms.NEG_INF
+    if case == 'nan':
+        boxes[2] = _nan_boxes(rng, boxes[2])
+    return boxes, scores
+
+
+@pytest.mark.parametrize('case', ['plain', 'dead', 'nan'])
+def test_batched_nms_matches_vmap(case):
+    """``nms`` and ``batched_nms`` over a batch of 3 equal ``jax.vmap`` of
+    ``oadp_tpu``'s, and the port's own calls image by image."""
+    rng = np.random.default_rng(13)
+    boxes, scores = _batch(rng, case)
+    ids = rng.integers(0, 5, scores.shape).astype(np.int32)
+    tb, ts, ti = (torch.from_numpy(x) for x in (boxes, scores, ids))
+    for thr, max_out in ((0.5, 60), (0.7, 250)):
+        want = jax.vmap(lambda b, s: jnms.nms(b, s, thr, max_out))(boxes, scores)
+        got = tnms.nms(tb, ts, thr, max_out)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        for i in range(len(boxes)):
+            assert all(torch.equal(g[i], w) for g, w in zip(got, tnms.nms(tb[i], ts[i], thr,
+                                                                           max_out)))
+        want = jax.vmap(lambda b, s, d: jnms.batched_nms(b, s, d, thr, max_out))(
+            boxes, scores, ids)
+        got = tnms.batched_nms(tb, ts, ti, thr, max_out)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == 'dead':
+        assert not got[1][1].any() and got[1][0].any()
+
+
+@pytest.mark.parametrize('case', ['shared', 'per_class', 'dead', 'nan'])
+def test_batched_multiclass_nms_matches_vmap(case):
+    """``multiclass_nms`` over a batch of 3 (shared or per-class boxes, an
+    image with no candidate above the threshold, NaN boxes in one image)
+    equals ``jax.vmap`` of ``oadp_tpu``'s and the port image by image."""
+    rng = np.random.default_rng(14)
+    b, n, c = 3, 80, 8
+    boxes = np.stack([_boxes(rng, n, clustered=True) for _ in range(b)])
+    if case == 'per_class':
+        boxes = np.concatenate([boxes + rng.normal(0, 3, boxes.shape).astype(np.float32)
+                                for _ in range(c)], -1)
+    if case == 'nan':
+        boxes[2] = _nan_boxes(rng, boxes[2])
+    scores = (rng.random((b, n, c + 1)) ** 3).astype(np.float32)
+    scores[rng.random(scores.shape) < 0.3] = 0.0
+    if case == 'dead':
+        scores[0, :, :c] = 0.0
+    want = jax.vmap(lambda x, y: jnms.multiclass_nms(x, y, 0.0, 0.5, 50, c))(boxes, scores)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = tnms.multiclass_nms(tb, ts, 0.0, 0.5, 50, c)
+    for g, w in zip(got, want):  # dets, labels, rows, valid
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for i in range(b):
+        one = tnms.multiclass_nms(tb[i], ts[i], 0.0, 0.5, 50, c)
+        for g, w in zip(got, one):
+            np.testing.assert_array_equal(g[i].numpy(), w.numpy())
+    if case == 'dead':
+        assert not got[3][0].any() and got[3][1].any()
+    if case == 'nan':
+        assert np.isnan(got[0][2, :, :4].numpy()).any()
+        assert not np.isnan(got[0][:2].numpy()).any()
+
+
+@pytest.mark.parametrize('images', [None, 1, 3])
+def test_entry_points_hand_the_kernel_contiguous_tensors(images, monkeypatch):
+    """What ``nms``, ``batched_nms`` and ``multiclass_nms`` (shared and
+    per-class boxes) pass to ``greedy_keep_sorted`` is what the kernel
+    takes: contiguous, of its types, one call a batch (``images``: None for
+    one image without a batch dimension)."""
+    seen = []
+    keep_fn = tnms.greedy_keep_sorted
+
+    def capture(*a, **k):
+        seen.append((a, k))
+        return keep_fn(*a, **k)
+
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted', capture)
+    rng = np.random.default_rng(15)
+    b = images or 1
+    boxes = torch.from_numpy(np.stack([_boxes(rng, 90, True) for _ in range(b)]))
+    scores = torch.from_numpy(rng.random((b, 90, 6)).astype(np.float32))
+    per_class = boxes.repeat(1, 1, 5)
+    ids = torch.from_numpy(rng.integers(0, 3, (b, 90)).astype(np.int32))
+    one = (lambda t: t[0]) if images is None else (lambda t: t)
+    tnms.nms(one(boxes), one(scores[..., 0]), 0.5, 40)
+    tnms.batched_nms(one(boxes), one(scores[..., 0]), one(ids), 0.5, 40)
+    tnms.multiclass_nms(one(boxes), one(scores), 0.0, 0.5, 40, 5)
+    tnms.multiclass_nms(one(per_class), one(scores), 0.0, 0.5, 40, 5)
+    assert len(seen) == 4
+    for a, k in seen:
+        bx, alive = a[0], a[1]
+        order = k.get('order')
+        for t in (bx, alive) + (() if order is None else (order,)):
+            assert t.is_contiguous(), (tuple(t.shape), t.stride())
+        assert bx.dtype == torch.float32 and alive.dtype == torch.bool
+        assert order is None or order.dtype == torch.int64
+
+
+def test_nms_plan_at_main_path_shapes():
+    """Few problems (the RPN's, one an image) take a cluster each, as wide
+    as the card holds them side by side; many (a batch's images x classes)
+    a block each; every plan is one the kernel is built for."""
+    sms = 132
+    for p, n in ((1, 8819), (2, 8819), (2, 4819)):  # train; test (1000 a level)
+        plan = tnms.nms_plan(p, n, sms)
+        assert plan.cluster == 16 and plan.threads == 1024 and plan.tile == 128
+    assert tnms.nms_plan(1, 1000, sms) == tnms.NmsPlan(1, 1024, 128)  # OV-COCO, one image
+    assert tnms.nms_plan(65, 1000, sms) == tnms.NmsPlan(1, 1024, 128)
+    assert tnms.nms_plan(32 * 65, 1000, sms) == tnms.NmsPlan(1, 128, 64)  # a rescore batch
+    for p in (1203, 2 * 1203):  # OV-LVIS
+        assert tnms.nms_plan(p, 1000, sms).cluster == 1
+    for p in (1, 2, 3, 7, 33, 65, 66, 130, 133, 300, 2080, 2406, 10 ** 5):
+        for n in (1, 64, 65, 1000, 2048, 8819):
+            plan = tnms.nms_plan(p, n, sms)
+            assert plan in tnms.NMS_PLANS, (p, n)
+            assert plan.cluster == 1 or p * plan.cluster <= sms  # side by side
+    assert tnms.nms_plan(2, 50, sms).cluster == 1  # one tile: nothing to spread
+
+
 def test_greedy_keep_sorted_checks_before_building():
     """Shapes and types are refused before the kernel is built; a CPU
     tensor takes the plain version and launches nothing."""
@@ -565,38 +740,60 @@ def test_greedy_keep_sorted_checks_before_building():
 def test_greedy_nms_kernel_matches_plain_on_card():
     """The kernel against the plain version on the card: identical keep
     sets over random, clustered and adversarial problems, capped and not,
-    for sorted and shared (``order``) boxes, and the three entry points."""
+    for sorted and shared (``order``, one set or one an image) boxes, under
+    every plan it is built for, and the three entry points on batches."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
     dev = torch.device('cuda')
     rng = np.random.default_rng(5)
     for case in SCAN_CASES:
-        # 9000 uncapped: the kept list past shared memory, in a workspace
+        # 9000 uncapped: a block's kept list past shared memory, in a workspace
         for n in [1, 63, 64, 65, 129, 2049, 5000] + [9000] * (case in ('clustered', 'identical')):
             boxes, alive, thr = _scan_case(case, n, rng)
             for cap in (n, max(1, n // 7)):
                 args = (torch.from_numpy(boxes)[None].to(dev), torch.from_numpy(alive)[None].to(dev),
                         thr, cap)
-                assert torch.equal(tnms.greedy_keep_sorted(*args),
-                                   tnms.greedy_keep_sorted_plain(*args)), (case, n, cap)
-    for c, n in [(65, 1000), (300, 300)]:
-        boxes = torch.from_numpy(_boxes(rng, n, clustered=True)).to(dev)
-        sc = torch.from_numpy(rng.random((c, n)).astype(np.float32)).to(dev)
+                want = tnms.greedy_keep_sorted_plain(*args)
+                assert torch.equal(tnms.greedy_keep_sorted(*args), want), (case, n, cap)
+                for plan in tnms.NMS_PLANS if n in (129, 5000) else ():
+                    assert torch.equal(tnms._greedy_nms(*args, plan=plan), want), (case, n, plan)
+    for b, c, n in [(1, 65, 1000), (1, 300, 300), (3, 20, 500)]:
+        boxes = torch.from_numpy(np.stack([_boxes(rng, n, clustered=True) for _ in range(b)]))
+        boxes = boxes.to(dev)
+        sc = torch.from_numpy(rng.random((b * c, n)).astype(np.float32)).to(dev)
         order = torch.sort(-sc, dim=-1, stable=True).indices
-        alive = torch.from_numpy(rng.random((c, n)) > 0.2).to(dev)
+        alive = torch.from_numpy(rng.random((b * c, n)) > 0.2).to(dev)
         for cap in (n, 100):
-            assert torch.equal(tnms.greedy_keep_sorted(boxes, alive, 0.5, cap, order=order),
-                               tnms.greedy_keep_sorted_plain(boxes, alive, 0.5, cap, order=order))
+            want = tnms.greedy_keep_sorted_plain(boxes, alive, 0.5, cap, order=order)
+            for plan in (None,) + tnms.NMS_PLANS:
+                got = tnms._greedy_nms(boxes, alive, 0.5, cap, order=order, plan=plan)
+                assert torch.equal(got, want), (b, c, n, cap, plan)
     for case in NMS_CASES:
         b, s, thr, max_out = _nms_case(case)
         want = tnms.nms(torch.from_numpy(b), torch.from_numpy(s), thr, max_out)
         got = tnms.nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev), thr, max_out)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
-    for case in ['shared', 'per_class_boxes', 'lvis_1203', 'ties', 'nan_boxes']:
+    for case in ('plain', 'dead', 'nan'):
+        b, s = _batch(rng, case)
+        ids = torch.from_numpy(rng.integers(0, 5, s.shape).astype(np.int32))
+        cpu = (torch.from_numpy(b), torch.from_numpy(s), ids)
+        tnms.reset_launches()
+        got = tnms.batched_nms(*(t.to(dev) for t in cpu), 0.7, 150)
+        assert tnms.LAUNCHES['greedy_nms'] == 1, case  # one launch a batch
+        want = tnms.batched_nms(*cpu, 0.7, 150)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), case
+    seen = set()
+    for case in ['shared', 'per_class_boxes', 'lvis_1203', 'ties', 'nan_boxes'] * 2:
         b, s, c, m = _mc_case(case)
+        if case in seen:  # the second time, a batch of three
+            b = np.stack([b, b[::-1].copy(), b])
+            s = np.stack([s, s[::-1].copy(), np.zeros_like(s)])
+        seen.add(case)
         want = tnms.multiclass_nms(torch.from_numpy(b), torch.from_numpy(s), 0.0, 0.5, m, c)
+        tnms.reset_launches()
         got = tnms.multiclass_nms(torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev),
                                   0.0, 0.5, m, c)
+        assert tnms.LAUNCHES['greedy_nms'] == 1, case
         for g, w in zip(got, want):  # NaN boxes come out where they went in
             g = g.cpu()
             assert g.shape == w.shape and g.dtype == w.dtype, case
@@ -684,6 +881,30 @@ def test_rpn_forward_and_proposals_match(saturate):
     close(got[1], want[1], atol=1e-6)
     if saturate:
         assert set(np.unique(got[1].numpy()[got[2].numpy()])) <= {1.0, 0.0}
+
+
+def test_rpn_proposals_one_nms_call_a_batch(monkeypatch):
+    """``rpn_proposals`` over three images makes one ``greedy_keep_sorted``
+    call of three problems (one ``greedy_nms`` launch on the card), and
+    equals its calls image by image."""
+    p, feats = _rpn_inputs(False)
+    feats = [np.concatenate([f, f[:1] * 0.5]) for f in feats]  # three images
+    scores, deltas = trpn.rpn_forward(p, [nchw(f) for f in feats])
+    anchors = [torch.from_numpy(a) for a in janchors.AnchorGenerator().grid_anchors(
+        [(f.shape[1], f.shape[2]) for f in feats])]
+    hw = torch.tensor([[192, 250], [180, 256], [150, 200]], dtype=torch.float32)
+    calls = []
+    keep_fn = tnms.greedy_keep_sorted
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted',
+                        lambda *a, **k: calls.append(tuple(a[1].shape)) or keep_fn(*a, **k))
+    got = trpn.rpn_proposals(scores, deltas, anchors, hw, nms_pre=64, max_per_img=32)
+    assert len(calls) == 1 and calls[0][0] == 3
+    for i in range(3):
+        one = trpn.rpn_proposals([s[i:i + 1] for s in scores], [d[i:i + 1] for d in deltas],
+                                 anchors, hw[i:i + 1], nms_pre=64, max_per_img=32)
+        for g, w in zip(got, one):
+            assert torch.equal(g[i:i + 1], w)
+    assert got[2].any(1).all()
 
 
 # ---------------------------------------------------------------------------

@@ -123,6 +123,39 @@ def test_simple_test_detections(case):
         assert got['masks'] is None and want['masks'] is None
 
 
+@pytest.mark.parametrize('case', list(CASES))
+def test_simple_test_nms_is_one_call_a_batch(case, monkeypatch):
+    """``simple_test`` on a batch of two makes two ``greedy_keep_sorted``
+    calls (on the card, two ``greedy_nms`` launches): the RPN's over both
+    images and ``multiclass_nms``'s over both images' classes; its
+    detections equal ``multiclass_nms`` image by image on its own boxes and
+    probabilities."""
+    from oadp_torch.ops import nms as tnms
+
+    cfg, got, _, (params, stats), _ = _run(case)
+    calls = []
+    keep_fn = tnms.greedy_keep_sorted
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted',
+                        lambda *a, **k: calls.append(tuple(a[1].shape)) or keep_fn(*a, **k))
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, *CANVAS, 3), dtype=np.uint8)
+    img_hw = torch.tensor([[192, 250], [180, 256]], dtype=torch.float32)
+    with torch.inference_mode():
+        out = tdet.simple_test(params, stats, dict(images=tdet.ingest_images(
+            torch.from_numpy(images)), img_hw=img_hw), cfg, tbuilder.canvas_anchors(cfg, CANVAS))
+    n = cfg.rpn_test_max
+    assert [c[0] for c in calls] == [2, 2 * cfg.num_all] and calls[1][1] == n
+    probs = tdet.ensemble(out['bbox_logits'].reshape(2 * n, -1),
+                          out['object_logits'].reshape(2 * n, -1), cfg).reshape(2, n, -1)
+    for i in range(2):
+        one = tnms.multiclass_nms(out['boxes'][i], torch.where(
+            out['proposal_valid'][i][:, None], probs[i], 0.0), cfg.rcnn_score_thr,
+            cfg.rcnn_nms_iou, cfg.rcnn_max_per_img, cfg.num_all)
+        for key, w in zip(('dets', 'labels', 'det_rows', 'valid'), one):
+            assert torch.equal(out[key][i], w), key
+            assert torch.equal(got[key][i], w), key
+
+
 def test_ensemble_matches_formula():
     """The ViLD ensemble: λ = 2/3 for bases and 1/3 for novels and bg, the
     bg renormalised to 1 - Σ, every row then renormalised."""
