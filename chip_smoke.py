@@ -52,12 +52,30 @@ Phases, in order; any failure exits nonzero:
    with its bound (bytes over 3.35 TB/s, or 14 fp32 operations an IoU
    pair the inputs need over 67 TFLOP/s) and the kernel's clock cycles by
    part (tests against the kept list, column words, the barriers,
-   decisions); no PyTorch call computes greedy NMS, so no library time;
+   decisions); no PyTorch call computes greedy NMS, so no library time.
+   Then the preprocessing and patch embedding kernels (``check_embed``) at
+   an objects dispatch (2 images x 1024 crops at pad 640, tap bucket 35,
+   with identity crops, crops past every edge, a pixel wide and
+   sqrt(8)-expanded whole images) and a globals dispatch (16 paired 640 x
+   480 images): ``resize_crops`` (``csrc/preprocess.cu``; its taps
+   bit-identical to ``device_coeffs`` on the card and on the CPU, its
+   pixels equal to its plain version's but for at most 1e-5 of them one
+   uint8 step off, the count printed; the library route is the dense
+   route it replaced), ``patch_rows`` (``csrc/embed.cu``, bit-identical;
+   library ``F.unfold``), the patch product on ``ln_gemm`` (library
+   ``F.linear``), ``embed_ln_pre`` (``csrc/embed.cu``) and the whole
+   embedding before layer 0 against the block-product route (cosine >=
+   0.999, max abs printed; library ``F.conv2d``), each timed with its
+   bound (bytes, or for ``resize_crops`` the fp32 tap products this run's
+   crops need over 67 TFLOP/s);
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
    dispatch, but 11 of kernel 4 on the split wiring and 11 of
    ``ln_mlp_residual`` on the fused one, whose last layers compute the
-   side row alone; every other kernel 0; the table in ``main_path``):
+   side row alone; one of ``resize_crops`` an objects or globals
+   dispatch, and one each of ``patch_rows``, the patch product and
+   ``embed_ln_pre`` an encoder dispatch; every other kernel 0; the table
+   in ``main_path``):
    the OAKE objects, globals and blocks
    CLIs (``oadp_torch.oake``) at full ViT-B/32 width (random weights from
    seed 0, bf16) on 4 synthetic images with 1000 proposals each, every
@@ -178,6 +196,7 @@ OBJ_BATCH, GLOB_BATCH = 2048, 16  # crops per objects dispatch, images per globa
 BLOCKS_BATCH = 24 + 704  # wholes + flat blocks of a 24-image blocks dispatch
 SPLIT_BATCH = 999  # crops of the split-wiring objects_step (B % 8 != 0)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
+PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores
 N_IMAGES, N_PROPOSALS = 4, 1000
 SIZES = [(640, 480), (480, 640), (640, 427), (500, 375)]
 
@@ -310,8 +329,8 @@ def plans_of(A, fn) -> list[dict]:
     return [p._asdict() for p in taken]
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
@@ -605,19 +624,240 @@ def check_kernels(A, gen) -> dict:
     return results
 
 
-def reset_launches() -> None:
-    """Every kernel's launch count to 0: ``ops/attention.py``'s five and
-    ``ops/nms.py``'s ``greedy_nms``."""
-    from oadp_torch.ops import attention, nms
+# ---------------------------------------------------------------------------
+# Phase 3, continued: the preprocessing and patch embedding kernels
+# ---------------------------------------------------------------------------
 
-    attention.reset_launches()
-    nms.reset_launches()
+OBJ_PAD, OBJ_K, GLOB_K = 640, 35, 13  # the objects CLI's pad and largest tap bucket
+#: the share of pixels that may sit one uint8 step from the plain version
+#: (none further): the two sum each pixel's exact products in one order
+RESIZE_STEP_SHARE = 1e-5
+
+
+def _objects_crops(rng, images: int = 2, rows: int = 1024, w: int = 640, h: int = 480):
+    """An objects dispatch's inputs: ``images`` random w x h images padded to
+    640 and ``rows`` crops each, as the objects CLI cuts them (proposals
+    expanded by ``ops/boxes.expand_boxes``), with adversarial crops in
+    each image's first rows: 224 x 224 (identity), past every edge, a pixel
+    wide, and sqrt(8)-expanded whole images (35 taps)."""
+    from oadp_torch.ops import boxes as B
+    from oadp_torch.ops import preprocess as P
+
+    imgs = np.zeros((images, OBJ_PAD, OBJ_PAD, 3), np.uint8)
+    imgs[:, :h, :w] = rng.randint(0, 256, (images, h, w, 3))
+    metas = []
+    for _ in range(images):
+        x0, y0 = rng.uniform(0, w * .8, rows), rng.uniform(0, h * .8, rows)
+        props = np.stack([x0, y0, np.minimum(x0 + rng.uniform(8, w * .5, rows), w),
+                          np.minimum(y0 + rng.uniform(8, h * .5, rows), h)], -1)
+        crops = B.expand_boxes(props.astype(np.float32), w, h).astype(np.float64)
+        side = np.sqrt(8.0) * OBJ_PAD
+        crops[:12] = [[10, 20, 234, 244], [-30, -20, 194, 204], [-50, -40, w + 30, h + 60],
+                      [w - 20, h - 30, w + 90, h + 40], [-90, 100, 5, 300], [100.5, 50, 101.5, 150],
+                      [300, 10.2, 301.2, 400], [0, 0, w, h],
+                      [w / 2 - side / 2, h / 2 - side / 2, w / 2 + side / 2, h / 2 + side / 2],
+                      [w / 2 - side * .45, h / 2 - side / 2, w / 2 + side * .45, h / 2 + side * .4],
+                      [-side / 2, -side / 3, side / 2, side / 2], [0, 0, 8, 300]]
+        metas.append(P.clip_transform_meta(w, h, crops))
+    return imgs, np.concatenate(metas)
+
+
+def _tap_work(taps, ph: int, pw: int) -> float:
+    """The fp32 operations a resize's inputs need: a multiply and an add a
+    nonzero tap that reads the image, over the horizontal pass's needed
+    source rows (those the vertical taps reach inside the image) and the
+    vertical pass's outputs, three channels each, and the normalisation's
+    subtract and divide."""
+    wx_w, wx_s, wy_w, wy_s = (t.cpu().numpy() for t in taps)
+    k = wx_w.shape[-1]
+    cols = wx_s[..., None] + np.arange(k)
+    x_taps = ((wx_w != 0) & (cols >= 0) & (cols < pw)).sum((1, 2))  # (crops,)
+    rows = wy_s[..., None] + np.arange(k)
+    y_live = (wy_w != 0) & (rows >= 0) & (rows < ph)
+    work = 0.0
+    for c in range(len(wx_w)):
+        needed = np.unique(rows[c][y_live[c]]).size
+        work += 2 * 3 * (needed * x_taps[c] + y_live[c].sum() * wx_w.shape[1])
+    return work + 2 * 3 * len(wx_w) * wx_w.shape[1] * wy_w.shape[1]
+
+
+def check_embed(gen) -> dict:
+    """The objects and globals dispatches' preprocessing and patch embedding
+    kernels against their plain versions on the card: ``resize_crops`` (its
+    taps bit-identical to ``device_coeffs``, its pixels equal but for at
+    most ``RESIZE_STEP_SHARE`` of them one uint8 step off), ``patch_rows``
+    (bit-identical), the patch product on ``ln_gemm`` and ``embed_ln_pre``
+    (cosine >= 0.999), and the whole embedding before layer 0 against the
+    block-product route (cosine >= 0.999); each timed beside its plain
+    version, the library route and its bound."""
+    from oadp_torch.models import clip as C
+    from oadp_torch.oake import encoders as E
+    from oadp_torch.ops import attention as A
+    from oadp_torch.ops import embed as EM
+    from oadp_torch.ops import preprocess as P
+    from oadp_torch.profile_kernels import _dense_crops
+
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    results = {}
+
+    def row(name, kernel, plain, library, flops, nbytes, iters, peak=PEAK_FLOPS, **extra):
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        res = dict(name=name, kernel_ms=timed(kernel, iters),
+                   plain_ms=timed(plain, max(2, iters // 4)),
+                   library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
+                   kernel_device_ms=device_ms(kernel, iters),
+                   library_device_ms=device_ms(library, iters), **extra)
+        log(json.dumps({'kernel_check': res}))
+        torch.cuda.empty_cache()
+        return res
+
+    # resize_crops: an objects dispatch (2 images x 1024 crops, k_pad 35)
+    # and a globals dispatch (16 paired 640 x 480 images, whole, k_pad 13)
+    imgs, meta = _objects_crops(rng)
+    gimgs = np.zeros((GLOB_BATCH, OBJ_PAD, OBJ_PAD, 3), np.uint8)
+    gimgs[:, :480] = rng.randint(0, 256, (GLOB_BATCH, 480, 640, 3))
+    gmeta = np.repeat(P.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]])),
+                      GLOB_BATCH, 0)
+    resize = {}
+    for label, images, m, k in (('objects', imgs, meta, OBJ_K), ('globals', gimgs, gmeta, GLOB_K)):
+        images, m = torch.from_numpy(images).to(dev), torch.from_numpy(m).to(dev)
+        crops, taps = P.resize_crops(images, m, k, return_taps=True)
+        want_taps = P.device_coeffs(m, k)
+        cpu_taps = P.device_coeffs(m.cpu(), k)
+        for got, want, cpu in zip(taps, want_taps, cpu_taps):
+            if not torch.equal(got, want) or not torch.equal(got.cpu(), cpu):
+                raise AssertionError(f'resize_crops({label}): taps differ from device_coeffs in '
+                                     f'{int((got != want).sum())} (card) / '
+                                     f'{int((got.cpu() != cpu).sum())} (CPU) places')
+        zero, one = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+        px = P.resize_crops(images, m, k, zero, one).float()
+        px_plain = P.resize_crops_plain(images, m, k, zero, one).float()
+        steps = (px - px_plain).abs()
+        off = int((steps > 0).sum())
+        if float(steps.max()) > 1 or off > RESIZE_STEP_SHARE * steps.numel():
+            raise AssertionError(f'resize_crops({label}): {off} pixels off the plain version, '
+                                 f'the most by {float(steps.max())} steps')
+        del px, px_plain, steps
+        plain = P.resize_crops_plain(images, m, k)
+        err, cos = compare(crops, plain)
+        del plain
+
+        nbytes = images.numel() + m.numel() * 4 + crops.numel() * 2
+        resize[label] = row(
+            f'resize_crops({label}: {len(m)} crops, k_pad {k})',
+            lambda: P.resize_crops(images, m, k), lambda: P.resize_crops_plain(images, m, k),
+            lambda: _dense_crops(images, m, k), _tap_work(taps, images.shape[1], images.shape[2]), nbytes,
+            iters=10 if label == 'objects' else 50, peak=PEAK_FP32,
+            taps_identical=True, pixels_one_step_off=off, pixels=crops.numel(),
+            max_abs_err=err, cosine=cos)
+        results.setdefault('crops', {})[label] = crops
+        del images, m, taps, want_taps, crops
+
+    # patch_rows, the product and embed_ln_pre at the surgery encoder's
+    # half stride (the objects crops) and the stock encoder's stride (the
+    # globals crops), random ViT-B/32 weights from seed 0, bf16
+    model = E.load_clip(None, 'bfloat16', device=dev)
+    embed = {}
+    for label, params, cfg in (('objects', model.surgery_params, model.surgery_config),
+                               ('globals', model.params, model.config)):
+        crops = results['crops'][label]
+        p, s, d, g = cfg.patch_size, cfg.stride, cfg.width, cfg.grid
+        b = crops.shape[0]
+        kern = params['kernel']
+        rows = EM.patch_rows(crops, p, s)
+        if not torch.equal(rows, EM.patch_rows_plain(crops, p, s)):
+            raise AssertionError(f'patch_rows({label}): differs from its plain version')
+        iters = 10 if label == 'objects' else 50
+        pad, _ = EM.patch_geometry(crops.shape[1], p, s)
+        r_rows = row(
+            f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
+            lambda: EM.patch_rows_plain(crops, p, s),
+            lambda: F.unfold(crops.permute(0, 3, 1, 2), p, padding=pad, stride=s),
+            0.0, crops.numel() * 2 + rows.numel() * 2, iters, identical=True, max_abs_err=0.0,
+            cosine=1.0)
+        x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
+        err_p, cos_p = compare(x, EM.patch_embed_plain(rows, kern['conv1_wt']))
+        if cos_p < 0.999:
+            raise AssertionError(f'patch_embed({label}): cosine {cos_p} < 0.999')
+        r_prod = row(
+            f'patch_embed({label}: M={rows.shape[0]}, K={rows.shape[1]}, N={d})',
+            lambda: EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b']),
+            lambda: EM.patch_embed_plain(rows, kern['conv1_wt']),
+            lambda: F.linear(rows, kern['conv1_wt']),
+            2.0 * rows.shape[0] * rows.shape[1] * d,
+            rows.numel() * 2 + kern['conv1_wt'].numel() * 2 + x.numel() * 2, iters,
+            max_abs_err=err_p, cosine=cos_p, plans=plans_of(
+                A, lambda: EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])))
+        del rows
+        x = x.view(b, g * g, d)
+        ln = params['ln_pre']
+        ln_args = (x, params['class_embedding'], params['positional_embedding'], ln['scale'],
+                   ln['bias'])
+        got = EM.embed_ln_pre(*ln_args, ln32=kern['ln_pre'])
+        err_l, cos_l = compare(got, EM.embed_ln_pre_plain(*ln_args))
+        if cos_l < 0.999:
+            raise AssertionError(f'embed_ln_pre({label}): cosine {cos_l} < 0.999')
+        r_ln = row(
+            f'embed_ln_pre({label}: {b} x {g * g + 1} x {d})',
+            lambda: EM.embed_ln_pre(*ln_args, ln32=kern['ln_pre']),
+            lambda: EM.embed_ln_pre_plain(*ln_args), lambda: EM.embed_ln_pre_plain(*ln_args),
+            0.0, x.numel() * 2 + got.numel() * 2 + (g * g + 2) * d * 2 + 8 * d, iters,
+            max_abs_err=err_l, cosine=cos_l)
+        del got, x, ln_args
+        # the whole embedding before layer 0: the kernels against the
+        # block-product route (_embed_patches + ln_pre) and F.conv2d's
+        whole = C._embed_ln_pre(crops, params, cfg)
+        block = C._layer_norm(C._embed_patches(crops, params, cfg), params['ln_pre'])
+        err_w, cos_w = compare(whole, block)
+        if cos_w < 0.999:
+            raise AssertionError(f'embedding({label}): cosine {cos_w} < 0.999 against the '
+                                 'block-product route')
+        del whole, block
+
+        def conv_route():
+            y = F.conv2d(crops.permute(0, 3, 1, 2), params['conv1'], stride=s, padding=pad)
+            y = y.flatten(2).transpose(1, 2)
+            y = torch.cat([params['class_embedding'].expand(b, 1, d), y], 1)
+            y = y + params['positional_embedding']
+            return F.layer_norm(y, (d,), ln['scale'], ln['bias'], 1e-5)
+
+        r_whole = row(
+            f'embedding({label}: patch_rows + ln_gemm + embed_ln_pre)',
+            lambda: C._embed_ln_pre(crops, params, cfg),
+            lambda: C._layer_norm(C._embed_patches(crops, params, cfg), params['ln_pre']),
+            conv_route, 2.0 * b * g * g * 3 * p * p * d,
+            crops.numel() * 2 + b * (g * g + 1) * d * 2 + params['conv1'].numel() * 2, iters,
+            max_abs_err=err_w, cosine=cos_w)
+        embed[label] = dict(patch_rows=r_rows, patch_embed=r_prod, embed_ln_pre=r_ln,
+                            embedding=r_whole)
+        del crops
+        torch.cuda.empty_cache()
+    del results['crops'], model
+    torch.cuda.empty_cache()
+    return {
+        'resize_crops': dict(resize['objects'], globals_batch=resize['globals']),
+        **{k: dict(embed['objects'][k], globals_batch=embed['globals'][k])
+           for k in ('patch_rows', 'patch_embed', 'embed_ln_pre')},
+        'embedding': dict(embed['objects']['embedding'],
+                          globals_batch=embed['globals']['embedding']),
+    }
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: ``ops/attention.py``'s five and its
+    ``ln_gemm`` routes, ``ops/nms.py``'s ``greedy_nms``, ``ops/preprocess.py``'s
+    ``resize_crops`` and ``ops/embed.py``'s three."""
+    from oadp_torch.ops import attention, embed, nms, preprocess
+
+    for mod in (attention, nms, preprocess, embed):
+        mod.reset_launches()
 
 
 def launch_counts() -> dict:
-    from oadp_torch.ops import attention, nms
+    from oadp_torch.ops import attention, embed, nms, preprocess
 
-    return {**attention.LAUNCHES, **nms.LAUNCHES}
+    return {**attention.LAUNCHES, **nms.LAUNCHES, **preprocess.LAUNCHES, **embed.LAUNCHES}
 
 
 # greedy_nms: the IoU of a pair and its comparison, in fp32 outside the
@@ -625,7 +865,6 @@ def launch_counts() -> dict:
 # product (inter), 1 addition and 1 subtraction (union), 1 clamp, 1
 # division, 1 comparison
 IOU_FLOP = 14
-PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores
 RPN_CANVAS, RPN_HW = (832, 1344), [(800, 1199), (800, 1333)]
 RPN_PRE, RPN_MAX, RPN_IOU = 2000, 1000, 0.7  # the OV-COCO train config's RPN NMS
 
@@ -1005,15 +1244,20 @@ def main_path(card: str, root: pathlib.Path) -> dict:
                                ('blocks', 'blocks'))}
     override = ['--override', ".model.device:'cuda'", ".model.dtype:'bfloat16'"]
 
+    def embed(n, crops=True):  # the patch embedding's launches, and resize_crops'
+        return dict({k: n for k in ('patch_rows', 'patch_embed', 'embed_ln_pre')},
+                    **({'resize_crops': n} if crops else {}))
+
     def stock(name):  # a stock-encoder dispatch: kernel 3 and both ln_gemm routes
-        return {k: 12 * calls[name] for k in (
-            'fused_ln_qkv_attention', 'ln_mlp_residual', 'out_proj_residual')}
+        return dict({k: 12 * calls[name] for k in (
+            'fused_ln_qkv_attention', 'ln_mlp_residual', 'out_proj_residual')},
+            **embed(calls[name], crops=name == 'globals'))
 
     objects, l_obj = driven('objects', lambda: O.main(
         ['smoke_objects', str(cfgs['objects']), *override]), lambda: {
             'fused_surgery_layer': 12 * calls['objects'],
             'fused_ln_mlp_rows': 12 * calls['objects'],
-            'ln_mlp_residual': 11 * calls['objects']})
+            'ln_mlp_residual': 11 * calls['objects'], **embed(calls['objects'])})
     globals_, l_glob = driven('globals', lambda: G.main(
         ['smoke_globals', str(cfgs['globals']), *override]), lambda: stock('globals'))
     blocks, l_blocks = driven('blocks', lambda: BL.main(
@@ -1058,10 +1302,11 @@ def main_path(card: str, root: pathlib.Path) -> dict:
     nb = SPLIT_BATCH
     split, l_split = driven('split', lambda: card_steps.objects_step(
         image, meta[:nb], masks[:nb], k_pad).float().cpu().numpy(), lambda: {
-            'fused_mha_qkv': 11, 'fused_side_attention': 12})
+            'fused_mha_qkv': 11, 'fused_side_attention': 12, **embed(1)})
     fused, _ = driven('fused', lambda: card_steps.objects_step(
         image, meta[:nb + 1], masks[:nb + 1], k_pad).float().cpu().numpy(), lambda: {
-            'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12, 'ln_mlp_residual': 11})
+            'fused_surgery_layer': 12, 'fused_ln_mlp_rows': 12, 'ln_mlp_residual': 11,
+            **embed(1)})
     split_vs_fused = _min_cos(split, fused[:nb])
     split_ms = _wall_ms(lambda: card_steps.objects_step(image, meta[:nb], masks[:nb], k_pad))
     fused_ms = _wall_ms(
@@ -2702,6 +2947,9 @@ def main() -> int:
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
+    embed_checks = check_embed(gen)
+    embedding = embed_checks.pop('embedding')
+    checks.update(embed_checks)
     nms_check = check_nms(gen)
     # one directory for phases 4-7: phase 7 trains on phase 4's images and
     # OAKE records, from phase 6's checkpoint, with phase 5's prompts
@@ -2738,6 +2986,18 @@ def main() -> int:
         'out_proj_residual': ('oadp_tpu/models/clip.py:318 _block_fused out-projection '
                               '(XLA, not a Pallas kernel)', 'oadp_torch/csrc/ln_gemm.cu',
                               ['globals', 'blocks']),
+        'resize_crops': ('oadp_tpu/oake/encoders.py:401-432 prep_one + normalize_clip '
+                         '(ops/preprocess.py:304, 410, 511, 542; XLA, not a Pallas kernel)',
+                         'oadp_torch/csrc/preprocess.cu', ['objects', 'globals', 'split']),
+        'patch_rows': ('oadp_tpu/models/clip.py:350 conv (its im2col rows; XLA, not a Pallas '
+                       'kernel)', 'oadp_torch/csrc/embed.cu',
+                       ['objects', 'globals', 'blocks', 'split']),
+        'patch_embed': ('oadp_tpu/models/clip.py:350 conv (its product; XLA, not a Pallas '
+                        'kernel)', 'oadp_torch/csrc/ln_gemm.cu',
+                        ['objects', 'globals', 'blocks', 'split']),
+        'embed_ln_pre': ('oadp_tpu/models/clip.py:358-364 CLS + positional embedding, :423 '
+                         'ln_pre (XLA, not a Pallas kernel)', 'oadp_torch/csrc/embed.cu',
+                         ['objects', 'globals', 'blocks', 'split']),
     }
     kernels = []
     for name, res in checks.items():
@@ -2754,16 +3014,20 @@ def main() -> int:
         )
         if 'kernel_device_ms_by_part' in res:
             entry['device_ms_by_part'] = res['kernel_device_ms_by_part']
-        for key in ('residual_delta_cosine', 'large_mean_bf16_excess', 'plans'):
+        for key in ('residual_delta_cosine', 'large_mean_bf16_excess', 'plans',
+                    'taps_identical', 'pixels_one_step_off', 'pixels', 'identical'):
             if key in res:
                 entry[key] = res[key]
+        if name == 'patch_embed':  # the whole embedding before layer 0, the three kernels
+            entry['embedding'] = embedding
         for shape in ('side_only', 'blocks_batch', 'globals_batch', 'objects_batch'):
             if shape in res:
                 entry[shape] = {k: res[shape][k] for k in (
                     'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                     'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
                     'residual_delta_cosine', 'large_mean_bf16_excess',
-                    'kernel_device_ms_by_part', 'plans') if k in res[shape]}
+                    'kernel_device_ms_by_part', 'plans', 'pixels_one_step_off',
+                    'pixels') if k in res[shape]}
         kernels.append(entry)
     nms_launches = {'dp': dp['launches']['greedy_nms'],
                     'dp_train': train['launches']['greedy_nms'],

@@ -27,8 +27,8 @@ import torch
 from ..base import Globals, coco, lvis
 from ..oake.encoders import resolve_device
 from ..utils import (
-    Config, DictAction, Store, add_file_handler, logger, maybe_initialize_distributed, rank,
-    world_size,
+    Config, DictAction, Store, add_file_handler, end_rank, logger, maybe_initialize_distributed,
+    rank, world_size,
 )
 from .builder import build_detector
 from .datasets import (
@@ -157,3 +157,5 @@ def main(argv=None) -> TrainState:
 
 if __name__ == '__main__':
     main()
+    if world_size() > 1:  # a rank of a multi-process run (see utils.end_rank)
+        end_rank()

@@ -98,7 +98,10 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> None:
         raise RuntimeError(f'a {n_devices}-process NCCL dry run needs {n_devices} CUDA '
                            f'devices; torch sees {torch.cuda.device_count()}')
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = f'from oadp_torch import entry; entry._dryrun_rank({int(n_devices)}, {device!r})'
+    # each rank ends by end_rank: a normal exit after the step's backward
+    # beside a gloo group aborted now and then in the interpreter's teardown
+    code = (f'from oadp_torch import entry, utils; entry._dryrun_rank({int(n_devices)}, '
+            f'{device!r}); utils.end_rank()')
     spawn_ranks(n_devices, ['-c', code], repo, env=dict(
         OMP_NUM_THREADS='1',
         PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get('PYTHONPATH')]))))

@@ -18,8 +18,11 @@ layers, the x-stream MLP and the stock encoder's out-projection, which
 (:func:`~oadp_torch.ops.attention.ln_mlp_residual`,
 :func:`~oadp_torch.ops.attention.out_proj_residual`); elsewhere (the
 split wiring, :func:`_block`, the text encoder) the projections and MLPs
-are ``torch`` matmuls, and the patch embedding is a block product (see
-:func:`_embed_patches`).
+are ``torch`` matmuls. The patch embedding and ``ln_pre``, which
+``oadp_tpu`` also leaves to XLA, take three kernels on the card in bf16
+(:mod:`oadp_torch.ops.embed`: im2col rows, the product on ``ln_gemm``, CLS
++ positions + ``ln_pre``; see :func:`_embed_ln_pre`) and elsewhere a block
+product (:func:`_embed_patches`).
 
 The text encoder (:func:`text_encoder`) goes through no fused entry
 point: like ``oadp_tpu``'s, it runs :func:`_block` with a causal bias,
@@ -55,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as A
+from ..ops import embed as EM
 from ..ops import preprocess as P
 
 Params = dict[str, Any]
@@ -279,8 +283,19 @@ def prepare_kernel_params(params: Params) -> Params:
     """``params`` with a ``'kernel'`` entry in every block: the copies the
     CUDA kernels read (``qkv_wt``, ``out_wt``, ``fc_wt``, ``proj_wt`` K-major
     ``(out, in)``, and ``ln_1``, ``ln_2`` as fp32 ``(scale, bias)`` pairs),
-    made once on the parameters' device. The ``(in, out)`` weights stay for
-    the plain versions and the matmuls."""
+    and one at the top for the patch embedding (``conv1_wt``, ``conv1``
+    K-major as ``(D, 3 * P * P)``; ``conv1_b``, the product's zero bias;
+    ``ln_pre``, the fp32 pair of the scale and bias rounded to the
+    parameters' dtype), made once on the parameters' device. The ``(in,
+    out)`` weights stay for the plain versions and the matmuls."""
+
+    def embed(p):
+        d = p['conv1'].shape[0]
+        return {
+            'conv1_wt': p['conv1'].reshape(d, -1).contiguous(),
+            'conv1_b': torch.zeros(d, dtype=p['conv1'].dtype, device=p['conv1'].device),
+            'ln_pre': A.ln_fp32(*(p['ln_pre'][k].to(p['conv1'].dtype) for k in ('scale', 'bias'))),
+        }
 
     def block(p):
         attn, mlp = p['attn'], p['mlp']
@@ -293,7 +308,7 @@ def prepare_kernel_params(params: Params) -> Params:
             'ln_2': A.ln_fp32(p['ln_2']['scale'], p['ln_2']['bias']),
         })
 
-    return dict(params, blocks=[block(p) for p in params['blocks']])
+    return dict(params, blocks=[block(p) for p in params['blocks']], kernel=embed(params))
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +376,29 @@ def _embed_patches(images, params: Params, config: ViTConfig):
     cls = params['class_embedding'].to(x.dtype).expand(b, 1, -1)
     x = torch.cat([cls, x], dim=1)
     return x + params['positional_embedding'].to(x.dtype)
+
+
+def _embed_on_kernels(images: torch.Tensor, config: ViTConfig) -> bool:
+    return (images.device.type == 'cuda' and images.dtype == torch.bfloat16
+            and EM.patch_embed_supported(config.patch_size, config.width, config.image_size))
+
+
+def _embed_ln_pre(images, params: Params, config: ViTConfig):
+    """``ln_pre`` of the patch embedding: ``(B, H, W, 3)`` → ``(B, tokens,
+    width)``. Routed by device, dtype and shape, as ``oadp_tpu`` routes by
+    its compute dtype: bf16 crops on the card, where
+    :func:`~oadp_torch.ops.embed.patch_embed_supported` holds, take the
+    three kernels of :func:`~oadp_torch.ops.embed.patch_embed_ln_pre`
+    (im2col rows, the product on ``ln_gemm``, CLS + positions + ``ln_pre``);
+    everything else :func:`_embed_patches` and :func:`_layer_norm`."""
+    if _embed_on_kernels(images, config):
+        kern = params.get('kernel', {})
+        ln = params['ln_pre']
+        return EM.patch_embed_ln_pre(
+            images, params['conv1'], params['class_embedding'], params['positional_embedding'],
+            ln['scale'], ln['bias'], config.stride, conv1_wt=kern.get('conv1_wt'),
+            conv1_b=kern.get('conv1_b'), ln32=kern.get('ln_pre'))
+    return _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -442,7 +480,7 @@ def image_encoder(
     kernel 3 (:func:`_block_fused`, softmax clamped at 80, the
     out-projection and MLP on ``ln_gemm``) iff ``D % 128 == 0``, else
     through :func:`_block` (exact softmax)."""
-    x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
+    x = _embed_ln_pre(images, params, config)
     heads = config.heads
     block_fn = (_block_fused
                 if A.fused_ln_qkv_attention_supported(heads, config.width // heads)
@@ -500,7 +538,7 @@ def image_encoder_surgery(
         images: ``(B, H, W, 3)`` normalized crops.
         masks: ``(B, g, g)`` background masks, 1 = background.
     """
-    x = _layer_norm(_embed_patches(images, params, config), params['ln_pre'])
+    x = _embed_ln_pre(images, params, config)
     b = x.shape[0]
     d, heads = config.width, config.heads
     n_patches = config.grid * config.grid

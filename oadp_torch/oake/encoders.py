@@ -1,12 +1,15 @@
 """Device steps of the OAKE globals, blocks and objects pipelines (port
 of ``oadp_tpu/oake/encoders.py``).
 
-Each step is preprocessing (crop/resize/normalize as matmuls, see
+Each step is preprocessing (crop/resize/normalize, see
 ``ops/preprocess.py``) followed by the CLIP encoder and an L2 normalize
-to fp16. PyTorch runs eagerly, so a step returns as soon as its work is
-queued on the device; the caller fetches the embeddings one batch later,
-which overlaps device compute with host work. Host inputs go through
-pinned memory and a ``non_blocking`` copy.
+to fp16. A bf16 model on the card cuts its objects and globals crops with
+one ``resize_crops`` kernel launch a step (``oadp_tpu``'s route by compute
+dtype: the single-pass bf16 resize); an fp32 model, the CPU and the blocks
+pyramid take the resize as matmuls. PyTorch runs eagerly, so a step
+returns as soon as its work is queued on the device; the caller fetches
+the embeddings one batch later, which overlaps device compute with host
+work. Host inputs go through pinned memory and a ``non_blocking`` copy.
 """
 
 __all__ = ['ClipModel', 'load_clip', 'OakeSteps']
@@ -166,12 +169,25 @@ class OakeSteps:
             x = x.pin_memory()
         return x.to(self.model.device, non_blocking=True)
 
-    def _crops(self, image, meta, k_pad: int) -> torch.Tensor:
-        """One source image (or a paired batch) and ``(B, 9)`` crop
-        scalars → normalized ``(B, 224, 224, 3)`` crops."""
+    def _on_kernel(self, images: torch.Tensor) -> bool:
+        """Whether the crops take :func:`P.resize_crops`' kernel: a bf16 model
+        with its images on the card."""
+        return self._cdt is not None and images.device.type == 'cuda'
+
+    def _crops(self, images, meta, k_pad: int) -> torch.Tensor:
+        """Source images and ``(G * B, 9)`` crop scalars → normalized ``(G *
+        B, 224, 224, 3)`` crops, crop ``c`` cut from image ``c // B``: one
+        image ``(PH, PW, 3)`` for every crop, or ``(G, PH, PW, 3)`` (``B =
+        1``: a paired batch). On the kernel, one launch for all of them."""
+        if self._on_kernel(images):
+            return P.resize_crops(images, meta, k_pad)
+        if images.dim() == 4 and images.shape[0] != meta.shape[0]:  # G chunks of B crops
+            b = meta.shape[0] // images.shape[0]
+            return torch.cat([self._crops(image, meta[i * b:(i + 1) * b], k_pad)
+                              for i, image in enumerate(images)])
         wx_w, wx_s, wy_w, wy_s = P.device_coeffs(meta, k_pad)
         crops = P.apply_resize_coeffs(
-            image.float(), wx_w, wx_s, wy_w, wy_s, compute_dtype=self._cdt
+            images.float(), wx_w, wx_s, wy_w, wy_s, compute_dtype=self._cdt
         )
         return P.normalize_clip(crops, self.model.dtype)
 
@@ -262,10 +278,8 @@ class OakeSteps:
         chunks from several source images in one encoder batch."""
         images = self._to_device(images)
         metas = self._to_device(metas, torch.float32)
-        crops = torch.cat([
-            self._crops(images[int(i)], meta, k_pad)
-            for i, meta in zip(img_idx, metas)
-        ])
+        idx = torch.as_tensor(np.asarray(img_idx, np.int64), device=images.device)
+        crops = self._crops(images[idx], metas.reshape(-1, 9), k_pad)
         masks = self._to_device(masks)
         return self._objects(crops, masks.reshape(-1, *masks.shape[2:]))
 
@@ -301,8 +315,5 @@ class OakeSteps:
             g * crop_rows, grid, grid
         )
         metas = buf[:, n_img + n_mask:].contiguous().view(torch.float32)
-        metas = metas.reshape(g, crop_rows, 9)
-        crops = torch.cat([
-            self._crops(images[i], metas[i], k_pad) for i in range(g)
-        ])
+        crops = self._crops(images, metas.reshape(g * crop_rows, 9), k_pad)
         return self._objects(crops, masks)

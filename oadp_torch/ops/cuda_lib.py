@@ -136,6 +136,22 @@ def library() -> ctypes.CDLL:
                 p, p, p, p,  # keep, kept_ws, cycles, stream
             ]
             lib.oadp_greedy_nms.restype = i
+            f = ctypes.c_float
+            lib.oadp_resize_crops.argtypes = [
+                p, ll, i, i, i, i,  # images, image stride, G, per image, PH, PW
+                p, i, i,  # meta, k_pad, out
+                f, f, f, f, f, f,  # mean, std
+                p, p, p, p,  # dst, taps_w, taps_s, stream
+            ]
+            lib.oadp_resize_crops.restype = i
+            lib.oadp_patch_rows.argtypes = [
+                p, i, i, i, i, i, i, i, p, p,  # crops, B, H, W, P, S, pad, g, rows, stream
+            ]
+            lib.oadp_patch_rows.restype = i
+            lib.oadp_embed_ln_pre.argtypes = [
+                p, p, p, p, p, i, i, i, p, p,  # rows, cls, pos, gamma, beta, B, T, D, out, stream
+            ]
+            lib.oadp_embed_ln_pre.restype = i
             lib.oadp_error_string.argtypes = [i]
             lib.oadp_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -24,6 +24,14 @@ back to uint8 (``clip8`` in Pillow's Resample.c). We replicate:
 
 All weight matrices are padded to a static image size, so every crop
 of a batch shares one matmul shape.
+
+The bf16 route of the objects and globals steps on the card is one
+hand-written CUDA kernel a dispatch, :func:`resize_crops`
+(``oadp_torch/csrc/preprocess.cu``): the taps as :func:`device_coeffs`
+derives them, both passes over only the taps each pixel has, the
+rounding and the CLIP normalisation, from the source images to the bf16
+crops. :func:`resize_crops_plain` is its plain version, a direct tap sum
+with no dense matrix. ``LAUNCHES`` counts its launches.
 """
 
 __all__ = [
@@ -37,6 +45,7 @@ __all__ = [
     'clip_transform_meta',
     'plain_resize_matrices',
     'device_coeffs',
+    'tap_sum_half',
     'coeff_ksize',
     'apply_resize_pair',
     'matmul_f32',
@@ -44,12 +53,19 @@ __all__ = [
     'apply_resize_coeffs',
     'normalize_clip',
     'round_u8',
+    'LAUNCHES',
+    'reset_launches',
+    'resize_crops',
+    'resize_crops_plain',
+    'resize_crops_args',
 ]
 
 import math
 
 import numpy as np
 import torch
+
+from . import cuda_lib
 
 # CLIP preprocessing constants (OpenAI CLIP `_transform`); the port keeps
 # its own copy of ``oadp_tpu/models/clip.py:CLIP_MEAN/CLIP_STD``.
@@ -323,6 +339,17 @@ def _bicubic_t(x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def tap_sum_half(k_pad: int) -> int:
+    """Where :func:`device_coeffs` splits its sum of a pixel's ``k_pad``
+    taps: the first part's length. ``oadp_tpu``'s ``w.sum(-1)`` on XLA's CPU
+    adds up to 32 taps left to right, and 33 to 64 in two left-to-right
+    halves, the first ``ceil(k_pad / 2)`` long, added at the end (found by
+    matching its outputs bit for bit at each count; ``tests/
+    test_torch_preprocess.py`` holds both to it). Past 64 its order is not
+    known and the sum stays left to right."""
+    return (k_pad + 1) // 2 if 32 < k_pad <= 64 else k_pad
+
+
 def device_coeffs(
     meta: torch.Tensor,  # (B, 9) float32 from clip_transform_meta
     k_pad: int,
@@ -358,11 +385,17 @@ def device_coeffs(
         )
         w = _bicubic_t(pos)
         w = torch.where(taps < (xend - xmin)[..., None], w, 0.0)
-        # left-to-right tap sum, the order oadp_tpu's reduction takes:
-        # another order moves a weight by one 2^-22 step now and then
-        ww = w[..., 0]
-        for k in range(1, k_pad):
-            ww = ww + w[..., k]
+        # the tap sum in the order oadp_tpu's reduction takes on XLA's CPU
+        # (another order moves a weight by one 2^-22 step now and then):
+        # left to right over each part of tap_sum_half's split, then added
+        half = tap_sum_half(k_pad)
+        ww = None
+        for lo, hi in ((0, half), (half, k_pad)):
+            if lo < hi:
+                part = w[..., lo]
+                for k in range(lo + 1, hi):
+                    part = part + w[..., k]
+                ww = part if ww is None else ww + part
         ww = ww[..., None]
         w = w / torch.where(ww == 0, 1.0, ww)
         q = float(1 << PRECISION_BITS)
@@ -563,3 +596,157 @@ def normalize_clip(pixels: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     mean = torch.from_numpy(_MEAN).to(pixels.device)
     std = torch.from_numpy(_STD).to(pixels.device)
     return ((pixels - mean) / std).to(dtype)
+
+
+#: kernel launches per entry point, counted where the wrapper launches
+LAUNCHES = {'resize_crops': 0}
+
+#: the kernel's cap on taps an axis (``csrc/preprocess.cu``'s MAX_TAPS: the
+#: order of :func:`device_coeffs`' tap sum is known up to there)
+RESIZE_MAX_TAPS = 64
+
+#: crops a chunk of the plain version (bounds its temporaries)
+_PLAIN_CHUNK = 64
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _grouped(images: torch.Tensor) -> torch.Tensor:
+    """One source image ``(PH, PW, 3)`` as a group of one."""
+    return images[None] if images.dim() == 3 else images
+
+
+def resize_crops_plain(
+    images: torch.Tensor,  # (G, PH, PW, 3) uint8, or one (PH, PW, 3)
+    meta: torch.Tensor,  # (G * B, 9) float32 from clip_transform_meta
+    k_pad: int,
+    mean=_MEAN,  # (3,) float32, [0, 255] scale
+    std=_STD,
+    *,
+    out: int = 224,
+    return_taps: bool = False,
+):
+    """The plain version of :func:`resize_crops`: crop ``c`` of image ``c //
+    B`` resized and normalized, ``(G * B, out, out, 3)`` bf16; with
+    ``return_taps`` also :func:`device_coeffs`' taps.
+
+    A direct tap sum (no dense matrix): each weight of
+    :func:`device_coeffs` rounded to bf16, then for every output value the
+    fp32 sum of its taps' products taken left to right (each product is
+    exact: an 8-bit integer times a bf16 weight), rounded with
+    :func:`round_u8` after each pass; taps outside the image read 0. Then
+    ``(p - mean) / std`` in fp32, rounded to bf16. The sums are those of
+    ``apply_resize_coeffs(compute_dtype=bf16)`` in another order, so a value
+    within an ulp of a .5 tie can land on the neighbouring uint8."""
+    images = _grouped(images)
+    g, ph, pw = images.shape[:3]
+    crops = meta.shape[0]
+    per = crops // g
+    dev = images.device
+    taps = device_coeffs(meta.float(), k_pad, out)
+    wx_w, wx_s, wy_w, wy_s = taps
+    wxb, wyb = (w.to(torch.bfloat16).float() for w in (wx_w, wy_w))
+    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
+    std_t = torch.as_tensor(np.asarray(std, np.float32), device=dev)
+    res = torch.empty((crops, out, out, 3), dtype=torch.bfloat16, device=dev)
+    for c0 in range(0, crops, _PLAIN_CHUNK):
+        sl = slice(c0, min(c0 + _PLAIN_CHUNK, crops))
+        src = images[torch.arange(sl.start, sl.stop, device=dev) // per]
+        n = src.shape[0]
+        ar = torch.arange(n, device=dev)[:, None]
+        t = torch.zeros((n, ph, out, 3), device=dev)
+        for k in range(k_pad):
+            cols = wx_s[sl].long() + k  # (n, out)
+            w = torch.where((cols >= 0) & (cols < pw), wxb[sl, :, k], 0.0)
+            px = src[ar, :, cols.clamp(0, pw - 1)].float()  # (n, out, PH, 3)
+            t = t + w[:, None, :, None] * px.transpose(1, 2)
+        t = round_u8(t)
+        acc = torch.zeros((n, out, out, 3), device=dev)
+        for k in range(k_pad):
+            rows = wy_s[sl].long() + k  # (n, out)
+            w = torch.where((rows >= 0) & (rows < ph), wyb[sl, :, k], 0.0)
+            acc = acc + w[:, :, None, None] * t[ar, rows.clamp(0, ph - 1)]
+        res[sl] = ((round_u8(acc) - mean_t) / std_t).to(torch.bfloat16)
+    return (res, taps) if return_taps else res
+
+
+def resize_crops_args(images: torch.Tensor, meta: torch.Tensor, k_pad: int,
+                      out: int = 224) -> tuple[int, int, int]:
+    """What :func:`resize_crops` hands its kernel about the inputs, checked:
+    ``(G, crops per image, elements between images)``. Raises on what the
+    kernel does not take: not uint8 images whose each ``(PH, PW, 3)`` is
+    contiguous (the group may be a view, as the packed chunks are), not
+    fp32 contiguous ``(G * B, 9)`` scalars, a tap count past the kernel's
+    cap."""
+    images = _grouped(images)
+    if images.dim() != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
+        raise TypeError(f'resize_crops: images must be uint8 (G, PH, PW, 3), got '
+                        f'{images.dtype} {tuple(images.shape)}')
+    g, ph, pw = images.shape[:3]
+    if images.stride()[1:] != (pw * 3, 3, 1):
+        raise ValueError(f'resize_crops: each image must be contiguous, strides '
+                         f'{images.stride()}')
+    if (meta.dtype != torch.float32 or meta.dim() != 2 or meta.shape[1] != 9
+            or not meta.is_contiguous() or meta.shape[0] % g):
+        raise ValueError(f'resize_crops: meta must be contiguous fp32 (G * B, 9), got '
+                         f'{meta.dtype} {tuple(meta.shape)} for G = {g}')
+    if not 0 < k_pad <= RESIZE_MAX_TAPS or out <= 0:
+        raise ValueError(f'resize_crops: k_pad {k_pad} outside (0, {RESIZE_MAX_TAPS}]')
+    return g, meta.shape[0] // g, images.stride(0)
+
+
+def resize_crops(
+    images: torch.Tensor,  # (G, PH, PW, 3) uint8, or one (PH, PW, 3)
+    meta: torch.Tensor,  # (G * B, 9) float32 from clip_transform_meta
+    k_pad: int,
+    mean=_MEAN,  # (3,) float32, [0, 255] scale
+    std=_STD,
+    *,
+    out: int = 224,
+    return_taps: bool = False,
+):
+    """The CLIP crops of a dispatch: crop ``c`` cut from image ``c // B``
+    (``B`` crops an image), resized as PIL's two-pass bicubic, each pass
+    rounded to uint8, and normalized: ``(G * B, out, out, 3)`` bf16. With
+    ``return_taps`` also the taps the kernel derived, as
+    :func:`device_coeffs` returns them (``(wx_w, wx_s, wy_w, wy_s)``).
+
+    Replaces ``oadp_tpu``'s XLA ``prep_one`` and ``normalize_clip``
+    (``oadp_tpu/oake/encoders.py:401-432``): :func:`device_coeffs`,
+    ``apply_resize_coeffs(compute_dtype=bf16)`` and :func:`normalize_clip`.
+    On a CPU tensor: :func:`resize_crops_plain`. On a CUDA tensor: one launch
+    of the kernel in ``csrc/preprocess.cu`` for all ``G * B`` crops, which
+    derives the taps itself (bit for bit :func:`device_coeffs`'), sums only
+    the taps each pixel has over the source rows its band reaches, and
+    writes the crops once (616 MB at 2048 crops: bound by those bytes at
+    ~0.18 ms)."""
+    if images.device.type == 'cpu':
+        return resize_crops_plain(images, meta, k_pad, mean, std, out=out,
+                                  return_taps=return_taps)
+    g, per, stride = resize_crops_args(images, meta, k_pad, out)
+    if meta.device != images.device:
+        raise ValueError('resize_crops: images and meta must be on one CUDA device')
+    images = _grouped(images)
+    crops = meta.shape[0]
+    dst = torch.empty((crops, out, out, 3), dtype=torch.bfloat16, device=images.device)
+    taps_w = taps_s = None
+    if return_taps:
+        taps_w = torch.empty((crops, 2, out, k_pad), dtype=torch.float32, device=dst.device)
+        taps_s = torch.empty((crops, 2, out), dtype=torch.int32, device=dst.device)
+    mean = [float(v) for v in np.asarray(mean, np.float32)]
+    std = [float(v) for v in np.asarray(std, np.float32)]
+    lib = cuda_lib.library()
+    cuda_lib.check(lib.oadp_resize_crops(
+        images.data_ptr(), stride, g, per, images.shape[1], images.shape[2], meta.data_ptr(),
+        k_pad, out, *mean, *std, dst.data_ptr(),
+        None if taps_w is None else taps_w.data_ptr(),
+        None if taps_s is None else taps_s.data_ptr(),
+        torch.cuda.current_stream(dst.device).cuda_stream,
+    ), 'resize_crops')
+    LAUNCHES['resize_crops'] += 1
+    if return_taps:
+        return dst, (taps_w[:, 0], taps_s[:, 0], taps_w[:, 1], taps_s[:, 1])
+    return dst

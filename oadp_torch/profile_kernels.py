@@ -23,16 +23,24 @@ keeps the named parts, default all):
   ``torch.profiler``), beside the two families' route (the LN pass,
   ``ln_gemm``, ``attention``) and the library calls (``F.layer_norm``,
   ``F.linear``, SDPA) on the same inputs;
-* ``patch_embed``: the surgery encoder's patch embedding at 2048 crops,
-  the block product of ``models/clip.py`` beside ``F.conv2d``;
+* ``resize``: ``resize_crops`` (``csrc/preprocess.cu``) at an objects
+  dispatch's crops (2 x 1024, at their tap bucket 21 and at the CLI's
+  largest, 35) and a globals dispatch (16 paired images, 13 taps): device
+  ms beside the dense route it replaced and the bound of its bytes;
+* ``patch_embed``: the surgery encoder's patch embedding at 2048 crops:
+  the kernels' route (``patch_rows``, the product on ``ln_gemm``,
+  ``embed_ln_pre``; each apart, and the three with ``ln_pre`` in events and
+  device ms) beside the block product of ``models/clip.py`` (alone and
+  with ``ln_pre``) and ``F.conv2d``;
 * ``attention``: the ``attention`` kernel at 2048 crops x 12 heads x 197
   tokens (main rows, side row, both) beside
   ``F.scaled_dot_product_attention`` on the main rows;
-* ``dispatch``: one objects dispatch (2 images x 1024 crops, full
-  ViT-B/32, bf16, random weights from seed 0): its wall time, the CUDA
-  time by kernel from ``torch.profiler`` and by part (the port's kernels
-  by family and ``ln_gemm`` epilogue; cuBLAS products, PyTorch's
-  LayerNorm and elementwise kernels), and the entry points' launches;
+* ``dispatch``: one objects dispatch (2 images x 1024 crops, tap bucket
+  21, full ViT-B/32, bf16, random weights from seed 0): its wall time and peak device memory, the CUDA time by kernel
+  from ``torch.profiler`` and by part (the port's kernels by family and
+  ``ln_gemm`` epilogue, the patch product apart; cuBLAS products,
+  PyTorch's LayerNorm and elementwise kernels), and the entry points'
+  launches;
 * ``split_dispatch`` and ``fused_dispatch``: ``objects_step`` on 999
   crops of one image (the surgery encoder's split wiring, kernels 4 and
   5) and on the first 1000 of the same crops (the fused wiring, kernels 1
@@ -88,16 +96,20 @@ def _timed(fn, iters: int = 10) -> float:
 def _kernel_part(name: str) -> str:
     """The part a CUDA kernel of an encoder dispatch belongs to, by its
     (mangled or demangled) name: the port's kernels (namespace ``oadp``)
-    by family, ``ln_gemm``'s two schedules (``gemm_kernel``,
-    ``pingpong_kernel``) by epilogue (their template argument 1: 0, 1 or
-    2); then PyTorch's library products (cuBLAS's ``nvjet``, CUTLASS and
-    xmma kernels), LayerNorm and elementwise kernels."""
+    by family (the preprocessing's ``resize_crops_kernel``, the patch
+    embedding's ``patch_rows_kernel`` and ``embed_ln_pre_kernel`` each a
+    part), ``ln_gemm``'s two schedules (``gemm_kernel``,
+    ``pingpong_kernel``) by epilogue (their template argument 1: 0, 1, 2
+    or 3, the patch embedding's product ``ln_gemm_patch``); then PyTorch's
+    library products (cuBLAS's ``nvjet``, CUTLASS and xmma kernels),
+    LayerNorm and elementwise kernels."""
     if 'oadp' in name:
         gemm = re.search(r'(?:gemm|pingpong)_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)', name)
         if gemm:
-            return {'1': 'ln_gemm_gelu', '2': 'ln_gemm_residual'}.get(
+            return {'1': 'ln_gemm_gelu', '2': 'ln_gemm_residual', '3': 'ln_gemm_patch'}.get(
                 gemm.group(1) or gemm.group(2), 'ln_gemm')
-        for kernel in ('ln_qkv_attention_kernel', 'attention_kernel', 'layer_norm_kernel'):
+        for kernel in ('resize_crops_kernel', 'patch_rows_kernel', 'embed_ln_pre_kernel',
+                       'ln_qkv_attention_kernel', 'attention_kernel', 'layer_norm_kernel'):
             if kernel in name:
                 return kernel
         return 'oadp_other'
@@ -111,28 +123,48 @@ def _kernel_part(name: str) -> str:
     return 'other'
 
 
+def _launch_modules() -> list:
+    """The modules whose entry points count launches (``LAUNCHES``): the
+    attention family's, and where the tree has them the preprocessing's and
+    the patch embedding's (an older tree timed with this script has not)."""
+    import importlib
+
+    mods = []
+    for name in ('attention', 'preprocess', 'embed'):
+        try:
+            mod = importlib.import_module(f'.ops.{name}', __package__)
+        except ImportError:
+            continue
+        if hasattr(mod, 'LAUNCHES'):
+            mods.append(mod)
+    return mods
+
+
 def _breakdown(step) -> dict:
     """Wall time of ``step`` (host clock, synchronised, after two warm
-    calls), and of one more call the CUDA time by kernel and by part
-    (:func:`_kernel_part`) from ``torch.profiler`` and the entry points'
-    launches (``ops/attention.py``'s ``LAUNCHES``)."""
+    calls) and its peak device memory over three more, and of one more call
+    the CUDA time by kernel and by part (:func:`_kernel_part`) from
+    ``torch.profiler`` and the entry points' launches (the ``LAUNCHES`` of
+    ``ops/attention.py``, ``ops/preprocess.py`` and ``ops/embed.py``)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from .ops import attention as A
 
     for _ in range(2):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    A.reset_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mods = _launch_modules()
+    for mod in mods:
+        mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    launches = {k: v for k, v in A.LAUNCHES.items() if v}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
     # kernels only: an operator's row repeats the time of the kernels it ran
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -142,7 +174,7 @@ def _breakdown(step) -> dict:
         part = parts.setdefault(_kernel_part(e.key), dict(ms=0.0, calls=0))
         part['ms'] += e.self_device_time_total / 1e3
         part['calls'] += e.count
-    return dict(wall_ms=wall_ms,
+    return dict(wall_ms=wall_ms, peak_memory_gb=peak_gb,
                 cuda_ms=sum(e.self_device_time_total for e in events) / 1e3,
                 by_part=parts, launches=launches,
                 top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
@@ -190,6 +222,50 @@ def _dispatch_inputs(model, pad: int = 640, rows: int = 1024, images: int = 2):
             img.reshape(-1), masks.reshape(-1), meta.view(np.uint8).reshape(-1),
         ]))
     return np.stack(bufs)
+
+
+def _dense_crops(images, meta, k_pad: int):
+    """The crops as the route before ``resize_crops`` cut them, one chunk an
+    image: ``device_coeffs``, the dense bf16 resize and ``normalize_clip``
+    (``oake/encoders.py:OakeSteps._crops`` off the kernel): the library
+    yardstick of ``resize_crops``."""
+    from .ops import preprocess as P
+
+    per = len(meta) // len(images)
+    chunks = [(images, meta)] if per == 1 else [(images[i], meta[i * per:(i + 1) * per])
+                                                for i in range(len(images))]
+    return torch.cat([P.normalize_clip(P.apply_resize_coeffs(
+        img.float(), *P.device_coeffs(m, k_pad), compute_dtype=torch.bfloat16),
+        torch.bfloat16) for img, m in chunks])
+
+
+def _resize_probe(dev, emit) -> None:
+    """``resize_crops`` at an objects dispatch's crops (``_dispatch_inputs``'
+    proposals, expanded as the CLI expands them) at their tap bucket (21)
+    and at the CLI's largest (35), and at a globals dispatch (16 paired
+    640 x 480 images, 13 taps): device ms beside the dense route it
+    replaced, and the bound of the crops' bytes."""
+    from .ops import preprocess as P
+
+    class _Grid:
+        grid = 14
+
+    bufs = _dispatch_inputs(_Grid)
+    n_img, n_mask = 640 * 640 * 3, 1024 * 14 * 14
+    images = torch.from_numpy(bufs[:, :n_img].reshape(2, 640, 640, 3)).to(dev)
+    meta = torch.from_numpy(np.ascontiguousarray(bufs[:, n_img + n_mask:]).view(np.float32)
+                            .reshape(2048, 9)).to(dev)
+    gimg = np.zeros((16, 640, 640, 3), np.uint8)
+    gimg[:, :480] = np.random.RandomState(1).randint(0, 256, (16, 480, 640, 3))
+    gmeta = np.repeat(P.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]])), 16, 0)
+    cases = (('dispatch', images, meta, 21), ('dispatch', images, meta, 35),
+             ('globals', torch.from_numpy(gimg).to(dev), torch.from_numpy(gmeta).to(dev), 13))
+    for name, im, m, k in cases:
+        nbytes = im.numel() + m.numel() * 4 + len(m) * 224 * 224 * 3 * 2
+        emit('resize', case=name, crops=len(m), k_pad=k,
+             device_ms=_device_ms(lambda: P.resize_crops(im, m, k), 10)['total'],
+             dense_device_ms=_device_ms(lambda: _dense_crops(im, m, k), 3)['total'],
+             bound_ms=1e3 * nbytes / 3.35e12)
 
 
 def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: int = 480):
@@ -350,8 +426,8 @@ def _plan_name(plan) -> str:
 def main(argv=None) -> int:
     import argparse
 
-    parts = ('gemm', 'attention', 'ln_qkv', 'patch_embed', 'dispatch', 'globals_dispatch',
-             'blocks_dispatch', 'text', 'nms')
+    parts = ('gemm', 'attention', 'ln_qkv', 'resize', 'patch_embed', 'dispatch',
+             'globals_dispatch', 'blocks_dispatch', 'text', 'nms')
     ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
     ap.add_argument('--only', default=','.join(parts),
                     help=f'comma-separated parts of {parts}')
@@ -395,6 +471,8 @@ def main(argv=None) -> int:
 
     if 'nms' in only:
         _nms_probe(dev, gen, emit)
+    if 'resize' in only:
+        _resize_probe(dev, emit)
     if 'attention' in only:
         qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
         qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()
@@ -466,8 +544,28 @@ def main(argv=None) -> int:
     if 'patch_embed' in only:
         crops = torch.randn(b, 224, 224, 3, device=dev, generator=gen).bfloat16()
         cfg, params = model.surgery_config, model.surgery_params
-        emit('patch_embed', crops=b, stride=cfg.stride, patch=cfg.patch_size,
+        fields = {}
+        if hasattr(C, '_embed_ln_pre'):  # the kernels' route: rows, ln_gemm, embed_ln_pre
+            from .ops import embed as EM
+
+            kern, p, s = params['kernel'], cfg.patch_size, cfg.stride
+            rows = EM.patch_rows(crops, p, s)
+            x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
+            ln = params['ln_pre']
+            args = (x.view(b, -1, cfg.width), params['class_embedding'],
+                    params['positional_embedding'], ln['scale'], ln['bias'])
+            fields = dict(
+                kernels_ms=_timed(lambda: C._embed_ln_pre(crops, params, cfg)),
+                kernels_device_ms=_device_ms(lambda: C._embed_ln_pre(crops, params, cfg), 5),
+                patch_rows_ms=_timed(lambda: EM.patch_rows(crops, p, s)),
+                patch_embed_ms=_timed(lambda: EM.patch_embed(rows, kern['conv1_wt'],
+                                                             kern['conv1_b'])),
+                embed_ln_pre_ms=_timed(lambda: EM.embed_ln_pre(*args, ln32=kern['ln_pre'])))
+            del rows, x, args
+        emit('patch_embed', crops=b, stride=cfg.stride, patch=cfg.patch_size, **fields,
              block_product_ms=_timed(lambda: C._embed_patches(crops, params, cfg)),
+             block_product_ln_pre_ms=_timed(lambda: C._layer_norm(
+                 C._embed_patches(crops, params, cfg), params['ln_pre'])),
              conv2d_ms=_timed(lambda: F.conv2d(
                  crops.permute(0, 3, 1, 2), params['conv1'], stride=cfg.stride,
                  padding=(cfg.patch_size - 1) // 2)))
@@ -475,8 +573,8 @@ def main(argv=None) -> int:
     if 'dispatch' in only:
         steps = E.OakeSteps(model, 640, 640)
         bufs = _dispatch_inputs(model)
-        k_pad = 21
-        emit('dispatch', crops=2048,
+        k_pad = 21  # the tap bucket the objects CLI takes for these crops
+        emit('dispatch', crops=2048, k_pad=k_pad,
              **_breakdown(lambda: steps.objects_packed_step(bufs, 1024, k_pad)))
         n_img, g = 640 * 640 * 3, model.grid
         image = bufs[0, :n_img].reshape(640, 640, 3)

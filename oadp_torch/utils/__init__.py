@@ -1,5 +1,6 @@
 from .config import Config, DictAction, parse_override
-from .dist import Collective, maybe_initialize_distributed, rank, spawn_ranks, world_size
+from .dist import (Collective, end_rank, maybe_initialize_distributed, rank, spawn_ranks,
+                   world_size)
 from .logging import add_file_handler, logger
 from .pth import PthAccessLayer, load_pth, save_pth
 from .store import Store
@@ -11,6 +12,7 @@ __all__ = [
     'Collective',
     'maybe_initialize_distributed',
     'spawn_ranks',
+    'end_rank',
     'rank',
     'world_size',
     'add_file_handler',

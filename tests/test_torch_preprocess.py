@@ -1,7 +1,11 @@
 """The port's preprocessing (``oadp_torch.ops.preprocess``) against
 ``oadp_tpu.ops.preprocess`` on the same numpy inputs: host and device
 coefficients bit-identical, the fp32 resize bit-identical, the bf16
-single-pass resize within 2 uint8 steps.
+single-pass resize within 2 uint8 steps; ``resize_crops``' plain version
+(the bf16 crops of the objects and globals steps in one call) identical to
+``oadp_tpu``'s bf16 ``prep_one`` + ``normalize_clip`` on pixels, and a
+float32 numpy model of its kernel's tap prologue, in the kernel's order
+with no FMA, bit-identical to both packages' ``device_coeffs``.
 
 The fp32 resize sums up to ``pad`` rounded fp32 products. The port's CPU
 path takes them in the order of XLA's CPU dot; any other order moves a
@@ -137,3 +141,286 @@ def test_pyramid_level_resize_matches(case, pad):
     ref = np.asarray(jpp.apply_resize_pair(*map(jnp.asarray, (images, wx, wy))))
     ours = tpp.apply_resize_pair(*map(torch.from_numpy, (images, wx, wy))).numpy()
     np.testing.assert_array_equal(ours, ref)
+
+
+# ---------------------------------------------------------------------------
+# resize_crops: the bf16 crops of a dispatch in one launch
+# ---------------------------------------------------------------------------
+
+
+def _jax_crops(image, meta, k):
+    """``oadp_tpu``'s bf16 ``prep_one`` (``oake/encoders.py``) on one
+    source image: pixels in [0, 255] before normalisation."""
+    coeffs = jpp.device_coeffs(jnp.asarray(meta), k)
+    return np.asarray(jpp.apply_resize_coeffs(
+        jnp.asarray(image.astype(np.float32)), *coeffs, compute_dtype=jnp.bfloat16))
+
+
+def _plain_pixels(images, meta, k):
+    """``resize_crops_plain``'s pixels: normalized with mean 0 and std 1,
+    which bf16 holds exactly for integers up to 256."""
+    out = tpp.resize_crops_plain(torch.from_numpy(images), torch.from_numpy(meta), k,
+                                 (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    return out.float().numpy()
+
+
+def _image(rng, h=240, w=300, pad=PAD):
+    padded = np.zeros((pad, pad, 3), np.uint8)
+    padded[:h, :w] = rng.randint(0, 256, (h, w, 3))
+    return padded
+
+
+def _boxes(kind, rng, n=10, h=240, w=300):
+    if kind == 'identity':  # 224-wide crops: PIL skips the resample
+        x0, y0 = rng.randint(-30, w - 200, n), rng.randint(-30, h - 200, n)
+        return np.stack([x0, y0, x0 + 224, y0 + 224], -1).astype(np.float64)
+    if kind == 'past_edges':  # every edge crossed, and crops wholly outside
+        return np.asarray([[-40, -30, w + 35, h + 20], [-80.4, 10, 20, 90], [w - 10, h - 5, w + 60, h + 70],
+                           [-50, -50, -5, -2], [w + 3, 5, w + 90, 80], [100, -60, 180, h + 60]], np.float64)
+    if kind == 'one_pixel_wide':
+        x0, y0 = rng.uniform(0, w - 2, n), rng.uniform(0, h - 100, n)
+        return np.stack([x0, y0, x0 + 1.0, y0 + rng.uniform(20, 90, n)], -1)
+    sides = rng.uniform(8, 260, n)  # random, and the largest k_pad's scales
+    x0, y0 = rng.uniform(-20, w - 16, n), rng.uniform(-20, h - 16, n)
+    boxes = np.stack([x0, y0, x0 + sides, y0 + sides * rng.uniform(0.5, 2, n)], -1)
+    if kind == 'largest_k':  # the CLI's worst case, a sqrt(8)-expanded 640 side: 35 taps
+        side = np.sqrt(8.0) * 640 * np.asarray([1.0, 0.9, 0.8])
+        boxes[:3] = np.stack([w / 2 - side / 2, h / 2 - side / 2,
+                              w / 2 + side / 2, h / 2 + side * 0.6], -1)
+    return boxes
+
+
+@pytest.mark.parametrize('kind', ['identity', 'past_edges', 'one_pixel_wide', 'random',
+                                  'largest_k'])
+def test_resize_crops_plain_matches_oadp_tpu(kind):
+    """Pixels identical to ``oadp_tpu``'s bf16 route before normalisation
+    (the products are exact, so only the sums' order could differ; none of
+    these pixels moves), and the normalized crops identical to its
+    ``normalize_clip(..., bfloat16)``."""
+    rng = np.random.RandomState(['identity', 'past_edges', 'one_pixel_wide', 'random',
+                                 'largest_k'].index(kind))
+    image = _image(rng)
+    meta = tpp.clip_transform_meta(300, 240, _boxes(kind, rng))
+    if kind == 'identity':
+        assert (meta[:, 8] == 1).all()
+    k = 35 if kind == 'largest_k' else tpp.coeff_ksize(
+        float(np.maximum(meta[:, 2] / meta[:, 4], meta[:, 3] / meta[:, 5]).max() * 224))
+    if kind == 'largest_k':
+        assert tpp.coeff_ksize(np.sqrt(8.0) * 640) == 35
+        assert tpp.coeff_ksize(float(meta[0, 2] / meta[0, 4] * 224)) == 35
+    want = _jax_crops(image, meta, k)
+    got = _plain_pixels(image, meta, k)
+    assert got.shape == want.shape == (len(meta), 224, 224, 3)
+    np.testing.assert_array_equal(got, want)
+    normed = tpp.resize_crops_plain(torch.from_numpy(image), torch.from_numpy(meta), k)
+    assert normed.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        normed.float().numpy(),
+        np.asarray(jpp.normalize_clip(jnp.asarray(want), jnp.bfloat16)).astype(np.float32))
+
+
+def test_resize_crops_plain_groups_and_pairs():
+    """G = 2 chunks in one call equal two single-chunk calls (``objects_
+    packed_step``'s one launch); paired images, a crop each (``globals_
+    step``), equal ``oadp_tpu``'s paired bf16 resize."""
+    rng = np.random.RandomState(7)
+    images = np.stack([_image(rng), _image(rng)])
+    metas = [tpp.clip_transform_meta(300, 240, _boxes('random', rng, 6)) for _ in range(2)]
+    k = 21
+    both = _plain_pixels(images, np.concatenate(metas), k)
+    for g in range(2):
+        np.testing.assert_array_equal(both[6 * g:6 * (g + 1)], _plain_pixels(images[g], metas[g], k))
+    # globals: whole images of two sizes, paired
+    meta = np.concatenate([tpp.clip_transform_meta(300, 240, np.asarray([[0.0, 0, 300, 240]])),
+                           tpp.clip_transform_meta(250, 310, np.asarray([[0.0, 0, 250, 310]]))])
+    coeffs = jpp.device_coeffs(jnp.asarray(meta), 13)
+    want = np.asarray(jpp.apply_resize_coeffs(
+        jnp.asarray(images.astype(np.float32)), *coeffs, compute_dtype=jnp.bfloat16))
+    np.testing.assert_array_equal(_plain_pixels(images, meta, 13), want)
+
+
+def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224):
+    """The tap prologue of ``csrc/preprocess.cu`` (``axis_taps``) in float32
+    numpy, op for op in the kernel's order (numpy rounds every operation;
+    the kernel's ``_rn`` intrinsics forbid FMA contraction)."""
+    f = np.float32
+    x0, y0, cw, ch, ow, oh, left, top, ident = (meta[:, i:i + 1].astype(f) for i in range(9))
+    o = np.arange(out, dtype=f)[None]
+
+    def axis(crop0, size, n_out, offset):
+        scale = size / n_out
+        filterscale = np.maximum(scale, f(1))
+        support = f(2) * filterscale
+        center = (((o + offset) + f(0.5)) * size) / n_out
+        xmin = np.maximum(np.trunc((center - support) + f(0.5)), f(0))
+        xend = np.minimum(np.trunc((center + support) + f(0.5)), size)
+        valid = xend - xmin
+        w = np.zeros(center.shape + (k_pad,), f)
+        half = tpp.tap_sum_half(k_pad)
+        ww = rest = None
+        for k in range(k_pad):
+            kf = f(k)
+            ax = np.abs((((kf + xmin) - center) + f(0.5)) / filterscale)
+            near = (((f(1.5) * ax) - f(2.5)) * ax) * ax + f(1)
+            far = ((((ax - f(5)) * ax) + f(8)) * ax - f(4)) * f(-0.5)
+            v = np.where(kf < valid, np.where(ax < 1, near, np.where(ax < 2, far, f(0))), f(0))
+            w[..., k] = v
+            if k < half:  # left to right, in two parts past 32 taps
+                ww = v if ww is None else ww + v
+            else:
+                rest = v if rest is None else rest + v
+        if rest is not None:
+            ww = ww + rest
+        v = w / np.where(ww == 0, f(1), ww)[..., None]
+        half = np.where(v > 0, f(0.5), np.where(v < 0, f(-0.5), f(0)))
+        q = f(1 << tpp.PRECISION_BITS)
+        w = np.trunc(v * q + half) / q
+        start = (xmin + crop0).astype(np.int32)
+        unit = np.zeros_like(w)
+        unit[..., 0] = 1
+        ident_b = ident.astype(bool)
+        w = np.where(ident_b[..., None], unit, w)
+        start = np.where(ident_b, ((crop0 + offset) + o).astype(np.int32), start)
+        return w, start
+
+    return (*axis(x0, cw, ow, left), *axis(y0, ch, oh, top))
+
+
+@pytest.mark.parametrize('k', [13, 35, 49])
+def test_kernel_tap_prologue_is_device_coeffs(k):
+    """The kernel derives each crop's taps itself; its order of operations,
+    modelled in float32 numpy, gives ``device_coeffs``' taps bit for bit,
+    the port's and ``oadp_tpu``'s, on crops of every kind (identity, past
+    the edges, a pixel wide, scales from 1/28 to 8 and the largest k_pad)
+    and on crops whose taps fill ``k`` (one left-to-right sum at 13, two
+    halves at 35 and 49). Reordering the center's multiply and divide, the
+    tap sum or the quantisation in the model makes this fail (checked by
+    mutation)."""
+    rng = np.random.RandomState(11)
+    boxes = np.concatenate([_boxes(kind, rng, 60) for kind in (
+        'identity', 'past_edges', 'one_pixel_wide', 'random', 'largest_k')])
+    if k != 35:  # crops whose taps fill k: scales near (k - 1) / 4
+        side = 56 * (k - 1) * rng.uniform(0.93, 1.0, 40)
+        x0, y0 = rng.uniform(-100, 100, 40), rng.uniform(-100, 100, 40)
+        boxes = np.concatenate([boxes[:300 - 40 * (k > 13)], np.stack(
+            [x0, y0, x0 + side, y0 + side * rng.uniform(1.0, 1.05, 40)], -1)])
+    meta = tpp.clip_transform_meta(300, 240, boxes)
+    model = _kernel_taps(meta, k)
+    ours = tpp.device_coeffs(torch.from_numpy(meta), k)
+    ref = jpp.device_coeffs(jnp.asarray(meta), k)
+    for m, a, b in zip(model, ours, ref):
+        np.testing.assert_array_equal(m, a.numpy())
+        np.testing.assert_array_equal(m, np.asarray(b))
+
+
+def test_resize_crops_args_what_the_kernel_takes():
+    """What ``resize_crops`` hands its kernel: uint8 images whose each
+    ``(PH, PW, 3)`` is contiguous (the packed chunks' view of one buffer,
+    read at its row stride), contiguous fp32 ``(G * B, 9)`` scalars, the
+    crops per image; anything else is refused before a build."""
+    g, b, pad = 2, 4, 32
+    n_img = pad * pad * 3
+    buf = torch.zeros((g, n_img + 100 + b * 36), dtype=torch.uint8)
+    images = buf[:, :n_img].reshape(g, pad, pad, 3)
+    assert not images.is_contiguous()
+    meta = torch.zeros((g * b, 9))
+    assert tpp.resize_crops_args(images, meta, 35) == (g, b, buf.shape[1])
+    assert tpp.resize_crops_args(images[0], meta[:b], 5) == (1, b, n_img)
+    with pytest.raises(TypeError):
+        tpp.resize_crops_args(images.float(), meta, 35)
+    with pytest.raises(ValueError):
+        tpp.resize_crops_args(images.transpose(1, 2), meta, 35)
+    with pytest.raises(ValueError):
+        tpp.resize_crops_args(images, meta.double(), 35)
+    with pytest.raises(ValueError):
+        tpp.resize_crops_args(images, meta[:7], 35)
+    with pytest.raises(ValueError):
+        tpp.resize_crops_args(images, meta, tpp.RESIZE_MAX_TAPS + 1)
+    tpp.reset_launches()
+    tpp.resize_crops(images, torch.from_numpy(tpp.clip_transform_meta(
+        pad, pad, np.asarray([[0.0, 0, 20, 30]] * g * b))), 9)
+    assert tpp.LAUNCHES == {'resize_crops': 0}
+
+
+def test_steps_hand_resize_crops_one_call_a_step(monkeypatch):
+    """With a bf16 model on the card the objects and globals steps cut their
+    crops with one ``resize_crops`` call a step (forced here on the CPU,
+    where the entry takes its plain version): the packed chunks' view of
+    one buffer and the chunks' scalars as one ``(G * B, 9)`` tensor, a
+    multi step's images gathered by index, the globals' paired images; the
+    embeddings equal the matmul route's."""
+    from oadp_torch.oake import encoders as E
+
+    model = E.load_clip(None, 'bfloat16', vit=dict(width=64, layers=1, heads=1, output_dim=32),
+                        device='cpu')
+    steps = E.OakeSteps(model, PAD, PAD)
+    rng = np.random.RandomState(9)
+    images = [_image(rng), _image(rng)]
+    metas = [tpp.clip_transform_meta(300, 240, _boxes('random', rng, 4)) for _ in range(3)]
+    masks = [(rng.rand(4, model.grid, model.grid) > .5).astype(np.uint8) for _ in range(3)]
+    bufs = np.stack([np.concatenate([images[i].reshape(-1), masks[i].reshape(-1),
+                                     metas[i].view(np.uint8).reshape(-1)]) for i in range(2)])
+    gmeta = np.repeat(tpp.clip_transform_meta(300, 240, np.asarray([[0.0, 0, 300, 240]])), 2, 0)
+    runs = {
+        'objects_step': lambda: steps.objects_step(images[0], metas[0], masks[0], 21),
+        'objects_multi_step': lambda: steps.objects_multi_step(images, [0, 1, 0], metas, masks, 21),
+        'objects_packed_step': lambda: steps.objects_packed_step(bufs, 4, 35),
+        'globals_step': lambda: steps.globals_step(np.stack(images), gmeta, 13),
+    }
+    want = {name: run().numpy() for name, run in runs.items()}
+    seen = []
+    plain = tpp.resize_crops
+    monkeypatch.setattr(tpp, 'resize_crops', lambda *a, **k: seen.append(a) or plain(*a, **k))
+    monkeypatch.setattr(E.OakeSteps, '_on_kernel', lambda self, images: True)
+    for name, run in runs.items():
+        seen.clear()
+        got = run().numpy()
+        assert len(seen) == 1, name
+        imgs, meta, k = seen[0]
+        g, per, stride = tpp.resize_crops_args(imgs, meta, k)
+        assert (g, per) == {'objects_step': (1, 4), 'objects_multi_step': (3, 4),
+                            'objects_packed_step': (2, 4), 'globals_step': (2, 1)}[name]
+        assert meta.dtype == torch.float32 and meta.is_contiguous()
+        if name == 'objects_packed_step':
+            assert stride == bufs.shape[1]  # read in place from the packed buffer
+        np.testing.assert_array_equal(got, want[name], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [5, 13, 35, 64])
+def test_resize_crops_on_card(k):
+    """The kernel against its plain version on the card: taps bit for bit
+    ``device_coeffs``' (on the card and on the CPU), pixels equal (at most
+    1e-5 of them one uint8 step off, none more), normalized crops equal;
+    two chunks of one packed buffer (a view) in one launch, and paired
+    images."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(k)
+    images = np.stack([_image(rng), _image(rng)])
+    metas = np.concatenate([tpp.clip_transform_meta(300, 240, np.concatenate(
+        [_boxes(kind, rng, 8) for kind in ('identity', 'past_edges', 'one_pixel_wide',
+                                            'random', 'largest_k')])) for _ in range(2)])
+    n_img = PAD * PAD * 3
+    buf = torch.zeros((2, n_img + 40), dtype=torch.uint8)
+    buf[:, :n_img] = torch.from_numpy(images.reshape(2, -1))
+    buf = buf.to(dev)
+    imgs = buf[:, :n_img].reshape(2, PAD, PAD, 3)
+    meta = torch.from_numpy(metas).to(dev)
+    tpp.reset_launches()
+    crops, taps = tpp.resize_crops(imgs, meta, k, return_taps=True)
+    torch.cuda.synchronize()
+    assert tpp.LAUNCHES['resize_crops'] == 1 and crops.dtype == torch.bfloat16
+    for got, want, cpu in zip(taps, tpp.device_coeffs(meta, k),
+                              tpp.device_coeffs(meta.cpu(), k)):
+        assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    zero, one = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+    px = tpp.resize_crops(imgs, meta, k, zero, one).float()
+    steps = (px - tpp.resize_crops_plain(imgs, meta, k, zero, one).float()).abs()
+    assert float(steps.max()) <= 1 and int((steps > 0).sum()) <= 1e-5 * steps.numel()
+    plain = tpp.resize_crops_plain(imgs, meta, k)
+    assert float((crops.float() - plain.float()).abs().max()) <= (
+        0.0 if int((steps > 0).sum()) == 0 else 0.02)
+    paired = tpp.resize_crops(imgs, meta[::8].contiguous(), k)  # a crop an image
+    assert torch.equal(paired, tpp.resize_crops_plain(imgs, meta[::8].contiguous(), k))
