@@ -348,6 +348,35 @@ def _merge(t):
     return t.transpose(1, 2).reshape(b, n, h * hd)
 
 
+def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of=None,
+                  peak=PEAK_FLOPS, **extra):
+    """One kernel's check and times: its output against its plain
+    version's (cosine >= 0.999), then CUDA-event and device ms of the
+    kernel and of the library call, the plain version's ms, the bound
+    (operations over ``peak``, or bytes) and each ``ln_gemm`` launch's
+    plan; logged as a ``kernel_check`` line."""
+    got, want = kernel(), plain()
+    err, cos = compare(got, want)
+    del got, want
+    if cos < 0.999:
+        raise AssertionError(f'{name}: cosine {cos} < 0.999 against the plain version')
+    b_ms, b_by = bound_ms(flops, nbytes, peak)
+    dev = device_ms(kernel, iters, part_of)
+    if part_of is not None:
+        dev, extra['kernel_device_ms_by_part'] = dev
+    res = dict(
+        name=name, max_abs_err=err, cosine=cos, plans=plans_of(A, kernel),
+        kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
+        library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
+        kernel_device_ms=dev,
+        library_device_ms=device_ms(library, iters),
+        **extra,
+    )
+    log(json.dumps({'kernel_check': res}))
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_kernels(A, gen) -> dict:
     dev = torch.device('cuda')
 
@@ -374,27 +403,8 @@ def check_kernels(A, gen) -> dict:
         return (t.float() + torch.empty(*t.shape[:-1], 1, device=dev).uniform_(
             -50, 50, generator=gen) + 100 * (torch.arange(D, device=dev) % 256 == 3)).bfloat16()
 
-    def record(name, kernel, plain, library, flops, nbytes, iters, part_of=None, **extra):
-        got, want = kernel(), plain()
-        err, cos = compare(got, want)
-        del got, want
-        if cos < 0.999:
-            raise AssertionError(f'{name}: cosine {cos} < 0.999 against the plain version')
-        b_ms, b_by = bound_ms(flops, nbytes)
-        dev = device_ms(kernel, iters, part_of)
-        if part_of is not None:
-            dev, extra['kernel_device_ms_by_part'] = dev
-        res = dict(
-            name=name, max_abs_err=err, cosine=cos, plans=plans_of(A, kernel),
-            kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
-            library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
-            kernel_device_ms=dev,
-            library_device_ms=device_ms(library, iters),
-            **extra,
-        )
-        log(json.dumps({'kernel_check': res}))
-        torch.cuda.empty_cache()
-        return res
+    def record(*args, **kwargs):
+        return record_kernel(A, *args, **kwargs)
 
     # kernel 1: every objects layer, fold_out (11 of 12) and side-only (last)
     b, n = OBJ_BATCH, N_OBJ
@@ -701,17 +711,6 @@ def check_embed(gen) -> dict:
     rng = np.random.RandomState(0)
     results = {}
 
-    def row(name, kernel, plain, library, flops, nbytes, iters, peak=PEAK_FLOPS, **extra):
-        b_ms, b_by = bound_ms(flops, nbytes, peak)
-        res = dict(name=name, kernel_ms=timed(kernel, iters),
-                   plain_ms=timed(plain, max(2, iters // 4)),
-                   library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
-                   kernel_device_ms=device_ms(kernel, iters),
-                   library_device_ms=device_ms(library, iters), **extra)
-        log(json.dumps({'kernel_check': res}))
-        torch.cuda.empty_cache()
-        return res
-
     # resize_crops: an objects dispatch (2 images x 1024 crops, k_pad 35)
     # and a globals dispatch (16 paired 640 x 480 images, whole, k_pad 13)
     imgs, meta = _objects_crops(rng)
@@ -739,18 +738,14 @@ def check_embed(gen) -> dict:
             raise AssertionError(f'resize_crops({label}): {off} pixels off the plain version, '
                                  f'the most by {float(steps.max())} steps')
         del px, px_plain, steps
-        plain = P.resize_crops_plain(images, m, k)
-        err, cos = compare(crops, plain)
-        del plain
-
         nbytes = images.numel() + m.numel() * 4 + crops.numel() * 2
-        resize[label] = row(
-            f'resize_crops({label}: {len(m)} crops, k_pad {k})',
+        resize[label] = record_kernel(
+            A, f'resize_crops({label}: {len(m)} crops, k_pad {k})',
             lambda: P.resize_crops(images, m, k), lambda: P.resize_crops_plain(images, m, k),
-            lambda: _dense_crops(images, m, k), _tap_work(taps, images.shape[1], images.shape[2]), nbytes,
+            lambda: _dense_crops(images, m, k),
+            _tap_work(taps, images.shape[1], images.shape[2]), nbytes,
             iters=10 if label == 'objects' else 50, peak=PEAK_FP32,
-            taps_identical=True, pixels_one_step_off=off, pixels=crops.numel(),
-            max_abs_err=err, cosine=cos)
+            taps_identical=True, pixels_one_step_off=off, pixels=crops.numel())
         results.setdefault('crops', {})[label] = crops
         del images, m, taps, want_taps, crops
 
@@ -770,51 +765,33 @@ def check_embed(gen) -> dict:
             raise AssertionError(f'patch_rows({label}): differs from its plain version')
         iters = 10 if label == 'objects' else 50
         pad, _ = EM.patch_geometry(crops.shape[1], p, s)
-        r_rows = row(
-            f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
+        r_rows = record_kernel(
+            A, f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
             lambda: EM.patch_rows_plain(crops, p, s),
             lambda: F.unfold(crops.permute(0, 3, 1, 2), p, padding=pad, stride=s),
-            0.0, crops.numel() * 2 + rows.numel() * 2, iters, identical=True, max_abs_err=0.0,
-            cosine=1.0)
+            0.0, crops.numel() * 2 + rows.numel() * 2, iters, identical=True)
         x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
-        err_p, cos_p = compare(x, EM.patch_embed_plain(rows, kern['conv1_wt']))
-        if cos_p < 0.999:
-            raise AssertionError(f'patch_embed({label}): cosine {cos_p} < 0.999')
-        r_prod = row(
-            f'patch_embed({label}: M={rows.shape[0]}, K={rows.shape[1]}, N={d})',
+        r_prod = record_kernel(
+            A, f'patch_embed({label}: M={rows.shape[0]}, K={rows.shape[1]}, N={d})',
             lambda: EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b']),
             lambda: EM.patch_embed_plain(rows, kern['conv1_wt']),
             lambda: F.linear(rows, kern['conv1_wt']),
             2.0 * rows.shape[0] * rows.shape[1] * d,
-            rows.numel() * 2 + kern['conv1_wt'].numel() * 2 + x.numel() * 2, iters,
-            max_abs_err=err_p, cosine=cos_p, plans=plans_of(
-                A, lambda: EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])))
+            rows.numel() * 2 + kern['conv1_wt'].numel() * 2 + x.numel() * 2, iters)
         del rows
         x = x.view(b, g * g, d)
         ln = params['ln_pre']
         ln_args = (x, params['class_embedding'], params['positional_embedding'], ln['scale'],
                    ln['bias'])
-        got = EM.embed_ln_pre(*ln_args, ln32=kern['ln_pre'])
-        err_l, cos_l = compare(got, EM.embed_ln_pre_plain(*ln_args))
-        if cos_l < 0.999:
-            raise AssertionError(f'embed_ln_pre({label}): cosine {cos_l} < 0.999')
-        r_ln = row(
-            f'embed_ln_pre({label}: {b} x {g * g + 1} x {d})',
+        r_ln = record_kernel(
+            A, f'embed_ln_pre({label}: {b} x {g * g + 1} x {d})',
             lambda: EM.embed_ln_pre(*ln_args, ln32=kern['ln_pre']),
             lambda: EM.embed_ln_pre_plain(*ln_args), lambda: EM.embed_ln_pre_plain(*ln_args),
-            0.0, x.numel() * 2 + got.numel() * 2 + (g * g + 2) * d * 2 + 8 * d, iters,
-            max_abs_err=err_l, cosine=cos_l)
-        del got, x, ln_args
+            0.0, x.numel() * 2 + b * (g * g + 1) * d * 2 + (g * g + 2) * d * 2 + 8 * d, iters)
+        del x, ln_args
+
         # the whole embedding before layer 0: the kernels against the
         # block-product route (_embed_patches + ln_pre) and F.conv2d's
-        whole = C._embed_ln_pre(crops, params, cfg)
-        block = C._layer_norm(C._embed_patches(crops, params, cfg), params['ln_pre'])
-        err_w, cos_w = compare(whole, block)
-        if cos_w < 0.999:
-            raise AssertionError(f'embedding({label}): cosine {cos_w} < 0.999 against the '
-                                 'block-product route')
-        del whole, block
-
         def conv_route():
             y = F.conv2d(crops.permute(0, 3, 1, 2), params['conv1'], stride=s, padding=pad)
             y = y.flatten(2).transpose(1, 2)
@@ -822,13 +799,12 @@ def check_embed(gen) -> dict:
             y = y + params['positional_embedding']
             return F.layer_norm(y, (d,), ln['scale'], ln['bias'], 1e-5)
 
-        r_whole = row(
-            f'embedding({label}: patch_rows + ln_gemm + embed_ln_pre)',
+        r_whole = record_kernel(
+            A, f'embedding({label}: patch_rows + ln_gemm + embed_ln_pre)',
             lambda: C._embed_ln_pre(crops, params, cfg),
             lambda: C._layer_norm(C._embed_patches(crops, params, cfg), params['ln_pre']),
             conv_route, 2.0 * b * g * g * 3 * p * p * d,
-            crops.numel() * 2 + b * (g * g + 1) * d * 2 + params['conv1'].numel() * 2, iters,
-            max_abs_err=err_w, cosine=cos_w)
+            crops.numel() * 2 + b * (g * g + 1) * d * 2 + params['conv1'].numel() * 2, iters)
         embed[label] = dict(patch_rows=r_rows, patch_embed=r_prod, embed_ln_pre=r_ln,
                             embedding=r_whole)
         del crops

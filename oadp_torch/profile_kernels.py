@@ -36,11 +36,11 @@ keeps the named parts, default all):
   tokens (main rows, side row, both) beside
   ``F.scaled_dot_product_attention`` on the main rows;
 * ``dispatch``: one objects dispatch (2 images x 1024 crops, tap bucket
-  21, full ViT-B/32, bf16, random weights from seed 0): its wall time and peak device memory, the CUDA time by kernel
-  from ``torch.profiler`` and by part (the port's kernels by family and
-  ``ln_gemm`` epilogue, the patch product apart; cuBLAS products,
-  PyTorch's LayerNorm and elementwise kernels), and the entry points'
-  launches;
+  21, full ViT-B/32, bf16, random weights from seed 0): its wall time and
+  peak device memory, the CUDA time by kernel from ``torch.profiler`` and
+  by part (the port's kernels by family and ``ln_gemm`` epilogue, the
+  patch product apart; cuBLAS products, PyTorch's LayerNorm and
+  elementwise kernels), and the entry points' launches;
 * ``split_dispatch`` and ``fused_dispatch``: ``objects_step`` on 999
   crops of one image (the surgery encoder's split wiring, kernels 4 and
   5) and on the first 1000 of the same crops (the fused wiring, kernels 1

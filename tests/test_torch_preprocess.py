@@ -175,8 +175,9 @@ def _boxes(kind, rng, n=10, h=240, w=300):
         x0, y0 = rng.randint(-30, w - 200, n), rng.randint(-30, h - 200, n)
         return np.stack([x0, y0, x0 + 224, y0 + 224], -1).astype(np.float64)
     if kind == 'past_edges':  # every edge crossed, and crops wholly outside
-        return np.asarray([[-40, -30, w + 35, h + 20], [-80.4, 10, 20, 90], [w - 10, h - 5, w + 60, h + 70],
-                           [-50, -50, -5, -2], [w + 3, 5, w + 90, 80], [100, -60, 180, h + 60]], np.float64)
+        return np.asarray([[-40, -30, w + 35, h + 20], [-80.4, 10, 20, 90],
+                           [w - 10, h - 5, w + 60, h + 70], [-50, -50, -5, -2],
+                           [w + 3, 5, w + 90, 80], [100, -60, 180, h + 60]], np.float64)
     if kind == 'one_pixel_wide':
         x0, y0 = rng.uniform(0, w - 2, n), rng.uniform(0, h - 100, n)
         return np.stack([x0, y0, x0 + 1.0, y0 + rng.uniform(20, 90, n)], -1)
@@ -229,7 +230,8 @@ def test_resize_crops_plain_groups_and_pairs():
     k = 21
     both = _plain_pixels(images, np.concatenate(metas), k)
     for g in range(2):
-        np.testing.assert_array_equal(both[6 * g:6 * (g + 1)], _plain_pixels(images[g], metas[g], k))
+        np.testing.assert_array_equal(both[6 * g:6 * (g + 1)],
+                                      _plain_pixels(images[g], metas[g], k))
     # globals: whole images of two sizes, paired
     meta = np.concatenate([tpp.clip_transform_meta(300, 240, np.asarray([[0.0, 0, 300, 240]])),
                            tpp.clip_transform_meta(250, 310, np.asarray([[0.0, 0, 250, 310]]))])
