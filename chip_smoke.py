@@ -62,7 +62,7 @@ Phases, in order; any failure exits nonzero:
    pixels equal to its plain version's but for at most 1e-5 of them one
    uint8 step off, the count printed; the library route is the dense
    route it replaced), ``patch_rows`` (``csrc/embed.cu``, bit-identical;
-   library ``F.unfold``), the patch product on ``ln_gemm`` (library
+   no library call), the patch product on ``ln_gemm`` (library
    ``F.linear``), ``embed_ln_pre`` (``csrc/embed.cu``) and the whole
    embedding before layer 0 against the block-product route (cosine >=
    0.999, max abs printed; library ``F.conv2d``), each timed with its
@@ -352,9 +352,10 @@ def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of
                   peak=PEAK_FLOPS, **extra):
     """One kernel's check and times: its output against its plain
     version's (cosine >= 0.999), then CUDA-event and device ms of the
-    kernel and of the library call, the plain version's ms, the bound
-    (operations over ``peak``, or bytes) and each ``ln_gemm`` launch's
-    plan; logged as a ``kernel_check`` line."""
+    kernel and of the library call (None where no PyTorch call computes
+    the function), the plain version's ms, the bound (operations over
+    ``peak``, or bytes) and each ``ln_gemm`` launch's plan; logged as a
+    ``kernel_check`` line."""
     got, want = kernel(), plain()
     err, cos = compare(got, want)
     del got, want
@@ -367,9 +368,9 @@ def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of
     res = dict(
         name=name, max_abs_err=err, cosine=cos, plans=plans_of(A, kernel),
         kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
-        library_ms=timed(library, iters), bound_ms=b_ms, bound_by=b_by,
-        kernel_device_ms=dev,
-        library_device_ms=device_ms(library, iters),
+        library_ms=None if library is None else timed(library, iters),
+        bound_ms=b_ms, bound_by=b_by, kernel_device_ms=dev,
+        library_device_ms=None if library is None else device_ms(library, iters),
         **extra,
     )
     log(json.dumps({'kernel_check': res}))
@@ -710,6 +711,7 @@ def check_embed(gen) -> dict:
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
     results = {}
+    t_phase = time.perf_counter()
 
     # resize_crops: an objects dispatch (2 images x 1024 crops, k_pad 35)
     # and a globals dispatch (16 paired 640 x 480 images, whole, k_pad 13)
@@ -765,10 +767,12 @@ def check_embed(gen) -> dict:
             raise AssertionError(f'patch_rows({label}): differs from its plain version')
         iters = 10 if label == 'objects' else 50
         pad, _ = EM.patch_geometry(crops.shape[1], p, s)
+        # no PyTorch call gives these rows: F.unfold gives them transposed,
+        # an im2col launch a crop (2048 a call), whose profile left the
+        # next torch.profiler sessions empty
         r_rows = record_kernel(
             A, f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
-            lambda: EM.patch_rows_plain(crops, p, s),
-            lambda: F.unfold(crops.permute(0, 3, 1, 2), p, padding=pad, stride=s),
+            lambda: EM.patch_rows_plain(crops, p, s), None,
             0.0, crops.numel() * 2 + rows.numel() * 2, iters, identical=True)
         x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
         r_prod = record_kernel(
@@ -811,6 +815,7 @@ def check_embed(gen) -> dict:
         torch.cuda.empty_cache()
     del results['crops'], model
     torch.cuda.empty_cache()
+    log(json.dumps({'check_embed_s': time.perf_counter() - t_phase}))
     return {
         'resize_crops': dict(resize['objects'], globals_batch=resize['globals']),
         **{k: dict(embed['objects'][k], globals_batch=embed['globals'][k])
