@@ -62,7 +62,8 @@ Phases, in order; any failure exits nonzero:
    pixels equal to its plain version's but for at most 1e-5 of them one
    uint8 step off, the count printed; the library route is the dense
    route it replaced), ``patch_rows`` (``csrc/embed.cu``, bit-identical;
-   no library call), the patch product on ``ln_gemm`` (library
+   library ``F.unfold``, held to the same rows and timed with CUDA events
+   alone), the patch product on ``ln_gemm`` (library
    ``F.linear``), ``embed_ln_pre`` (``csrc/embed.cu``) and the whole
    embedding before layer 0 against the block-product route (cosine >=
    0.999, max abs printed; library ``F.conv2d``), each timed with its
@@ -349,13 +350,14 @@ def _merge(t):
 
 
 def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of=None,
-                  peak=PEAK_FLOPS, **extra):
+                  peak=PEAK_FLOPS, profile_library=True, **extra):
     """One kernel's check and times: its output against its plain
     version's (cosine >= 0.999), then CUDA-event and device ms of the
     kernel and of the library call (None where no PyTorch call computes
-    the function), the plain version's ms, the bound (operations over
-    ``peak``, or bytes) and each ``ln_gemm`` launch's plan; logged as a
-    ``kernel_check`` line."""
+    the function; its device ms None too without ``profile_library``),
+    the plain version's ms, the bound (operations over ``peak``, or bytes)
+    and each ``ln_gemm`` launch's plan; logged as a ``kernel_check``
+    line."""
     got, want = kernel(), plain()
     err, cos = compare(got, want)
     del got, want
@@ -370,7 +372,8 @@ def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of
         kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
         library_ms=None if library is None else timed(library, iters),
         bound_ms=b_ms, bound_by=b_by, kernel_device_ms=dev,
-        library_device_ms=None if library is None else device_ms(library, iters),
+        library_device_ms=(device_ms(library, iters)
+                           if library is not None and profile_library else None),
         **extra,
     )
     log(json.dumps({'kernel_check': res}))
@@ -767,13 +770,21 @@ def check_embed(gen) -> dict:
             raise AssertionError(f'patch_rows({label}): differs from its plain version')
         iters = 10 if label == 'objects' else 50
         pad, _ = EM.patch_geometry(crops.shape[1], p, s)
-        # no PyTorch call gives these rows: F.unfold gives them transposed,
-        # an im2col launch a crop (2048 a call), whose profile left the
-        # next torch.profiler sessions empty
+        # the library call: F.unfold's (B, 3 * P * P, L) columns, in the
+        # same (c, i, j) order, as (B * L, 3 * P * P) rows; CUDA events
+        # only, as its im2col is a launch a crop (2048 a call), whose
+        # profile left the next torch.profiler sessions empty
+        def unfold():
+            cols = F.unfold(crops.permute(0, 3, 1, 2), p, padding=pad, stride=s)
+            return cols.transpose(1, 2).reshape(-1, 3 * p * p)
+
+        if not torch.equal(unfold(), rows):
+            raise AssertionError(f'patch_rows({label}): F.unfold gives other rows')
         r_rows = record_kernel(
             A, f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
-            lambda: EM.patch_rows_plain(crops, p, s), None,
-            0.0, crops.numel() * 2 + rows.numel() * 2, iters, identical=True)
+            lambda: EM.patch_rows_plain(crops, p, s), unfold,
+            0.0, crops.numel() * 2 + rows.numel() * 2, iters, profile_library=False,
+            identical=True)
         x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
         r_prod = record_kernel(
             A, f'patch_embed({label}: M={rows.shape[0]}, K={rows.shape[1]}, N={d})',

@@ -20,9 +20,7 @@
 //   LN:        A row -> (a - mean) * rstd * gamma + beta in fp32, rounded to
 //              bf16 before the product (eps 1e-5; the Pallas kernels round the
 //              LN output to the activation type the same way).
-//   epilogue:  0 none, 1 quick_gelu x*sigmoid(1.702x), 2 residual R + x,
-//              3 none for the patch embedding's product (0's code, a kernel
-//              of its own so that a profile tells the two products apart).
+//   epilogue:  0 none, 1 quick_gelu x*sigmoid(1.702x), 2 residual R + x.
 //
 // Bound on the H100: the QKV GEMM of the objects encoder (M = 2048 x 197,
 // K = 768, N = 2304) is 1.43 TFLOP against 0.62 GB of A, far above the
@@ -103,7 +101,7 @@ constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
 
-enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_PATCH = 3 };
+enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 enum Schedule { COOPERATIVE = 0, PINGPONG = 1 };
 
 // Shared memory: the k-tile ring (a stage holds a block's TM x 64 A k-tile
@@ -542,7 +540,6 @@ cudaError_t launch_epilogue(int epilogue, int K, const bf16* Wt, const bf16* bia
     case EPI_NONE: return launch<BN, EPI_NONE, PP>(K, Wt, bias, segs, nseg, units, s);
     case EPI_GELU: return launch<BN, EPI_GELU, PP>(K, Wt, bias, segs, nseg, units, s);
     case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL, PP>(K, Wt, bias, segs, nseg, units, s);
-    case EPI_PATCH: return launch<BN, EPI_PATCH, PP>(K, Wt, bias, segs, nseg, units, s);
   }
   return cudaErrorInvalidValue;
 }

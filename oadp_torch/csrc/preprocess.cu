@@ -27,7 +27,9 @@
 // intrinsics in the plain version's order (as nms.cu's IoU is): the
 // multiply-then-divide center, both truncations, the bicubic polynomial
 // term by term, the tap sum (left to right, in two halves past 32 taps, as
-// oadp_tpu's XLA reduction takes it) and the 22-bit quantisation.
+// oadp_tpu's XLA reduction takes it, split where the crop's own tap count
+// splits it: an image may have fewer taps than the group's k_pad) and the
+// 22-bit quantisation.
 // Each product of a pass is exact in fp32 (an 8-bit integer times a bf16
 // weight), so the fp32 sums taken left to right over the taps equal the
 // plain version's (ops/preprocess.py:resize_crops_plain) to the bit.
@@ -99,11 +101,12 @@ __device__ __forceinline__ float raw_tap(int k, float xmin, float center, float 
 // One output pixel's taps along one axis, as device_coeffs derives them:
 // the weights rounded to bf16 (as the passes use them) into w[0, k_pad),
 // the first tap's source index into *start and the taps that may be
-// nonzero into *count (those past it weigh exactly 0). The fp32 weights
-// go to `dbg_w` and the start to `dbg_s` too when given.
+// nonzero into *count (those past it weigh exactly 0); the tap sum is split
+// after `half` taps. The fp32 weights go to `dbg_w` and the start to
+// `dbg_s` too when given.
 __device__ void axis_taps(float crop0, float size, float n_out, float offset, bool identity,
-                          int o, int k_pad, bf16* w, int* start, int* count, float* dbg_w,
-                          int* dbg_s) {
+                          int o, int k_pad, int half, bf16* w, int* start, int* count,
+                          float* dbg_w, int* dbg_s) {
   if (identity) {
     // PIL skips resampling: one unit tap, at (crop0 + offset) + o
     for (int k = 0; k < k_pad; ++k) {
@@ -123,8 +126,7 @@ __device__ void axis_taps(float crop0, float size, float n_out, float offset, bo
     const float xend = fminf(truncf(__fadd_rn(__fadd_rn(center, support), 0.5f)), size);
     const float valid = __fsub_rn(xend, xmin);
     // the tap sum in device_coeffs' order: left to right over [0, half)
-    // and over [half, k_pad), the two parts added (half = k_pad up to 32)
-    const int half = tap_sum_half(k_pad);
+    // and over [half, k_pad), the two parts added (no split up to 32 taps)
     float ww = 0.0f, rest = 0.0f;
     for (int k = 0; k < k_pad; ++k) {
       const float v = raw_tap(k, xmin, center, filterscale, valid);
@@ -160,6 +162,7 @@ struct ResizeArgs {
   long long image_stride;  // elements between consecutive images
   int per_image, PH, PW;
   const float* meta;
+  const int* halves;  // (G) where an image's crops split their tap sums, or null
   int k_pad, out, band, bands;
   Scalars norm;
   bf16* dst;
@@ -183,15 +186,17 @@ __global__ void __launch_bounds__(THREADS) resize_crops_kernel(ResizeArgs a) {
 
   const float* m = a.meta + crop * 9;
   const bool identity = m[8] != 0.0f;
+  const int half =
+      a.halves == nullptr ? tap_sum_half(k_pad) : a.halves[crop / a.per_image];
   float* dbg_w = a.taps_w == nullptr ? nullptr : a.taps_w + (size_t)crop * 2 * out * k_pad;
   int* dbg_s = a.taps_s == nullptr ? nullptr : a.taps_s + (size_t)crop * 2 * out;
   const bool dbg_x = dbg_w != nullptr && e0 == 0;  // one block of the crop writes the x taps
   for (int o = tid; o < out; o += THREADS)
-    axis_taps(m[0], m[2], m[4], m[6], identity, o, k_pad, wx + o * k_pad, xs + o, xn + o,
-              dbg_x ? dbg_w + o * k_pad : nullptr, dbg_x ? dbg_s + o : nullptr);
+    axis_taps(m[0], m[2], m[4], m[6], identity, o, k_pad, half, wx + o * k_pad, xs + o,
+              xn + o, dbg_x ? dbg_w + o * k_pad : nullptr, dbg_x ? dbg_s + o : nullptr);
   for (int r = tid; r < e1 - e0; r += THREADS)
-    axis_taps(m[1], m[3], m[5], m[7], identity, e0 + r, k_pad, wy + r * k_pad, ys + r, yn + r,
-              dbg_w ? dbg_w + (out + e0 + r) * k_pad : nullptr,
+    axis_taps(m[1], m[3], m[5], m[7], identity, e0 + r, k_pad, half, wy + r * k_pad, ys + r,
+              yn + r, dbg_w ? dbg_w + (out + e0 + r) * k_pad : nullptr,
               dbg_w ? dbg_s + out + e0 + r : nullptr);
   __syncthreads();
 
@@ -282,12 +287,13 @@ extern "C" {
 // Checked by the Python wrapper (oadp_torch/ops/preprocess.py:resize_crops):
 // images uint8 (G, PH, PW, 3), each image's (PH, PW, 3) contiguous, image g
 // at images + g * image_stride; meta (G * per_image, 9) fp32 contiguous;
+// halves (G) int32 (tap_sum_half of each image's own tap count) or null;
 // dst (G * per_image, out, out, 3) bf16 contiguous; taps_w (crops, 2, out,
 // k_pad) fp32 and taps_s (crops, 2, out) int32 both given or both null.
 int oadp_resize_crops(const void* images, long long image_stride, int G, int per_image, int PH,
-                      int PW, const void* meta, int k_pad, int out, float m0, float m1, float m2,
-                      float s0, float s1, float s2, void* dst, void* taps_w, void* taps_s,
-                      void* stream) {
+                      int PW, const void* meta, int k_pad, const void* halves, int out,
+                      float m0, float m1, float m2, float s0, float s1, float s2, void* dst,
+                      void* taps_w, void* taps_s, void* stream) {
   using namespace oadp;
   if (G <= 0 || per_image <= 0) return cudaSuccess;
   if (k_pad <= 0 || k_pad > MAX_TAPS || out <= 0 || PH <= 0 || PW <= 0)
@@ -300,6 +306,7 @@ int oadp_resize_crops(const void* images, long long image_stride, int G, int per
   a.PH = PH;
   a.PW = PW;
   a.meta = static_cast<const float*>(meta);
+  a.halves = static_cast<const int*>(halves);
   a.k_pad = k_pad;
   a.out = out;
   // bands a crop: enough blocks for two a multiprocessor, bands of at

@@ -169,23 +169,30 @@ class OakeSteps:
             x = x.pin_memory()
         return x.to(self.model.device, non_blocking=True)
 
-    def _on_kernel(self, images: torch.Tensor) -> bool:
+    def _on_kernel(self, images: torch.Tensor, k_pad: int) -> bool:
         """Whether the crops take :func:`P.resize_crops`' kernel: a bf16 model
-        with its images on the card."""
-        return self._cdt is not None and images.device.type == 'cuda'
+        with its images on the card, at a tap count the kernel takes
+        (:func:`P.resize_crops_supported`)."""
+        return (self._cdt is not None and images.device.type == 'cuda'
+                and P.resize_crops_supported(k_pad))
 
-    def _crops(self, images, meta, k_pad: int) -> torch.Tensor:
+    def _crops(self, images, meta, k_pad: int, k_own=None) -> torch.Tensor:
         """Source images and ``(G * B, 9)`` crop scalars → normalized ``(G *
         B, 224, 224, 3)`` crops, crop ``c`` cut from image ``c // B``: one
         image ``(PH, PW, 3)`` for every crop, or ``(G, PH, PW, 3)`` (``B =
-        1``: a paired batch). On the kernel, one launch for all of them."""
-        if self._on_kernel(images):
-            return P.resize_crops(images, meta, k_pad)
+        1``: a paired batch). ``k_own``: each image's own tap count, where
+        the group's ``k_pad`` is larger (:func:`P.device_coeffs`). On the
+        kernel, one launch for all of them."""
+        if self._on_kernel(images, k_pad):
+            return P.resize_crops(images, meta, k_pad, k_own=k_own)
         if images.dim() == 4 and images.shape[0] != meta.shape[0]:  # G chunks of B crops
             b = meta.shape[0] // images.shape[0]
-            return torch.cat([self._crops(image, meta[i * b:(i + 1) * b], k_pad)
-                              for i, image in enumerate(images)])
-        wx_w, wx_s, wy_w, wy_s = P.device_coeffs(meta, k_pad)
+            return torch.cat([
+                self._crops(image, meta[i * b:(i + 1) * b], k_pad,
+                            None if k_own is None else k_own[i:i + 1])
+                for i, image in enumerate(images)])
+        wx_w, wx_s, wy_w, wy_s = P.device_coeffs(
+            meta, k_pad, k_own=P._own_per_crop(k_own, meta.shape[0], meta.device))
         crops = P.apply_resize_coeffs(
             images.float(), wx_w, wx_s, wy_w, wy_s, compute_dtype=self._cdt
         )
@@ -299,12 +306,15 @@ class OakeSteps:
         bufs,  # (G, packed_chunk_size(B)) uint8 host array (or list)
         crop_rows: int,  # B: crop rows per chunk
         k_pad: int,  # tap count (shared by the group)
+        k_own=None,  # G ints: each chunk's own tap bucket (<= k_pad)
     ) -> torch.Tensor:
         """→ ``(G * B, output_dim)`` fp16 embeddings, chunk-major.
 
         Each chunk arrives as one flat uint8 buffer ``[image bytes | mask
         bytes | meta-float32 bytes]`` built by ``ObjectsPipeline.prepare``;
-        the group is one host-to-device copy and the unpack is views."""
+        the group is one host-to-device copy and the unpack is views. A
+        chunk's crops keep the weights of its own tap bucket ``k_own``
+        (``oadp_tpu`` runs each bucket as its own program)."""
         buf = self._to_device(bufs)  # (G, L) uint8
         g = buf.shape[0]
         grid = self.model.grid
@@ -315,5 +325,5 @@ class OakeSteps:
             g * crop_rows, grid, grid
         )
         metas = buf[:, n_img + n_mask:].contiguous().view(torch.float32)
-        crops = self._crops(images, metas.reshape(g * crop_rows, 9), k_pad)
+        crops = self._crops(images, metas.reshape(g * crop_rows, 9), k_pad, k_own)
         return self._objects(crops, masks)

@@ -144,22 +144,21 @@ class ObjectsPipeline(BaseOakePipeline):
         # group run as ONE encoder batch (``objects_packed_step``), queued
         # without waiting; the fetch happens one batch later in finalize()
         # so device compute overlaps host IO. A group takes the largest
-        # tap bucket of its images: the extra taps weigh exactly 0, so up
-        # to 32 taps every row is the one its own bucket gives. Past 32
-        # the tap sum is taken in two halves (oadp_tpu's order there,
-        # ``ops/preprocess.tap_sum_half``), which can move a weight of a
-        # smaller bucket's crop by one 2^-22 step; oadp_tpu splits by tap
-        # bucket, because each is a separately compiled program.
+        # tap bucket of its images: the extra taps weigh exactly 0, and each
+        # chunk's tap sums split where its own bucket's do (``k_own``), so
+        # every row is the one its own bucket gives (oadp_tpu splits by tap
+        # bucket, because each is a separately compiled program).
         groups: dict[int, dict[str, list]] = {}
         for i, item in enumerate(prepared):
             for j, (buf, b, m) in enumerate(item['chunks']):
-                g = groups.setdefault(b, dict(bufs=[], span=[], k=0))
+                g = groups.setdefault(b, dict(bufs=[], span=[], ks=[]))
                 g['span'].append((i, j, len(g['bufs']) * b, m))
                 g['bufs'].append(buf)
-                g['k'] = max(g['k'], item['k'])
+                g['ks'].append(item['k'])
         per_item: list[dict[int, tuple]] = [{} for _ in prepared]
         for b, g in groups.items():
-            out = self.steps.objects_packed_step(np.stack(g['bufs']), b, g['k'])
+            out = self.steps.objects_packed_step(
+                np.stack(g['bufs']), b, max(g['ks']), k_own=g['ks'])
             for i, j, off, m in g['span']:
                 per_item[i][j] = (out, off, m)
         return [

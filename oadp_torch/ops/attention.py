@@ -114,10 +114,7 @@ LAUNCHES = {
     'out_proj_residual': 0,
 }
 
-#: ln_gemm's epilogues; _EPI_PATCH is _EPI_NONE's code as a kernel of its
-#: own, for the patch embedding's product (``ops/embed.py``), so that a
-#: profile tells it from kernel 1's QKV product
-_EPI_NONE, _EPI_GELU, _EPI_RESIDUAL, _EPI_PATCH = 0, 1, 2, 3
+_EPI_NONE, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
 _HEAD_DIM = 64
 _MAX_TOKENS = 256
 
@@ -434,12 +431,11 @@ def ln_gemm_units(plan: GemmPlan, segs) -> int:
 def ln_gemm_plan(segs, k: int, epilogue: int, sms: int) -> GemmPlan:
     """The plan whose last wave ends first for an ``ln_gemm`` launch over
     row sets ``segs`` (``(M, N)`` each) with depth ``k`` and ``epilogue``
-    (0 none, 1 quick_gelu, 2 residual, 3 none for the patch embedding) on
-    a card of ``sms`` multiprocessors: waves x a block's tile / its rate in
-    :data:`GEMM_RATES` (the residual's by depth; 3 takes none's), ping-pong
-    only where every block gets :data:`PINGPONG_MIN_TILES` tiles."""
-    column = 0 if epilogue == _EPI_PATCH else epilogue + (
-        epilogue == _EPI_RESIDUAL and k > 1024)
+    (0 none, 1 quick_gelu, 2 residual) on a card of ``sms``
+    multiprocessors: waves x a block's tile / its rate in
+    :data:`GEMM_RATES` (the residual's by depth), ping-pong only where
+    every block gets :data:`PINGPONG_MIN_TILES` tiles."""
+    column = epilogue + (epilogue == _EPI_RESIDUAL and k > 1024)
 
     def cost(plan):
         blocks = ln_gemm_units(plan, segs) * plan.cluster

@@ -139,7 +139,7 @@ def library() -> ctypes.CDLL:
             f = ctypes.c_float
             lib.oadp_resize_crops.argtypes = [
                 p, ll, i, i, i, i,  # images, image stride, G, per image, PH, PW
-                p, i, i,  # meta, k_pad, out
+                p, i, p, i,  # meta, k_pad, halves, out
                 f, f, f, f, f, f,  # mean, std
                 p, p, p, p,  # dst, taps_w, taps_s, stream
             ]

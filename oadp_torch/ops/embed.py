@@ -11,9 +11,9 @@ pos)`` in three launches (:func:`patch_embed_ln_pre`):
   ``(D, 3, P, P)`` layout, zeros where a window crosses the padding
   (``csrc/embed.cu``);
 * :func:`patch_embed`: the product with ``conv1`` K-major on ``ln_gemm``
-  (``ops/attention.py:_ln_gemm``, no LayerNorm, no epilogue; its kernel
-  instance of its own, ``_EPI_PATCH``, so a profile names it): one fp32
-  sum, rounded once to bf16;
+  (``ops/attention.py:_ln_gemm``, no LayerNorm, no epilogue; a profile
+  tells it from kernel 1's QKV product as the ``ln_gemm`` launch after
+  ``patch_rows``): one fp32 sum, rounded once to bf16;
 * :func:`embed_ln_pre`: the CLS row, the positional embedding and ``ln_pre``
   (``csrc/embed.cu``), rounding at each step as the plain route does.
 
@@ -149,7 +149,7 @@ def patch_embed(rows: torch.Tensor, conv1_wt: torch.Tensor,
         raise ValueError(f'{name}: rows {tuple(rows.shape)}, weight {tuple(conv1_wt.shape)}, '
                          f'bias {tuple(bias.shape)}')
     out = torch.empty((rows.shape[0], conv1_wt.shape[0]), dtype=rows.dtype, device=rows.device)
-    A._ln_gemm(rows, conv1_wt, bias, out, epilogue=A._EPI_PATCH)
+    A._ln_gemm(rows, conv1_wt, bias, out)
     LAUNCHES[name] += 1
     return out
 

@@ -58,6 +58,7 @@ __all__ = [
     'resize_crops',
     'resize_crops_plain',
     'resize_crops_args',
+    'resize_crops_supported',
 ]
 
 import math
@@ -339,31 +340,52 @@ def _bicubic_t(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def tap_sum_half(k_pad: int) -> int:
+def tap_sum_half(k_pad):
     """Where :func:`device_coeffs` splits its sum of a pixel's ``k_pad``
-    taps: the first part's length. ``oadp_tpu``'s ``w.sum(-1)`` on XLA's CPU
-    adds up to 32 taps left to right, and 33 to 64 in two left-to-right
-    halves, the first ``ceil(k_pad / 2)`` long, added at the end (found by
-    matching its outputs bit for bit at each count; ``tests/
-    test_torch_preprocess.py`` holds both to it). Past 64 its order is not
-    known and the sum stays left to right."""
+    taps: the first part's length (an int, or elementwise over an integer
+    tensor). ``oadp_tpu``'s ``w.sum(-1)`` on XLA's CPU adds up to 32 taps
+    left to right, and 33 to 64 in two left-to-right halves, the first
+    ``ceil(k_pad / 2)`` long, added at the end (found by matching its
+    outputs bit for bit at each count; ``tests/test_torch_preprocess.py``
+    holds both to it). Past 64 its order is not known and the sum stays
+    left to right."""
+    if isinstance(k_pad, torch.Tensor):
+        return torch.where((k_pad > 32) & (k_pad <= 64), (k_pad + 1) // 2, k_pad)
     return (k_pad + 1) // 2 if 32 < k_pad <= 64 else k_pad
+
+
+def _own_per_crop(k_own, crops: int, device) -> torch.Tensor | None:
+    """``k_own``, one tap bucket an image of a group, as one a crop (the
+    images' crops in order), or None."""
+    if k_own is None:
+        return None
+    k_own = torch.as_tensor(np.asarray(k_own, np.int64))
+    return k_own.repeat_interleave(crops // len(k_own)).to(device)
 
 
 def device_coeffs(
     meta: torch.Tensor,  # (B, 9) float32 from clip_transform_meta
     k_pad: int,
     out: int = 224,
+    k_own: torch.Tensor | None = None,  # (B,) int: each crop's own tap bucket
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """On-device resample coefficients: ``(wx_w, wx_start, wy_w,
     wy_start)`` of shapes ``(B, out, K)`` / ``(B, out)``.
 
     Float32 re-derivation of Pillow's ``precompute_coeffs`` on the
     device, operation for operation as ``oadp_tpu``'s ``device_coeffs``
-    (the host builders compute the same thing in float64).
+    (the host builders compute the same thing in float64). ``k_own``
+    (``<= k_pad``, default ``k_pad``) is the tap count ``oadp_tpu`` runs a
+    crop at: its tap sum is split where :func:`tap_sum_half` splits
+    ``k_own`` taps, so a crop padded to a group's larger ``k_pad`` keeps
+    the weights of its own bucket bit for bit (the taps past ``k_own``
+    weigh exactly 0).
     """
     x0, y0, cw, ch, ow, oh, left, top, identity = meta.float().unbind(-1)
     dev = meta.device
+    own = (torch.full((meta.shape[0],), k_pad, dtype=torch.int64, device=dev)
+           if k_own is None else k_own.to(device=dev, dtype=torch.int64))
+    half = tap_sum_half(own)[:, None]  # (B, 1)
 
     def axis(crop0, size, n_out, offset):
         o = torch.arange(out, dtype=torch.float32, device=dev)[None, :]
@@ -387,16 +409,14 @@ def device_coeffs(
         w = torch.where(taps < (xend - xmin)[..., None], w, 0.0)
         # the tap sum in the order oadp_tpu's reduction takes on XLA's CPU
         # (another order moves a weight by one 2^-22 step now and then):
-        # left to right over each part of tap_sum_half's split, then added
-        half = tap_sum_half(k_pad)
-        ww = None
-        for lo, hi in ((0, half), (half, k_pad)):
-            if lo < hi:
-                part = w[..., lo]
-                for k in range(lo + 1, hi):
-                    part = part + w[..., k]
-                ww = part if ww is None else ww + part
-        ww = ww[..., None]
+        # left to right over each part of tap_sum_half's split of the
+        # crop's own tap count, then added (adding 0 is exact)
+        first, rest = w[..., 0], torch.zeros_like(w[..., 0])
+        for k in range(1, k_pad):
+            in_first = k < half
+            first = torch.where(in_first, first + w[..., k], first)
+            rest = torch.where(in_first, rest, rest + w[..., k])
+        ww = (first + rest)[..., None]
         w = w / torch.where(ww == 0, 1.0, ww)
         q = float(1 << PRECISION_BITS)
         w = torch.trunc(w * q + 0.5 * torch.sign(w)) / q
@@ -628,10 +648,12 @@ def resize_crops_plain(
     *,
     out: int = 224,
     return_taps: bool = False,
+    k_own=None,  # G ints: each image's own tap bucket
 ):
     """The plain version of :func:`resize_crops`: crop ``c`` of image ``c //
     B`` resized and normalized, ``(G * B, out, out, 3)`` bf16; with
-    ``return_taps`` also :func:`device_coeffs`' taps.
+    ``return_taps`` also :func:`device_coeffs`' taps (each image's crops
+    at its ``k_own``).
 
     A direct tap sum (no dense matrix): each weight of
     :func:`device_coeffs` rounded to bf16, then for every output value the
@@ -646,7 +668,8 @@ def resize_crops_plain(
     crops = meta.shape[0]
     per = crops // g
     dev = images.device
-    taps = device_coeffs(meta.float(), k_pad, out)
+    _check_own(k_own, g, k_pad)
+    taps = device_coeffs(meta.float(), k_pad, out, _own_per_crop(k_own, crops, dev))
     wx_w, wx_s, wy_w, wy_s = taps
     wxb, wyb = (w.to(torch.bfloat16).float() for w in (wx_w, wy_w))
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
@@ -673,14 +696,28 @@ def resize_crops_plain(
     return (res, taps) if return_taps else res
 
 
+def _check_own(k_own, g: int, k_pad: int) -> None:
+    if k_own is not None and (len(k_own) != g or not all(0 < k <= k_pad for k in k_own)):
+        raise ValueError(f'resize_crops: k_own {list(k_own)} is not {g} tap counts in '
+                         f'(0, {k_pad}]')
+
+
+def resize_crops_supported(k_pad: int) -> bool:
+    """Whether :func:`resize_crops`' kernel takes ``k_pad`` taps an axis: up
+    to :data:`RESIZE_MAX_TAPS`, as far as :func:`device_coeffs`' tap sum has
+    a known order (the objects CLI passes it once ``max_image_size`` is
+    above ~1227)."""
+    return 0 < k_pad <= RESIZE_MAX_TAPS
+
+
 def resize_crops_args(images: torch.Tensor, meta: torch.Tensor, k_pad: int,
-                      out: int = 224) -> tuple[int, int, int]:
+                      out: int = 224, k_own=None) -> tuple[int, int, int]:
     """What :func:`resize_crops` hands its kernel about the inputs, checked:
     ``(G, crops per image, elements between images)``. Raises on what the
     kernel does not take: not uint8 images whose each ``(PH, PW, 3)`` is
     contiguous (the group may be a view, as the packed chunks are), not
     fp32 contiguous ``(G * B, 9)`` scalars, a tap count past the kernel's
-    cap."""
+    cap, ``k_own`` not one count in ``(0, k_pad]`` an image."""
     images = _grouped(images)
     if images.dim() != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
         raise TypeError(f'resize_crops: images must be uint8 (G, PH, PW, 3), got '
@@ -693,8 +730,9 @@ def resize_crops_args(images: torch.Tensor, meta: torch.Tensor, k_pad: int,
             or not meta.is_contiguous() or meta.shape[0] % g):
         raise ValueError(f'resize_crops: meta must be contiguous fp32 (G * B, 9), got '
                          f'{meta.dtype} {tuple(meta.shape)} for G = {g}')
-    if not 0 < k_pad <= RESIZE_MAX_TAPS or out <= 0:
+    if not resize_crops_supported(k_pad) or out <= 0:
         raise ValueError(f'resize_crops: k_pad {k_pad} outside (0, {RESIZE_MAX_TAPS}]')
+    _check_own(k_own, g, k_pad)
     return g, meta.shape[0] // g, images.stride(0)
 
 
@@ -707,12 +745,15 @@ def resize_crops(
     *,
     out: int = 224,
     return_taps: bool = False,
+    k_own=None,  # G ints: each image's own tap bucket
 ):
     """The CLIP crops of a dispatch: crop ``c`` cut from image ``c // B``
     (``B`` crops an image), resized as PIL's two-pass bicubic, each pass
     rounded to uint8, and normalized: ``(G * B, out, out, 3)`` bf16. With
     ``return_taps`` also the taps the kernel derived, as
     :func:`device_coeffs` returns them (``(wx_w, wx_s, wy_w, wy_s)``).
+    ``k_own`` gives each image the tap count ``oadp_tpu`` would run its
+    crops at (``<= k_pad``, default ``k_pad``; see :func:`device_coeffs`).
 
     Replaces ``oadp_tpu``'s XLA ``prep_one`` and ``normalize_clip``
     (``oadp_tpu/oake/encoders.py:401-432``): :func:`device_coeffs`,
@@ -725,8 +766,8 @@ def resize_crops(
     ~0.18 ms)."""
     if images.device.type == 'cpu':
         return resize_crops_plain(images, meta, k_pad, mean, std, out=out,
-                                  return_taps=return_taps)
-    g, per, stride = resize_crops_args(images, meta, k_pad, out)
+                                  return_taps=return_taps, k_own=k_own)
+    g, per, stride = resize_crops_args(images, meta, k_pad, out, k_own)
     if meta.device != images.device:
         raise ValueError('resize_crops: images and meta must be on one CUDA device')
     images = _grouped(images)
@@ -736,12 +777,15 @@ def resize_crops(
     if return_taps:
         taps_w = torch.empty((crops, 2, out, k_pad), dtype=torch.float32, device=dst.device)
         taps_s = torch.empty((crops, 2, out), dtype=torch.int32, device=dst.device)
+    # where each image's tap sums split (tap_sum_half of its own count)
+    halves = None if k_own is None else torch.tensor(
+        [tap_sum_half(int(k)) for k in k_own], dtype=torch.int32).to(dst.device)
     mean = [float(v) for v in np.asarray(mean, np.float32)]
     std = [float(v) for v in np.asarray(std, np.float32)]
     lib = cuda_lib.library()
     cuda_lib.check(lib.oadp_resize_crops(
         images.data_ptr(), stride, g, per, images.shape[1], images.shape[2], meta.data_ptr(),
-        k_pad, out, *mean, *std, dst.data_ptr(),
+        k_pad, None if halves is None else halves.data_ptr(), out, *mean, *std, dst.data_ptr(),
         None if taps_w is None else taps_w.data_ptr(),
         None if taps_s is None else taps_s.data_ptr(),
         torch.cuda.current_stream(dst.device).cuda_stream,

@@ -99,14 +99,15 @@ def _kernel_part(name: str) -> str:
     by family (the preprocessing's ``resize_crops_kernel``, the patch
     embedding's ``patch_rows_kernel`` and ``embed_ln_pre_kernel`` each a
     part), ``ln_gemm``'s two schedules (``gemm_kernel``,
-    ``pingpong_kernel``) by epilogue (their template argument 1: 0, 1, 2
-    or 3, the patch embedding's product ``ln_gemm_patch``); then PyTorch's
-    library products (cuBLAS's ``nvjet``, CUTLASS and xmma kernels),
-    LayerNorm and elementwise kernels."""
+    ``pingpong_kernel``) by epilogue (their template argument 1: 0, 1 or
+    2; the patch embedding's product, epilogue 0, is told apart by its
+    profiler range in :func:`_breakdown`); then PyTorch's library products
+    (cuBLAS's ``nvjet``, CUTLASS and xmma kernels), LayerNorm and
+    elementwise kernels."""
     if 'oadp' in name:
         gemm = re.search(r'(?:gemm|pingpong)_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)', name)
         if gemm:
-            return {'1': 'ln_gemm_gelu', '2': 'ln_gemm_residual', '3': 'ln_gemm_patch'}.get(
+            return {'1': 'ln_gemm_gelu', '2': 'ln_gemm_residual'}.get(
                 gemm.group(1) or gemm.group(2), 'ln_gemm')
         for kernel in ('resize_crops_kernel', 'patch_rows_kernel', 'embed_ln_pre_kernel',
                        'ln_qkv_attention_kernel', 'attention_kernel', 'layer_norm_kernel'):
@@ -123,30 +124,54 @@ def _kernel_part(name: str) -> str:
     return 'other'
 
 
-def _launch_modules() -> list:
-    """The modules whose entry points count launches (``LAUNCHES``): the
-    attention family's, and where the tree has them the preprocessing's and
-    the patch embedding's (an older tree timed with this script has not)."""
-    import importlib
+def _patch_product(events) -> list:
+    """The patch embedding's products among a profile's events
+    (``prof.events()``), each ``(name, ms)``: the first ``ln_gemm`` kernel
+    on the card after each ``patch_rows_kernel`` (``ops/embed.py:
+    patch_embed_ln_pre`` launches the rows, then their product, on one
+    stream)."""
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    found, after_rows = [], False
+    for e in kernels:
+        part = _kernel_part(e.name)
+        if part == 'patch_rows_kernel':
+            after_rows = True
+        elif part == 'ln_gemm' and after_rows:
+            found.append((e.name, (e.time_range.end - e.time_range.start) / 1e3))
+            after_rows = False
+    return found
 
-    mods = []
-    for name in ('attention', 'preprocess', 'embed'):
-        try:
-            mod = importlib.import_module(f'.ops.{name}', __package__)
-        except ImportError:
-            continue
-        if hasattr(mod, 'LAUNCHES'):
-            mods.append(mod)
-    return mods
+
+def _split_patch_product(parts: dict, patch: list, launches: int) -> None:
+    """Move the patch products (:func:`_patch_product`) from the ``ln_gemm``
+    part to a part of their own, ``ln_gemm_patch``. Raises when the entry
+    counted another number of ``launches``: the split would misname the
+    products then."""
+    if len(patch) != launches:
+        raise RuntimeError(f'profile: {launches} patch products launched, {len(patch)} '
+                           f'found after patch_rows')
+    for name, ms in patch:
+        part = parts[_kernel_part(name)]
+        part['ms'] -= ms
+        part['calls'] -= 1
+        if not part['calls']:
+            del parts[_kernel_part(name)]
+        moved = parts.setdefault('ln_gemm_patch', dict(ms=0.0, calls=0))
+        moved['ms'] += ms
+        moved['calls'] += 1
 
 
 def _breakdown(step) -> dict:
     """Wall time of ``step`` (host clock, synchronised, after two warm
     calls) and its peak device memory over three more, and of one more call
-    the CUDA time by kernel and by part (:func:`_kernel_part`) from
-    ``torch.profiler`` and the entry points' launches (the ``LAUNCHES`` of
-    ``ops/attention.py``, ``ops/preprocess.py`` and ``ops/embed.py``)."""
+    the CUDA time by kernel and by part (:func:`_kernel_part`, the patch
+    product apart) from ``torch.profiler`` and the entry points' launches
+    (the ``LAUNCHES`` of ``ops/attention.py``, ``ops/preprocess.py`` and
+    ``ops/embed.py``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .ops import attention, embed, preprocess
 
     for _ in range(2):
         step()
@@ -158,7 +183,7 @@ def _breakdown(step) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    mods = _launch_modules()
+    mods = (attention, preprocess, embed)
     for mod in mods:
         mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -174,6 +199,7 @@ def _breakdown(step) -> dict:
         part = parts.setdefault(_kernel_part(e.key), dict(ms=0.0, calls=0))
         part['ms'] += e.self_device_time_total / 1e3
         part['calls'] += e.count
+    _split_patch_product(parts, _patch_product(prof.events()), embed.LAUNCHES['patch_embed'])
     return dict(wall_ms=wall_ms, peak_memory_gb=peak_gb,
                 cuda_ms=sum(e.self_device_time_total for e in events) / 1e3,
                 by_part=parts, launches=launches,
@@ -544,24 +570,22 @@ def main(argv=None) -> int:
     if 'patch_embed' in only:
         crops = torch.randn(b, 224, 224, 3, device=dev, generator=gen).bfloat16()
         cfg, params = model.surgery_config, model.surgery_params
-        fields = {}
-        if hasattr(C, '_embed_ln_pre'):  # the kernels' route: rows, ln_gemm, embed_ln_pre
-            from .ops import embed as EM
+        from .ops import embed as EM
 
-            kern, p, s = params['kernel'], cfg.patch_size, cfg.stride
-            rows = EM.patch_rows(crops, p, s)
-            x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
-            ln = params['ln_pre']
-            args = (x.view(b, -1, cfg.width), params['class_embedding'],
-                    params['positional_embedding'], ln['scale'], ln['bias'])
-            fields = dict(
-                kernels_ms=_timed(lambda: C._embed_ln_pre(crops, params, cfg)),
-                kernels_device_ms=_device_ms(lambda: C._embed_ln_pre(crops, params, cfg), 5),
-                patch_rows_ms=_timed(lambda: EM.patch_rows(crops, p, s)),
-                patch_embed_ms=_timed(lambda: EM.patch_embed(rows, kern['conv1_wt'],
-                                                             kern['conv1_b'])),
-                embed_ln_pre_ms=_timed(lambda: EM.embed_ln_pre(*args, ln32=kern['ln_pre'])))
-            del rows, x, args
+        kern, p, s = params['kernel'], cfg.patch_size, cfg.stride
+        rows = EM.patch_rows(crops, p, s)
+        x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
+        ln = params['ln_pre']
+        args = (x.view(b, -1, cfg.width), params['class_embedding'],
+                params['positional_embedding'], ln['scale'], ln['bias'])
+        fields = dict(
+            kernels_ms=_timed(lambda: C._embed_ln_pre(crops, params, cfg)),
+            kernels_device_ms=_device_ms(lambda: C._embed_ln_pre(crops, params, cfg), 5),
+            patch_rows_ms=_timed(lambda: EM.patch_rows(crops, p, s)),
+            patch_embed_ms=_timed(lambda: EM.patch_embed(rows, kern['conv1_wt'],
+                                                         kern['conv1_b'])),
+            embed_ln_pre_ms=_timed(lambda: EM.embed_ln_pre(*args, ln32=kern['ln_pre'])))
+        del rows, x, args
         emit('patch_embed', crops=b, stride=cfg.stride, patch=cfg.patch_size, **fields,
              block_product_ms=_timed(lambda: C._embed_patches(crops, params, cfg)),
              block_product_ln_pre_ms=_timed(lambda: C._layer_norm(

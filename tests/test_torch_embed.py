@@ -204,12 +204,10 @@ def test_entries_take_the_plain_versions_on_the_cpu():
 
 
 @pytest.mark.parametrize('name, part', [
-    ('void oadp::(anonymous namespace)::gemm_kernel<256, 3>(oadp::(anonymous namespace)::Params)',
-     'ln_gemm_patch'),
-    ('_ZN4oadp12_GLOBAL__N_111gemm_kernelILi128ELi3EEEvNS0_6ParamsE', 'ln_gemm_patch'),
-    ('_ZN4oadp12_GLOBAL__N_115pingpong_kernelILi256ELi3EEEvNS0_6ParamsE', 'ln_gemm_patch'),
     ('void oadp::(anonymous namespace)::gemm_kernel<256, 0>(oadp::(anonymous namespace)::Params)',
      'ln_gemm'),
+    ('_ZN4oadp12_GLOBAL__N_115pingpong_kernelILi256ELi0EEEvNS0_6ParamsE', 'ln_gemm'),
+    ('_ZN4oadp12_GLOBAL__N_111gemm_kernelILi128ELi2EEEvNS0_6ParamsE', 'ln_gemm_residual'),
     ('void oadp::(anonymous namespace)::resize_crops_kernel(oadp::(anonymous '
      'namespace)::ResizeArgs)', 'resize_crops_kernel'),
     ('_ZN4oadp12_GLOBAL__N_117patch_rows_kernelEPK13__nv_bfloat16iiiiiiPS1_',
@@ -219,24 +217,60 @@ def test_entries_take_the_plain_versions_on_the_cpu():
      '__nv_bfloat16*)', 'embed_ln_pre_kernel'),
 ])
 def test_profile_parts_of_the_embedding(name, part):
-    """``profile_kernels``' split of a dispatch names the three new kernels
-    and the patch product (``ln_gemm``'s epilogue 3) as parts of their own,
-    apart from kernel 1's QKV product (epilogue 0)."""
+    """``profile_kernels``' split of a dispatch names the two new kernels of
+    ``csrc/embed.cu`` and ``resize_crops`` as parts of their own; the patch
+    product is ``ln_gemm`` without epilogue by name, as kernel 1's QKV
+    product is (its profiler range tells them apart)."""
     from oadp_torch import profile_kernels
 
     assert profile_kernels._kernel_part(name) == part
 
 
-def test_patch_product_plan_is_the_plain_product_plan():
-    """The patch product's launch (epilogue 3, no epilogue's code) takes the
-    plan ``ln_gemm_plan`` gives a product without epilogue, at the objects
-    (2048 crops x 196 patches) and globals (16 x 49) rows of K = 3072."""
-    from oadp_torch.ops import attention as A
+_GEMM0 = ('void oadp::(anonymous namespace)::gemm_kernel<256, 0>(oadp::(anonymous '
+          'namespace)::Params)')
 
-    for m in (2048 * 196, 16 * 49):
-        plan = A.ln_gemm_plan([(m, 768)], 3072, A._EPI_PATCH, 132)
-        assert plan == A.ln_gemm_plan([(m, 768)], 3072, A._EPI_NONE, 132)
-        assert plan in A.GEMM_RATES
+
+_ROWS = '_ZN4oadp12_GLOBAL__N_117patch_rows_kernelEPK13__nv_bfloat16iiiiiiPS1_'
+
+
+class _Event:
+    """A kernel of ``prof.events()``: its name, the card, its time range."""
+
+    def __init__(self, name, start, us):
+        self.name, self.device_type = name, torch.autograd.DeviceType.CUDA
+        self.time_range = type('Interval', (), dict(start=start, end=start + us))()
+
+
+def _dispatch_events(encoders: int, fill: bool):
+    """A profile's kernels, out of launch order: per encoder a QKV product
+    before the rows, the rows, a fill (``fill``), the patch product, and
+    12 QKV products after it."""
+    events, t = [], 0.0
+    for _ in range(encoders):
+        seq = [_GEMM0, _ROWS] + ['elementwise_kernel'] * fill + [_GEMM0] * 13
+        for name in seq:
+            events.append(_Event(name, t, 900.0 if name == _GEMM0 else 10.0))
+            t += 1000.0
+    return events[::-1]
+
+
+@pytest.mark.parametrize('encoders, fill', [(1, False), (2, False), (1, True)])
+def test_patch_product_split_after_patch_rows(encoders, fill):
+    """The dispatch's split names the first ``ln_gemm`` kernel after each
+    ``patch_rows_kernel`` on the card the patch product and moves it from
+    ``ln_gemm`` to ``ln_gemm_patch``, leaving the QKV products before and
+    after it; another count than the entry's launches raises."""
+    from oadp_torch import profile_kernels as PK
+
+    patch = PK._patch_product(_dispatch_events(encoders, fill))
+    assert patch == [(_GEMM0, 0.9)] * encoders
+    parts = {'ln_gemm': dict(ms=0.9 * 14 * encoders, calls=14 * encoders)}
+    PK._split_patch_product(parts, patch, encoders)
+    assert parts['ln_gemm']['calls'] == 13 * encoders
+    assert parts['ln_gemm']['ms'] == pytest.approx(0.9 * 13 * encoders)
+    assert parts['ln_gemm_patch'] == dict(ms=pytest.approx(0.9 * encoders), calls=encoders)
+    with pytest.raises(RuntimeError):
+        PK._split_patch_product(parts, patch, encoders + 1)
 
 
 @pytest.mark.cuda

@@ -241,13 +241,16 @@ def test_resize_crops_plain_groups_and_pairs():
     np.testing.assert_array_equal(_plain_pixels(images, meta, 13), want)
 
 
-def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224):
+def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224, k_own=None):
     """The tap prologue of ``csrc/preprocess.cu`` (``axis_taps``) in float32
     numpy, op for op in the kernel's order (numpy rounds every operation;
-    the kernel's ``_rn`` intrinsics forbid FMA contraction)."""
+    the kernel's ``_rn`` intrinsics forbid FMA contraction); ``k_own`` one
+    tap count a crop, whose split the crop's tap sum takes."""
     f = np.float32
     x0, y0, cw, ch, ow, oh, left, top, ident = (meta[:, i:i + 1].astype(f) for i in range(9))
     o = np.arange(out, dtype=f)[None]
+    own = np.full(len(meta), k_pad) if k_own is None else np.asarray(k_own)
+    split = np.asarray([tpp.tap_sum_half(int(k)) for k in own])[:, None]  # (B, 1)
 
     def axis(crop0, size, n_out, offset):
         scale = size / n_out
@@ -258,8 +261,7 @@ def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224):
         xend = np.minimum(np.trunc((center + support) + f(0.5)), size)
         valid = xend - xmin
         w = np.zeros(center.shape + (k_pad,), f)
-        half = tpp.tap_sum_half(k_pad)
-        ww = rest = None
+        ww = rest = np.zeros(center.shape, f)
         for k in range(k_pad):
             kf = f(k)
             ax = np.abs((((kf + xmin) - center) + f(0.5)) / filterscale)
@@ -267,12 +269,10 @@ def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224):
             far = ((((ax - f(5)) * ax) + f(8)) * ax - f(4)) * f(-0.5)
             v = np.where(kf < valid, np.where(ax < 1, near, np.where(ax < 2, far, f(0))), f(0))
             w[..., k] = v
-            if k < half:  # left to right, in two parts past 32 taps
-                ww = v if ww is None else ww + v
-            else:
-                rest = v if rest is None else rest + v
-        if rest is not None:
-            ww = ww + rest
+            # left to right, in two parts past 32 taps: [0, split), [split, k_pad)
+            ww = np.where(k < split, v if k == 0 else ww + v, ww)
+            rest = np.where(k == split, v, np.where(k > split, rest + v, rest))
+        ww = np.where(split < k_pad, ww + rest, ww)
         v = w / np.where(ww == 0, f(1), ww)[..., None]
         half = np.where(v > 0, f(0.5), np.where(v < 0, f(-0.5), f(0)))
         q = f(1 << tpp.PRECISION_BITS)
@@ -315,6 +315,143 @@ def test_kernel_tap_prologue_is_device_coeffs(k):
         np.testing.assert_array_equal(m, np.asarray(b))
 
 
+def _bucket_boxes(rng, own: int, n: int = 40):
+    """``n`` crops of a 640 x 480 image whose tap counts reach ``own``:
+    scales from 3/4 of ``(own - 1) / 4`` up to it."""
+    side = rng.uniform(0.75, 1.0, n) * 56 * (own - 1)
+    x0, y0 = rng.uniform(-200, 200, n), rng.uniform(-200, 200, n)
+    return np.stack([x0, y0, x0 + side, y0 + side * rng.uniform(0.9, 1.0, n)], -1)
+
+
+@pytest.mark.parametrize('own', [21, 33])
+def test_own_tap_bucket_at_a_larger_k_pad(own):
+    """An image of tap bucket ``own`` in a group run at the objects CLI's
+    largest, 35: with ``k_own`` its crops' weights are ``oadp_tpu``'s at
+    ``own`` bit for bit (the program ``oadp_tpu`` compiles for that
+    bucket), the taps past ``own`` exactly 0, and the kernel's prologue
+    (the numpy model) agrees. Without ``k_own`` the tap sums split at 35's
+    half and weights move (the data exercises the split)."""
+    rng = np.random.RandomState(own)
+    meta = tpp.clip_transform_meta(640, 480, _bucket_boxes(rng, own, 80))
+    ks = 2 * np.ceil(2 * np.maximum(meta[:, 2] / meta[:, 4], meta[:, 3] / meta[:, 5])) + 1
+    assert ks.max() == own
+    ref = jpp.device_coeffs(jnp.asarray(meta), own)
+    k_own = torch.full((len(meta),), own)
+    ours = tpp.device_coeffs(torch.from_numpy(meta), 35, k_own=k_own)
+    model = _kernel_taps(meta, 35, k_own=k_own.numpy())
+    wide = tpp.device_coeffs(torch.from_numpy(meta), 35)
+    moved = 0
+    for r, a, m, w in zip(ref, ours, model, wide):
+        r, a, w = np.asarray(r), a.numpy(), w.numpy()
+        np.testing.assert_array_equal(m, a)
+        if a.ndim == 3:
+            np.testing.assert_array_equal(a[..., :own], r)
+            assert not a[..., own:].any()
+            moved += int((w[..., :own] != r).sum())
+        else:
+            np.testing.assert_array_equal(a, r)
+    assert moved > 0
+
+
+def test_resize_crops_plain_mixed_buckets_one_call():
+    """One call for two images of tap buckets 21 and 35 at ``k_pad`` 35
+    (``objects_packed_step``'s group) equals each image alone at its own
+    bucket and ``oadp_tpu``'s bf16 pixels there (at most 1e-5 of them one
+    uint8 step off); the taps it derives (80 crops an image, on 16 x 16
+    images, most taps reading the zero fill) are ``oadp_tpu``'s at each
+    image's bucket, where some of the 21-tap image's weights move at 35's
+    split without ``k_own``; ``k_own`` is checked (one count an image,
+    within ``k_pad``)."""
+    rng = np.random.RandomState(5)
+    images = np.stack([_image(rng, 480, 640, 640), _image(rng, 480, 640, 640)])
+    metas = [tpp.clip_transform_meta(640, 480, _bucket_boxes(rng, k, 6)) for k in (21, 35)]
+    both = tpp.resize_crops_plain(torch.from_numpy(images), torch.from_numpy(
+        np.concatenate(metas)), 35, (0.0,) * 3, (1.0,) * 3, k_own=(21, 35)).float().numpy()
+    for g, k in enumerate((21, 35)):
+        alone = _plain_pixels(images[g], metas[g], k)
+        np.testing.assert_array_equal(both[6 * g:6 * (g + 1)], alone)
+        # the plain version's sums run in another order than oadp_tpu's dense
+        # product: a sum within an ulp of a .5 tie may round one step apart
+        steps = np.abs(alone - _jax_crops(images[g], metas[g], k))
+        assert steps.max() <= 1 and (steps > 0).sum() <= 1e-5 * steps.size
+    rng = np.random.RandomState(21)
+    metas = [tpp.clip_transform_meta(640, 480, _bucket_boxes(rng, k, 80)) for k in (21, 35)]
+    small = torch.from_numpy(np.stack([_image(rng, 16, 16, 16), _image(rng, 16, 16, 16)]))
+    _, taps = tpp.resize_crops_plain(small, torch.from_numpy(np.concatenate(metas)), 35,
+                                     k_own=(21, 35), return_taps=True)
+    for g, k in enumerate((21, 35)):
+        for got, want in zip(taps, jpp.device_coeffs(jnp.asarray(metas[g]), k)):
+            got = got[80 * g:80 * (g + 1)].numpy()
+            np.testing.assert_array_equal(got[..., :k] if got.ndim == 3 else got,
+                                          np.asarray(want))
+    wide = tpp.device_coeffs(torch.from_numpy(metas[0]), 35)
+    assert any((w[..., :21].numpy() != np.asarray(r)).any()
+               for w, r in zip(wide[::2], jpp.device_coeffs(jnp.asarray(metas[0]), 21)[::2]))
+    for bad in ((21,), (21, 36), (0, 35)):
+        with pytest.raises(ValueError):
+            tpp.resize_crops_args(small, torch.from_numpy(np.concatenate(metas)), 35,
+                                  k_own=bad)
+
+
+@pytest.mark.parametrize('k_pad, on_kernel', [(35, True), (64, True), (65, False)])
+def test_crops_take_the_kernel_up_to_its_taps(k_pad, on_kernel, monkeypatch):
+    """A bf16 model's crops take ``resize_crops``' kernel on the card up to
+    ``RESIZE_MAX_TAPS`` taps; past it (the objects CLI's ``k_max`` once
+    ``max_image_size`` is above ~1227) the dense route, as on the CPU.
+    Here the images say they are on the card; at 65 the dense route runs
+    (on the CPU tensors behind them) and the kernel's entry is not called."""
+    from oadp_torch.oake import encoders as E
+
+    model = E.load_clip(None, 'bfloat16', vit=dict(width=64, layers=1, heads=1, output_dim=32),
+                        device='cpu')
+    steps = E.OakeSteps(model, PAD, PAD)
+    assert tpp.resize_crops_supported(k_pad) == on_kernel
+    assert steps._on_kernel(torch.empty(0), k_pad) is False
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device('cuda')
+
+    image = torch.from_numpy(_image(np.random.RandomState(1)))
+    meta = torch.from_numpy(tpp.clip_transform_meta(300, 240, np.asarray([[0.0, 0, 300, 240]])))
+    assert steps._on_kernel(image.as_subclass(OnCard), k_pad) == on_kernel
+    if not on_kernel:
+        def refuse(*a, **k):
+            raise AssertionError('resize_crops called past its taps')
+
+        monkeypatch.setattr(tpp, 'resize_crops', refuse)
+        monkeypatch.setattr(E.OakeSteps, '_on_kernel',
+                            lambda self, images, k: E.P.resize_crops_supported(k))
+        got = steps._crops(image, meta, k_pad)
+        want = tpp.normalize_clip(tpp.apply_resize_coeffs(
+            image.float(), *tpp.device_coeffs(meta, k_pad), compute_dtype=torch.bfloat16),
+            torch.bfloat16)
+        assert torch.equal(got, want)
+
+
+def test_objects_batch_hands_each_chunk_its_tap_bucket():
+    """``ObjectsPipeline.execute_batch`` runs chunks of one crop bucket as one
+    group at the group's largest tap bucket and hands each chunk its own
+    (``k_own``), so a chunk's weights are its bucket's."""
+    from oadp_torch.oake.objects import ObjectsPipeline
+
+    calls = []
+
+    class Steps:
+        def objects_packed_step(self, bufs, b, k_pad, k_own=None):
+            calls.append((len(bufs), b, k_pad, list(k_own)))
+            return torch.zeros(len(bufs) * b, 4)
+
+    pipe = ObjectsPipeline.__new__(ObjectsPipeline)
+    pipe.steps = Steps()
+    item = lambda k, chunks: dict(  # noqa: E731
+        k=k, chunks=[(np.zeros(8, np.uint8), b, b) for b in chunks],
+        bboxes=np.zeros((1, 4)), objectness=np.zeros((1, 1)))
+    pipe.execute_batch([item(21, [16]), item(35, [16, 4]), item(33, [16])])
+    assert calls == [(3, 16, 35, [21, 35, 33]), (1, 4, 35, [35])]
+
+
 def test_resize_crops_args_what_the_kernel_takes():
     """What ``resize_crops`` hands its kernel: uint8 images whose each
     ``(PH, PW, 3)`` is contiguous (the packed chunks' view of one buffer,
@@ -349,8 +486,9 @@ def test_steps_hand_resize_crops_one_call_a_step(monkeypatch):
     crops with one ``resize_crops`` call a step (forced here on the CPU,
     where the entry takes its plain version): the packed chunks' view of
     one buffer and the chunks' scalars as one ``(G * B, 9)`` tensor, a
-    multi step's images gathered by index, the globals' paired images; the
-    embeddings equal the matmul route's."""
+    multi step's images gathered by index, the globals' paired images, each
+    chunk's own tap bucket (``k_own``) where the packed step is given one;
+    the embeddings equal the matmul route's."""
     from oadp_torch.oake import encoders as E
 
     model = E.load_clip(None, 'bfloat16', vit=dict(width=64, layers=1, heads=1, output_dim=32),
@@ -367,21 +505,27 @@ def test_steps_hand_resize_crops_one_call_a_step(monkeypatch):
         'objects_step': lambda: steps.objects_step(images[0], metas[0], masks[0], 21),
         'objects_multi_step': lambda: steps.objects_multi_step(images, [0, 1, 0], metas, masks, 21),
         'objects_packed_step': lambda: steps.objects_packed_step(bufs, 4, 35),
+        'objects_packed_own': lambda: steps.objects_packed_step(bufs, 4, 35, k_own=(21, 35)),
         'globals_step': lambda: steps.globals_step(np.stack(images), gmeta, 13),
     }
     want = {name: run().numpy() for name, run in runs.items()}
     seen = []
     plain = tpp.resize_crops
-    monkeypatch.setattr(tpp, 'resize_crops', lambda *a, **k: seen.append(a) or plain(*a, **k))
-    monkeypatch.setattr(E.OakeSteps, '_on_kernel', lambda self, images: True)
+    seen_own = []
+    monkeypatch.setattr(tpp, 'resize_crops', lambda *a, **k: seen.append(a) or seen_own.append(
+        k.get('k_own')) or plain(*a, **k))
+    monkeypatch.setattr(E.OakeSteps, '_on_kernel', lambda self, images, k_pad: True)
     for name, run in runs.items():
         seen.clear()
+        seen_own.clear()
         got = run().numpy()
         assert len(seen) == 1, name
         imgs, meta, k = seen[0]
         g, per, stride = tpp.resize_crops_args(imgs, meta, k)
         assert (g, per) == {'objects_step': (1, 4), 'objects_multi_step': (3, 4),
-                            'objects_packed_step': (2, 4), 'globals_step': (2, 1)}[name]
+                            'objects_packed_step': (2, 4), 'objects_packed_own': (2, 4),
+                            'globals_step': (2, 1)}[name]
+        assert seen_own[0] == (None if name != 'objects_packed_own' else (21, 35))
         assert meta.dtype == torch.float32 and meta.is_contiguous()
         if name == 'objects_packed_step':
             assert stride == bufs.shape[1]  # read in place from the packed buffer
@@ -426,3 +570,31 @@ def test_resize_crops_on_card(k):
         0.0 if int((steps > 0).sum()) == 0 else 0.02)
     paired = tpp.resize_crops(imgs, meta[::8].contiguous(), k)  # a crop an image
     assert torch.equal(paired, tpp.resize_crops_plain(imgs, meta[::8].contiguous(), k))
+
+
+@pytest.mark.cuda
+def test_resize_crops_on_card_own_buckets():
+    """Two images of tap buckets 21 and 33 in one launch at ``k_pad`` 35, each
+    split where its own bucket splits: the taps bit for bit ``device_coeffs``'
+    with ``k_own`` (the 21-tap image's equal to ``oadp_tpu``'s at 21 on the
+    CPU test), the pixels within one uint8 step of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(21)
+    images = torch.from_numpy(np.stack([_image(rng, 480, 640, 640),
+                                        _image(rng, 480, 640, 640)])).to(dev)
+    meta = torch.from_numpy(np.concatenate([tpp.clip_transform_meta(
+        640, 480, _bucket_boxes(rng, k, 16)) for k in (21, 33)])).to(dev)
+    tpp.reset_launches()
+    crops, taps = tpp.resize_crops(images, meta, 35, return_taps=True, k_own=(21, 33))
+    torch.cuda.synchronize()
+    assert tpp.LAUNCHES['resize_crops'] == 1
+    own = torch.tensor([21] * 16 + [33] * 16)
+    for got, want in zip(taps, tpp.device_coeffs(meta.cpu(), 35, k_own=own)):
+        assert torch.equal(got.cpu(), want)
+    zero, one = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+    px = tpp.resize_crops(images, meta, 35, zero, one, k_own=(21, 33)).float()
+    want = tpp.resize_crops_plain(images, meta, 35, zero, one, k_own=(21, 33)).float()
+    steps = (px - want).abs()
+    assert float(steps.max()) <= 1 and int((steps > 0).sum()) <= 1e-5 * steps.numel()
