@@ -68,7 +68,16 @@ Phases, in order; any failure exits nonzero:
    embedding before layer 0 against the block-product route (cosine >=
    0.999, max abs printed; library ``F.conv2d``), each timed with its
    bound (bytes, or for ``resize_crops`` the fp32 tap products this run's
-   crops need over 67 TFLOP/s);
+   crops need over 67 TFLOP/s); ``F.unfold``'s device time comes from a
+   child ``profile_kernels.py --only unfold`` (profiled in this process
+   it emptied later profiler sessions). Then every ``ln_gemm`` plan
+   (``GEMM_RATES``: the cooperative widths, ping-pong, the split-K
+   clusters) on the four few-tile or deep-K launches (``check_plans``):
+   the patch product at the globals (784 rows) and objects (401,408)
+   dispatches, the globals x-stream proj (800 rows, K = 3072, residual)
+   and kernel 2's proj (2048 rows), each through ``_ln_gemm(plan=...)``
+   against its plain version (cosine >= 0.999; the residual launches on
+   ``out - x`` too), timed with CUDA events;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
    dispatch, but 11 of kernel 4 on the split wiring and 11 of
@@ -228,6 +237,9 @@ def timed(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILER_SESSIONS = 8
+
+
 def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
     """Milliseconds of device time per call: the durations of the CUDA
     kernels that ``iters`` calls launched, from ``torch.profiler``, after
@@ -237,7 +249,10 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):  # a profiling session once returned no kernel records
+    # a profiling session now and then returns no kernel records, and once
+    # three in a row (in check_nms on an H100): retry, with a
+    # pause, up to SESSIONS times
+    for attempt in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -247,9 +262,12 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0:
             break
-        log(f'device_ms: profiler session {attempt + 1} of 3 recorded no device time')
+        log(f'device_ms: profiler session {attempt + 1} of {PROFILER_SESSIONS} recorded no '
+            'device time')
+        time.sleep(1.0)
     else:
-        raise AssertionError('torch.profiler recorded no device time in three sessions')
+        raise AssertionError(f'torch.profiler recorded no device time in {PROFILER_SESSIONS} '
+                             'sessions')
     if part_of is None:
         return total_us / iters / 1e3
     split = {}
@@ -834,6 +852,76 @@ def check_embed(gen) -> dict:
         'embedding': dict(embed['objects']['embedding'],
                           globals_batch=embed['globals']['embedding']),
     }
+
+
+def check_plans(A, gen) -> dict:
+    """Every ``ln_gemm`` plan the launch allows (``A.GEMM_RATES``, the
+    split-K clusters included) on the few-tile or deep-K launches: the
+    patch product (K = 3072, N = 768, no epilogue) at the globals (784
+    rows) and objects (401,408) dispatches, the globals x-stream proj (800
+    rows) and kernel 2's proj (2048 rows; K = 3072 with the residual),
+    each forced through ``_ln_gemm(plan=...)`` and held to its plain
+    version (cosine >= 0.999), the residual launches also on their deltas
+    ``out - x``; each plan's CUDA-event ms, beside the plan
+    ``ln_gemm_plan`` picks. Raises on the first plan that fails."""
+    dev = torch.device('cuda')
+    launches = {'patch_embed(globals)': (GLOB_BATCH * 49, 0),
+                'patch_embed(objects)': (OBJ_BATCH * 196, 0),
+                'ln_mlp_residual proj(globals)': (GLOB_BATCH * N_GLOB, 2),
+                'fused_ln_mlp_rows proj': (OBJ_BATCH, 2)}
+    k = 4 * D
+    w = (torch.randn(k, D, device=dev, generator=gen) * k ** -0.5).bfloat16()
+    wt, wb = A.kmajor(w), (0.02 * torch.randn(D, device=dev, generator=gen)).bfloat16()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, (m, epi) in launches.items():
+        x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+        res = torch.randn(m, D, device=dev, generator=gen).bfloat16() if epi == 2 else None
+        want = A._proj(x, w, wb) + (0 if res is None else res.float())
+        got = torch.empty(m, D, device=dev, dtype=torch.bfloat16)
+        by_plan = {}
+        for plan in A.GEMM_RATES:
+            if not A.split_allowed(plan, k, epi, False):
+                continue
+            run = lambda: A._ln_gemm(x, wt, wb, got, epilogue=epi, residual=res,  # noqa: E731
+                                     plan=plan)
+            run()
+            err, cos = compare(got, want)
+            row = dict(max_abs_err=err, cosine=cos)
+            if res is not None:
+                row['residual_delta_cosine'] = compare(got.float() - res.float(),
+                                                       want - res.float())[1]
+            if min(cos, row.get('residual_delta_cosine', 1.0)) < 0.999:
+                raise AssertionError(f'ln_gemm {name} plan {plan}: cosine {row} < 0.999')
+            row['ms'] = timed(run, 3 if m > 100_000 else 20)
+            by_plan[f'{plan.schedule}{plan.tile_n}' + (f's{plan.split}' if plan.split > 1
+                                                        else '')] = row
+        picked = A.ln_gemm_plan([(m, D)], k, epi, sms)
+        out[name] = dict(rows=m, depth=k, epilogue=epi, picked=picked._asdict(),
+                         by_plan=by_plan)
+        log(json.dumps({'plan_check': {name: out[name]}}))
+        del x, res, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def unfold_device_ms() -> dict:
+    """``F.unfold``'s device ms (``patch_rows``' library call) at the
+    objects (2048 crops, stride 16) and globals (16, stride 32) shapes,
+    from ``profile_kernels.py --only unfold`` run in a child process."""
+    proc = subprocess.run(
+        [sys.executable, '-m', 'oadp_torch.profile_kernels', '--only', 'unfold'],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600, check=True)
+    found = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"unfold"'):
+            row = json.loads(line)['unfold']
+            found[row['crops']] = row
+    if set(found) != {OBJ_BATCH, GLOB_BATCH}:
+        raise AssertionError(f'profile_kernels --only unfold printed {sorted(found)}')
+    log(json.dumps({'unfold': found}))
+    return found
 
 
 def reset_launches() -> None:
@@ -2942,6 +3030,10 @@ def main() -> int:
     embed_checks = check_embed(gen)
     embedding = embed_checks.pop('embedding')
     checks.update(embed_checks)
+    unfold = unfold_device_ms()
+    checks['patch_rows']['library_device_ms'] = unfold[OBJ_BATCH]['device_ms']
+    checks['patch_rows']['globals_batch']['library_device_ms'] = unfold[GLOB_BATCH]['device_ms']
+    plan_checks = check_plans(A, gen)
     nms_check = check_nms(gen)
     # one directory for phases 4-7: phase 7 trains on phase 4's images and
     # OAKE records, from phase 6's checkpoint, with phase 5's prompts
@@ -3012,6 +3104,9 @@ def main() -> int:
                 entry[key] = res[key]
         if name == 'patch_embed':  # the whole embedding before layer 0, the three kernels
             entry['embedding'] = embedding
+        # every ln_gemm plan on the launches of this entry (check_plans)
+        entry.update({'every_plan' + launch[len(name):]: plan_checks[launch]
+                      for launch in plan_checks if launch.split(' ')[0].split('(')[0] == name})
         for shape in ('side_only', 'blocks_batch', 'globals_batch', 'objects_batch'):
             if shape in res:
                 entry[shape] = {k: res[shape][k] for k in (

@@ -58,6 +58,9 @@ __all__ = [
     'resize_crops',
     'resize_crops_plain',
     'resize_crops_args',
+    'resize_stage_plan',
+    'resize_smem',
+    'resize_bands',
     'resize_crops_supported',
 ]
 
@@ -628,6 +631,50 @@ RESIZE_MAX_TAPS = 64
 #: crops a chunk of the plain version (bounds its temporaries)
 _PLAIN_CHUNK = 64
 
+#: dynamic shared memory a block of the kernel may take for two to fit on
+#: an SM of the H100 (228 KB an SM, 1 KB of it reserved a block, and the
+#: kernel's 16 static bytes within a 256-byte margin)
+RESIZE_SMEM_TWO = 233472 // 2 - 1024 - 256
+
+#: ring rows beyond the tap count: a sub-band of output rows may reach
+#: this many more source rows than one row's taps
+RESIZE_RING_SLACK = 29
+
+
+def resize_smem(ring: int, out: int, band: int, cap: int, k_pad: int) -> int:
+    """The kernel's shared memory in bytes (``csrc/preprocess.cu``:
+    ``smem_bytes``): the ring of ``ring`` horizontal result rows (``out *
+    3`` bytes each), the staged source (``cap`` + 16 bytes), the taps'
+    first source, first tap and count (``out`` columns, ``band`` rows),
+    their bf16 weights and the 3 x 256 bf16 normalisation table."""
+    source = -(-ring * out * 3 // 16) * 16
+    return (source + cap + 16 + 12 * (out + band) + 2 * (out + band) * k_pad + 3 * 256 * 2)
+
+
+def resize_bands(crops: int, out: int, sms: int) -> tuple[int, int]:
+    """``(bands a crop, output rows a band)`` of :func:`resize_crops`'
+    launch on ``sms`` multiprocessors (``csrc/preprocess.cu``): the whole
+    crop a block where the crops fill the card twice over, else as many
+    bands as do, of at least 16 rows. The launch has ``crops x bands``
+    blocks."""
+    bands = min(-(-out // 16), max(1, -(-2 * sms // crops)))
+    band = -(-out // bands)
+    return -(-out // band), band
+
+
+def resize_stage_plan(k_pad: int, pw: int, out: int = 224) -> tuple[int, int]:
+    """``(ring rows, staging cap)`` of :func:`resize_crops`' kernel for
+    taps of ``k_pad``, images ``pw`` wide and ``out`` x ``out`` crops: the
+    ring holds ``k_pad`` + :data:`RESIZE_RING_SLACK` rows; the cap, a
+    multiple of 16 bytes, takes what is left of :data:`RESIZE_SMEM_TWO` at
+    a whole crop a block (two blocks an SM), but never less than one
+    source row's staged pixels (4 bytes each, in 16-pixel units from a
+    multiple of 16; then one block an SM)."""
+    ring = k_pad + RESIZE_RING_SLACK
+    row = 4 * -(-(pw + 15) // 16) * 16  # the most a row's reached columns may stage
+    cap = (RESIZE_SMEM_TWO - resize_smem(ring, out, out, 0, k_pad)) // 16 * 16
+    return ring, max(cap, row)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -730,8 +777,9 @@ def resize_crops_args(images: torch.Tensor, meta: torch.Tensor, k_pad: int,
             or not meta.is_contiguous() or meta.shape[0] % g):
         raise ValueError(f'resize_crops: meta must be contiguous fp32 (G * B, 9), got '
                          f'{meta.dtype} {tuple(meta.shape)} for G = {g}')
-    if not resize_crops_supported(k_pad) or out <= 0:
-        raise ValueError(f'resize_crops: k_pad {k_pad} outside (0, {RESIZE_MAX_TAPS}]')
+    if not resize_crops_supported(k_pad) or out <= 0 or out % 8:
+        raise ValueError(f'resize_crops: k_pad {k_pad} outside (0, {RESIZE_MAX_TAPS}] or out '
+                         f'{out} not a multiple of 8 (16-byte stores)')
     _check_own(k_own, g, k_pad)
     return g, meta.shape[0] // g, images.stride(0)
 
@@ -746,6 +794,7 @@ def resize_crops(
     out: int = 224,
     return_taps: bool = False,
     k_own=None,  # G ints: each image's own tap bucket
+    cycles=None,  # (blocks, 4) int64 on the card: clock cycles by part
 ):
     """The CLIP crops of a dispatch: crop ``c`` cut from image ``c // B``
     (``B`` crops an image), resized as PIL's two-pass bicubic, each pass
@@ -754,17 +803,23 @@ def resize_crops(
     :func:`device_coeffs` returns them (``(wx_w, wx_s, wy_w, wy_s)``).
     ``k_own`` gives each image the tap count ``oadp_tpu`` would run its
     crops at (``<= k_pad``, default ``k_pad``; see :func:`device_coeffs`).
+    ``cycles`` (CUDA only), ``(crops x bands, 4)`` int64 (:func:`resize_bands`),
+    receives each block's clock cycles by part, as its thread 0 sees them:
+    the prologue, staging, the horizontal and the vertical pass.
 
     Replaces ``oadp_tpu``'s XLA ``prep_one`` and ``normalize_clip``
     (``oadp_tpu/oake/encoders.py:401-432``): :func:`device_coeffs`,
     ``apply_resize_coeffs(compute_dtype=bf16)`` and :func:`normalize_clip`.
     On a CPU tensor: :func:`resize_crops_plain`. On a CUDA tensor: one launch
     of the kernel in ``csrc/preprocess.cu`` for all ``G * B`` crops, which
-    derives the taps itself (bit for bit :func:`device_coeffs`'), sums only
-    the taps each pixel has over the source rows its band reaches, and
-    writes the crops once (616 MB at 2048 crops: bound by those bytes at
-    ~0.18 ms)."""
+    derives the taps itself (bit for bit :func:`device_coeffs`'), stages
+    the source rows its band reaches in shared memory (the plan of
+    :func:`resize_stage_plan`), sums only the taps each pixel has inside
+    the image, and writes the crops once (616 MB at 2048 crops: bound by
+    those bytes at ~0.18 ms); ``out`` a multiple of 8."""
     if images.device.type == 'cpu':
+        if cycles is not None:
+            raise ValueError('resize_crops: cycles are counted on the card only')
         return resize_crops_plain(images, meta, k_pad, mean, std, out=out,
                                   return_taps=return_taps, k_own=k_own)
     g, per, stride = resize_crops_args(images, meta, k_pad, out, k_own)
@@ -782,12 +837,22 @@ def resize_crops(
         [tap_sum_half(int(k)) for k in k_own], dtype=torch.int32).to(dst.device)
     mean = [float(v) for v in np.asarray(mean, np.float32)]
     std = [float(v) for v in np.asarray(std, np.float32)]
+    ring, cap = resize_stage_plan(k_pad, images.shape[2], out)
+    if cycles is not None:
+        sms = torch.cuda.get_device_properties(dst.device).multi_processor_count
+        blocks = crops * resize_bands(crops, out, sms)[0]
+        if (cycles.dtype != torch.int64 or cycles.device != dst.device
+                or tuple(cycles.shape) != (blocks, 4) or not cycles.is_contiguous()):
+            raise ValueError(f'resize_crops: cycles must be contiguous int64 ({blocks}, 4) '
+                             f'on {dst.device}')
     lib = cuda_lib.library()
     cuda_lib.check(lib.oadp_resize_crops(
         images.data_ptr(), stride, g, per, images.shape[1], images.shape[2], meta.data_ptr(),
-        k_pad, None if halves is None else halves.data_ptr(), out, *mean, *std, dst.data_ptr(),
+        k_pad, None if halves is None else halves.data_ptr(), out, *mean, *std, ring, cap,
+        dst.data_ptr(),
         None if taps_w is None else taps_w.data_ptr(),
         None if taps_s is None else taps_s.data_ptr(),
+        None if cycles is None else cycles.data_ptr(), 0 if cycles is None else len(cycles),
         torch.cuda.current_stream(dst.device).cuda_stream,
     ), 'resize_crops')
     LAUNCHES['resize_crops'] += 1

@@ -7,17 +7,21 @@ keeps the named parts, default all):
 
 * ``gemm``: ``ln_gemm`` without LayerNorm under every plan of
   ``ops/attention.py``'s ``GEMM_RATES`` (cooperative at each tile width,
-  ping-pong) beside the plan ``ln_gemm_plan`` picks, at each product the
-  encoders run: kernel 1's QKV (2048 x 197 rows, 768 -> 2304) and
-  out-projection with its residual (768 -> 768), kernel 2's fc with
-  quick_gelu (2048 rows, 768 -> 3072) and proj with the residual (3072 ->
-  768), the x-stream MLP's two at the objects (2048 x 197), blocks (728 x
-  50) and globals (16 x 50) rows, and the stock out-projection at the
-  blocks and globals rows; each with the library route for the same
-  function (``torch.addmm``, then quick_gelu or the residual add) and
-  ``torch.mm`` alone, device ms from ``torch.profiler``, TFLOP/s and share
-  of the bound (``gemm`` lines, and ``gemm_residual`` for the residual
-  epilogue);
+  ping-pong, the split-K plans where the launch allows them) beside the
+  plan ``ln_gemm_plan`` picks, at each product the encoders run: kernel
+  1's QKV (2048 x 197 rows, 768 -> 2304) and out-projection with its
+  residual (768 -> 768), kernel 2's fc with quick_gelu (2048 rows, 768 ->
+  3072) and proj with the residual (3072 -> 768), the x-stream MLP's two
+  at the objects (2048 x 197), blocks (728 x 50) and globals (16 x 50)
+  rows, the stock out-projection at the blocks and globals rows, and the
+  patch product (3072 -> 768, no epilogue) at the objects (2048 x 196),
+  blocks (728 x 49) and globals (16 x 49) rows; each with the library
+  route for the same function (``torch.addmm``, then quick_gelu or the
+  residual add) and ``torch.mm`` alone, device ms from ``torch.profiler``,
+  TFLOP/s and share of the bound (``gemm`` lines, and ``gemm_residual``
+  for the residual epilogue); at the globals patch product also what each
+  split adds (``split_adds_ms``: the split plan's device ms less its
+  tile's at depth K / S, the source of ``SPLIT_US``);
 * ``ln_qkv``: kernel 3 (``fused_ln_qkv_attention``) at the globals (16)
   and blocks (728) batches of 50 tokens, by kernel (device time from
   ``torch.profiler``), beside the two families' route (the LN pass,
@@ -26,12 +30,20 @@ keeps the named parts, default all):
 * ``resize``: ``resize_crops`` (``csrc/preprocess.cu``) at an objects
   dispatch's crops (2 x 1024, at their tap bucket 21 and at the CLI's
   largest, 35) and a globals dispatch (16 paired images, 13 taps): device
-  ms beside the dense route it replaced and the bound of its bytes;
+  ms beside the dense route it replaced and the bound of its bytes, and
+  the kernel's clock cycles by part (each block's thread 0: the prologue,
+  staging, the horizontal and the vertical pass);
 * ``patch_embed``: the surgery encoder's patch embedding at 2048 crops:
   the kernels' route (``patch_rows``, the product on ``ln_gemm``,
   ``embed_ln_pre``; each apart, and the three with ``ln_pre`` in events and
   device ms) beside the block product of ``models/clip.py`` (alone and
   with ``ln_pre``) and ``F.conv2d``;
+* ``unfold``: ``F.unfold``, ``patch_rows``' library call (the conv's
+  im2col, transposed to the same rows), at the surgery encoder's 2048
+  crops (patch 32, stride 16) and the stock encoder's 16 (stride 32):
+  device ms from ``torch.profiler`` in a process of its own (``chip_smoke.py``
+  runs it as a child: its per-crop launches left later profiler sessions of
+  the same process empty), beside CUDA events;
 * ``attention``: the ``attention`` kernel at 2048 crops x 12 heads x 197
   tokens (main rows, side row, both) beside
   ``F.scaled_dot_product_attention`` on the main rows;
@@ -286,12 +298,42 @@ def _resize_probe(dev, emit) -> None:
     gmeta = np.repeat(P.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]])), 16, 0)
     cases = (('dispatch', images, meta, 21), ('dispatch', images, meta, 35),
              ('globals', torch.from_numpy(gimg).to(dev), torch.from_numpy(gmeta).to(dev), 13))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, im, m, k in cases:
         nbytes = im.numel() + m.numel() * 4 + len(m) * 224 * 224 * 3 * 2
+        cycles = torch.zeros(len(m) * P.resize_bands(len(m), 224, sms)[0], 4,
+                             dtype=torch.int64, device=dev)
+        P.resize_crops(im, m, k, cycles=cycles)
+        parts = cycles.sum(0).tolist()
         emit('resize', case=name, crops=len(m), k_pad=k,
              device_ms=_device_ms(lambda: P.resize_crops(im, m, k), 10)['total'],
              dense_device_ms=_device_ms(lambda: _dense_crops(im, m, k), 3)['total'],
-             bound_ms=1e3 * nbytes / 3.35e12)
+             bound_ms=1e3 * nbytes / 3.35e12,
+             cycles_share={part: c / sum(parts) for part, c in zip(
+                 ('prologue', 'staging', 'horizontal', 'vertical'), parts)},
+             cycles_per_block=sum(parts) / len(cycles))
+
+
+def _unfold_probe(dev, gen, emit) -> None:
+    """``F.unfold`` as ``patch_rows``' library call: the surgery encoder's
+    2048 crops at stride 16 and the stock encoder's 16 at stride 32 (patch
+    32, 224-pixel crops, bf16): device ms a call from ``torch.profiler``
+    and CUDA-event ms."""
+    from .ops import embed as EM
+
+    for crops, stride in ((2048, 16), (16, 32)):
+        x = torch.randn(crops, 224, 224, 3, device=dev, generator=gen).bfloat16()
+        pad, _ = EM.patch_geometry(224, 32, stride)
+
+        def unfold():
+            cols = F.unfold(x.permute(0, 3, 1, 2), 32, padding=pad, stride=stride)
+            return cols.transpose(1, 2).reshape(-1, 3 * 32 * 32)
+
+        iters = 3 if crops > 16 else 20
+        emit('unfold', crops=crops, stride=stride, device_ms=_device_ms(unfold, iters)['total'],
+             events_ms=_timed(unfold, iters))
+        del x
+        torch.cuda.empty_cache()
 
 
 def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: int = 480):
@@ -323,13 +365,16 @@ def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: in
             coords), len(plan.blocks) * images
 
 
-def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
+def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int,
+               split_adds: bool = False):
     """``ln_gemm`` without LayerNorm at one shape and epilogue under every
-    plan of ``A.GEMM_RATES``, beside the plan ``A.ln_gemm_plan`` picks and
-    the library route for the same function (``torch.addmm``, then
-    quick_gelu or the residual add) and ``torch.mm`` alone: device ms a
-    call (``torch.profiler``), TFLOP/s and share of the bound (bytes over
-    3.35 TB/s or operations over 989 TFLOP/s, whichever is larger)."""
+    plan of ``A.GEMM_RATES`` the launch allows, beside the plan
+    ``A.ln_gemm_plan`` picks and the library route for the same function
+    (``torch.addmm``, then quick_gelu or the residual add) and ``torch.mm``
+    alone: device ms a call (``torch.profiler``), TFLOP/s and share of the
+    bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever
+    is larger). With ``split_adds``, what each split plan adds: its device
+    ms less its tile's unsplit at depth ``k_in / split``."""
     x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
     w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
     wt, wb = A.kmajor(w), (0.02 * torch.randn(n_out, device=dev, generator=gen)).bfloat16()
@@ -337,6 +382,7 @@ def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
     res = (torch.randn(rows, n_out, device=dev, generator=gen).bfloat16()
            if epilogue == A._EPI_RESIDUAL else None)
     iters = max(5, min(200, int(2e11 / (rows * k_in * n_out))))
+    plans = [p for p in A.GEMM_RATES if A.split_allowed(p, k_in, epilogue, False)]
     flops = 2 * rows * k_in * n_out
     nbytes = 2 * (rows * k_in + k_in * n_out + n_out + rows * n_out * (1 + (res is not None)))
     bound = 1e3 * max(flops / 989e12, nbytes / 3.35e12)
@@ -350,18 +396,31 @@ def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
     def kernel(plan=None):
         return lambda: A._ln_gemm(x, wt, wb, out, epilogue=epilogue, residual=res, plan=plan)
 
-    ms = {_plan_name(p): _device_ms(kernel(p), iters)['total'] for p in A.GEMM_RATES}
+    ms = {_plan_name(p): _device_ms(kernel(p), iters)['total'] for p in plans}
     pick = A.ln_gemm_plan([(rows, n_out)], k_in, epilogue,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     ms['library'] = _device_ms(library, iters)['total']
     ms['torch_mm'] = _device_ms(lambda: torch.mm(x, w), iters)['total']
+    extra = {}
+    if split_adds:
+        adds = {}
+        for p in plans:
+            if p.split > 1:
+                k_s = k_in // p.split // 64 * 64
+                xs = x[:, :k_s].contiguous()
+                wts = wt[:, :k_s].contiguous()
+                tile = A.GemmPlan(p.schedule, p.tile_n)
+                alone = _device_ms(lambda: A._ln_gemm(xs, wts, wb, out, epilogue=epilogue,
+                                                      residual=res, plan=tile), iters)['total']
+                adds[_plan_name(p)] = ms[_plan_name(p)] - alone
+        extra['split_adds_ms'] = adds
     kind = 'gemm_residual' if res is not None else 'gemm'
     return kind, dict(
         shape=[rows, k_in, n_out], epilogue=epilogue, plan=_plan_name(pick),
         plan_device_ms=ms[_plan_name(pick)], plan_events_ms=_timed(kernel(), iters),
         device_ms=ms, bound_ms=bound, bound_by='operations' if flops / 989e12 >= nbytes / 3.35e12
         else 'bytes', tflops={k: flops / v / 1e9 for k, v in ms.items()},
-        bound_share={k: bound / v for k, v in ms.items()})
+        bound_share={k: bound / v for k, v in ms.items()}, **extra)
 
 
 def _nms_problems(dev, gen):
@@ -445,14 +504,15 @@ def _nms_plan_name(plan) -> str:
 
 
 def _plan_name(plan) -> str:
-    """``cooperative256``, ``cooperative64``, ``pingpong256``."""
-    return f'{plan.schedule}{plan.tile_n}'
+    """``cooperative256``, ``cooperative64``, ``pingpong256``, and a split
+    plan's with its split: ``cooperative128s2``."""
+    return f'{plan.schedule}{plan.tile_n}' + (f's{plan.split}' if plan.split > 1 else '')
 
 
 def main(argv=None) -> int:
     import argparse
 
-    parts = ('gemm', 'attention', 'ln_qkv', 'resize', 'patch_embed', 'dispatch',
+    parts = ('gemm', 'attention', 'ln_qkv', 'resize', 'unfold', 'patch_embed', 'dispatch',
              'globals_dispatch', 'blocks_dispatch', 'text', 'nms')
     ap = argparse.ArgumentParser(description='Time the CUDA kernels on the GPU.')
     ap.add_argument('--only', default=','.join(parts),
@@ -491,14 +551,19 @@ def main(argv=None) -> int:
             shapes += [(rows, d, 4 * d, A._EPI_GELU, 'ln_mlp_residual fc'),
                        (rows, 4 * d, d, A._EPI_RESIDUAL, 'ln_mlp_residual proj')]
         shapes += [(rows, d, d, A._EPI_RESIDUAL, 'out_proj_residual') for rows in (728 * 50, 800)]
+        shapes += [(rows, 4 * d, d, A._EPI_NONE, 'patch product')
+                   for rows in (b * 196, 728 * 49, 16 * 49)]
         for rows, k_in, n_out, epi, what in shapes:
-            kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi)
+            kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi,
+                                       split_adds=rows == 16 * 49)
             emit(kind, what=what, **fields)
 
     if 'nms' in only:
         _nms_probe(dev, gen, emit)
     if 'resize' in only:
         _resize_probe(dev, emit)
+    if 'unfold' in only:
+        _unfold_probe(dev, gen, emit)
     if 'attention' in only:
         qkv = torch.randn(m, 3 * d, device=dev, generator=gen).bfloat16()
         qkv_y = torch.randn(b, 3 * d, device=dev, generator=gen).bfloat16()

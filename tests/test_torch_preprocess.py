@@ -241,11 +241,13 @@ def test_resize_crops_plain_groups_and_pairs():
     np.testing.assert_array_equal(_plain_pixels(images, meta, 13), want)
 
 
-def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224, k_own=None):
+def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224, k_own=None, counts=False):
     """The tap prologue of ``csrc/preprocess.cu`` (``axis_taps``) in float32
     numpy, op for op in the kernel's order (numpy rounds every operation;
     the kernel's ``_rn`` intrinsics forbid FMA contraction); ``k_own`` one
-    tap count a crop, whose split the crop's tap sum takes."""
+    tap count a crop, whose split the crop's tap sum takes. With
+    ``counts``, each axis also gives the taps that may be nonzero (the
+    kernel's ``count``): ``(wx, sx, nx, wy, sy, ny)``."""
     f = np.float32
     x0, y0, cw, ch, ow, oh, left, top, ident = (meta[:, i:i + 1].astype(f) for i in range(9))
     o = np.arange(out, dtype=f)[None]
@@ -283,7 +285,9 @@ def _kernel_taps(meta: np.ndarray, k_pad: int, out: int = 224, k_own=None):
         ident_b = ident.astype(bool)
         w = np.where(ident_b[..., None], unit, w)
         start = np.where(ident_b, ((crop0 + offset) + o).astype(np.int32), start)
-        return w, start
+        count = np.where(valid <= 0, 0, np.minimum(k_pad, valid.astype(np.int32)))
+        count = np.where(ident_b, 1, count)
+        return (w, start, count) if counts else (w, start)
 
     return (*axis(x0, cw, ow, left), *axis(y0, ch, oh, top))
 
@@ -530,6 +534,221 @@ def test_steps_hand_resize_crops_one_call_a_step(monkeypatch):
         if name == 'objects_packed_step':
             assert stride == bufs.shape[1]  # read in place from the packed buffer
         np.testing.assert_array_equal(got, want[name], name)
+
+
+# ---------------------------------------------------------------------------
+# resize_crops' kernel, stage by stage, in numpy
+# ---------------------------------------------------------------------------
+
+_TWO23 = np.float32(2 ** 23)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)``: byte n of the result is byte
+    ``(sel >> 4n) & 7`` of the 8 bytes ``y:x`` (x's bytes first)."""
+    pool = np.asarray([x, y], np.uint32).view(np.uint8)
+    return np.asarray([pool[(sel >> (4 * n)) & 7] for n in range(4)], np.uint8).view(np.uint32)[0]
+
+
+def _widen(word, byte):
+    """The kernel's ``widen<byte>``: the byte under 2^23's exponent, minus
+    2^23."""
+    return np.uint32(_byte_perm(word, 0x4B000000, 0x7440 + byte)).view(np.float32) - _TWO23
+
+
+def _round_u8(v):
+    """The kernel's ``round_u8``: ``t = v + 0.5`` in fp32, then 2^23 added
+    rounding down (floor(t) in the mantissa for 0 <= t < 2^23, a negative
+    integer below it for t < 0), the integer clamped to 0..255."""
+    t = (v + np.float32(0.5)).astype(np.float32)
+    s = (t + _TWO23).astype(np.float32)  # to nearest; step down where it rounded up
+    up = s.astype(np.float64) > t.astype(np.float64) + 2.0 ** 23
+    s = np.where(up, np.nextafter(s, np.float32(0)), s).astype(np.float32)
+    return np.clip(s.view(np.int32).astype(np.int64) - 0x4B000000, 0, 255).astype(np.uint8)
+
+
+def _norm_table(mean, std):
+    """The kernel's normalisation table: ``bf16((v - mean) / std)`` for
+    every uint8 v of each channel, in fp32 (3, 256)."""
+    v = np.arange(256, dtype=np.float32)
+    t = (v[None] - np.asarray(mean, np.float32)[:, None]) / np.asarray(std, np.float32)[:, None]
+    return torch.from_numpy(t).bfloat16().float().numpy()
+
+
+def _clip_taps(start, count, limit):
+    lo, hi = np.maximum(0, -start), np.minimum(count, limit - start)
+    live = hi > lo
+    return np.where(live, start + lo, 0), np.where(live, lo, 0), np.where(live, hi - lo, 0)
+
+
+def _kernel_crops(images, meta, k_pad, mean=tpp._MEAN, std=tpp._STD, out=224, band=None):
+    """``csrc/preprocess.cu:resize_crops_kernel`` in numpy, a block (crop,
+    band of ``band`` output rows) at a time, stage by stage: the taps cut
+    to the image, the normalisation table, the sub-bands (each reaching at
+    most the ring's rows), the staged chunks (each within the cap, only the
+    byte columns the crop's taps reach, 16-byte units), the horizontal
+    pass once a source row into the ring (an FMA a tap is the exact
+    product added: numpy's product then sum), the vertical pass from the
+    ring and the table. Returns the crops (crops, out, out, 3) in fp32 and
+    the blocks' plans; asserts as it goes that each output row is written
+    once and each source row's horizontal pass runs once a block."""
+    images = images[None] if images.ndim == 3 else images
+    g, ph, pw = images.shape[:3]
+    per, rp = len(meta) // g, out * 3
+    wx, sx, nx, wy, sy, ny = _kernel_taps(meta, k_pad, out, counts=True)
+    wx, wy = (torch.from_numpy(w).bfloat16().float().numpy() for w in (wx, wy))
+    ring_rows, cap = tpp.resize_stage_plan(k_pad, pw, out)
+    table = _norm_table(mean, std)
+    band = band or out
+    res = np.empty((len(meta), out, rp), np.float32)
+    plans = []
+    for c in range(len(meta)):
+        img = images[c // per].reshape(ph, pw * 3)
+        xs, xk, xn = _clip_taps(sx[c], nx[c], pw)
+        ys, yk, yn = _clip_taps(sy[c], ny[c], ph)
+        live = xn > 0
+        c_lo = xs[live].min() & ~15 if live.any() else 0
+        px = ((xs + xn)[live].max() - c_lo + 15) & ~15 if live.any() else 16
+        chunk = max(1, cap // (4 * px))
+        for e0 in range(0, out, band):
+            e1 = min(e0 + band, out)
+            ring = np.zeros((ring_rows, rp), np.uint8)
+            done, r, written, passed, plan = 0, e0, [], [], []
+            while r < e1:
+                lo, hi, r1 = np.iinfo(np.int32).max, np.iinfo(np.int32).min, r
+                while r1 < e1:
+                    if yn[r1]:
+                        lo2, hi2 = min(lo, ys[r1]), max(hi, ys[r1] + yn[r1])
+                        if hi2 - lo2 > ring_rows:
+                            break
+                        lo, hi = lo2, hi2
+                    r1 += 1
+                for c0 in range(max(lo, done), hi, chunk):
+                    c1 = min(hi, c0 + chunk)
+                    # 16-pixel units of 48 bytes, zero past the row, a word a
+                    # pixel; each channel widened as a tap reads it
+                    raw = np.zeros((c1 - c0, 3 * px), np.uint8)
+                    width = min(3 * px, 3 * pw - 3 * c_lo)
+                    raw[:, :width] = img[c0:c1, 3 * c_lo:3 * c_lo + width]
+                    staged = ((raw.astype(np.uint32) | 0x4B000000).view(np.float32)
+                              - _TWO23).reshape(c1 - c0, px, 3)
+                    plan.append(((c1 - c0) * px * 4, c0, c1))
+                    acc = np.zeros((c1 - c0, out, 3), np.float32)
+                    for k in range(k_pad):
+                        col = np.where(k < xn, xs + k - c_lo, 0)
+                        w = wx[c, np.arange(out), np.minimum(xk + k, k_pad - 1)][:, None]
+                        acc = np.where((k < xn)[:, None], acc + w * staged[:, col], acc)
+                    ring[np.arange(c0, c1) % ring_rows] = _round_u8(acc).reshape(c1 - c0, rp)
+                    passed += range(c0, c1)
+                done = max(done, hi)
+                rows = np.arange(r, r1)
+                acc = np.zeros((len(rows), rp), np.float32)
+                for k in range(k_pad):
+                    on = (k < yn[rows])[:, None]
+                    vals = ring[(ys[rows] + k) % ring_rows].astype(np.float32)
+                    w = wy[c, rows, np.minimum(yk[rows] + k, k_pad - 1)][:, None]
+                    acc = np.where(on, acc + w * vals, acc)
+                res[c, rows] = table[np.arange(rp) % 3, _round_u8(acc).astype(np.int64)]
+                written += list(rows)
+                r = r1
+            assert written == list(range(e0, e1)), 'an output row written twice or never'
+            assert len(passed) == len(set(passed)), 'a source row passed twice'
+            plans.append(dict(px=px, chunk=chunk, staged=plan))
+    return res.reshape(len(meta), out, out, 3), plans
+
+
+def test_resize_norm_table_is_the_division():
+    """The kernel's 3 x 256 bf16 table (built with the plain version's
+    ``bf16((v - mean) / std)``) against the plain version's per-pixel
+    division, for every uint8 v and each channel: the CLIP mean and std,
+    and mean 0 / std 1 (the integers themselves)."""
+    v = torch.arange(256, dtype=torch.float32)[:, None].expand(256, 3)
+    for mean, std in ((tpp._MEAN, tpp._STD), ((0.0,) * 3, (1.0,) * 3)):
+        want = ((v - torch.from_numpy(np.asarray(mean, np.float32)))
+                / torch.from_numpy(np.asarray(std, np.float32))).bfloat16().float()
+        np.testing.assert_array_equal(_norm_table(mean, std).T, want.numpy())
+
+
+def test_resize_byte_widening_is_exact():
+    """Each byte 0..255, in each position of a word, widened as the kernel
+    does (byte_perm under 0x4B, minus 2^23) is the byte; sixteen pixels of
+    48 bytes held as 12 words become a word each (``pixel_word``: bytes
+    3p..3p+2 from word 3p / 4, or from it and the next when they straddle)
+    whose three channels widen to the pixel's bytes."""
+    for b in range(256):
+        for pos in range(4):
+            word = np.uint32(b << (8 * pos)) | np.uint32(0x5A5A5A5A & ~(0xFF << (8 * pos)))
+            assert _widen(word, pos) == np.float32(b)
+    unit = np.random.RandomState(5).randint(0, 256, 48).astype(np.uint8)
+    words = unit.view(np.uint32)
+    for p in range(16):
+        i, off = (3 * p) >> 2, (3 * p) & 3
+        px = _byte_perm(words[i], words[i + 1] if off > 1 else 0,
+                        off | (off + 1) << 4 | (off + 2) << 8)
+        assert [_widen(px, c) for c in range(3)] == list(unit[3 * p:3 * p + 3].astype(np.float32))
+
+
+def test_resize_round_u8_without_conversions():
+    """The kernel's rounding to uint8 (2^23 added rounding down, the
+    mantissa read, the integer clamped) equals ``round_u8``'s
+    ``clamp(floor(v + 0.5), 0, 255)`` on every fp32 value near each .5
+    tie from -3 to 258, on zeros of both signs and far outside the range."""
+    ties = np.arange(-3, 259, dtype=np.float32) + np.float32(0.5)
+    near = np.concatenate([ties, np.nextafter(ties, np.float32(-1e9)),
+                           np.nextafter(ties, np.float32(1e9)), ties - np.float32(0.5)])
+    near = np.concatenate([near, np.float32([0.0, -0.0, 1e-30, -1e-30, 1e6, -1e6, 255.49998])])
+    v = near - np.float32(0.5)  # the kernel adds the 0.5 itself
+    v = np.concatenate([v, near])
+    want = tpp.round_u8(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(_round_u8(v).astype(np.float32), want)
+
+
+@pytest.mark.parametrize('kind, k', [
+    ('identity', 5), ('past_edges', 13), ('one_pixel_wide', 13), ('largest_k', 35),
+    ('bucket', 21), ('bucket', 35), ('bucket', 64),
+])
+def test_resize_kernel_model_matches_plain_and_oadp_tpu(kind, k):
+    """The numpy model of the redesigned kernel (staged source, widening,
+    FMA tap sums in the plain version's order, ring, table) bit for bit
+    equal to ``resize_crops_plain`` and to ``oadp_tpu``'s bf16 pixels and
+    ``normalize_clip``, on identity, past-edge, one-pixel and
+    sqrt(8)-expanded crops and on crops whose taps reach 21, 35 and 64, as
+    one crop a block and in bands of 16 rows (the globals launch); its
+    sub-band planner writes every output row once, passes every source row
+    once a block, and stages at most the cap a chunk."""
+    rng = np.random.RandomState(k + len(kind))
+    if kind == 'bucket':
+        image = _image(rng, 480, 640, 640)
+        # at 64 taps a crop spans the image: one source row a chunk
+        meta = tpp.clip_transform_meta(640, 480, _bucket_boxes(rng, k, 2 if k == 64 else 6))
+    else:
+        image = _image(rng)
+        meta = tpp.clip_transform_meta(300, 240, _boxes(kind, rng, 6))
+    zero, one = (0.0,) * 3, (1.0,) * 3
+    plain = _plain_pixels(image, meta, k)
+    np.testing.assert_array_equal(plain, _jax_crops(image, meta, k))
+    ring_rows, cap = tpp.resize_stage_plan(k, image.shape[1])
+    for band in (None, 16) if k < 64 else (None,):
+        got, plans = _kernel_crops(image, meta, k, zero, one, band=band)
+        np.testing.assert_array_equal(got, plain)
+        assert all(b <= cap and b % 16 == 0 for p in plans for b, _, _ in p['staged'])
+        assert all(p['px'] % 16 == 0 for p in plans)
+    normed, _ = _kernel_crops(image, meta, k)
+    np.testing.assert_array_equal(normed, tpp.resize_crops_plain(
+        torch.from_numpy(image), torch.from_numpy(meta), k).float().numpy())
+    assert ring_rows >= k and tpp.resize_smem(ring_rows, 224, 224, cap, k) <= 232448
+
+
+def test_resize_stage_plan_fits_two_blocks_an_sm():
+    """The ring and cap leave two blocks an SM at the objects CLI's tap
+    buckets on its 640-pixel pad (one block an SM only past them, at 64
+    taps), and the kernel's shared memory stays under its 227 KB."""
+    for k in (5, 9, 13, 21, 35):
+        ring, cap = tpp.resize_stage_plan(k, 640)
+        assert tpp.resize_smem(ring, 224, 224, cap, k) <= tpp.RESIZE_SMEM_TWO
+        assert cap >= 4 * 656 and ring == k + tpp.RESIZE_RING_SLACK  # a row of 640
+    ring, cap = tpp.resize_stage_plan(64, 640)
+    assert tpp.resize_smem(ring, 224, 224, cap, 64) <= 232448
 
 
 @pytest.mark.cuda
