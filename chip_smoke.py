@@ -70,9 +70,9 @@ Phases, in order; any failure exits nonzero:
    bound (bytes, or for ``resize_crops`` the fp32 tap products this run's
    crops need over 67 TFLOP/s); ``F.unfold``'s device time comes from a
    child ``profile_kernels.py --only unfold`` (profiled in this process
-   it emptied later profiler sessions). Then every ``ln_gemm`` plan
-   (``GEMM_RATES``: the cooperative widths, ping-pong, the split-K
-   clusters) on the four few-tile or deep-K launches (``check_plans``):
+   it emptied later profiler sessions). Last in this phase, after every
+   profiled check, every ``ln_gemm`` plan (``GEMM_RATES``: the cooperative widths and
+   ping-pong) on the four few-tile or deep-K launches (``check_plans``):
    the patch product at the globals (784 rows) and objects (401,408)
    dispatches, the globals x-stream proj (800 rows, K = 3072, residual)
    and kernel 2's proj (2048 rows), each through ``_ln_gemm(plan=...)``
@@ -237,9 +237,6 @@ def timed(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-PROFILER_SESSIONS = 8
-
-
 def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
     """Milliseconds of device time per call: the durations of the CUDA
     kernels that ``iters`` calls launched, from ``torch.profiler``, after
@@ -249,10 +246,7 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
 
     fn()
     torch.cuda.synchronize()
-    # a profiling session now and then returns no kernel records, and once
-    # three in a row (in check_nms on an H100): retry, with a
-    # pause, up to SESSIONS times
-    for attempt in range(PROFILER_SESSIONS):
+    for attempt in range(3):  # a profiling session once returned no kernel records
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -262,12 +256,9 @@ def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0:
             break
-        log(f'device_ms: profiler session {attempt + 1} of {PROFILER_SESSIONS} recorded no '
-            'device time')
-        time.sleep(1.0)
+        log(f'device_ms: profiler session {attempt + 1} of 3 recorded no device time')
     else:
-        raise AssertionError(f'torch.profiler recorded no device time in {PROFILER_SESSIONS} '
-                             'sessions')
+        raise AssertionError('torch.profiler recorded no device time in three sessions')
     if part_of is None:
         return total_us / iters / 1e3
     split = {}
@@ -855,8 +846,8 @@ def check_embed(gen) -> dict:
 
 
 def check_plans(A, gen) -> dict:
-    """Every ``ln_gemm`` plan the launch allows (``A.GEMM_RATES``, the
-    split-K clusters included) on the few-tile or deep-K launches: the
+    """Every ``ln_gemm`` plan (``A.GEMM_RATES``: the cooperative widths
+    and ping-pong) on the few-tile or deep-K launches: the
     patch product (K = 3072, N = 768, no epilogue) at the globals (784
     rows) and objects (401,408) dispatches, the globals x-stream proj (800
     rows) and kernel 2's proj (2048 rows; K = 3072 with the residual),
@@ -881,8 +872,6 @@ def check_plans(A, gen) -> dict:
         got = torch.empty(m, D, device=dev, dtype=torch.bfloat16)
         by_plan = {}
         for plan in A.GEMM_RATES:
-            if not A.split_allowed(plan, k, epi, False):
-                continue
             run = lambda: A._ln_gemm(x, wt, wb, got, epilogue=epi, residual=res,  # noqa: E731
                                      plan=plan)
             run()
@@ -894,8 +883,7 @@ def check_plans(A, gen) -> dict:
             if min(cos, row.get('residual_delta_cosine', 1.0)) < 0.999:
                 raise AssertionError(f'ln_gemm {name} plan {plan}: cosine {row} < 0.999')
             row['ms'] = timed(run, 3 if m > 100_000 else 20)
-            by_plan[f'{plan.schedule}{plan.tile_n}' + (f's{plan.split}' if plan.split > 1
-                                                        else '')] = row
+            by_plan[f'{plan.schedule}{plan.tile_n}'] = row
         picked = A.ln_gemm_plan([(m, D)], k, epi, sms)
         out[name] = dict(rows=m, depth=k, epilogue=epi, picked=picked._asdict(),
                          by_plan=by_plan)
@@ -3033,8 +3021,8 @@ def main() -> int:
     unfold = unfold_device_ms()
     checks['patch_rows']['library_device_ms'] = unfold[OBJ_BATCH]['device_ms']
     checks['patch_rows']['globals_batch']['library_device_ms'] = unfold[GLOB_BATCH]['device_ms']
-    plan_checks = check_plans(A, gen)
     nms_check = check_nms(gen)
+    plan_checks = check_plans(A, gen)
     # one directory for phases 4-7: phase 7 trains on phase 4's images and
     # OAKE records, from phase 6's checkpoint, with phase 5's prompts
     with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent / 'build') as tmp:

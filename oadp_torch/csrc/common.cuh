@@ -155,10 +155,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Clusters: a barrier over every thread of the cluster's blocks (whole,
 // or split into its arrive and its wait, the wait acquiring what the
 // other blocks wrote before their arrive), this block's rank in the
-// cluster, an arrive on the mbarrier at `bar`'s offset in block `peer`
-// (which may be this block), and a store or an OR of a 32-bit word at
-// `p`'s offset in block `peer`'s shared memory (mapa: the same offset in
-// the peer's window).
+// cluster, an arrive on the mbarrier at `bar`'s offset in block `peer`,
+// and a store or an OR of a 32-bit word at `p`'s offset in block `peer`'s
+// shared memory (mapa: the same offset in the peer's window).
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
@@ -212,28 +211,10 @@ __device__ __forceinline__ void or_peer_u32(const void* p, int peer, uint32_t v)
       : "memory");
 }
 
-// The generic address of `p`'s offset in block `peer`'s shared memory:
-// plain loads through it read the peer's bytes (distributed shared
-// memory), and the compiler schedules them as it does any load.
-template <typename T>
-__device__ __forceinline__ const T* peer_ptr(const T* p, int peer) {
-  uint64_t r;
-  asm("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(peer));
-  return reinterpret_cast<const T*>(r);
-}
-
-// Order this thread's memory accesses before and after it at cluster scope:
-// shared-memory writes that a peer block reads after an arrive, or reads
-// of a peer's shared memory before an arrive that lets it be rewritten.
-__device__ __forceinline__ void fence_cluster() {
-  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
-}
-
 // Wait until every cp.async of this thread has landed in shared memory.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {

@@ -69,21 +69,6 @@
 //     cooperative tile's. (Without clusters, or at 64 or 128 columns,
 //     ping-pong ran slower than the cooperative tile at every shape the
 //     encoders run: PERF.md.)
-//   split-K (split_kernel): the cooperative tile, its depth cut into S
-//     consecutive slices of k-tiles, one block of a cluster of S on each
-//     through its own ring. A launch of few tiles and deep K (the globals
-//     patch product: 84 tiles of 128 x 64, 48 k-tiles each) leaves most
-//     SMs idle and each busy block walking all of K alone; S blocks a tile
-//     fill the card and walk K / S each. After its slice each block stages
-//     its fp32 accumulators in its own ring (free by then: the producer
-//     loads a unit's k-tiles only once the unit before has been reduced),
-//     and each 16-row group of the tile (consumer, warp) is finished by one
-//     rank: it reads the group's S partials through distributed shared
-//     memory (loads through mapa's window), adds them in rank order 0..S-1
-//     (the sum does not depend on timing), then adds bias and residual
-//     once and stores its 16 rows; mbarriers (red_full a group, red_free a
-//     block) carry the handshake. One launch: no workspace, no atomics, no
-//     second pass. Only without LayerNorm, and with epilogue 0 or 2.
 // Which launch takes which (PERF.md section 6, profile_kernels.py gemm on
 // an H100): ping-pong only for the x-stream fc with quick_gelu at the
 // objects and blocks rows, where every block gets four tiles or more and
@@ -115,19 +100,16 @@ constexpr int BK = 64;
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr int OUT_TILE = 64 * 64 * 2;
-constexpr int MAX_SPLIT = 8;  // split-K: the portable cluster size
 
 enum Epilogue { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 enum Schedule { COOPERATIVE = 0, PINGPONG = 1 };
 
 // Shared memory: the k-tile ring (a stage holds a block's TM x 64 A k-tile
-// and its BN x 64 W k-tile; split-K stages its partial sums in the ring's
-// first RED bytes), then per consumer warpgroup its bf16 64 x 64 staging
-// tiles for the TMA stores (the residual epilogue keeps one per 64
+// and its BN x 64 W k-tile), then per consumer warpgroup its bf16 64 x 64
+// staging tiles for the TMA stores (the residual epilogue keeps one per 64
 // columns, R lands there; the others alternate two), then the barriers:
 // full and empty per stage, then per consumer one for its R blocks and
-// (ping-pong) one for its turn, then (split-K) red_full per 16-row group
-// and red_free.
+// (ping-pong) one for its turn.
 template <int BN, int EPI, int PP>
 struct Tile {
   static constexpr int TM = PP ? 64 : 128;  // a block's rows of a tile
@@ -135,21 +117,18 @@ struct Tile {
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int OUT_TILES = EPI == EPI_RESIDUAL ? BN / 64 : 2;
   static constexpr int OUT_BYTES = 2 * OUT_TILES * OUT_TILE;
-  static constexpr int BAR_BYTES = (2 * 8 + 4 + 8 + 1) * 8;
+  static constexpr int BAR_BYTES = (2 * 8 + 4) * 8;
   static constexpr int FIT = (SMEM_LIMIT - 1024 - BAR_BYTES - OUT_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int OUT = STAGES * STAGE;  // staging tiles [2 consumers][OUT_TILES]
   static constexpr int BARS = OUT + OUT_BYTES;
   static constexpr int SMEM = BARS + BAR_BYTES + 1024;  // + slack to align to 1024
-  static constexpr int RED = TM * BN * 4;  // a block's fp32 partial tile (split-K)
   static_assert(STAGES >= 3, "the ring needs three stages");
-  static_assert(PP || OUT >= RED, "the ring must hold a partial tile");
 };
 
 // One row set of a launch. Its units are [first, first + row units x
-// tiles_n) of the launch's walk; a unit is one tile (cooperative, split-K),
-// or the pair of vertically adjacent tiles a cluster's blocks share
-// (ping-pong).
+// tiles_n) of the launch's walk; a unit is one tile (cooperative), or the
+// pair of vertically adjacent tiles a cluster's blocks share (ping-pong).
 struct Seg {
   int M, N, tiles_n, first;
   const bf16* bias;  // (N,): the segment's column slice
@@ -159,14 +138,7 @@ struct Params {
   CUtensorMap a[2], w[2], c[2], r[2];  // per segment: A, W slice (BN / CL rows a box), C, R
   Seg seg[2];
   int segs, units, K;
-  int split;  // split-K: the cluster's blocks, each a slice of K (1 otherwise)
 };
-
-// The rank of a split-K cluster of S that finishes 16-row group (cw, w)
-// of a tile: groups 2w + cw in order, spread evenly over the ranks.
-__device__ __forceinline__ int group_owner(int cw, int w, int S) {
-  return ((2 * w + cw) * S) >> 3;
-}
 
 // A TMA load that lands at `dst`'s offset in both blocks of a cluster and
 // completes its bytes on the mbarrier at `bar`'s offset in each (the
@@ -254,15 +226,14 @@ struct TileAt {
   int s, m0, n0;  // segment, this block's first row and column
 };
 
-// The tile of block `rank` of a cluster in unit `unit`, a unit taking RC
-// row tiles; with RC = 2 (ping-pong) its rows may lie wholly past M (the
-// second tile of a segment's last unit), and then its loads bring zeros
-// and its stores write nothing.
-template <int BN, int TM, int RC>
+// The tile of block `rank` of a cluster of CL in unit `unit`; with CL = 2
+// its rows may lie wholly past M (the second tile of a segment's last
+// unit), and then its loads bring zeros and its stores write nothing.
+template <int BN, int TM, int CL>
 __device__ __forceinline__ TileAt tile_at(const Params& p, int unit, int rank) {
   const int s = p.segs > 1 && unit >= p.seg[1].first ? 1 : 0;
   const int local = unit - p.seg[s].first;
-  return {s, (RC * (local / p.seg[s].tiles_n) + rank) * TM, (local % p.seg[s].tiles_n) * BN};
+  return {s, (CL * (local / p.seg[s].tiles_n) + rank) * TM, (local % p.seg[s].tiles_n) * BN};
 }
 
 // One 64 x 64 block of a consumer warpgroup's output, from the wgmma
@@ -299,23 +270,16 @@ __device__ __forceinline__ void epilogue_block(const float* acc, unsigned char* 
   }
 }
 
-// The body of the three schedules (PP: ping-pong, in clusters of CL = 2
-// blocks; SK: split-K, in clusters of CL = p.split blocks; cooperative:
-// CL = 1). Named barrier 1 + cw: a consumer's own epilogue; 3: both
-// consumers (split-K: done reading the ring before it holds partials).
-// Ping-pong's turns: consumer cw's warps arrive on turn[cw] once they have
-// issued a main loop (so every fill it read has landed), and the other
-// consumer waits on it before its next main loop; an mbarrier, so that a
-// fault traps rather than hangs. Split-K's handshake: every lane of group
-// (cw, w) of each rank arrives on red_full[cw * 4 + w] of the group's owner
-// once its partial is staged; the owner's lanes, once they have read all S,
-// arrive on red_free of every rank, whose producer waits on it before it
-// loads the next unit into the ring.
-template <int BN, int EPI, int PP, int SK>
+// The body of both schedules (PP: ping-pong, in clusters of CL = 2
+// blocks; cooperative: CL = 1). Named barrier 1 + cw: a consumer's own
+// epilogue. Ping-pong's turns: consumer cw's warps arrive on turn[cw] once
+// they have issued a main loop (so every fill it read has landed), and the
+// other consumer waits on it before its next main loop; an mbarrier, so
+// that a fault traps rather than hangs.
+template <int BN, int EPI, int PP>
 __device__ __forceinline__ void gemm_body(const Params& p) {
   using T = Tile<BN, EPI, PP>;
-  constexpr int RC = PP ? 2 : 1;  // row tiles a unit
-  constexpr bool CLUSTERED = PP || SK;
+  constexpr int CL = PP ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -324,35 +288,23 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
   uint64_t* empty = full + T::STAGES;
   uint64_t* rfull = empty + T::STAGES;  // residual: a consumer's R blocks have landed
   uint64_t* turn = rfull + 2;
-  uint64_t* red_full = turn + 2;  // split-K: a 16-row group's S partials are staged
-  uint64_t* red_free = red_full + 8;  // split-K: this block's partials have been read
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int CL = PP ? 2 : (SK ? p.split : 1);
   if (tid == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);  // the producer's arrive, plus the TMA bytes
       // one arrive per consumer warp that reads the stage: both consumers'
-      // (cooperative, split-K), or one consumer's in each block of the
-      // cluster (ping-pong)
+      // (cooperative), or one consumer's in each block of the cluster
       mbar_init(&empty[s], 8);
     }
-    const int rank = SK ? cluster_rank() : 0;
     for (int c = 0; c < 2; ++c) {
-      // split-K: one expect_tx by each warp of the consumer this rank owns
-      int owned = 0;
-      for (int w = 0; w < 4; ++w) owned += SK && group_owner(c, w, CL) == rank;
-      mbar_init(&rfull[c], owned > 0 ? owned : 1);
+      mbar_init(&rfull[c], 1);
       mbar_init(&turn[c], 4);  // one arrive per warp of the consumer
-    }
-    if (SK) {
-      for (int g = 0; g < 8; ++g) mbar_init(&red_full[g], 32 * CL);  // a warp's lanes a rank
-      mbar_init(red_free, 8 * 32);  // the owners' lanes of all eight groups
     }
     mbar_init_fence();
   }
-  if (CLUSTERED)
-    cluster_sync();  // every block's barriers are ready before any loads or signals
+  if (CL > 1)
+    cluster_sync();  // both blocks' barriers are ready before either loads
   else
     __syncthreads();
 
@@ -360,26 +312,20 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
 
   if (wg == 0) {
     // producer: one thread keeps the ring full, through tile boundaries
-    // (split-K: up to the next unit, which waits for this one's reduction)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      const int rank = CLUSTERED ? cluster_rank() : 0;
-      const int kt0 = SK ? KT * rank / CL : 0, kt1 = SK ? KT * (rank + 1) / CL : KT;
+      const int rank = CL > 1 ? cluster_rank() : 0;
       int stage = 0;
       unsigned phase = 0;
-      for (int i = 0, unit = blockIdx.x / CL; unit < p.units; ++i, unit += gridDim.x / CL) {
-        if (SK && i > 0) {  // the ring's partials of unit i - 1 have been read
-          mbar_wait(red_free, (i - 1) & 1);
-          fence_cluster();
-        }
-        const TileAt at = tile_at<BN, T::TM, RC>(p, unit, PP ? rank : 0);
-        for (int kt = kt0; kt < kt1; ++kt) {
+      for (int unit = blockIdx.x / CL; unit < p.units; unit += gridDim.x / CL) {
+        const TileAt at = tile_at<BN, T::TM, CL>(p, unit, rank);
+        for (int kt = 0; kt < KT; ++kt) {
           // free in this block (and the peer: this block's W half lands in both)
           mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
           unsigned char* dst = ring + stage * T::STAGE;
           mbar_arrive_expect_tx(&full[stage], T::STAGE);  // rows past M or N come as zeros
           tma_load_2d(dst, &p.a[at.s], &full[stage], kt * BK, at.m0);
-          if (PP)
+          if (CL > 1)
             tma_load_2d_multicast(dst + T::A_BYTES + rank * (BN / 2) * 128, &p.w[at.s],
                                   &full[stage], kt * BK, at.n0 + rank * (BN / 2));
           else
@@ -393,23 +339,20 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int rank = CLUSTERED ? cluster_rank() : 0;
+    const int rank = CL > 1 ? cluster_rank() : 0;
     const int first = blockIdx.x / CL, units_step = gridDim.x / CL;  // the block's walk
-    const int kt0 = SK ? KT * rank / CL : 0, kt1 = SK ? KT * (rank + 1) / CL : KT;
     const int cw = wg - 1;
     const int ctid = tid & 127, lane = tid & 31, w = ctid >> 5;
     const int g = lane >> 2, t = lane & 3;
-    // split-K: this warp's 16 rows of each tile are this block's to finish
-    const bool owner = !SK || group_owner(cw, w, CL) == rank;
     unsigned char* out_s = ring + T::OUT + cw * T::OUT_TILES * OUT_TILE;
     float acc[BN / 2];
     int stage = 0, stores = 0;
-    unsigned phase = 0, rphase = 0, tphase = 0, uphase = 0;
-    // cooperative, split-K: every unit of the walk, this consumer's 64 rows
-    // of it; ping-pong: units i = cw, cw + 2, ... of the walk, all 64 rows
+    unsigned phase = 0, rphase = 0, tphase = 0;
+    // cooperative: every unit of the walk, this consumer's 64 rows of it;
+    // ping-pong: units i = cw, cw + 2, ... of the walk, all 64 rows
     for (int i = PP ? cw : 0, unit = first + i * units_step; unit < p.units;
          i += PP ? 2 : 1, unit += (PP ? 2 : 1) * units_step) {
-      const TileAt at = tile_at<BN, T::TM, RC>(p, unit, PP ? rank : 0);
+      const TileAt at = tile_at<BN, T::TM, CL>(p, unit, rank);
       const int m0 = at.m0 + (PP ? 0 : cw * 64);
       const int N = p.seg[at.s].N;
       const bf16* bias = p.seg[at.s].bias;
@@ -427,7 +370,7 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
 #pragma unroll
       for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
       int held = -1;  // the stage the in-flight wgmma group reads
-      for (int kt = kt0; kt < kt1; ++kt) {
+      for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(&full[stage], phase);
         const unsigned char* a_s = ring + stage * T::STAGE + (PP ? 0 : cw * 64 * 128);
         const unsigned char* b_s = ring + stage * T::STAGE + T::A_BYTES;
@@ -437,32 +380,21 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
         for (int ks = 0; ks < BK / 16; ++ks)  // 16 k = 32 bytes into each swizzled row
           wgmma_tile<BN>(acc, smem_desc(a_s + ks * 32), smem_desc(b_s + ks * 32));
         wgmma_commit();
-        if (EPI == EPI_RESIDUAL && kt == min(kt0 + 2, kt1 - 1)) {
+        if (EPI == EPI_RESIDUAL && ctid == 0 && kt == min(2, KT - 1)) {
           // R of this tile into the staging tiles, once the stores of
-          // this consumer's previous tile have read them (split-K: each
-          // owning warp its own 16 rows, by its own stores)
-          if (!SK && ctid == 0) {
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
+          // this consumer's previous tile have read them
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE);  // rows past M: zeros
 #pragma unroll
-            for (int cc = 0; cc < T::OUT_TILES; ++cc)
-              tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64, m0);
-          }
-          if (SK && owner && lane == 0) {
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-            mbar_arrive_expect_tx(&rfull[cw], T::OUT_TILES * OUT_TILE / 4);
-#pragma unroll
-            for (int cc = 0; cc < T::OUT_TILES; ++cc)
-              tma_load_2d(out_s + cc * OUT_TILE + w * 16 * 128, &p.r[at.s], &rfull[cw],
-                          at.n0 + cc * 64, m0 + w * 16);
-          }
+          for (int cc = 0; cc < T::OUT_TILES; ++cc)
+            tma_load_2d(out_s + cc * OUT_TILE, &p.r[at.s], &rfull[cw], at.n0 + cc * 64, m0);
         }
         // the group of k-tile kt-1 has retired: its stage may be refilled
         wgmma_wait<1>();
         fence_acc<BN / 2>(acc);
         if (held >= 0 && lane == 0) {
           mbar_arrive(&empty[held]);
-          if (PP) mbar_arrive_peer(&empty[held], rank ^ 1);
+          if (CL > 1) mbar_arrive_peer(&empty[held], rank ^ 1);
         }
         held = stage;
         if (++stage == T::STAGES) {
@@ -476,113 +408,48 @@ __device__ __forceinline__ void gemm_body(const Params& p) {
       fence_acc<BN / 2>(acc);
       if (lane == 0) {
         mbar_arrive(&empty[held]);
-        if (PP) mbar_arrive_peer(&empty[held], rank ^ 1);
-      }
-
-      if (SK) {
-        // both consumers are done with the ring: stage this thread's
-        // partial sums there, a float4 at a time in fragment order (every
-        // rank's thread ctid holds the same elements), then the owner of
-        // this 16-row group adds the S ranks' partials in rank order
-        named_barrier(3, 256);
-        float4* part = reinterpret_cast<float4*>(ring) + cw * (BN / 8) * 128 + ctid;
-#pragma unroll
-        for (int q = 0; q < BN / 8; ++q)
-          part[q * 128] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-        fence_proxy_async();  // before the producer's next TMA fills of these bytes
-        fence_cluster();
-        uint64_t* ready = &red_full[cw * 4 + w];
-        mbar_arrive_peer(ready, group_owner(cw, w, CL));
-        if (owner) {
-          mbar_wait(ready, uphase);
-          fence_cluster();
-          for (int s = 0; s < CL; ++s) {
-            const float4* src = peer_ptr(part, s);
-#pragma unroll
-            for (int q = 0; q < BN / 8; ++q) {
-              const float4 v = src[q * 128];
-              if (s == 0) {
-                acc[4 * q] = v.x;
-                acc[4 * q + 1] = v.y;
-                acc[4 * q + 2] = v.z;
-                acc[4 * q + 3] = v.w;
-              } else {
-                acc[4 * q] += v.x;
-                acc[4 * q + 1] += v.y;
-                acc[4 * q + 2] += v.z;
-                acc[4 * q + 3] += v.w;
-              }
-            }
-          }
-          fence_cluster();  // the reads, before the ranks may overwrite them
-          for (int s = 0; s < CL; ++s) mbar_arrive_peer(red_free, s);
-        }
-        uphase ^= 1;
+        if (CL > 1) mbar_arrive_peer(&empty[held], rank ^ 1);
       }
 
       // Epilogue, 64 columns at a time, each block stored by TMA as soon
       // as it is staged (rows past M, columns past N are not written).
       // The residual's blocks each have their own staging tile; the
       // others alternate two, a tile being rewritten once the store
-      // issued from it two blocks earlier has read it. Split-K: only the
-      // owning warps, each on its own 16 rows, synchronised by the warp.
-      if (EPI == EPI_RESIDUAL && owner) {
+      // issued from it two blocks earlier has read it.
+      if (EPI == EPI_RESIDUAL) {
         mbar_wait(&rfull[cw], rphase);
         rphase ^= 1;
       }
 #pragma unroll
       for (int cc = 0; cc < BN / 64; ++cc, ++stores) {
         unsigned char* buf = out_s + (EPI == EPI_RESIDUAL ? cc : stores & 1) * OUT_TILE;
-        if (SK) {
-          if (owner) {
-            if (EPI != EPI_RESIDUAL) {
-              if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-              __syncwarp();
-            }
-            epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
-            fence_proxy_async();
-            __syncwarp();
-            if (lane == 0) {
-              tma_store_2d(&p.c[at.s], buf + w * 16 * 128, at.n0 + cc * 64, m0 + w * 16);
-              asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-            }
-          }
-        } else {
-          if (EPI != EPI_RESIDUAL) {
-            if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-            named_barrier(1 + cw, 128);
-          }
-          epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
-          fence_proxy_async();  // the staging writes, before the TMA store reads them
+        if (EPI != EPI_RESIDUAL) {
+          if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
           named_barrier(1 + cw, 128);
-          if (ctid == 0) {
-            tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, m0);
-            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-          }
+        }
+        epilogue_block<EPI>(acc + cc * 32, buf, at.n0 + cc * 64, N, bias, w, g, t);
+        fence_proxy_async();  // the staging writes, before the TMA store reads them
+        named_barrier(1 + cw, 128);
+        if (ctid == 0) {
+          tma_store_2d(&p.c[at.s], buf, at.n0 + cc * 64, m0);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
     }
     // the staging tiles must outlive the stores' reads of them
-    if (SK ? lane == 0 : ctid == 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    if (ctid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
-  // no block leaves while a peer may still signal it or read its ring
-  if (CLUSTERED) cluster_sync();
+  if (CL > 1) cluster_sync();  // no block leaves while its peer may still signal it
 }
 
 template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(const __grid_constant__ Params p) {
-  gemm_body<BN, EPI, 0, 0>(p);
+  gemm_body<BN, EPI, 0>(p);
 }
 
 template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1) pingpong_kernel(const __grid_constant__ Params p) {
-  gemm_body<BN, EPI, 1, 0>(p);
-}
-
-template <int BN, int EPI>
-__global__ void __launch_bounds__(THREADS, 1) split_kernel(const __grid_constant__ Params p) {
-  gemm_body<BN, EPI, 0, 1>(p);
+  gemm_body<BN, EPI, 1>(p);
 }
 
 // The host side of one segment.
@@ -593,21 +460,17 @@ struct SegArgs {
   bf16* c;
 };
 
-// Launches one schedule's kernel over the segments (split-K: in clusters
-// of `split`). `units` is the unit count the caller's plan expects
-// (ops/attention.py:ln_gemm_units); a launch whose walk would differ is
-// refused.
-template <int BN, int EPI, int PP, int SK>
+// Launches one schedule's kernel over the segments. `units` is the unit
+// count the caller's plan expects (ops/attention.py:ln_gemm_units); a
+// launch whose walk would differ is refused.
+template <int BN, int EPI, int PP>
 cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs, int nseg,
-                   int split, int units, cudaStream_t stream) {
+                   int units, cudaStream_t stream) {
   using T = Tile<BN, EPI, PP>;
-  constexpr int RC = PP ? 2 : 1;
-  const int CL = PP ? 2 : (SK ? split : 1);
+  constexpr int CL = PP ? 2 : 1;
   const auto kernel = [] {
     if constexpr (PP)
       return pingpong_kernel<BN, EPI>;
-    else if constexpr (SK)
-      return split_kernel<BN, EPI>;
     else
       return gemm_kernel<BN, EPI>;
   }();
@@ -618,11 +481,8 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
   Params p = {};
   p.segs = nseg;
   p.K = K;
-  p.split = SK ? split : 1;
   const uint64_t k_bytes[1] = {(uint64_t)K * 2};
-  // split-K stores and loads R by 16-row groups, the others by 64 x 64 blocks
-  const uint32_t box_a[2] = {BK, T::TM}, box_w[2] = {BK, BN / (PP ? 2 : 1)},
-                 box_c[2] = {64, SK ? 16u : 64u};
+  const uint32_t box_a[2] = {BK, T::TM}, box_w[2] = {BK, BN / CL}, box_c[2] = {64, 64};
   int walk = 0;
   for (int s = 0; s < nseg; ++s) {
     const SegArgs& g = segs[s];
@@ -643,11 +503,11 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
     p.seg[s].first = walk;
     p.seg[s].bias = bias + g.col0;
     const int row_tiles = (g.M + T::TM - 1) / T::TM;
-    walk += ((row_tiles + RC - 1) / RC) * p.seg[s].tiles_n;
+    walk += ((row_tiles + CL - 1) / CL) * p.seg[s].tiles_n;
   }
   if (walk != units) return cudaErrorInvalidValue;
   p.units = units;
-  if (CL == 1) {
+  if constexpr (CL == 1) {
     kernel<<<std::min(units, sm_count()), THREADS, T::SMEM, stream>>>(p);
   } else {  // clusters of CL blocks, as many as can be resident at once
     cudaLaunchAttribute cluster[1];
@@ -662,14 +522,12 @@ cudaError_t launch(int K, const bf16* Wt, const bf16* bias, const SegArgs* segs,
     cfg.stream = stream;
     cfg.attrs = cluster;
     cfg.numAttrs = 1;
-    static int resident[MAX_SPLIT + 1] = {};  // by cluster size, found once each
-    if (resident[CL] == 0) {
+    static const int resident = [&] {  // once
       int n = 0;
-      resident[CL] = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess && n > 0
-                         ? n : -1;
-    }
-    if (resident[CL] <= 0) return cudaErrorInvalidConfiguration;
-    cfg.gridDim = dim3(CL * std::min(units, resident[CL]));
+      return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
+    }();
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    cfg.gridDim = dim3(CL * std::min(units, resident));
     if ((e = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return e;
   }
   return cudaGetLastError();
@@ -679,23 +537,9 @@ template <int BN, int PP>
 cudaError_t launch_epilogue(int epilogue, int K, const bf16* Wt, const bf16* bias,
                             const SegArgs* segs, int nseg, int units, cudaStream_t s) {
   switch (epilogue) {
-    case EPI_NONE: return launch<BN, EPI_NONE, PP, 0>(K, Wt, bias, segs, nseg, 1, units, s);
-    case EPI_GELU: return launch<BN, EPI_GELU, PP, 0>(K, Wt, bias, segs, nseg, 1, units, s);
-    case EPI_RESIDUAL:
-      return launch<BN, EPI_RESIDUAL, PP, 0>(K, Wt, bias, segs, nseg, 1, units, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// Split-K launches: no quick_gelu (every such launch has the LN prologue,
-// which never splits).
-template <int BN>
-cudaError_t launch_split(int epilogue, int K, const bf16* Wt, const bf16* bias,
-                         const SegArgs* segs, int nseg, int split, int units, cudaStream_t s) {
-  switch (epilogue) {
-    case EPI_NONE: return launch<BN, EPI_NONE, 0, 1>(K, Wt, bias, segs, nseg, split, units, s);
-    case EPI_RESIDUAL:
-      return launch<BN, EPI_RESIDUAL, 0, 1>(K, Wt, bias, segs, nseg, split, units, s);
+    case EPI_NONE: return launch<BN, EPI_NONE, PP>(K, Wt, bias, segs, nseg, units, s);
+    case EPI_GELU: return launch<BN, EPI_GELU, PP>(K, Wt, bias, segs, nseg, units, s);
+    case EPI_RESIDUAL: return launch<BN, EPI_RESIDUAL, PP>(K, Wt, bias, segs, nseg, units, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -712,11 +556,10 @@ extern "C" {
 // gamma == nullptr means no LayerNorm; otherwise ln_out (M0 + M1, K)
 // receives LN of both segments' rows and the product reads it. The plan
 // (ops/attention.py:ln_gemm_plan): schedule 0 cooperative (tile_n 64, 128
-// or 256) or 1 ping-pong (tile_n 256); split > 1 cuts the cooperative
-// tile's K into that many slices, a cluster's blocks (2..8, at most K / 64,
-// no LayerNorm, epilogue 0 or 2); and the walk's unit count it expects.
+// or 256) or 1 ping-pong (tile_n 256), and the walk's unit count it
+// expects.
 int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, const void* Wt,
-                 const void* bias, int epilogue, int schedule, int tile_n, int split, int units,
+                 const void* bias, int epilogue, int schedule, int tile_n, int units,
                  const void* A0, int M0, int N0, int col00, const void* R0, void* C0,
                  const void* A1, int M1, int N1, int col01, const void* R1, void* C1,
                  void* stream) {
@@ -729,9 +572,6 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, con
        static_cast<bf16*>(C1)}};
   const int nseg = A1 != nullptr ? 2 : 1;
   if (schedule != COOPERATIVE && (schedule != PINGPONG || tile_n != 256))
-    return cudaErrorInvalidValue;
-  if (split != 1 && (schedule != COOPERATIVE || split < 2 || split > MAX_SPLIT ||
-                     K / 64 < split || gamma != nullptr || epilogue == EPI_GELU))
     return cudaErrorInvalidValue;
   if (gamma != nullptr) {
     const int rows = M0 + (nseg > 1 ? M1 : 0), rows_per_block = 8;  // 256 threads, a warp a row
@@ -746,14 +586,6 @@ int oadp_ln_gemm(int K, const float* gamma, const float* beta, void* ln_out, con
   const bf16* w = static_cast<const bf16*>(Wt);
   const bf16* b = static_cast<const bf16*>(bias);
   if (schedule == PINGPONG) return launch_epilogue<256, 1>(epilogue, K, w, b, segs, nseg, units, s);
-  if (split > 1) {
-    switch (tile_n) {
-      case 64: return launch_split<64>(epilogue, K, w, b, segs, nseg, split, units, s);
-      case 128: return launch_split<128>(epilogue, K, w, b, segs, nseg, split, units, s);
-      case 256: return launch_split<256>(epilogue, K, w, b, segs, nseg, split, units, s);
-    }
-    return cudaErrorInvalidValue;
-  }
   switch (tile_n) {
     case 64: return launch_epilogue<64, 0>(epilogue, K, w, b, segs, nseg, units, s);
     case 128: return launch_epilogue<128, 0>(epilogue, K, w, b, segs, nseg, units, s);

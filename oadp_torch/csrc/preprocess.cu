@@ -39,34 +39,35 @@
 // most 35 fp32 products a value, sit under that for crops of scale below
 // ~4 and above it for the largest.
 //
-// Design: a block per (crop, band of output rows): the whole crop where
-// the crops alone fill the card twice over (an objects dispatch), else as
-// many bands as do, of at least 16 rows. The block derives the crop's
-// horizontal taps for all output columns and the band's vertical taps
-// into shared memory (the prologue, once a band), each cut to the taps
-// that fall inside the image (the others weigh nothing: skipping them adds
-// the same exact zeros the plain version adds), and a 3 x 256 bf16 table
-// of the normalisation, (v - mean) / std for every uint8 v, so no pixel
-// divides. It then walks sub-bands of output rows whose vertical taps
-// reach at most RING rows of the source, in order, keeping the horizontal
-// pass's uint8 results in a ring of RING rows: a source row's horizontal
-// pass runs once, however many sub-bands read it. The rows a sub-band
-// adds are staged in chunks: each chunk's source rows, only the columns
-// the crop's taps reach, in 16-pixel units (three 16-byte loads), each
-// pixel stored as one 4-byte word (a chunk ends at the staging cap, chosen
-// with the ring so that two blocks fit on an SM). The horizontal pass
-// reads a tap's three channels with one 4-byte load (one shared-memory
-// wavefront a warp), a thread taking one output column of ROW_GROUP rows.
-// Widening takes no conversion instruction: byte_perm puts a byte under
-// the exponent of 2^23 and one subtraction takes 2^23 away (exact for
-// 0..255); rounding back to uint8 adds 2^23 rounding down and reads the
-// mantissa. Each tap's product is exact in fp32, so an FMA adds exactly what
-// a multiply and an add would: the sums are the plain version's, in its
-// order. The vertical pass gives each thread 8 consecutive values of an
-// output row's out x 3 (channels interleaved, as the output lies): one
-// 8-byte ring load a tap, the normalisation by table, one 16-byte store.
+// Design: a block per (crop, band of output rows): the whole crop where the
+// crops alone fill the card twice over (an objects dispatch), else as many
+// bands as do, of at least 16 rows (the launch's layout: bands, ring rows,
+// staging cap and shared memory, is planned by the caller,
+// ops/preprocess.py:resize_crops, and checked here). The block derives the
+// crop's horizontal taps for all output columns and the band's vertical taps
+// into shared memory (the prologue, once a band), each cut to the taps that
+// fall inside the image (the others weigh nothing: skipping them adds the
+// same exact zeros the plain version adds), and a 3 x 256 bf16 table of the
+// normalisation, (v - mean) / std for every uint8 v, so no pixel divides. It
+// then walks sub-bands of output rows whose vertical taps reach at most RING
+// rows of the source, in order, keeping the horizontal pass's uint8 results
+// in a ring of RING rows: a source row's horizontal pass runs once, however
+// many sub-bands read it. The rows a sub-band adds are staged in chunks:
+// each chunk's source rows, only the columns the crop's taps reach, in
+// 16-pixel units (three 16-byte loads), each pixel stored as one 4-byte word
+// (a chunk ends at the staging cap, chosen with the ring so that two blocks
+// fit on an SM). The horizontal pass reads a tap's three channels with one
+// 4-byte load (one shared-memory wavefront a warp), a thread taking one
+// output column of ROW_GROUP rows. Widening takes no conversion instruction:
+// byte_perm puts a byte under the exponent of 2^23 and one subtraction takes
+// 2^23 away (exact for 0..255); rounding back to uint8 adds 2^23 rounding
+// down and reads the mantissa. Each tap's product is exact in fp32, so an
+// FMA adds exactly what a multiply and an add would: the sums are the plain
+// version's, in its order. The vertical pass gives each thread 8 consecutive
+// values of an output row's out x 3 (channels interleaved, as the output
+// lies): one 8-byte ring load a tap, the normalisation by table, one 16-byte
+// store.
 #include <limits.h>
-#include <algorithm>
 #include <math.h>
 
 #include "common.cuh"
@@ -74,7 +75,6 @@
 namespace oadp {
 namespace {
 
-constexpr int MIN_BAND = 16;  // the fewest output rows a block takes
 constexpr int ROW_GROUP = 4;  // source rows a thread of the horizontal pass takes
 // two blocks an SM of 512 threads: the passes wait on shared-memory loads
 // (256 threads a block ran 15% slower; unrolling the tap loops did not help)
@@ -237,7 +237,8 @@ struct ResizeArgs {
 // source (cap + 16 bytes: rows of 4-byte pixel words), the
 // taps' first source, first tap and count (out columns, then band rows),
 // the weights (out x k_pad, band x k_pad bf16), the normalisation table
-// (3 x 256 bf16). ops/preprocess.py:resize_smem mirrors it.
+// (3 x 256 bf16). ops/preprocess.py:resize_smem computes it for the
+// launch, which is refused where the two differ.
 __host__ __device__ __forceinline__ int smem_source(int ring, int out) {
   return (ring * out * 3 + 15) & ~15;
 }
@@ -468,18 +469,23 @@ extern "C" {
 // halves (G) int32 (tap_sum_half of each image's own tap count) or null;
 // dst (G * per_image, out, out, 3) bf16 contiguous, out a multiple of 8;
 // taps_w (crops, 2, out, k_pad) fp32 and taps_s (crops, 2, out) int32 both
-// given or both null; ring >= k_pad rows and cap >= 16 bytes
-// (ops/preprocess.py:resize_stage_plan); cycles (blocks, 4) int64 or null
-// (blocks: G * per_image crops times ops/preprocess.py:resize_bands').
+// given or both null. The layout, as planned by the wrapper: bands a crop
+// of band output rows each (ops/preprocess.py:resize_bands), ring >= k_pad
+// rows and cap >= 16 bytes (resize_stage_plan), smem bytes
+// (resize_smem; refused unless it is smem_bytes'). cycles (G * per_image *
+// bands, 4) int64 or null.
 int oadp_resize_crops(const void* images, long long image_stride, int G, int per_image, int PH,
                       int PW, const void* meta, int k_pad, const void* halves, int out,
-                      float m0, float m1, float m2, float s0, float s1, float s2, int ring,
-                      int cap, void* dst, void* taps_w, void* taps_s, void* cycles,
-                      int cycle_rows, void* stream) {
+                      float m0, float m1, float m2, float s0, float s1, float s2, int bands,
+                      int band, int ring, int cap, int smem, void* dst, void* taps_w,
+                      void* taps_s, void* cycles, void* stream) {
   using namespace oadp;
   if (G <= 0 || per_image <= 0) return cudaSuccess;
   if (k_pad <= 0 || k_pad > MAX_TAPS || out <= 0 || out % 8 || PH <= 0 || PW <= 0 ||
-      ring < k_pad || cap < 16 || cap % 16)
+      ring < k_pad || cap < 16 || cap % 16 || band <= 0 || bands <= 0 ||
+      (long long)bands * band < out || (bands - 1) * band >= out)
+    return cudaErrorInvalidValue;
+  if (smem != smem_bytes(ring, out, band, cap, k_pad) || smem > 232448)
     return cudaErrorInvalidValue;
   if ((taps_w == nullptr) != (taps_s == nullptr)) return cudaErrorInvalidValue;
   ResizeArgs a;
@@ -492,14 +498,8 @@ int oadp_resize_crops(const void* images, long long image_stride, int G, int per
   a.halves = static_cast<const int*>(halves);
   a.k_pad = k_pad;
   a.out = out;
-  // bands a crop: enough blocks for two a multiprocessor, bands of at
-  // least MIN_BAND rows
-  const long long crops = (long long)G * per_image;
-  const int max_bands = (out + MIN_BAND - 1) / MIN_BAND;
-  const long long want = (2LL * sm_count() + crops - 1) / crops;
-  const int bands = (int)std::min<long long>(max_bands, std::max<long long>(1, want));
-  a.band = (out + bands - 1) / bands;
-  a.bands = (out + a.band - 1) / a.band;
+  a.band = band;
+  a.bands = bands;
   a.ring = ring;
   a.cap = cap;
   a.aligned = reinterpret_cast<uintptr_t>(images) % 16 == 0 && image_stride % 16 == 0 &&
@@ -509,13 +509,10 @@ int oadp_resize_crops(const void* images, long long image_stride, int G, int per
   a.taps_w = static_cast<float*>(taps_w);
   a.taps_s = static_cast<int*>(taps_s);
   a.cycles = static_cast<long long*>(cycles);
-  if (cycles != nullptr && cycle_rows != crops * a.bands) return cudaErrorInvalidValue;
-  const int smem = smem_bytes(ring, out, a.band, cap, k_pad);
-  if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(resize_crops_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = crops * a.bands;
+  const long long blocks = (long long)G * per_image * bands;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   resize_crops_kernel<<<(int)blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

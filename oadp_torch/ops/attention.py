@@ -88,7 +88,6 @@ __all__ = [
     'out_proj_residual',
     'out_proj_residual_plain',
     'reset_launches',
-    'split_allowed',
 ]
 
 import functools
@@ -382,12 +381,9 @@ class GemmPlan(NamedTuple):
     both consumer warpgroups on one 128-row tile, 64, 128 or 256 columns
     wide; ``'pingpong'``: each on its own 64 x 256 tiles, their main loops
     taking turns, the blocks in clusters of two that share each W k-tile
-    by TMA multicast), its tile width, and (cooperative only) ``split``:
-    a cluster of that many blocks a tile, each on a consecutive slice of
-    its K, their fp32 partial sums added in distributed shared memory."""
+    by TMA multicast) and its tile width."""
     schedule: str
     tile_n: int
-    split: int = 1
 
     @property
     def rows(self) -> int:
@@ -397,14 +393,7 @@ class GemmPlan(NamedTuple):
     @property
     def cluster(self) -> int:
         """Blocks a unit of the walk takes: the cluster's."""
-        return 2 if self.schedule == 'pingpong' else self.split
-
-    @property
-    def row_tiles(self) -> int:
-        """Row tiles a unit of the walk takes: a ping-pong cluster's two
-        64-row halves of 128 rows; one otherwise (a split cluster's blocks
-        share their tile)."""
-        return 2 if self.schedule == 'pingpong' else 1
+        return 1 if self.schedule == 'cooperative' else 2
 
 
 _SCHEDULES = {'cooperative': 0, 'pingpong': 1}
@@ -415,34 +404,12 @@ _SCHEDULES = {'cooperative': 0, 'pingpong': 1}
 #: the mean over the plan's device times at M = 403,456 and 36,400 (none:
 #: 403,456 only), two readings a shape, in ``oadp_torch/profile_kernels.py
 #: --only gemm`` runs on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-#: section 6; the split plans' in the change turns of one parent / change
-#: / change / parent call). A split plan takes no quick_gelu (0.0: never
-#: planned)
+#: section 6)
 GEMM_RATES = {
     GemmPlan('cooperative', 256): (677.9, 538.9, 459.2, 665.7),
     GemmPlan('cooperative', 128): (590.9, 524.6, 507.0, 636.1),
     GemmPlan('cooperative', 64): (464.9, 370.2, 404.7, 494.0),
     GemmPlan('pingpong', 256): (616.0, 571.2, 483.7, 590.9),
-    GemmPlan('cooperative', 64, 2): (140.8, 0.0, 138.2, 240.2),
-    GemmPlan('cooperative', 64, 4): (72.5, 0.0, 68.2, 164.0),
-    GemmPlan('cooperative', 128, 2): (236.4, 0.0, 186.8, 343.7),
-    GemmPlan('cooperative', 128, 4): (91.3, 0.0, 85.2, 249.1),
-    GemmPlan('cooperative', 256, 2): (186.4, 0.0, 187.6, 392.5),
-    GemmPlan('cooperative', 256, 4): (78.1, 0.0, 78.8, 228.9),
-}
-
-#: what a split plan adds to a launch, microseconds: staging the partial
-#: tile, the handshake and the S reads of each 16-row group, and the
-#: cluster's launch (``profile_kernels.py --only gemm``: the split plan's
-#: device time at the globals patch product, 784 x 3072 -> 768, less its
-#: tile's unsplit at depth K / S; the mean of two readings, the same call)
-SPLIT_US = {
-    GemmPlan('cooperative', 64, 2): 16.78,
-    GemmPlan('cooperative', 64, 4): 25.44,
-    GemmPlan('cooperative', 128, 2): 6.75,
-    GemmPlan('cooperative', 128, 4): 20.02,
-    GemmPlan('cooperative', 256, 2): 11.53,
-    GemmPlan('cooperative', 256, 4): 16.2,
 }
 
 #: the fewest tiles a block must get for ping-pong: its consumers take
@@ -455,42 +422,27 @@ PINGPONG_MIN_TILES = 4
 
 def ln_gemm_units(plan: GemmPlan, segs) -> int:
     """The units of ``plan``'s walk over row sets ``segs`` (``(M, N)``
-    each): per row set, its row tiles (of ``plan.rows``, ``plan.row_tiles``
-    a unit) times its column tiles. The kernel walks them N fastest, a
-    second row set's after the first's; a split plan's cluster takes each
-    unit whole, a slice of K a block."""
-    return sum(-(-m // (plan.rows * plan.row_tiles)) * -(-n // plan.tile_n) for m, n in segs)
+    each): per row set, its row tiles (of ``plan.rows``; in a cluster,
+    pairs of them) times its column tiles. The kernel walks them N
+    fastest, a second row set's after the first's."""
+    return sum(-(-m // (plan.rows * plan.cluster)) * -(-n // plan.tile_n) for m, n in segs)
 
 
-def split_allowed(plan: GemmPlan, k: int, epilogue: int, ln: bool) -> bool:
-    """Whether ``plan`` may carry a launch of depth ``k``: a split only
-    without the LayerNorm prologue, without quick_gelu, and with a k-tile
-    (64 deep) or more for each block of the cluster."""
-    return plan.split == 1 or (not ln and epilogue != _EPI_GELU and k // 64 >= plan.split)
-
-
-def ln_gemm_plan(segs, k: int, epilogue: int, sms: int, ln: bool = False) -> GemmPlan:
+def ln_gemm_plan(segs, k: int, epilogue: int, sms: int) -> GemmPlan:
     """The plan whose last wave ends first for an ``ln_gemm`` launch over
-    row sets ``segs`` (``(M, N)`` each) with depth ``k``, ``epilogue`` (0
-    none, 1 quick_gelu, 2 residual) and, with ``ln``, the LayerNorm
-    prologue, on a card of ``sms`` multiprocessors: waves x a block's
-    share of a tile (``1 / split`` of it) at its rate in
-    :data:`GEMM_RATES` (the residual's by depth), plus what a split plan
-    adds to the launch (:data:`SPLIT_US`); ping-pong only where every
-    block gets :data:`PINGPONG_MIN_TILES` tiles, a split only where
-    :func:`split_allowed`. Microseconds."""
+    row sets ``segs`` (``(M, N)`` each) with depth ``k`` and ``epilogue``
+    (0 none, 1 quick_gelu, 2 residual) on a card of ``sms``
+    multiprocessors: waves x a block's tile / its rate in
+    :data:`GEMM_RATES` (the residual's by depth), ping-pong only where
+    every block gets :data:`PINGPONG_MIN_TILES` tiles."""
     column = epilogue + (epilogue == _EPI_RESIDUAL and k > 1024)
 
     def cost(plan):
-        if not split_allowed(plan, k, epilogue, ln):
-            return math.inf
         blocks = ln_gemm_units(plan, segs) * plan.cluster
         if plan.schedule == 'pingpong' and blocks < PINGPONG_MIN_TILES * sms:
             return math.inf
         waves = -(-blocks // (sms - sms % plan.cluster))
-        flops = 2.0 * plan.rows * plan.tile_n * k / plan.split
-        tile_us = flops * sms / (GEMM_RATES[plan][column] * 1e6)
-        return waves * tile_us + SPLIT_US.get(plan, 0.0)
+        return waves * plan.rows * plan.tile_n / GEMM_RATES[plan][column]
 
     return min(GEMM_RATES, key=cost)
 
@@ -514,7 +466,6 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
     for a, o, r, c0 in sets:
         m, n = a.shape[0], o.shape[1]
         if (m == 0 or k % 64 or n % 8 or c0 % 8 or (ln32 is not None and k > 1024)
-                or (plan is not None and not split_allowed(plan, k, epilogue, ln32 is not None))
                 or a.shape[1] != k or wt.shape[1] != k or c0 + n > wt.shape[0]
                 or c0 + n > bias.shape[0] or o.shape[0] != m
                 or (r is not None and r.shape != o.shape)
@@ -524,8 +475,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                              f'wt={tuple(wt.shape)} plan={plan}')
     segs = [(a.shape[0], o.shape[1]) for a, o, _, _ in sets]
     if plan is None:
-        plan = ln_gemm_plan(segs, k, epilogue, _sm_count(a2d.device.index or 0),
-                            ln=ln32 is not None)
+        plan = ln_gemm_plan(segs, k, epilogue, _sm_count(a2d.device.index or 0))
     lib = cuda_lib.library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     gamma = beta = ln_out = None
@@ -539,7 +489,7 @@ def _ln_gemm(a2d, wt, bias, out, ln32=None, epilogue=_EPI_NONE, residual=None,
                      c0, ptr(r), ptr(o)]
     cuda_lib.check(lib.oadp_ln_gemm(
         k, ptr(gamma), ptr(beta), ptr(ln_out), wt.data_ptr(), bias.data_ptr(), epilogue,
-        _SCHEDULES[plan.schedule], plan.tile_n, plan.split, ln_gemm_units(plan, segs),
+        _SCHEDULES[plan.schedule], plan.tile_n, ln_gemm_units(plan, segs),
         *seg_args, _stream(),
     ), 'ln_gemm')
     return plan

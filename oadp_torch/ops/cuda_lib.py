@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.oadp_ln_gemm.argtypes = [
                 i, p, p, p, p, p, i,  # K, gamma, beta, ln_out, Wt, bias, epilogue
-                i, i, i, i,  # the plan: schedule, tile_n, split, units
+                i, i, i,  # the plan: schedule, tile_n, units
                 p, i, i, i, p, p,  # A0, M0, N0, col0_0, R0, C0
                 p, i, i, i, p, p,  # A1, M1, N1, col0_1, R1, C1
                 p,  # stream
@@ -141,8 +141,8 @@ def library() -> ctypes.CDLL:
                 p, ll, i, i, i, i,  # images, image stride, G, per image, PH, PW
                 p, i, p, i,  # meta, k_pad, halves, out
                 f, f, f, f, f, f,  # mean, std
-                i, i,  # ring rows, staging cap
-                p, p, p, p, i, p,  # dst, taps_w, taps_s, cycles, its rows, stream
+                i, i, i, i, i,  # the layout: bands, band rows, ring rows, staging cap, smem
+                p, p, p, p, p,  # dst, taps_w, taps_s, cycles, stream
             ]
             lib.oadp_resize_crops.restype = i
             lib.oadp_patch_rows.argtypes = [

@@ -643,10 +643,11 @@ RESIZE_RING_SLACK = 29
 
 def resize_smem(ring: int, out: int, band: int, cap: int, k_pad: int) -> int:
     """The kernel's shared memory in bytes (``csrc/preprocess.cu``:
-    ``smem_bytes``): the ring of ``ring`` horizontal result rows (``out *
-    3`` bytes each), the staged source (``cap`` + 16 bytes), the taps'
-    first source, first tap and count (``out`` columns, ``band`` rows),
-    their bf16 weights and the 3 x 256 bf16 normalisation table."""
+    ``smem_bytes``, which refuses a launch where the two differ): the ring
+    of ``ring`` horizontal result rows (``out * 3`` bytes each), the staged
+    source (``cap`` + 16 bytes), the taps' first source, first tap and
+    count (``out`` columns, ``band`` rows), their bf16 weights and the 3 x
+    256 bf16 normalisation table."""
     source = -(-ring * out * 3 // 16) * 16
     return (source + cap + 16 + 12 * (out + band) + 2 * (out + band) * k_pad + 3 * 256 * 2)
 
@@ -837,10 +838,13 @@ def resize_crops(
         [tap_sum_half(int(k)) for k in k_own], dtype=torch.int32).to(dst.device)
     mean = [float(v) for v in np.asarray(mean, np.float32)]
     std = [float(v) for v in np.asarray(std, np.float32)]
+    # the launch's layout, which the kernel checks against its own sizes
+    bands, band = resize_bands(
+        crops, out, torch.cuda.get_device_properties(dst.device).multi_processor_count)
     ring, cap = resize_stage_plan(k_pad, images.shape[2], out)
+    smem = resize_smem(ring, out, band, cap, k_pad)
     if cycles is not None:
-        sms = torch.cuda.get_device_properties(dst.device).multi_processor_count
-        blocks = crops * resize_bands(crops, out, sms)[0]
+        blocks = crops * bands
         if (cycles.dtype != torch.int64 or cycles.device != dst.device
                 or tuple(cycles.shape) != (blocks, 4) or not cycles.is_contiguous()):
             raise ValueError(f'resize_crops: cycles must be contiguous int64 ({blocks}, 4) '
@@ -848,11 +852,11 @@ def resize_crops(
     lib = cuda_lib.library()
     cuda_lib.check(lib.oadp_resize_crops(
         images.data_ptr(), stride, g, per, images.shape[1], images.shape[2], meta.data_ptr(),
-        k_pad, None if halves is None else halves.data_ptr(), out, *mean, *std, ring, cap,
-        dst.data_ptr(),
+        k_pad, None if halves is None else halves.data_ptr(), out, *mean, *std,
+        bands, band, ring, cap, smem, dst.data_ptr(),
         None if taps_w is None else taps_w.data_ptr(),
         None if taps_s is None else taps_s.data_ptr(),
-        None if cycles is None else cycles.data_ptr(), 0 if cycles is None else len(cycles),
+        None if cycles is None else cycles.data_ptr(),
         torch.cuda.current_stream(dst.device).cuda_stream,
     ), 'resize_crops')
     LAUNCHES['resize_crops'] += 1

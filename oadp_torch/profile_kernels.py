@@ -7,8 +7,7 @@ keeps the named parts, default all):
 
 * ``gemm``: ``ln_gemm`` without LayerNorm under every plan of
   ``ops/attention.py``'s ``GEMM_RATES`` (cooperative at each tile width,
-  ping-pong, the split-K plans where the launch allows them) beside the
-  plan ``ln_gemm_plan`` picks, at each product the encoders run: kernel
+  ping-pong) beside the plan ``ln_gemm_plan`` picks, at each product the encoders run: kernel
   1's QKV (2048 x 197 rows, 768 -> 2304) and out-projection with its
   residual (768 -> 768), kernel 2's fc with quick_gelu (2048 rows, 768 ->
   3072) and proj with the residual (3072 -> 768), the x-stream MLP's two
@@ -19,9 +18,7 @@ keeps the named parts, default all):
   route for the same function (``torch.addmm``, then quick_gelu or the
   residual add) and ``torch.mm`` alone, device ms from ``torch.profiler``,
   TFLOP/s and share of the bound (``gemm`` lines, and ``gemm_residual``
-  for the residual epilogue); at the globals patch product also what each
-  split adds (``split_adds_ms``: the split plan's device ms less its
-  tile's at depth K / S, the source of ``SPLIT_US``);
+  for the residual epilogue);
 * ``ln_qkv``: kernel 3 (``fused_ln_qkv_attention``) at the globals (16)
   and blocks (728) batches of 50 tokens, by kernel (device time from
   ``torch.profiler``), beside the two families' route (the LN pass,
@@ -365,16 +362,13 @@ def _blocks_inputs(device, images: int = 24, pad: int = 640, w: int = 640, h: in
             coords), len(plan.blocks) * images
 
 
-def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int,
-               split_adds: bool = False):
+def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int):
     """``ln_gemm`` without LayerNorm at one shape and epilogue under every
-    plan of ``A.GEMM_RATES`` the launch allows, beside the plan
-    ``A.ln_gemm_plan`` picks and the library route for the same function
-    (``torch.addmm``, then quick_gelu or the residual add) and ``torch.mm``
-    alone: device ms a call (``torch.profiler``), TFLOP/s and share of the
-    bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever
-    is larger). With ``split_adds``, what each split plan adds: its device
-    ms less its tile's unsplit at depth ``k_in / split``."""
+    plan of ``A.GEMM_RATES``, beside the plan ``A.ln_gemm_plan`` picks and
+    the library route for the same function (``torch.addmm``, then
+    quick_gelu or the residual add) and ``torch.mm`` alone: device ms a
+    call (``torch.profiler``), TFLOP/s and share of the bound (bytes over
+    3.35 TB/s or operations over 989 TFLOP/s, whichever is larger)."""
     x = torch.randn(rows, k_in, device=dev, generator=gen).bfloat16()
     w = (torch.randn(k_in, n_out, device=dev, generator=gen) * k_in ** -0.5).bfloat16()
     wt, wb = A.kmajor(w), (0.02 * torch.randn(n_out, device=dev, generator=gen)).bfloat16()
@@ -382,7 +376,6 @@ def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int,
     res = (torch.randn(rows, n_out, device=dev, generator=gen).bfloat16()
            if epilogue == A._EPI_RESIDUAL else None)
     iters = max(5, min(200, int(2e11 / (rows * k_in * n_out))))
-    plans = [p for p in A.GEMM_RATES if A.split_allowed(p, k_in, epilogue, False)]
     flops = 2 * rows * k_in * n_out
     nbytes = 2 * (rows * k_in + k_in * n_out + n_out + rows * n_out * (1 + (res is not None)))
     bound = 1e3 * max(flops / 989e12, nbytes / 3.35e12)
@@ -396,31 +389,18 @@ def _gemm_probe(A, gen, dev, rows: int, k_in: int, n_out: int, epilogue: int,
     def kernel(plan=None):
         return lambda: A._ln_gemm(x, wt, wb, out, epilogue=epilogue, residual=res, plan=plan)
 
-    ms = {_plan_name(p): _device_ms(kernel(p), iters)['total'] for p in plans}
+    ms = {_plan_name(p): _device_ms(kernel(p), iters)['total'] for p in A.GEMM_RATES}
     pick = A.ln_gemm_plan([(rows, n_out)], k_in, epilogue,
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     ms['library'] = _device_ms(library, iters)['total']
     ms['torch_mm'] = _device_ms(lambda: torch.mm(x, w), iters)['total']
-    extra = {}
-    if split_adds:
-        adds = {}
-        for p in plans:
-            if p.split > 1:
-                k_s = k_in // p.split // 64 * 64
-                xs = x[:, :k_s].contiguous()
-                wts = wt[:, :k_s].contiguous()
-                tile = A.GemmPlan(p.schedule, p.tile_n)
-                alone = _device_ms(lambda: A._ln_gemm(xs, wts, wb, out, epilogue=epilogue,
-                                                      residual=res, plan=tile), iters)['total']
-                adds[_plan_name(p)] = ms[_plan_name(p)] - alone
-        extra['split_adds_ms'] = adds
     kind = 'gemm_residual' if res is not None else 'gemm'
     return kind, dict(
         shape=[rows, k_in, n_out], epilogue=epilogue, plan=_plan_name(pick),
         plan_device_ms=ms[_plan_name(pick)], plan_events_ms=_timed(kernel(), iters),
         device_ms=ms, bound_ms=bound, bound_by='operations' if flops / 989e12 >= nbytes / 3.35e12
         else 'bytes', tflops={k: flops / v / 1e9 for k, v in ms.items()},
-        bound_share={k: bound / v for k, v in ms.items()}, **extra)
+        bound_share={k: bound / v for k, v in ms.items()})
 
 
 def _nms_problems(dev, gen):
@@ -504,9 +484,8 @@ def _nms_plan_name(plan) -> str:
 
 
 def _plan_name(plan) -> str:
-    """``cooperative256``, ``cooperative64``, ``pingpong256``, and a split
-    plan's with its split: ``cooperative128s2``."""
-    return f'{plan.schedule}{plan.tile_n}' + (f's{plan.split}' if plan.split > 1 else '')
+    """``cooperative256``, ``cooperative64``, ``pingpong256``."""
+    return f'{plan.schedule}{plan.tile_n}'
 
 
 def main(argv=None) -> int:
@@ -554,8 +533,7 @@ def main(argv=None) -> int:
         shapes += [(rows, 4 * d, d, A._EPI_NONE, 'patch product')
                    for rows in (b * 196, 728 * 49, 16 * 49)]
         for rows, k_in, n_out, epi, what in shapes:
-            kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi,
-                                       split_adds=rows == 16 * 49)
+            kind, fields = _gemm_probe(A, gen, dev, rows, k_in, n_out, epi)
             emit(kind, what=what, **fields)
 
     if 'nms' in only:

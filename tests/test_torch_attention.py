@@ -331,46 +331,29 @@ def test_wrappers_refuse_non_bf16_on_other_devices():
         ta.out_proj_residual(x, x, w[:, :128], w[0, :128])
 
 
-def _split_owner(consumer, warp, split):
-    """The rank of a split-K cluster that finishes 16-row group (consumer,
-    warp) of a tile (``csrc/ln_gemm.cu:group_owner``): groups ``2 warp +
-    consumer`` in order, spread evenly over the ranks."""
-    return ((2 * warp + consumer) * split) >> 3
-
-
-def _ln_gemm_walk(plan, segs, grid, k=64):
-    """Every tile a consumer warpgroup of ``ln_gemm`` works on, as the
-    kernel walks them (``csrc/ln_gemm.cu:gemm_body``) with ``grid`` blocks
-    at depth ``k``: ``(block, consumer, row set, first row, first column,
-    k-tiles)`` of each 64-row tile. A block takes units ``block //
-    cluster``, plus ``grid // cluster`` at a time; cooperative consumers
-    split each unit's 128 rows, ping-pong consumers take alternate units,
-    and block rank ``block % 2`` of a ping-pong cluster the rank-th 64-row
-    half of the unit's 128 rows. A split cluster's blocks share each unit's
-    tile, rank ``r`` of ``S`` walking k-tiles ``[KT r / S, KT (r + 1) /
-    S)``; the others walk all ``KT = k / 64``."""
-    cl, rows, kt = plan.cluster, plan.rows, k // 64
+def _ln_gemm_walk(plan, segs, grid):
+    """Every tile a consumer warpgroup of ``ln_gemm`` writes, as the kernel
+    walks them (``csrc/ln_gemm.cu:gemm_body``) with ``grid`` blocks:
+    ``(block, consumer, row set, first row, first column)`` of each 64-row
+    tile. A block takes units ``block // cluster``, plus ``grid // cluster``
+    at a time; cooperative consumers split each unit's 128 rows, ping-pong
+    consumers take alternate units, and block rank ``block % 2`` of a
+    ping-pong cluster the rank-th 64-row half of the unit's 128 rows."""
+    cl, rows = plan.cluster, plan.rows
     bounds, walk = [], 0  # (first unit, column tiles) of each row set
     for m, n in segs:
         bounds.append((walk, -(-n // plan.tile_n)))
         walk += ta.ln_gemm_units(plan, [(m, n)])
     for block in range(grid):
-        rank = block % cl
-        ks = range(kt * rank // cl, kt * (rank + 1) // cl) if plan.split > 1 else range(kt)
         for i, unit in enumerate(range(block // cl, walk, grid // cl)):
             s = 1 if len(bounds) > 1 and unit >= bounds[1][0] else 0
             local, tiles_n = unit - bounds[s][0], bounds[s][1]
-            half = rank if plan.schedule == 'pingpong' else 0
-            m0 = (plan.row_tiles * (local // tiles_n) + half) * rows
+            m0 = (cl * (local // tiles_n) + block % cl) * rows
             n0 = (local % tiles_n) * plan.tile_n
             if plan.schedule == 'cooperative':
-                yield from ((block, c, s, m0 + 64 * c, n0, ks) for c in range(2))
+                yield from ((block, c, s, m0 + 64 * c, n0) for c in range(2))
             else:
-                yield block, i % 2, s, m0, n0, ks
-
-
-def _plan_name(plan):
-    return f'{plan.schedule}{plan.tile_n}' + (f's{plan.split}' if plan.split > 1 else '')
+                yield block, i % 2, s, m0, n0
 
 
 _OBJ, _BLOCKS, _GLOB = 2048 * 197, 728 * 50, 16 * 50
@@ -405,139 +388,31 @@ _OBJ, _BLOCKS, _GLOB = 2048 * 197, 728 * 50, 16 * 50
 def test_ln_gemm_plan_by_launch(launch, segs, k, epilogue, plan):
     """The plan of each ``ln_gemm`` launch of the three dispatches at
     ViT-B/32 width on 132 SMs, and its walk as the kernel takes it: every
-    64-row tile of every row set gets each of its k-tiles exactly once
-    (from one block, or a split cluster's ranks one slice each), each
-    16-row group of it is finished (bias, residual, epilogue, store) by
-    exactly one block (a split cluster's owning rank), and only the second
-    64-row half of a row set's last 128 rows (the second cooperative
-    consumer's, or a cluster's second block's) lies past M; ping-pong
-    consumers take a block's tiles in turn."""
+    64-row tile of every row set is written by exactly one consumer of one
+    block (no plan splits K, so bias and residual are added once), and
+    only the second 64-row half of a row set's last 128 rows (the second
+    cooperative consumer's, or a cluster's second block's) lies past M;
+    ping-pong consumers take a block's tiles in turn."""
     got = ta.ln_gemm_plan(segs, k, epilogue, 132)
-    assert _plan_name(got) == plan
+    assert f'{got.schedule}{got.tile_n}' == plan
     grid = got.cluster * min(ta.ln_gemm_units(got, segs), 132 // got.cluster)
-    _check_walk(got, segs, k, grid)
-
-
-def _check_walk(plan, segs, k, grid):
-    k_tiles, finished, turns = {}, {}, {}
-    for block, consumer, s, m0, n0, ks in _ln_gemm_walk(plan, segs, grid, k):
+    written = {}
+    for block, consumer, s, m0, n0 in _ln_gemm_walk(got, segs, grid):
         m, n = segs[s]
         assert m0 % 64 == 0 and n0 < n
         if m0 >= m:  # the second half of a row set's last 128 rows
             assert (m0 // 64) % 2 == 1 and m0 - 64 < m
-            assert consumer == 1 if plan.schedule == 'cooperative' else block % 2 == 1
+            assert consumer == 1 if got.schedule == 'cooperative' else block % 2 == 1
             continue
-        k_tiles.setdefault((s, m0, n0), []).extend(ks)
-        turns.setdefault(block, set()).add(consumer)
-        for w in range(4):
-            if plan.split == 1 or _split_owner(consumer, w, plan.split) == block % plan.split:
-                key = (s, m0 + 16 * w, n0)
-                assert key not in finished, f'{key} finished twice'
-                finished[key] = block
-    assert all(sorted(t) == list(range(k // 64)) for t in k_tiles.values())
-    assert len(k_tiles) == sum(-(-m // 64) * -(-n // plan.tile_n) for m, n in segs)
-    assert len(finished) == 4 * len(k_tiles)
-    if plan.schedule == 'pingpong':
-        assert all(c == {0, 1} for c in turns.values())
-
-
-@pytest.mark.parametrize('plan', [p for p in ta.GEMM_RATES if p.split > 1], ids=_plan_name)
-@pytest.mark.parametrize('segs, k', [
-    ([(16 * 49, 768)], 3072),  # the globals patch product
-    ([(2048, 768)], 3072),  # kernel 2's proj
-    ([(333, 192), (70, 128)], 512),  # M off the tile, two row sets, N off the tile
-    ([(130, 64)], 256),  # one k-tile a rank at a split of 4
-])
-def test_ln_gemm_split_walk(plan, segs, k):
-    """A split plan's walk over every grid it may launch with (all units at
-    once, or clusters walking several): each k-tile of each tile from
-    exactly one rank, each 16-row group finished by exactly one rank."""
-    if not ta.split_allowed(plan, k, 0, False):
-        pytest.skip(f'{_plan_name(plan)} takes at least {plan.split} k-tiles')
-    units = ta.ln_gemm_units(plan, segs)
-    for clusters in sorted({1, 3, min(units, 132 // plan.split)}):
-        _check_walk(plan, segs, k, plan.split * clusters)
-
-
-@pytest.mark.parametrize('plan', [p for p in ta.GEMM_RATES if p.split > 1], ids=_plan_name)
-@pytest.mark.parametrize('epilogue', [0, 2])
-def test_ln_gemm_split_sums_in_rank_order(plan, epilogue):
-    """The split reduction, modelled in fp32 numpy on the kernel's walk:
-    each rank's partial over its k-slice, each 16-row group's owner adding
-    the S partials in rank order 0..S-1 (as the kernel does, so the sum does
-    not depend on which rank finishes first), then the bias once and the
-    residual once. Against the fp64 product (a bias or residual added twice,
-    or a k-slice missed or taken twice, fails it); on a second grid
-    (clusters walking several units) the result is the same bits."""
-    rng = np.random.default_rng(plan.split * 7 + plan.tile_n + epilogue)
-    segs, k = [(200, 192), (70, 128)], 512
-    w = rng.standard_normal((k, 256)).astype(np.float32)
-    bias = rng.standard_normal(256).astype(np.float32)
-    a = [rng.standard_normal((m, k)).astype(np.float32) for m, _ in segs]
-    res = [rng.standard_normal((m, n)).astype(np.float32) for m, n in segs]
-    results = []
-    for clusters in (2, ta.ln_gemm_units(plan, segs)):
-        partial = {}
-        for block, consumer, s, m0, n0, ks in _ln_gemm_walk(plan, segs, plan.split * clusters, k):
-            rows = np.zeros((64, k), np.float32)
-            rows[:max(0, min(64, segs[s][0] - m0))] = a[s][m0:m0 + 64]
-            cols = np.zeros((k, plan.tile_n), np.float32)
-            cols[:, :min(plan.tile_n, segs[s][1] - n0)] = w[:, n0:n0 + plan.tile_n][:, :segs[s][1] - n0]
-            lo, hi = 64 * ks[0], 64 * (ks[-1] + 1)
-            partial[(s, m0, n0, block % plan.split)] = rows[:, lo:hi] @ cols[lo:hi]
-        out = [np.full((m, n), np.nan, np.float32) for m, n in segs]
-        for (s, m0, n0, rank) in partial:
-            for warp in range(4):
-                if rank != _split_owner((m0 // 64) % 2, warp, plan.split):
-                    continue
-                g = slice(16 * warp, 16 * warp + 16)
-                acc = partial[(s, m0, n0, 0)][g].copy()
-                for r in range(1, plan.split):
-                    acc = acc + partial[(s, m0, n0, r)][g]
-                acc = acc + bias[n0:n0 + plan.tile_n]
-                r0, c1 = m0 + 16 * warp, min(n0 + plan.tile_n, segs[s][1])
-                r1 = min(r0 + 16, segs[s][0])
-                if r1 <= r0:
-                    continue
-                if epilogue == 2:
-                    acc[:r1 - r0, :c1 - n0] += res[s][r0:r1, n0:c1]
-                assert np.isnan(out[s][r0:r1, n0:c1]).all(), 'written twice'
-                out[s][r0:r1, n0:c1] = acc[:r1 - r0, :c1 - n0]
-        for s, (m, n) in enumerate(segs):
-            want = a[s].astype(np.float64) @ w[:, :n] + bias[:n] + (res[s] if epilogue == 2 else 0)
-            np.testing.assert_allclose(out[s], want, atol=1e-3, rtol=1e-4)
-        results.append(out)
-    for x, y in zip(*results):
-        np.testing.assert_array_equal(x, y)
-
-
-def test_ln_gemm_launches_with_ln_never_split(monkeypatch):
-    """The LayerNorm prologue, quick_gelu and depths under one k-tile a
-    rank keep a launch unsplit: the plan function never picks a split for
-    them, even where a split would be cheapest, and a split forced on them
-    is refused before any launch."""
-    cheap = dict(ta.GEMM_RATES)
-    for p in cheap:
-        if p.split > 1:  # make every split look free
-            cheap[p] = tuple(r * 100 for r in cheap[p])
-    monkeypatch.setattr(ta, 'GEMM_RATES', cheap)
-    monkeypatch.setattr(ta, 'SPLIT_US', {p: 0.0 for p in ta.SPLIT_US})
-    assert ta.ln_gemm_plan([(_GLOB, 768)], 3072, 0, 132).split > 1  # the bait works
-    for segs, k, epilogue in [([(_OBJ, 2304), (2048, 2304)], 768, 0), ([(2048, 3072)], 768, 1),
-                              ([(_GLOB, 3072)], 768, 1), ([(_GLOB, 2304)], 768, 0),
-                              ([(_GLOB, 768)], 768, 2), ([(_GLOB, 768)], 3072, 2)]:
-        assert ta.ln_gemm_plan(segs, k, epilogue, 132, ln=True).split == 1
-    assert ta.ln_gemm_plan([(_GLOB, 3072)], 768, 1, 132).split == 1
-    assert ta.ln_gemm_plan([(_GLOB, 768)], 128, 0, 132).split in (1, 2)
-    split = ta.GemmPlan('cooperative', 128, 2)
-    a, wt = torch.zeros(8, 768, dtype=torch.bfloat16), torch.zeros(64, 768, dtype=torch.bfloat16)
-    bias, out = torch.zeros(64, dtype=torch.bfloat16), torch.zeros(8, 64, dtype=torch.bfloat16)
-    ln32 = (torch.ones(768), torch.zeros(768))
-    for kw in (dict(ln32=ln32), dict(epilogue=1)):
-        with pytest.raises(ValueError):
-            ta._ln_gemm(a, wt, bias, out, plan=split, **kw)
-    with pytest.raises(ValueError):  # 64 deep: one k-tile for two ranks
-        ta._ln_gemm(a[:, :64], wt[:, :64], bias, out, plan=split)
+        key = (s, m0, n0)
+        assert key not in written, f'{key} written twice'
+        written[key] = (block, consumer)
+    assert len(written) == sum(-(-m // 64) * -(-n // got.tile_n) for m, n in segs)
+    if got.schedule == 'pingpong':
+        turns = {}
+        for block, consumer in written.values():
+            turns.setdefault(block, []).append(consumer)
+        assert all(sorted(set(c)) == [0, 1] for c in turns.values())
 
 
 @pytest.mark.cuda
@@ -643,13 +518,10 @@ def test_attention_main_and_side_rows_on_card(b):
 
 def _plan(spec):
     """A plan from its short name: ``auto`` (the plan function's), ``c256``
-    (cooperative, 256 wide), ``p256`` (ping-pong), ``c128s2`` (cooperative
-    128 wide, split-K over a cluster of 2)."""
+    (cooperative, 256 wide), ``p256`` (ping-pong)."""
     if spec == 'auto':
         return None
-    width, _, split = spec[1:].partition('s')
-    return ta.GemmPlan('cooperative' if spec[0] == 'c' else 'pingpong', int(width),
-                       int(split or 1))
+    return ta.GemmPlan('cooperative' if spec[0] == 'c' else 'pingpong', int(spec[1:]))
 
 
 def _ln_gemm_want(x, w, wb, col0, epilogue, res, ln=None):
@@ -687,15 +559,6 @@ def _ln_gemm_want(x, w, wb, col0, epilogue, res, ln=None):
     (197 * 5 + 3, 77, 768, 768, 2, 0, False, 'p256'),
     (800, 77, 768, 1536, 0, 768, True, 'p256'),
     (800, 77, 768, 1536, 0, 768, True, 'c128'),
-    # split-K: the globals patch product and proj, kernel 2's proj, M off
-    # the tile, two row sets, a column slice, one k-tile a rank
-    (784, 0, 3072, 768, 0, 0, False, 'c128s2'),
-    (784, 0, 3072, 768, 0, 0, False, 'c256s4'),
-    (800, 0, 3072, 768, 2, 0, False, 'c64s2'),
-    (2048, 0, 3072, 768, 2, 0, False, 'c128s4'),
-    (333, 77, 3072, 768, 2, 0, False, 'c256s2'),
-    (130, 0, 768, 1536, 0, 768, False, 'c64s4'),
-    (77, 0, 256, 768, 2, 0, False, 'c128s4'),
 ])
 def test_ln_gemm_on_card(m, m2, k, n, epilogue, col0, ln, plan):
     """``ln_gemm`` against its plain version in bf16: M not a multiple of

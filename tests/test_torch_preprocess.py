@@ -751,6 +751,33 @@ def test_resize_stage_plan_fits_two_blocks_an_sm():
     assert tpp.resize_smem(ring, 224, 224, cap, 64) <= 232448
 
 
+def test_resize_smem_is_the_kernels():
+    """The wrapper's shared-memory size is the kernel's: ``smem_bytes`` and
+    the two offsets it adds up (``csrc/preprocess.cu``), read from the
+    source and evaluated as Python, equal :func:`resize_smem` over the
+    layouts the planners give (bands of 16 rows to the whole crop, every
+    tap bucket, pads of 1 to 1280 pixels). The kernel refuses a launch
+    whose size differs; this finds the drift before the card does."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tpp.__file__).parent.parent / 'csrc' / 'preprocess.cu').read_text()
+    scope = {}
+    for name in ('smem_source', 'smem_ints', 'smem_bytes'):
+        found = re.search(r'int ' + name + r'\(([^)]*)\)\s*\{\s*return ([^;]*);', src)
+        assert found, name
+        args = ', '.join(a.split()[-1] for a in found.group(1).split(','))
+        exec(f'def {name}({args}):\n    return {found.group(2)}\n', scope)
+    for k in (1, 5, 13, 21, 35, 64):
+        for pw in (1, 224, 640, 1280):
+            ring, cap = tpp.resize_stage_plan(k, pw)
+            for crops in (1, 16, 100, 2048):
+                bands, band = tpp.resize_bands(crops, 224, 132)
+                assert (bands - 1) * band < 224 <= bands * band and band >= 16
+                assert (scope['smem_bytes'](ring, 224, band, cap, k)
+                        == tpp.resize_smem(ring, 224, band, cap, k))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('k', [5, 13, 35, 64])
 def test_resize_crops_on_card(k):
