@@ -13,7 +13,13 @@
 * ``val`` runs first, then ``train`` (reference ``base.py:136-152``);
 * ``profile='<dir>'`` traces each split with ``torch.profiler`` (host and,
   on a card, device activity) into a TensorBoard trace file in ``<dir>``,
-  where ``oadp_tpu`` writes a ``jax.profiler`` trace.
+  where ``oadp_tpu`` writes a ``jax.profiler`` trace;
+* while any profiler session is open, the runner's three threads record
+  spans (``utils/tracing.py``): the producer's ``runner.decode`` and
+  ``runner.prepare`` an image, the saver's ``runner.write`` a record, the
+  main thread's ``runner.wait_prepared`` an image and ``runner.fetch`` and
+  ``runner.wait_saver`` a dispatch (the steps add ``step.stage`` and
+  ``step.launch``); ``profile=`` writes them into its trace file.
 
 The entry points run on ``model.device`` (default ``'cuda'``; a run
 without a CUDA device raises unless it asks for ``'cpu'``). ``model.dtype``
@@ -23,9 +29,12 @@ defaults to ``bfloat16`` on CUDA and ``float32`` on the CPU.
 __all__ = ['CocoImageSet', 'BaseOakePipeline', 'bucket']
 
 import argparse
+import itertools
 import json
+import os
 import pathlib
 import queue as queue_mod
+import socket
 import threading
 import time
 from abc import ABC, abstractmethod
@@ -43,6 +52,7 @@ from ..utils import (
     logger,
     rank,
     save_pth,
+    tracing,
     world_size,
 )
 from .encoders import ClipModel, OakeSteps, load_clip, resolve_device
@@ -167,7 +177,8 @@ class BaseOakePipeline(ABC):
         output_dir: pathlib.Path,
         auto_fix: bool,
         extra: dict[str, Any],
-    ) -> Iterator[dict[str, Any] | None]:
+    ) -> Iterator[tuple[int, dict[str, Any] | None]]:
+        """``(image id, prepared item or None)`` for every image left to do."""
         ids = dataset.ids
         if Store.DRY_RUN:
             ids = ids[:3]
@@ -189,17 +200,20 @@ class BaseOakePipeline(ABC):
                     continue
                 except Exception:
                     logger.info('Fixing %s', output)
-            image = dataset.load(id_)
-            yield self.prepare(
-                dict(
-                    id=id_,
-                    output=output,
-                    image=image,
-                    width=image.shape[1],
-                    height=image.shape[0],
-                    **extra,
+            with tracing.span('runner.decode', key=id_):
+                image = dataset.load(id_)
+            with tracing.span('runner.prepare', key=id_):
+                prepared = self.prepare(
+                    dict(
+                        id=id_,
+                        output=output,
+                        image=image,
+                        width=image.shape[1],
+                        height=image.shape[0],
+                        **extra,
+                    )
                 )
-            )
+            yield id_, prepared
 
     def run_split(self, split_config: Config) -> None:
         dl = split_config.dataloader
@@ -217,7 +231,7 @@ class BaseOakePipeline(ABC):
         # Optional torch.profiler trace (config: profile='trace_dir'), the
         # counterpart of oadp_tpu's jax.profiler trace; the reference has no
         # tracing at all.
-        profiler = self._start_profiler(self.config.get('profile'))
+        profiling = self._start_profiler(self.config.get('profile'))
 
         # Bounded prefetch: one producer thread runs host prep (JPEG
         # decode + weight building, all GIL-releasing C/numpy) while the
@@ -234,9 +248,9 @@ class BaseOakePipeline(ABC):
             finally:
                 queue.put(sentinel)
 
-        producer = threading.Thread(target=produce, daemon=True)
+        producer = threading.Thread(target=produce, name='producer', daemon=True)
         producer.start()
-        buffer: list[dict[str, Any]] = []
+        buffer: list[tuple[int, dict[str, Any]]] = []  # (image id, prepared)
 
         # Pipelining: the main thread queues batch k on the device, THEN
         # fetches batch k-1 (``finalize``) — by then k-1 is (nearly)
@@ -253,10 +267,11 @@ class BaseOakePipeline(ABC):
                 if entry is sentinel:
                     return
                 try:
-                    items, records = entry
-                    for item, record in zip(items, records):
-                        save_pth(record, item['output'])
-                    done += len(items)
+                    batch, records = entry
+                    for (id_, item), record in zip(batch, records):
+                        with tracing.span('runner.write', key=id_):
+                            save_pth(record, item['output'])
+                    done += len(batch)
                     if done % self.log_interval < self.device_batch:
                         rate = done / (time.time() - start)
                         logger.info(
@@ -267,93 +282,103 @@ class BaseOakePipeline(ABC):
                     save_error.append(e)
                     return
 
-        saver = threading.Thread(target=save_loop, daemon=True)
+        saver = threading.Thread(target=save_loop, name='saver', daemon=True)
         saver.start()
 
-        def enqueue_save(entry):
+        def enqueue_save(entry, key=None):
             # never block forever on a saver that died: surface its
             # exception instead
-            while True:
-                if save_error:
-                    raise save_error[0]
-                try:
-                    save_queue.put(entry, timeout=5)
-                    return
-                except queue_mod.Full:
-                    continue
+            with tracing.span('runner.wait_saver', key=key):
+                while True:
+                    if save_error:
+                        raise save_error[0]
+                    try:
+                        save_queue.put(entry, timeout=5)
+                        return
+                    except queue_mod.Full:
+                        continue
 
-        pending: list = []  # [(items, raw records)] of the last batch
+        dispatches = itertools.count()
+        pending: list = []  # [(dispatch, batch, raw records)] not fetched
 
-        def settle():
-            if pending:
-                items, records = pending.pop()
-                enqueue_save(
-                    (items, [self.finalize(r) for r in records])
-                )
+        def fetch():
+            n, batch, records = pending.pop(0)
+            with tracing.span('runner.fetch', key=n):
+                records = [self.finalize(r) for r in records]
+            enqueue_save((batch, records), n)
 
         def flush():
             if not buffer:
                 return
-            records = self.execute_batch(buffer)  # queued, not waited on
-            pending.append((list(buffer), records))
+            n = next(dispatches)
+            batch = list(buffer)
             buffer.clear()
+            ids, items = zip(*batch)
+            with tracing.serving(n, ids):
+                records = self.execute_batch(list(items))  # queued, not waited on
+            pending.append((n, batch, records))
             if len(pending) > 1:  # fetch the PREVIOUS batch
-                items, records = pending.pop(0)
-                enqueue_save(
-                    (items, [self.finalize(r) for r in records])
-                )
+                fetch()
 
         # On any exception below, the daemon threads are simply
         # abandoned (the producer may be blocked on a full queue —
         # joining it would hang); the joins run only on the clean path.
         while True:
-            prepared = queue.get()
-            if prepared is sentinel:
+            with tracing.span('runner.wait_prepared') as waited:
+                got = queue.get()
+                if isinstance(got, tuple):
+                    waited.key = got[0]
+            if got is sentinel:
                 break
-            if isinstance(prepared, BaseException):
-                raise prepared
-            if prepared is None:
+            if isinstance(got, BaseException):
+                raise got
+            if got[1] is None:
                 continue
-            buffer.append(prepared)
+            buffer.append(got)
             if len(buffer) >= self.device_batch:
                 flush()
         flush()
-        settle()
+        if pending:
+            fetch()
         enqueue_save(sentinel)
         saver.join()
         producer.join()
         if save_error:
             raise save_error[0]
-        if profiler is not None:
-            self._stop_profiler(profiler, pathlib.Path(self.config.profile))
+        if profiling is not None:
+            self._stop_profiler(*profiling, pathlib.Path(self.config.profile))
         elapsed = time.time() - start
         logger.info(
             '[%s] split done: %d images in %.1fs (%.2f img/s)',
             self.name, done, elapsed, done / max(elapsed, 1e-6),
         )
 
-    def _start_profiler(self, profile_dir) -> 'torch.profiler.profile | None':
+    def _start_profiler(self, profile_dir) -> 'tuple[torch.profiler.profile, float] | None':
         """A started ``torch.profiler`` over the host and, on a card, the
-        device, that writes a TensorBoard trace into ``profile_dir`` when it
-        stops; None without ``profile_dir``."""
+        device, and its clock mark (``tracing.clock``); None without
+        ``profile_dir``."""
         if not profile_dir:
             return None
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == 'cuda':
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(profile_dir)),
-        )
+        profiler = torch.profiler.profile(activities=activities)
         profiler.start()
-        return profiler
+        return profiler, tracing.clock()
 
-    def _stop_profiler(self, profiler, profile_dir: pathlib.Path) -> None:
+    def _stop_profiler(self, profiler, mark: float, profile_dir: pathlib.Path) -> None:
+        """Stop the profiler and write its trace into ``profile_dir`` under
+        TensorBoard's name, with the spans of the runner's threads."""
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         profiler.stop()
-        traces = sorted(profile_dir.glob('*.pt.trace.json'), key=lambda p: p.stat().st_mtime)
-        logger.info('profiler trace written to %s', traces[-1] if traces else profile_dir)
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        path = profile_dir / (
+            f'{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json'
+        )
+        profiler.export_chrome_trace(str(path))
+        tracing.merge(path, mark)
+        logger.info('profiler trace written to %s', path)
 
     def run(self) -> None:
         config = self.config

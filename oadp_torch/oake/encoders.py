@@ -10,6 +10,11 @@ pyramid take the resize as matmuls. PyTorch runs eagerly, so a step
 returns as soon as its work is queued on the device; the caller fetches
 the embeddings one batch later, which overlaps device compute with host
 work. Host inputs go through pinned memory and a ``non_blocking`` copy.
+
+While a profiler session is open, each staging of host inputs records a
+``step.stage`` span (with the page-locked blocks CUDA's host pool created
+over it, on a card) and the objects step's kernel launches a
+``step.launch`` span (``utils/tracing.py``).
 """
 
 __all__ = ['ClipModel', 'load_clip', 'OakeSteps']
@@ -23,7 +28,7 @@ import torch
 
 from ..models import clip as C
 from ..ops import preprocess as P
-from ..utils import logger
+from ..utils import logger, tracing
 
 
 @dataclasses.dataclass
@@ -126,6 +131,17 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return (x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)).half()
 
 
+def _pin_counts() -> dict[str, int]:
+    """Page-locked blocks created so far to grow CUDA's host pool, and the
+    microseconds spent creating them (``torch.cuda.host_memory_stats``);
+    empty where this torch does not count them."""
+    stats = torch.cuda.host_memory_stats()
+    if 'num_host_alloc' not in stats:
+        return {}
+    return dict(pin_allocs=stats['num_host_alloc'],
+                pin_alloc_us=stats['host_alloc_time.total'])
+
+
 def _windows(levels: torch.Tensor, coords: torch.Tensor, size: int) -> torch.Tensor:
     """``levels[i, l, y:y + size, x:x + size]`` for each row ``(i, l, y, x)``
     of ``coords`` → ``(T, size, size, 3)``. Start indices are clamped into
@@ -154,20 +170,23 @@ class OakeSteps:
         self._cdt = torch.bfloat16 if model.dtype == torch.bfloat16 else None
 
     def _to_device(self, x, dtype=None) -> torch.Tensor:
-        """Host array, tensor, or a list of either (stacked) → tensor on
-        the model's device (pinned staging, non-blocking copy)."""
-        if isinstance(x, (list, tuple)):
-            x = torch.stack([
-                a if isinstance(a, torch.Tensor)
-                else torch.from_numpy(np.ascontiguousarray(a)) for a in x
-            ])
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        if dtype is not None:
-            x = x.to(dtype)
-        if self.model.device.type == 'cuda' and x.device.type == 'cpu':
-            x = x.pin_memory()
-        return x.to(self.model.device, non_blocking=True)
+        """Host array, tensor, or a list of either (stacked: host arrays by
+        numpy, on the calling thread alone) → tensor on the model's device
+        (pinned staging, non-blocking copy)."""
+        cuda = self.model.device.type == 'cuda'
+        with tracing.span('step.stage', counters=_pin_counts if cuda else None):
+            if isinstance(x, (list, tuple)):
+                x = np.stack(x) if all(isinstance(a, np.ndarray) for a in x) else torch.stack([
+                    a if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(a)) for a in x
+                ])
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            if dtype is not None:
+                x = x.to(dtype)
+            if cuda and x.device.type == 'cpu':
+                x = x.pin_memory()
+            return x.to(self.model.device, non_blocking=True)
 
     def _on_kernel(self, images: torch.Tensor, k_pad: int) -> bool:
         """Whether the crops take :func:`P.resize_crops`' kernel: a bf16 model
@@ -316,14 +335,15 @@ class OakeSteps:
         chunk's crops keep the weights of its own tap bucket ``k_own``
         (``oadp_tpu`` runs each bucket as its own program)."""
         buf = self._to_device(bufs)  # (G, L) uint8
-        g = buf.shape[0]
-        grid = self.model.grid
-        n_img = self.pad_h * self.pad_w * 3
-        n_mask = crop_rows * grid * grid
-        images = buf[:, :n_img].reshape(g, self.pad_h, self.pad_w, 3)
-        masks = buf[:, n_img:n_img + n_mask].reshape(
-            g * crop_rows, grid, grid
-        )
-        metas = buf[:, n_img + n_mask:].contiguous().view(torch.float32)
-        crops = self._crops(images, metas.reshape(g * crop_rows, 9), k_pad, k_own)
-        return self._objects(crops, masks)
+        with tracing.span('step.launch'):
+            g = buf.shape[0]
+            grid = self.model.grid
+            n_img = self.pad_h * self.pad_w * 3
+            n_mask = crop_rows * grid * grid
+            images = buf[:, :n_img].reshape(g, self.pad_h, self.pad_w, 3)
+            masks = buf[:, n_img:n_img + n_mask].reshape(
+                g * crop_rows, grid, grid
+            )
+            metas = buf[:, n_img + n_mask:].contiguous().view(torch.float32)
+            crops = self._crops(images, metas.reshape(g * crop_rows, 9), k_pad, k_own)
+            return self._objects(crops, masks)

@@ -108,8 +108,8 @@ class ObjectsPipeline(BaseOakePipeline):
 
         # Pad to buckets and PACK each chunk's inputs into one flat
         # uint8 buffer ``[image | masks | meta-float32-bytes]`` (host
-        # numpy). execute_batch stacks the group's buffers, so a group is
-        # one pinned host-to-device copy; the device unpacks with views.
+        # numpy). The step stacks the group's buffers, so a group is one
+        # pinned host-to-device copy; the device unpacks with views.
         grid = self.model.grid
         pad_meta = np.asarray(
             [0, 0, 224, 224, 224, 224, 0, 0, 1], np.float32
@@ -158,7 +158,7 @@ class ObjectsPipeline(BaseOakePipeline):
         per_item: list[dict[int, tuple]] = [{} for _ in prepared]
         for b, g in groups.items():
             out = self.steps.objects_packed_step(
-                np.stack(g['bufs']), b, max(g['ks']), k_own=g['ks'])
+                g['bufs'], b, max(g['ks']), k_own=g['ks'])
             for i, j, off, m in g['span']:
                 per_item[i][j] = (out, off, m)
         return [
