@@ -9,7 +9,9 @@
   (reference ``oadp/oake/base.py:42-54``);
 * host work (JPEG decode + resample-weight building) overlaps device
   compute through a small prefetch window, and each batch's embeddings
-  are fetched one batch later;
+  are fetched one batch later: each dispatch queues its copy back to the
+  host behind its own last kernel (:class:`HostCopy`), and the fetch
+  waits for that copy alone, so the next dispatch stays queued;
 * ``val`` runs first, then ``train`` (reference ``base.py:136-152``);
 * ``profile='<dir>'`` traces each split with ``torch.profiler`` (host and,
   on a card, device activity) into a TensorBoard trace file in ``<dir>``,
@@ -19,14 +21,16 @@
   ``runner.prepare`` an image, the saver's ``runner.write`` a record, the
   main thread's ``runner.wait_prepared`` an image and ``runner.fetch`` and
   ``runner.wait_saver`` a dispatch (the steps add ``step.stage`` and
-  ``step.launch``); ``profile=`` writes them into its trace file.
+  ``step.launch``); ``profile=`` writes them into its trace file. Each
+  ``runner.fetch`` counts ``fetches`` and ``fetches_ahead``, the fetches
+  after which the next dispatch's copy had not yet arrived.
 
 The entry points run on ``model.device`` (default ``'cuda'``; a run
 without a CUDA device raises unless it asks for ``'cpu'``). ``model.dtype``
 defaults to ``bfloat16`` on CUDA and ``float32`` on the CPU.
 """
 
-__all__ = ['CocoImageSet', 'BaseOakePipeline', 'bucket']
+__all__ = ['CocoImageSet', 'BaseOakePipeline', 'HostCopy', 'bucket']
 
 import argparse
 import itertools
@@ -66,6 +70,52 @@ def bucket(n: int, buckets: tuple[int, ...] = BUCKETS) -> int:
         if n <= b:
             return b
     return -(-n // buckets[-1]) * buckets[-1]
+
+
+class HostCopy:
+    """A device tensor's copy to the host, queued when made: on a card a
+    ``non_blocking`` copy into page-locked memory on the current stream,
+    behind the work queued so far, and an event after it; on the CPU the
+    tensor itself. :meth:`wait` waits for that event alone, not for the
+    stream or the device, so the work queued after it keeps running.
+    CUDA's host pool takes the page-locked block back once its copy has
+    run; only a block it has to create anew (the first dispatches' ones)
+    waits for the device."""
+
+    __slots__ = ('host', 'event')
+
+    def __init__(self, tensor: torch.Tensor) -> None:
+        self.event = None
+        if tensor.device.type != 'cuda':
+            self.host = tensor
+            return
+        self.host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        self.host.copy_(tensor, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(tensor.device))
+
+    def ready(self) -> bool:
+        """Whether the copy has arrived (never waits)."""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> torch.Tensor:
+        """The host tensor, once the copy has arrived."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+def _host_copies(record: Any) -> Iterator[HostCopy]:
+    """The :class:`HostCopy` objects a record holds, in its dicts, lists
+    and tuples."""
+    if isinstance(record, HostCopy):
+        yield record
+    elif isinstance(record, dict):
+        for value in record.values():
+            yield from _host_copies(value)
+    elif isinstance(record, (list, tuple)):
+        for value in record:
+            yield from _host_copies(value)
 
 
 class CocoImageSet:
@@ -138,14 +188,16 @@ class BaseOakePipeline(ABC):
     def execute_batch(
         self, prepared: list[dict[str, Any]]
     ) -> list[Any]:
-        """Run the device step(s) on ≤ ``device_batch`` prepared items;
-        return one record per item (saved to its ``output`` path).
-        Records may hold device tensors — they are finalized one batch
-        later (:meth:`finalize`), so device compute overlaps the
-        previous batch's host fetch + disk write."""
+        """Queue the device step(s) on ≤ ``device_batch`` prepared items,
+        each output's copy back to the host right behind them
+        (:class:`HostCopy`), and return one record per item (saved to its
+        ``output`` path) holding those copies, not device tensors. Records
+        are finalized one batch later (:meth:`finalize`), so device
+        compute overlaps the previous batch's fetch and disk write."""
 
     def finalize(self, record: Any) -> Any:
-        """Materialize a record to numpy right before saving."""
+        """Materialize a record to numpy right before saving, waiting for
+        its own dispatch's copies alone (:meth:`HostCopy.wait`)."""
         return record
 
     def build_dataset(self, dataset_cfg: Config) -> CocoImageSet:
@@ -253,9 +305,11 @@ class BaseOakePipeline(ABC):
         buffer: list[tuple[int, dict[str, Any]]] = []  # (image id, prepared)
 
         # Pipelining: the main thread queues batch k on the device, THEN
-        # fetches batch k-1 (``finalize``) — by then k-1 is (nearly)
-        # done and k is queued behind it, so the device never idles.
-        # The saver thread only writes finalized numpy records to disk.
+        # fetches batch k-1 (``finalize``). The fetch waits for k-1's own
+        # copies back, queued behind k-1's last kernel, so it returns when
+        # k-1 ends, with k still queued: the main thread stages and
+        # launches k+1 while k runs. The saver thread only writes
+        # finalized numpy records to disk.
         inflight = max(1, int(self.config.get('inflight', 2)))
         save_queue: 'queue_mod.Queue' = queue_mod.Queue(maxsize=inflight)
         save_error: list[BaseException] = []
@@ -300,11 +354,17 @@ class BaseOakePipeline(ABC):
 
         dispatches = itertools.count()
         pending: list = []  # [(dispatch, batch, raw records)] not fetched
+        # fetches, and those after which the next dispatch's copies had not
+        # arrived: the card still had work queued when the fetch returned
+        fetched = dict(fetches=0, fetches_ahead=0)
 
         def fetch():
             n, batch, records = pending.pop(0)
-            with tracing.span('runner.fetch', key=n):
+            with tracing.span('runner.fetch', key=n, counters=fetched.copy):
                 records = [self.finalize(r) for r in records]
+                fetched['fetches'] += 1
+                if pending and not all(c.ready() for c in _host_copies(pending[0][2])):
+                    fetched['fetches_ahead'] += 1
             enqueue_save((batch, records), n)
 
         def flush():

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import preprocess as P
-from .base import BaseOakePipeline, bucket
+from .base import BaseOakePipeline, HostCopy, bucket
 from .partitions import first_block_bbox, plan_blocks
 
 
@@ -128,10 +128,10 @@ class BlocksPipeline(BaseOakePipeline):
         coords = np.concatenate(
             flat + [np.zeros((t_pad - total, 4), np.int32)], axis=0
         )
-        emb = self.steps.blocks_step(
+        emb = HostCopy(self.steps.blocks_step(
             np.stack(gather('image')), gather('level_wx'), gather('level_wy'),
             gather('whole_wx'), gather('whole_wy'), coords,
-        )  # queued, fetched one batch later in finalize()
+        ))  # queued with its copy back, waited for one batch later in finalize()
         return [
             dict(
                 _emb=emb,
@@ -144,12 +144,12 @@ class BlocksPipeline(BaseOakePipeline):
         ]
 
     def finalize(self, record: dict[str, Any]) -> dict[str, Any]:
-        emb = record.pop('_emb')
+        emb = record.pop('_emb').wait()
         i = record.pop('_i')
         off = record.pop('_off')
         n = record.pop('_n')
         rows = torch.cat([emb[i:i + 1], emb[off:off + n]])
-        record['embeddings'] = rows.cpu().numpy().astype(np.float16)
+        record['embeddings'] = rows.numpy().astype(np.float16)
         return record
 
 

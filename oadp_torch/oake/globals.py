@@ -13,7 +13,7 @@ from typing import Any
 import numpy as np
 
 from ..ops import preprocess as P
-from .base import BaseOakePipeline, bucket
+from .base import BaseOakePipeline, HostCopy, bucket
 
 
 class GlobalsPipeline(BaseOakePipeline):
@@ -50,12 +50,12 @@ class GlobalsPipeline(BaseOakePipeline):
         k = bucket(
             max(item['ksize'] for item in prepared), (5, 9, 13, 21)
         )
-        emb = self.steps.globals_step(imgs, meta, k)
+        emb = HostCopy(self.steps.globals_step(imgs, meta, k))
         return [(emb, i) for i in range(n)]
 
     def finalize(self, record) -> np.ndarray:
         emb, i = record
-        return emb[i].cpu().numpy().astype(np.float16)
+        return emb.wait()[i].numpy().astype(np.float16)
 
 
 def main(argv=None):

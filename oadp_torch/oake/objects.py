@@ -26,7 +26,7 @@ import numpy as np
 from ..ops import boxes as B
 from ..ops import preprocess as P
 from ..utils import Store
-from .base import BUCKETS, BaseOakePipeline, CocoImageSet, bucket
+from .base import BUCKETS, BaseOakePipeline, CocoImageSet, HostCopy, bucket
 
 
 class ObjectsPipeline(BaseOakePipeline):
@@ -142,8 +142,10 @@ class ObjectsPipeline(BaseOakePipeline):
     def execute_batch(self, prepared: list[dict[str, Any]]) -> list[Any]:
         # Group the batch's crop chunks by bucket rows: chunks sharing a
         # group run as ONE encoder batch (``objects_packed_step``), queued
-        # without waiting; the fetch happens one batch later in finalize()
-        # so device compute overlaps host IO. A group takes the largest
+        # without waiting, with one copy of its whole output back to the
+        # host right behind it (``HostCopy``); finalize() waits for that
+        # copy one batch later, so device compute overlaps host IO and the
+        # next batch stays queued. A group takes the largest
         # tap bucket of its images: the extra taps weigh exactly 0, and each
         # chunk's tap sums split where its own bucket's do (``k_own``), so
         # every row is the one its own bucket gives (oadp_tpu splits by tap
@@ -157,8 +159,8 @@ class ObjectsPipeline(BaseOakePipeline):
                 g['ks'].append(item['k'])
         per_item: list[dict[int, tuple]] = [{} for _ in prepared]
         for b, g in groups.items():
-            out = self.steps.objects_packed_step(
-                g['bufs'], b, max(g['ks']), k_own=g['ks'])
+            out = HostCopy(self.steps.objects_packed_step(
+                g['bufs'], b, max(g['ks']), k_own=g['ks']))
             for i, j, off, m in g['span']:
                 per_item[i][j] = (out, off, m)
         return [
@@ -173,7 +175,7 @@ class ObjectsPipeline(BaseOakePipeline):
     def finalize(self, record: dict[str, Any]) -> dict[str, Any]:
         chunks = record.pop('_chunks')
         record['embeddings'] = np.concatenate([
-            emb[off:off + m].cpu().numpy() for emb, off, m in chunks
+            out.wait()[off:off + m].numpy() for out, off, m in chunks
         ]).astype(np.float16)
         return record
 

@@ -2,9 +2,14 @@
 OAKE runner's three threads, on the CPU: nothing recorded outside a
 profiler session, every thread recorded inside one, the ring's bound, the
 main thread's spans in the profiler's own trace on its clock, one set of
-spans a dispatch and an image through ``ObjectsPipeline.run_split``, and
-``profile=`` writing the producer's and the saver's spans into its trace."""
+spans a dispatch and an image through ``ObjectsPipeline.run_split``,
+``profile=`` writing the producer's and the saver's spans into its trace,
+and each dispatch's copy back (``oake/base.py:HostCopy``): a fetch waits
+for its own dispatch only, and counts whether it left the next one queued
+(on the card too, ``-m cuda``)."""
 
+import importlib
+import itertools
 import json
 import threading
 import time
@@ -155,13 +160,12 @@ def data(tmp_path_factory):
                                n_proposals=12)
 
 
-def _pipeline(data, **extra):
-    from oadp_torch.oake.objects import ObjectsPipeline
-
+def _pipeline(data, task='objects', **extra):
+    module = importlib.import_module(f'oadp_torch.oake.{task}')
     config = Config.merge(Config(), dict(
         model=dict(checkpoint=None, dtype='float32', max_image_size=320, vit=VIT, device='cpu'),
         batch_size=2, mini_batch_size=16, log=dict(interval=10 ** 6), **extra))
-    return ObjectsPipeline('tracing', config)
+    return getattr(module, f'{task.capitalize()}Pipeline')('tracing', config)
 
 
 def _run_split(pipeline, data, out):
@@ -174,6 +178,8 @@ def _run_split(pipeline, data, out):
 def _same_records(got, want):
     assert sorted(got) == sorted(want) and len(want) == 5
     for name, record in want.items():
+        if not isinstance(record, dict):  # a globals record is its embedding
+            record, got[name] = dict(embeddings=record), dict(embeddings=got[name])
         assert sorted(got[name]) == sorted(record)
         for key, value in record.items():
             a, b = np.asarray(got[name][key]), np.asarray(value)
@@ -249,3 +255,131 @@ def test_profile_writes_one_trace_with_every_threads_spans(data, tmp_path):
     assert len(ranges) == len(merged) == 3
     assert max(abs(a - b) for a, b in zip(ranges, merged)) < 1e3  # us
     assert mark['ts'] <= merged[0]
+
+
+# ---------------------------------------------------------------------------
+# The copy back: a fetch waits for its own dispatch only
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('task', ['objects', 'globals', 'blocks'])
+def test_a_fetch_waits_for_its_own_dispatch_only(data, tmp_path, monkeypatch, task):
+    """Each dispatch queues its copies back inside its own ``execute_batch``;
+    ``finalize`` of dispatch n waits on dispatch n's copies and no other's,
+    and on no stream- or device-wide synchronisation (a ``.cpu()`` of a card
+    tensor is one); the records are byte-identical to a run without the
+    recorders."""
+    from oadp_torch.oake import base
+
+    pipeline = _pipeline(data, task)
+    plain = _run_split(pipeline, data, tmp_path / 'plain')
+
+    at = dict(dispatch=None, fetching=None)  # what the main thread is inside
+    made = {}  # HostCopy -> the dispatch whose execute_batch made it
+    waits = []  # (dispatch fetched, dispatch of the copy waited on)
+    finalized = []  # (dispatch fetched, waits in that finalize)
+    syncs = []
+    dispatch_of = {}  # id(record) -> its dispatch
+    dispatches = itertools.count()
+    init, wait = base.HostCopy.__init__, base.HostCopy.wait
+
+    def recording_init(self, tensor):
+        init(self, tensor)
+        made[self] = at['dispatch']
+
+    def recording_wait(self):
+        waits.append((at['fetching'], made.get(self)))
+        return wait(self)
+
+    def recording_sync(name, fn):
+        def recording(*args, **kwargs):
+            if at['fetching'] is not None and threading.current_thread() is threading.main_thread():
+                syncs.append(name)
+            return fn(*args, **kwargs)
+        return recording
+
+    monkeypatch.setattr(base.HostCopy, '__init__', recording_init)
+    monkeypatch.setattr(base.HostCopy, 'wait', recording_wait)
+    for owner, name in ((torch.cuda, 'synchronize'), (torch.cuda.Stream, 'synchronize'),
+                        (torch.Tensor, 'cpu'), (torch.Tensor, 'to')):
+        monkeypatch.setattr(owner, name, recording_sync(f'{owner.__name__}.{name}',
+                                                        getattr(owner, name)))
+    execute, finalize = pipeline.execute_batch, pipeline.finalize
+
+    def recording_execute(prepared):
+        n = at['dispatch'] = next(dispatches)
+        records = execute(prepared)
+        at['dispatch'] = None
+        dispatch_of.update((id(r), n) for r in records)
+        return records
+
+    def recording_finalize(record):
+        n = at['fetching'] = dispatch_of[id(record)]
+        before = len(waits)
+        try:
+            return finalize(record)
+        finally:
+            at['fetching'] = None
+            finalized.append((n, len(waits) - before))
+
+    pipeline.execute_batch, pipeline.finalize = recording_execute, recording_finalize
+    recorded = _run_split(pipeline, data, tmp_path / 'recorded')
+
+    _same_records(recorded, plain)
+    assert next(dispatches) == 3  # 5 images, 2 a dispatch
+    # every copy was queued inside an execute_batch, every dispatch queued its own
+    assert sorted(set(made.values()), key=str) == [0, 1, 2]
+    assert sorted(n for n, _ in finalized) == [0, 0, 1, 1, 2]
+    assert all(k >= 1 for _, k in finalized), finalized
+    assert all(fetching == own for fetching, own in waits), waits
+    assert syncs == []
+
+
+@pytest.mark.parametrize('arrived', [True, False], ids=['arrived', 'queued'])
+def test_fetch_spans_count_fetches_that_left_the_next_dispatch_queued(
+        data, tmp_path, monkeypatch, arrived):
+    """Each ``runner.fetch`` span carries its ``fetches`` and ``fetches_ahead``
+    deltas: one fetch, and one ahead where the next dispatch's copies had not
+    arrived when it returned (the last fetch has no next dispatch). On the CPU
+    a copy has always arrived; ``queued`` stands for a busy card."""
+    from oadp_torch.oake import base
+
+    if not arrived:
+        monkeypatch.setattr(base.HostCopy, 'ready', lambda self: False)
+    with _session():
+        _run_split(_pipeline(data), data, tmp_path / 'out')
+    fetches = sorted((s for s in tracing.spans() if s.name == 'runner.fetch'),
+                     key=lambda s: s.key)
+    assert [s.key for s in fetches] == [0, 1, 2]
+    ahead = 0 if arrived else 1
+    assert [s.counts for s in fetches] == [
+        dict(fetches=1, fetches_ahead=ahead), dict(fetches=1, fetches_ahead=ahead),
+        dict(fetches=1, fetches_ahead=0)]
+
+
+@pytest.mark.cuda
+def test_a_copy_back_leaves_the_next_dispatch_queued_on_the_card():
+    """On the card: the copy of dispatch k-1's output arrives while dispatch k
+    (a long ``torch.cuda._sleep``) still runs, and its ``wait`` returns then;
+    a ``.cpu()`` would have waited for k too."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from oadp_torch.oake.base import HostCopy
+
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    x = torch.randn((2048, 512), generator=gen, device='cuda').half()
+    x2, y = x * 2, x + 1
+    # two page-locked blocks in CUDA's host pool, as a run holds after its
+    # first dispatches: creating one waits for the device
+    warm = [HostCopy(x), HostCopy(x)]
+    for w in warm:
+        w.wait()
+    del warm
+    before = HostCopy(x2)  # dispatch k-1's output
+    torch.cuda._sleep(2 * 10 ** 9)  # dispatch k: about a second of the card
+    after = HostCopy(y)
+    got = before.wait()
+    assert before.ready() and not after.ready()
+    assert got.is_pinned() and after.host.is_pinned()
+    assert torch.equal(after.wait(), y.cpu()) and after.ready()
+    assert torch.equal(got, (x * 2).cpu())
