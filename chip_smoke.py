@@ -648,6 +648,190 @@ def check_kernels(A, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, continued: attention past 256 tokens (CLIP ViT-L/14's surgery)
+# ---------------------------------------------------------------------------
+
+L14_D, L14_HEADS, N_L14 = 1024, 16, 1025  # width, heads, tokens of a surgery crop
+
+
+def _surgery_layer_args(gen, b: int, n: int, heads: int):
+    """Random bf16 inputs of one surgery layer (x, y, bias, LN, QKV) and
+    its out-projection, with -100 on a random half of the patches."""
+    dev, d = torch.device('cuda'), heads * HD
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
+
+    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
+    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
+    args = (r(b, n, d), r(b, d), bias, 1 + r(d, scale=0.1), r(d, scale=0.1),
+            r(d, 3 * d, scale=d ** -0.5), r(3 * d, scale=0.02), heads, HD ** -0.5)
+    return args, dict(out_w=r(d, d, scale=d ** -0.5), out_b=r(d, scale=0.02))
+
+
+def short_and_long_at_n_obj(A, gen) -> dict:
+    """Both attention kernels at B/32's objects dispatch (2048 crops x 197
+    tokens x 12 heads, main rows and side row in one launch): ``attention``,
+    which the route keeps up to 256 tokens, and ``long_attention`` (routed
+    there for this call by lowering the route's threshold), each against
+    the plain version a chunk of crops at a time, and their device times."""
+    dev = torch.device('cuda')
+    b, n, d, heads = OBJ_BATCH, N_OBJ, D, HEADS
+    scale = HD ** -0.5
+    qkv = (torch.randn(b, n, 3 * d, device=dev, generator=gen) * 2).bfloat16()
+    qkv_y = (torch.randn(b, 3 * d, device=dev, generator=gen) * 2).bfloat16()
+    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
+    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
+    q, k, v = qkv.split(d, -1)
+    qy, ky, vy = qkv_y.split(d, -1)
+    main = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
+    side = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+
+    def kernel():
+        A._attention(q, k, v, heads, scale, out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
+
+    res = dict(name=f'attention vs long_attention(B={b}, N={n}, heads={heads})')
+    short_limit = A._MAX_TOKENS
+    try:
+        for route, limit in (('attention', short_limit), ('long_attention', 0)):
+            A._MAX_TOKENS = limit
+            A.reset_launches()
+            main.zero_()
+            side.zero_()
+            kernel()
+            torch.cuda.synchronize()
+            if A.ROUTES[route] != 1:
+                raise AssertionError(f'{route}: routes {A.ROUTES} at N = {n}')
+            err, cos = 0.0, 1.0
+            for c in range(0, b, 256):
+                sl = slice(c, c + 256)
+                e, co = compare((main[sl], side[sl]), (
+                    A._main_attention(qkv[sl], heads, scale),
+                    A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl], bias[sl], heads,
+                                      scale)))
+                err, cos = max(err, e), min(cos, co)
+            if cos < 0.999:
+                raise AssertionError(f'{route} at N = {n}: cosine {cos} against the plain version')
+            res[route] = dict(max_abs_err=err, cosine=cos, device_ms=device_ms(kernel, 5))
+    finally:
+        A._MAX_TOKENS = short_limit
+    res['long_over_short'] = res['long_attention']['device_ms'] / res['attention']['device_ms']
+    log(json.dumps({'short_and_long_at_n_obj': res}))
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_long_attention(A, gen) -> dict:
+    """``long_attention`` (``csrc/long_attention.cu``) at an L/14 objects
+    dispatch (2048 crops x 1,025 tokens x 16 heads): the main rows and the
+    side row of one launch against the plain version a chunk of crops at
+    a time (its fp32 logits of the whole dispatch would take 137 GB), its
+    time beside the bound of the launch's work and
+    ``F.scaled_dot_product_attention`` at the same shapes (main rows, and
+    the side row with its mask, on contiguous per-head copies made
+    beforehand); one whole L/14 surgery layer's device time by part; then
+    an L/14 layer and its side-only last layer traced and held to the
+    benchmark's launch check (``benchmark/trace.py:check_launches``), and a
+    B/32 layer that launches the short kernel alone; last, both kernels at
+    B/32's shapes (:func:`short_and_long_at_n_obj`). Logged as a
+    ``long_attention_check`` line."""
+    from benchmark import trace as T
+    from benchmark.metrics import kernel_parts
+
+    dev = torch.device('cuda')
+    b, n, d, heads = OBJ_BATCH, N_L14, L14_D, L14_HEADS
+    scale = HD ** -0.5
+    qkv = (torch.randn(b, n, 3 * d, device=dev, generator=gen) * 2).bfloat16()
+    qkv_y = (torch.randn(b, 3 * d, device=dev, generator=gen) * 2).bfloat16()
+    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
+    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
+    q, k, v = qkv.split(d, -1)
+    qy, ky, vy = qkv_y.split(d, -1)
+    main = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
+    side = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+
+    def kernel():
+        A._attention(q, k, v, heads, scale, out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
+
+    A.reset_launches()
+    kernel()
+    torch.cuda.synchronize()
+    if A.ROUTES != {'attention': 0, 'long_attention': 1}:
+        raise AssertionError(f'long_attention: routes {A.ROUTES} at N = {n}')
+    # two bf16 units in the last place of the largest output: both round
+    # fp32 sums taken in another order, so a rounding may fall either way
+    err, cos, ulps = 0.0, 1.0, 0.0
+    for c in range(0, b, 64):
+        sl = slice(c, c + 64)
+        want = (A._main_attention(qkv[sl], heads, scale),
+                A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl], bias[sl], heads, scale))
+        e, co = compare((main[sl], side[sl]), want)
+        top = max(float(w.abs().max()) for w in want)
+        err, cos = max(err, e), min(cos, co)
+        ulps = max(ulps, e / 2.0 ** (math.floor(math.log2(top)) - 7))
+    if cos < 0.999 or ulps > 2:
+        raise AssertionError(f'long_attention: cosine {cos}, max error {err} ({ulps} units) '
+                             'against the plain version')
+    flops = 4 * b * heads * n * n * HD + 4 * b * heads * n * HD
+    nbytes = 2 * (4 * b * n * d + 4 * b * d) + 4 * b * n
+    b_ms, b_by = bound_ms(flops, nbytes)
+    res = dict(name=f'long_attention(B={b}, N={n}, heads={heads})', max_abs_err=err,
+               max_bf16_units=ulps, cosine=cos, bound_ms=b_ms, bound_by=b_by,
+               kernel_ms=timed(kernel, 3), kernel_device_ms=device_ms(kernel, 3))
+    res['bound_share'] = res['bound_ms'] / res['kernel_device_ms']
+    del main, side
+    # the library yardstick on contiguous (B, heads, N, 64) copies
+    q4, k4, v4 = (t.reshape(b, n, heads, HD).transpose(1, 2).contiguous() for t in (q, k, v))
+    ky4, vy4 = (t.reshape(b, heads, 1, HD) for t in (ky, vy))
+    kk, vv = torch.cat([k4[:, :, 1:], ky4], 2), torch.cat([v4[:, :, 1:], vy4], 2)
+    qy4, lib_mask = qy.reshape(b, heads, 1, HD), bias[:, None, None, :].bfloat16()
+    del qkv, qkv_y, q, k, v, qy, ky, vy
+    torch.cuda.empty_cache()
+
+    def library():
+        F.scaled_dot_product_attention(q4, k4, v4)
+        F.scaled_dot_product_attention(qy4, kk, vv, attn_mask=lib_mask)
+
+    res.update(library_ms=timed(library, 3), library_device_ms=device_ms(library, 3))
+    del q4, k4, v4, ky4, vy4, kk, vv, qy4, lib_mask
+    torch.cuda.empty_cache()
+
+    # one whole L/14 surgery layer (fold_out) at the dispatch, by part
+    args, fold = _surgery_layer_args(gen, b, n, heads)
+    layer_ms, by_part = device_ms(lambda: A.fused_surgery_layer(*args, **fold), 2,
+                                  parts_of(LAYER_PARTS))
+    res.update(layer_device_ms=layer_ms, layer_device_ms_by_part=by_part)
+    del args, fold
+    torch.cuda.empty_cache()
+
+    # the benchmark's launch check on traced layers: L/14 takes the new
+    # kernel, counted once a call; B/32 the short one alone
+    traced_names = {}
+    for name, tokens, h in (('l14', N_L14, L14_HEADS), ('b32', N_OBJ, HEADS)):
+        args, fold = _surgery_layer_args(gen, 16, tokens, h)
+        A.fused_surgery_layer(*args, **fold)
+        torch.cuda.synchronize()
+        session = T.Session().start()
+        A.fused_surgery_layer(*args, **fold)
+        A.fused_surgery_layer(*args, with_main=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            traced = session.stop(pathlib.Path(tmp) / 'trace.json')
+        if traced.launches['attention_kernel'] != [2, 2]:
+            raise AssertionError(f'{name}: launch check {traced.launches}')
+        traced_names[name] = sorted({k[:96]
+                                     for k, _, _ in traced.kernels
+                                     if kernel_parts.part(k) == 'attention_kernel'})
+    if not (all('long_attention_kernel' in k for k in traced_names['l14'])
+            and not any('long_attention_kernel' in k for k in traced_names['b32'])):
+        raise AssertionError(f'attention kernels by width: {traced_names}')
+    res['traced_attention_kernels'] = traced_names
+    res['at_n_obj'] = short_and_long_at_n_obj(A, gen)
+    log(json.dumps({'long_attention_check': res}))
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 3, continued: the preprocessing and patch embedding kernels
 # ---------------------------------------------------------------------------
 
@@ -3015,6 +3199,7 @@ def main() -> int:
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     checks = check_kernels(A, gen)
+    long_check = check_long_attention(A, gen)
     embed_checks = check_embed(gen)
     embedding = embed_checks.pop('embedding')
     checks.update(embed_checks)
@@ -3122,6 +3307,15 @@ def main() -> int:
            for name in ('rpn_train_image_0', 'rpn_train_image_1', 'ov_coco', 'ov_coco_batch_32',
                         'ov_lvis', 'ov_lvis_batch_2', 'ov_lvis_per_class',
                         'ov_lvis_per_class_batch_2')}))
+    kernels.append(dict(
+        name='long_attention', route='cuda', source='oadp_torch/csrc/long_attention.cu',
+        replaces='oadp_tpu/ops/attention.py:425 (_surgery_layer_kernel\'s attention, past '
+                 '256 tokens: CLIP ViT-L/14 under OADP\'s surgery)',
+        launches=None, max_abs_err=long_check['max_abs_err'], cosine=long_check['cosine'],
+        ms=long_check['kernel_ms'], plain_ms=None, bound_ms=long_check['bound_ms'],
+        bound_by=long_check['bound_by'], library_ms=long_check['library_ms'],
+        device_ms=long_check['kernel_device_ms'],
+        library_device_ms=long_check['library_device_ms'], shape=long_check['name']))
     log(f'card: {card}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -118,24 +118,6 @@ struct Args {
 // exp(min(x, 80)) as exp2 of the clamped logit in log2 units
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A lane's ldmatrix offsets into a swizzled K or V tile for a chunk that
-// starts at a multiple of 16 rows: the swizzle term (row & 7) is then the
-// lane's own, so a chunk only adds k0 * 128 (the offsets are computed once).
-struct Frag {
-  uint32_t k[HD / 16];  // K, k-step ks: rows (lane & 7) + 8 (lane >> 4), low/high 8 dims
-  uint32_t v[HD / 16];  // V transposed, dims 16 dp..: rows lane & 15
-};
-
-__device__ __forceinline__ Frag frag_offsets(int lane) {
-  Frag f;
-#pragma unroll
-  for (int i = 0; i < HD / 16; ++i) {
-    f.k[i] = swz((lane & 7) + ((lane >> 4) << 3), i * 2 + ((lane >> 3) & 1));
-    f.v[i] = swz(lane & 15, i * 2 + (lane >> 4));
-  }
-  return f;
-}
-
 // One chunk of KC keys (32, or 16 for the tail) of a warp's 16 query rows:
 // scores on mma.sync from Q fragments in registers and K fragments from
 // ldmatrix, exp weights rounded to bf16 as the A operand of P V, and the

@@ -268,6 +268,25 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, uint32_t s) {
                : "memory");
 }
 
+// A lane's ldmatrix offsets into a swizzled K or V tile of one 64-wide
+// head (attention.cu, long_attention.cu) for a chunk that starts at a
+// multiple of 16 rows: the swizzle term (row & 7) is then the lane's own,
+// so a chunk only adds k0 * 128 (the offsets are computed once).
+struct Frag {
+  uint32_t k[4];  // K, k-step ks: rows (lane & 7) + 8 (lane >> 4), low/high 8 dims
+  uint32_t v[4];  // V transposed, dims 16 dp..: rows lane & 15
+};
+
+__device__ __forceinline__ Frag frag_offsets(int lane) {
+  Frag f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.k[i] = swz((lane & 7) + ((lane >> 4) << 3), i * 2 + ((lane >> 3) & 1));
+    f.v[i] = swz(lane & 15, i * 2 + (lane >> 4));
+  }
+  return f;
+}
+
 // c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col). Fragment
 // layout, with g = lane / 4 and t = lane % 4: c[0..1] = row g, columns
 // 2t and 2t+1; c[2..3] = row g + 8, the same columns.

@@ -66,7 +66,8 @@ Params = dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
-    """ViT-B/32 image encoder geometry.
+    """CLIP ViT image encoder geometry (the defaults: ViT-B/32; ViT-L/14
+    is patch 14, width 1024, 24 layers, 16 heads, output 768).
 
     ``stride < patch_size`` realises the reference's model surgery
     (half-stride conv1 + interpolated positional embedding,

@@ -14,7 +14,9 @@ work. Host inputs go through pinned memory and a ``non_blocking`` copy.
 While a profiler session is open, each staging of host inputs records a
 ``step.stage`` span (with the page-locked blocks CUDA's host pool created
 over it, on a card) and the objects step's kernel launches a
-``step.launch`` span (``utils/tracing.py``).
+``step.launch`` span (``utils/tracing.py``) with the attention family's
+launches in it, all and those past 256 tokens (``attn_launches``,
+``attn_long_launches``).
 """
 
 __all__ = ['ClipModel', 'load_clip', 'OakeSteps']
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models import clip as C
+from ..ops import attention as A
 from ..ops import preprocess as P
 from ..utils import logger, tracing
 
@@ -66,12 +69,17 @@ def load_clip(
     vit: dict | None = None,
     device: str | torch.device = 'cuda',
 ) -> ClipModel:
-    """Load CLIP ViT-B/32 weights (OpenAI state dict or TorchScript
+    """Load an OpenAI CLIP ViT's weights (state dict or TorchScript
     archive) and build the stock and surgery parameter sets on ``device``.
 
-    A missing checkpoint gives random weights with a warning, drawn from
-    a ``torch.Generator`` seeded with 0 (not ``oadp_tpu``'s draws). ``vit``
-    overrides the encoder geometry (tests use scaled-down widths).
+    The geometry comes from the checkpoint by the rules of OpenAI's
+    ``build_model`` (:func:`_state_geometry`): ViT-B-32.pt gives B/32,
+    ViT-L-14.pt gives L/14. ``vit`` may restate it (a key that disagrees
+    with the checkpoint raises) and sets the heads, which a state dict
+    does not hold (default: width / 64). A missing checkpoint gives random
+    weights of ``vit``'s geometry (default B/32) with a warning, drawn from
+    a ``torch.Generator`` seeded with 0 (not ``oadp_tpu``'s draws); tests
+    use scaled-down widths.
     """
     device = resolve_device(device)
     if device.type == 'cuda':
@@ -79,12 +87,19 @@ def load_clip(
         # and the fp32 encoder is compared with oadp_tpu's
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    config = C.ViTConfig(**(vit or {}))
+    vit = dict(vit or {})
     tdtype = torch.bfloat16 if dtype == 'bfloat16' else torch.float32
     state = None
     if checkpoint and pathlib.Path(checkpoint).exists():
         state = _load_torch_checkpoint(checkpoint)
     if state is not None:
+        geometry = _state_geometry(state)
+        wrong = {k: (v, geometry[k]) for k, v in vit.items()
+                 if k in geometry and v != geometry[k]}
+        if wrong:
+            raise ValueError(f'vit disagrees with the checkpoint {checkpoint} '
+                             f'(given, checkpoint): {wrong}')
+        config = C.ViTConfig(**{**geometry, 'heads': geometry['width'] // 64, **vit})
         params = C.load_openai_state_dict(state)
     else:
         if checkpoint:
@@ -92,6 +107,7 @@ def load_clip(
                 'CLIP checkpoint %s not found; using random weights',
                 checkpoint,
             )
+        config = C.ViTConfig(**{'stride': vit.get('patch_size', C.ViTConfig.patch_size), **vit})
         params = C.init_vit_params(torch.Generator().manual_seed(0), config)
     surgery_params, surgery_config = C.upsample_vit_params(
         params, config, upsample
@@ -106,6 +122,21 @@ def load_clip(
         on_device(params), config, on_device(surgery_params), surgery_config,
         device, tdtype,
     )
+
+
+def _state_geometry(state: dict, prefix: str = 'visual.') -> dict[str, int]:
+    """The image tower's geometry in an OpenAI CLIP state dict, by the
+    rules of OpenAI's ``build_model`` (``clip/model.py``): the width and
+    the patch from ``conv1``, the grid from ``positional_embedding`` (so
+    the image size is grid x patch), the layers from the ``resblocks``
+    keys, the output width from ``proj``. The heads are not stored
+    (``build_model`` takes width / 64)."""
+    width, _, patch, _ = state[f'{prefix}conv1.weight'].shape
+    grid = round((state[f'{prefix}positional_embedding'].shape[0] - 1) ** 0.5)
+    blocks = f'{prefix}transformer.resblocks.'
+    layers = len({k[len(blocks):].split('.')[0] for k in state if k.startswith(blocks)})
+    return dict(width=width, patch_size=patch, stride=patch, image_size=grid * patch,
+                layers=layers, output_dim=state[f'{prefix}proj'].shape[1])
 
 
 def _load_torch_checkpoint(path: str) -> dict[str, torch.Tensor] | None:
@@ -140,6 +171,13 @@ def _pin_counts() -> dict[str, int]:
         return {}
     return dict(pin_allocs=stats['num_host_alloc'],
                 pin_alloc_us=stats['host_alloc_time.total'])
+
+
+def _attn_counts() -> dict[str, int]:
+    """Launches of the attention family so far, and those that took the
+    route past 256 tokens (``ops/attention.py:ROUTES``)."""
+    return dict(attn_launches=A.ROUTES['attention'] + A.ROUTES['long_attention'],
+                attn_long_launches=A.ROUTES['long_attention'])
 
 
 def _windows(levels: torch.Tensor, coords: torch.Tensor, size: int) -> torch.Tensor:
@@ -335,7 +373,7 @@ class OakeSteps:
         chunk's crops keep the weights of its own tap bucket ``k_own``
         (``oadp_tpu`` runs each bucket as its own program)."""
         buf = self._to_device(bufs)  # (G, L) uint8
-        with tracing.span('step.launch'):
+        with tracing.span('step.launch', counters=_attn_counts):
             g = buf.shape[0]
             grid = self.model.grid
             n_img = self.pad_h * self.pad_w * 3

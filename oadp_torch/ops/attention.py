@@ -30,6 +30,10 @@ The kernels (``oadp_torch/csrc``) are two families and one fused kernel:
   pool as query N+1 over ``[k[1:], ky]``). Q, K, V and the side row's qy,
   ky, vy each come with their own strides, so they may be column slices
   of one packed qkv: no operand is copied;
+* ``long_attention``: the same function as ``attention`` past its 256
+  tokens (OADP's surgery on a 14-px tower: 1,025), with K and V
+  streamed through shared memory in 64-key tiles and the side row as
+  row N of the last query tile; :func:`_attention` routes by N;
 * ``ln_qkv_attention``: kernel 3 for short sequences (the stock encoder's
   N = 50): an LN pass, then one kernel whose blocks each own a head and a
   range of crops, run the head's QKV product on wgmma and keep its q, k
@@ -46,7 +50,8 @@ something else (the QKV product by tensor-core operations, ``attention``
 by instruction issue), and at N = 197 the crops a 128-row tile touches
 take more shared memory than is left beside the product's ring
 (:func:`ln_qkv_attention_fits`), so kernel 1 keeps the two families.
-``LAUNCHES`` counts each entry point's kernel launches.
+``LAUNCHES`` counts each entry point's kernel launches, ``ROUTES`` the
+attention family's launches by route.
 
 Two entry points carry work that ``oadp_tpu`` leaves to XLA, not to a
 Pallas kernel, on ``ln_gemm``: :func:`ln_mlp_residual`, the x-stream MLP
@@ -88,6 +93,7 @@ __all__ = [
     'out_proj_residual',
     'out_proj_residual_plain',
     'reset_launches',
+    'ROUTES',
 ]
 
 import functools
@@ -114,14 +120,21 @@ LAUNCHES = {
     'out_proj_residual': 0,
 }
 
+#: launches of the attention family (kernel class ``attention_kernel``)
+#: by route: ``attention`` up to :data:`_MAX_TOKENS` tokens,
+#: ``long_attention`` past them
+ROUTES = {'attention': 0, 'long_attention': 0}
+
 _EPI_NONE, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
 _HEAD_DIM = 64
-_MAX_TOKENS = 256
+_MAX_TOKENS = 256  # ``attention`` keeps an item's K and V on chip whole
+_MAX_LONG_TOKENS = 4096  # ``long_attention`` streams them
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def kmajor(w: torch.Tensor) -> torch.Tensor:
@@ -499,9 +512,10 @@ def _attention(q, k, v, heads: int, scale: float, out=None,
                qy=None, ky=None, vy=None, bias=None, side=None):
     """The ``attention`` kernel on ``(B, N, D)`` views ``q``, ``k``, ``v``
     (``q`` and ``out`` for the main rows; ``qy``, ``ky``, ``vy``, ``bias``
-    and ``side`` for the side row)."""
+    and ``side`` for the side row); past :data:`_MAX_TOKENS` tokens the
+    ``long_attention`` kernel. One launch either way."""
     b, n, d = k.shape
-    if n > _MAX_TOKENS or b == 0 or d != heads * _HEAD_DIM:
+    if n > _MAX_LONG_TOKENS or b == 0 or d != heads * _HEAD_DIM:
         raise ValueError(f'attention: unsupported shape B={b} N={n} D={d}')
     if (v.shape != k.shape or (out is not None and (q.shape != k.shape or out.shape != k.shape))
             or (side is not None and not (
@@ -517,8 +531,14 @@ def _attention(q, k, v, heads: int, scale: float, out=None,
         None if bias is None else bias.data_ptr(), *_strided(side)[::2],
     )
     lib = cuda_lib.library()
-    cuda_lib.check(lib.oadp_attention(b, n, heads, float(scale), *args, _stream()),
-                   'attention')
+    if n <= _MAX_TOKENS:
+        cuda_lib.check(lib.oadp_attention(b, n, heads, float(scale), *args, _stream()),
+                       'attention')
+        ROUTES['attention'] += 1
+        return
+    cuda_lib.check(lib.oadp_long_attention(b, n, heads, float(scale), *args, _stream()),
+                   'long_attention')
+    ROUTES['long_attention'] += 1
 
 
 def _check_heads(name: str, d: int, heads: int) -> None:
@@ -564,6 +584,8 @@ def fused_surgery_layer(
     2048 crops the layer is 2.16 TFLOP, bound by tensor-core operations
     (about 2.2 ms at 989 TFLOP/s). With ``with_main=False`` only the K and
     V columns of the x rows are projected, since no main query is needed.
+    Past 256 tokens (ViT-L/14's 1,025) the attention launch is
+    ``long_attention``, still one launch.
     """
     if out_w is not None and not with_main:
         raise ValueError('fold_out requires the main stream')

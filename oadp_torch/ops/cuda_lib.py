@@ -123,6 +123,13 @@ def library() -> ctypes.CDLL:
                 p, p, i, p,  # bias, side_out, stream
             ]
             lib.oadp_attention.restype = i
+            lib.oadp_long_attention.argtypes = [
+                i, i, i, ctypes.c_float,  # B, N, heads, scale
+                p, ll, i, p, ll, i, p, ll, i, p, ll, i,  # q, k, v, out
+                p, i, p, i, p, i,  # qy, ky, vy
+                p, p, i, p,  # bias, side_out, stream
+            ]
+            lib.oadp_long_attention.restype = i
             lib.oadp_ln_qkv_attention.argtypes = [
                 i, i, i, ctypes.c_float,  # B, N, heads, scale
                 p, p, p, p, p, p, p,  # x, gamma, beta, ln_out, Wt, bias, out

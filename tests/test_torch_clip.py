@@ -15,6 +15,7 @@ torch.set_num_threads(1)
 TOL = dict(atol=2e-4, rtol=1e-3)
 GEOM = dict(image_size=64, patch_size=16, stride=16, width=128, layers=2,
             heads=2, output_dim=32)
+L14_GEOM = dict(GEOM, image_size=224, patch_size=14, stride=14)
 
 
 @pytest.fixture(scope='module')
@@ -28,6 +29,21 @@ def models():
     state = clip_torch.state_dict_openai_style(visual)
     jparams, _ = jclip.convert_torch_state_dict(state)
     return state, jparams, jclip.ViTConfig(**GEOM), tclip.ViTConfig(**GEOM)
+
+
+@pytest.fixture(scope='module')
+def l14_models():
+    """ViT-L/14's geometry (14-px patches, image 224: under the surgery
+    stride 7, a 32 x 32 grid and 1,025 tokens) at the reduced width."""
+    from tests.oracles import clip_torch
+    torch.manual_seed(0)
+    visual = clip_torch.VisionTransformer(
+        input_resolution=224, patch_size=14, width=128, layers=2, heads=2,
+        output_dim=32,
+    ).eval()
+    state = clip_torch.state_dict_openai_style(visual)
+    jparams, _ = jclip.convert_torch_state_dict(state)
+    return state, jparams, jclip.ViTConfig(**L14_GEOM), tclip.ViTConfig(**L14_GEOM)
 
 
 def _leaves(tree, prefix=''):
@@ -88,14 +104,23 @@ def test_image_encoder_matches(models, interpret_fused):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize('interpret_fused', [False, True])
-def test_image_encoder_surgery_matches(models, interpret_fused):
-    state, jparams, jcfg, tcfg = models
+@pytest.mark.parametrize('geometry, interpret_fused', [
+    pytest.param('models', False, id='False'),
+    pytest.param('models', True, id='True'),
+    pytest.param('l14_models', False, id='l14-False'),
+    pytest.param('l14_models', True, id='l14-True'),
+])
+def test_image_encoder_surgery_matches(request, geometry, interpret_fused):
+    """At patch 16 (an 8 x 8 grid) and at ViT-L/14's patch 14 at stride 7
+    (odd patch, padding 6, positions interpolated to 32 x 32, 1,025
+    tokens)."""
+    state, jparams, jcfg, tcfg = request.getfixturevalue(geometry)
     jup, jc = jclip.upsample_vit_params(jparams, jcfg)
     tup, tc = tclip.upsample_vit_params(tclip.load_openai_state_dict(state), tcfg)
+    assert tc.tokens == jc.tokens == (1025 if geometry == 'l14_models' else 65)
     rng = np.random.RandomState(2)
-    images = rng.randn(3, 64, 64, 3).astype(np.float32)
-    masks = (rng.rand(3, 8, 8) > 0.5).astype(np.uint8)
+    images = rng.randn(3, tcfg.image_size, tcfg.image_size, 3).astype(np.float32)
+    masks = (rng.rand(3, tc.grid, tc.grid) > 0.5).astype(np.uint8)
     want = np.asarray(jclip.image_encoder_surgery(
         jup, images, masks.astype(np.float32), jc,
         interpret_fused=interpret_fused,
