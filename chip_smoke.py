@@ -191,6 +191,7 @@ import json
 import math
 import pathlib
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -721,23 +722,81 @@ def short_and_long_at_n_obj(A, gen) -> dict:
     return res
 
 
+def ptxas_report(log_text: str, source: str, kernel: str) -> dict:
+    """What ``nvcc -Xptxas -v`` said of ``kernel`` in ``source``'s section
+    of the library's ``build.log`` (a ``== <source>`` line heads each
+    source's output): its registers, spill bytes, stack and static shared
+    memory, the section's ptxas notes that say wgmma was serialised, and
+    its warnings that name the kernel."""
+    sections, name = {}, None
+    for line in log_text.splitlines():
+        if line.startswith('== '):
+            name = line[3:].strip()
+            sections[name] = []
+        elif name is not None:
+            sections[name].append(line)
+    if source not in sections:
+        raise AssertionError(f'build.log has no section for {source}')
+    report = dict(kernel=kernel, registers=None, spill_stores=None, spill_loads=None,
+                  stack_bytes=None, static_smem_bytes=0, serialized=[], warnings=[])
+    current = None
+    for line in sections[source]:
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if entry:
+            current = entry.group(1)
+            continue
+        if 'serialized' in line:  # ptxas says so in an info line (C7510-C7520)
+            report['serialized'].append(line.strip())
+        elif 'warning' in line and kernel in line:
+            report['warnings'].append(line.strip())
+        if current is None or kernel not in current:
+            continue
+        for key, pattern in (('stack_bytes', r'(\d+) bytes stack frame'),
+                             ('spill_stores', r'(\d+) bytes spill stores'),
+                             ('spill_loads', r'(\d+) bytes spill loads'),
+                             ('registers', r'Used (\d+) registers'),
+                             ('static_smem_bytes', r'(\d+) bytes smem')):
+            found = re.search(pattern, line)
+            if found:
+                report[key] = int(found.group(1))
+    if report['registers'] is None:
+        raise AssertionError(f'build.log: no ptxas report of {kernel} in {source}')
+    return report
+
+
+def long_attention_build() -> dict:
+    """``long_attention_kernel``'s ptxas report from the library's
+    ``build.log``; raises if ptxas serialised a wgmma of
+    ``long_attention.cu`` or the kernel spills."""
+    from oadp_torch.ops import cuda_lib
+
+    report = ptxas_report((cuda_lib.build_dir() / 'build.log').read_text(),
+                          'long_attention.cu', 'long_attention_kernel')
+    if report['serialized'] or report['spill_stores'] or report['spill_loads']:
+        raise AssertionError(f'long_attention_kernel: ptxas {report}')
+    return report
+
+
 def check_long_attention(A, gen) -> dict:
     """``long_attention`` (``csrc/long_attention.cu``) at an L/14 objects
-    dispatch (2048 crops x 1,025 tokens x 16 heads): the main rows and the
-    side row of one launch against the plain version a chunk of crops at
-    a time (its fp32 logits of the whole dispatch would take 137 GB), its
-    time beside the bound of the launch's work and
+    dispatch (2048 crops x 1,025 tokens x 16 heads): first its ptxas
+    report (no serialised wgmma, no spill: :func:`long_attention_build`);
+    the main rows and the side row of one launch against the plain version
+    a chunk of crops at a time (its fp32 logits of the whole dispatch would
+    take 137 GB), its time beside the bound of the launch's work and
     ``F.scaled_dot_product_attention`` at the same shapes (main rows, and
     the side row with its mask, on contiguous per-head copies made
-    beforehand); one whole L/14 surgery layer's device time by part; then
-    an L/14 layer and its side-only last layer traced and held to the
-    benchmark's launch check (``benchmark/trace.py:check_launches``), and a
-    B/32 layer that launches the short kernel alone; last, both kernels at
-    B/32's shapes (:func:`short_and_long_at_n_obj`). Logged as a
-    ``long_attention_check`` line."""
+    beforehand); the side row alone (the last layer) checked and timed;
+    one whole L/14 surgery layer's device time by part; then an L/14 layer
+    and its side-only last layer traced and held to the benchmark's launch
+    check (``benchmark/trace.py:check_launches``), and a B/32 layer that
+    launches the short kernel alone; last, both kernels at B/32's shapes
+    (:func:`short_and_long_at_n_obj`). Logged as a ``long_attention_check``
+    line."""
     from benchmark import trace as T
     from benchmark.metrics import kernel_parts
 
+    build = long_attention_build()
     dev = torch.device('cuda')
     b, n, d, heads = OBJ_BATCH, N_L14, L14_D, L14_HEADS
     scale = HD ** -0.5
@@ -779,7 +838,29 @@ def check_long_attention(A, gen) -> dict:
                max_bf16_units=ulps, cosine=cos, bound_ms=b_ms, bound_by=b_by,
                kernel_ms=timed(kernel, 3), kernel_device_ms=device_ms(kernel, 3))
     res['bound_share'] = res['bound_ms'] / res['kernel_device_ms']
-    del main, side
+    res['build'] = build
+    del main
+
+    # the side row alone (the last layer): K and V streamed once an item
+    def side_only():
+        A._attention(None, k, v, heads, scale, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
+
+    side.zero_()
+    side_only()
+    torch.cuda.synchronize()
+    err, cos = 0.0, 1.0
+    for c in range(0, b, 256):
+        sl = slice(c, c + 256)
+        e, co = compare(side[sl], A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl],
+                                                    bias[sl], heads, scale))
+        err, cos = max(err, e), min(cos, co)
+    if cos < 0.999:
+        raise AssertionError(f'long_attention, side row alone: cosine {cos}')
+    s_ms, s_by = bound_ms(4 * b * heads * n * HD, 2 * (2 * b * n * d + 4 * b * d) + 4 * b * n)
+    res['side_only'] = dict(max_abs_err=err, cosine=cos, bound_ms=s_ms, bound_by=s_by,
+                            kernel_ms=timed(side_only, 5), kernel_device_ms=device_ms(side_only, 5))
+    res['side_only']['bound_share'] = s_ms / res['side_only']['kernel_device_ms']
+    del side
     # the library yardstick on contiguous (B, heads, N, 64) copies
     q4, k4, v4 = (t.reshape(b, n, heads, HD).transpose(1, 2).contiguous() for t in (q, k, v))
     ky4, vy4 = (t.reshape(b, heads, 1, HD) for t in (ky, vy))

@@ -273,6 +273,66 @@ def test_long_attention_pct_is_none_without_a_trace():
 
 
 # ---------------------------------------------------------------------------
+# The build's ptxas report of the kernel (read on the card by chip_smoke)
+# ---------------------------------------------------------------------------
+
+_KERNEL = '_ZN4oadp12_GLOBAL__N_121long_attention_kernelE14CUtensorMap_stS2_S2_NS0_4ArgsE'
+_LN = '_ZN4oadp12_GLOBAL__N_117layer_norm_kernelEPK13__nv_bfloat16iS4_iiPKfS6_PS2_'
+
+
+def _ptxas_section(source, kernel, spills, registers, warning=''):
+    return '\n'.join([
+        f'== {source}',
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{_LN}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_LN}",
+        "    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 60 registers, 400 bytes cmem[0]",
+        *([warning] if warning else []),
+        f"ptxas info    : Compiling entry function '{kernel}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {kernel}",
+        f"    {spills} bytes stack frame, {spills} bytes spill stores, {spills} bytes spill loads",
+        f"ptxas info    : Used {registers} registers, 16 bytes smem, 1104 bytes cmem[0]",
+    ])
+
+
+@pytest.mark.parametrize('spills, warning, fails', [
+    (0, '', False),
+    (8, '', True),
+    (0, "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions "
+        "are serialized due to program dependence on compiler-inserted WG.AR in divergent path "
+        f"in the function '{_KERNEL}'", True),
+], ids=['clean', 'spills', 'serialized'])
+def test_ptxas_report_reads_the_kernels_section(monkeypatch, tmp_path, spills, warning, fails):
+    """``chip_smoke.ptxas_report`` reads ``long_attention_kernel``'s
+    registers, spills and static shared memory from its own source's
+    section of ``build.log`` (another kernel's spills in the same section,
+    and another source's section, are not its own), and
+    ``long_attention_build`` fails on spills or a serialised wgmma."""
+    import chip_smoke
+    from oadp_torch.ops import cuda_lib
+
+    text = '\n'.join([_ptxas_section('attention.cu', _KERNEL, 64, 128),
+                      _ptxas_section('long_attention.cu', _KERNEL, spills, 168, warning),
+                      '== nms.cu', 'ptxas info    : 0 bytes gmem'])
+    report = chip_smoke.ptxas_report(text, 'long_attention.cu', 'long_attention_kernel')
+    assert (report['registers'], report['spill_stores'], report['spill_loads'],
+            report['static_smem_bytes']) == (168, spills, spills, 16)
+    assert len(report['serialized']) == bool(warning)
+    monkeypatch.setattr(cuda_lib, 'build_dir', lambda: tmp_path)
+    (tmp_path / 'build.log').write_text(text)
+    if fails:
+        with pytest.raises(AssertionError, match='long_attention_kernel'):
+            chip_smoke.long_attention_build()
+    else:
+        assert chip_smoke.long_attention_build() == report
+    with pytest.raises(AssertionError, match='no section'):
+        chip_smoke.ptxas_report(text, 'embed.cu', 'long_attention_kernel')
+    with pytest.raises(AssertionError, match='no ptxas report'):
+        chip_smoke.ptxas_report(text, 'nms.cu', 'long_attention_kernel')
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -306,6 +366,13 @@ def _card_inputs(dev, b, n, heads, scale_q, seed):
     (1025, 16, 16, 'side', 0.4),  # the last layer: the side row alone
     (300, 5, 4, 'main', 0.4),
     (2305, 4, 4, 'both', 0.4),  # a 336-px L/14 tower's 48 x 48 grid
+    # the edges of the 64-row tiles (an item's main rows, then the side
+    # row, cut into tiles of 64 rows, three tiles a work unit)
+    (1087, 8, 4, 'both', 0.4),  # the last tile: 63 main rows and the side row
+    (1088, 8, 4, 'both', 0.4),  # 17 tiles of main rows, the side row alone past them
+    (1089, 8, 4, 'both', 0.4),  # the last tile: one main row and the side row; a 1-key tile
+    (1025, 37, 4, 'both', 0.4),  # units that do not divide among the blocks
+    (2305, 4, 4, 'side', 0.4),
 ])
 def test_long_attention_matches_plain_on_card(n, b, heads, mode, scale):
     """``long_attention`` against the plain version in bf16, the plain
