@@ -5,79 +5,14 @@
 Phases, in order; any failure exits nonzero:
 
 1. card: the card's name and power limit (``nvidia-smi``), torch and CUDA;
-2. build: the CUDA kernels of ``oadp_torch/csrc`` (nvcc, sm_90a), timed;
-3. kernels: each ported kernel at the main path's shapes against its plain
-   PyTorch version on the card in bf16 (cosine >= 0.999), timed beside
-   its plain version, a PyTorch library yardstick and its bound: kernels
-   1-2 at the objects dispatch (2048 crops), kernel 3 at the globals and
-   a production blocks batch, kernels 4-5 at the split path's 999 crops
-   and at 2048, and the two ``ln_gemm`` routes of the fused layers' glue
-   (``ln_mlp_residual``, the x-stream MLP ``x + proj(quick_gelu(fc(LN
-   x)))``; ``out_proj_residual``, the stock encoder's ``x + a @ W + b``)
-   at the rows of the dispatches that take each (``ln_mlp_residual`` at
-   the objects 2048 x 197, blocks 728 x 50 and globals 16 x 50 rows,
-   ``out_proj_residual`` at the blocks and globals rows), also on their
-   residual deltas (``out - x``), with the ``ln_gemm`` plan each launch
-   took (schedule and tile width; ``ops/attention.py:ln_gemm_plan``,
-   recorded by ``plans_of``). Each kernel gets its K-major weights and fp32 LayerNorm
-   parameters prepared once, as the encoders hold them, and the library
-   yardstick its transposed weights once. Two times per call for the
-   kernel and for the yardstick: CUDA events around back-to-back calls
-   (host launch overhead included) and the device time from
-   ``torch.profiler`` (the sum of the call's kernel durations; for
-   kernel 1 also by part: LN pass, QKV product, attention,
-   out-projection; for kernel 3: LN pass, fused QKV product and
-   attention; for ``ln_mlp_residual``: LN pass, fc with quick_gelu, proj
-   with the residual). Kernels 1 and 3 and ``ln_mlp_residual`` are also
-   held to their plain versions on rows with a large per-row mean and
-   outlier columns, as CLIP residual streams carry; where the output
-   carries the residual (kernel 1, ``ln_mlp_residual``), also to within
-   0.125 beyond one bf16 unit in the last place, as the residual swamps
-   the delta in a cosine. Then ``greedy_nms`` (``csrc/nms.cu``) against its plain
-   version on the card, identical keep sets required, as the callers
-   batch it (one launch a call): the RPN's one ``batched_nms`` call over
-   a train step's two images at the train canvas (8,819 candidates an
-   image, IoU 0.7, 1000 kept; clusters of blocks) and each image alone,
-   ``multiclass_nms`` at OV-COCO (65 x 1000, IoU 0.5, 300 a class) on one
-   image and on a 32-image ``rescore`` batch, and at OV-LVIS (1203 x 1000,
-   shared and per-class boxes) on one and two images, each entry's
-   outputs also held to the entry with the plain version on the card and
-   (for one OV-COCO image and the RPN's) on the CPU; and adversarial cases
-   (score ties, a 2,000-box suppression chain, zero-area and identical
-   boxes, n of 1, 63, 64 and 65, all dead, a small cap, boxes with NaN
-   coordinates, which suppress nothing, in ``nms`` and in one image of an
-   OV-COCO ``multiclass_nms`` batch). Each call's plan logged
-   (``ops/nms.py:nms_plan``: blocks a problem, threads, tile); each
-   main-path shape timed (device and events ms) beside the plain version,
-   with its bound (bytes over 3.35 TB/s, or 14 fp32 operations an IoU
-   pair the inputs need over 67 TFLOP/s) and the kernel's clock cycles by
-   part (tests against the kept list, column words, the barriers,
-   decisions); no PyTorch call computes greedy NMS, so no library time.
-   Then the preprocessing and patch embedding kernels (``check_embed``) at
-   an objects dispatch (2 images x 1024 crops at pad 640, tap bucket 35,
-   with identity crops, crops past every edge, a pixel wide and
-   sqrt(8)-expanded whole images) and a globals dispatch (16 paired 640 x
-   480 images): ``resize_crops`` (``csrc/preprocess.cu``; its taps
-   bit-identical to ``device_coeffs`` on the card and on the CPU, its
-   pixels equal to its plain version's but for at most 1e-5 of them one
-   uint8 step off, the count printed; the library route is the dense
-   route it replaced), ``patch_rows`` (``csrc/embed.cu``, bit-identical;
-   library ``F.unfold``, held to the same rows and timed with CUDA events
-   alone), the patch product on ``ln_gemm`` (library
-   ``F.linear``), ``embed_ln_pre`` (``csrc/embed.cu``) and the whole
-   embedding before layer 0 against the block-product route (cosine >=
-   0.999, max abs printed; library ``F.conv2d``), each timed with its
-   bound (bytes, or for ``resize_crops`` the fp32 tap products this run's
-   crops need over 67 TFLOP/s); ``F.unfold``'s device time comes from a
-   child ``profile_kernels.py --only unfold`` (profiled in this process
-   it emptied later profiler sessions). Last in this phase, after every
-   profiled check, every ``ln_gemm`` plan (``GEMM_RATES``: the cooperative widths and
-   ping-pong) on the four few-tile or deep-K launches (``check_plans``):
-   the patch product at the globals (784 rows) and objects (401,408)
-   dispatches, the globals x-stream proj (800 rows, K = 3072, residual)
-   and kernel 2's proj (2048 rows), each through ``_ln_gemm(plan=...)``
-   against its plain version (cosine >= 0.999; the residual launches on
-   ``out - x`` too), timed with CUDA events;
+2. build: the CUDA kernels of ``oadp_torch/csrc`` (nvcc, sm_90a), timed,
+   and ``long_attention_kernel``'s ptxas report from the build's log (no
+   serialised wgmma, no spill: :func:`long_attention_build`);
+3. kernels: every ``cuda``-marked test of ``tests/test_torch_*.py``, each
+   kernel's one check on the card against its plain version at the main
+   path's shapes and at its edge shapes (``python3 -m pytest -m cuda`` in a
+   child process, its exit code the gate, the count it ran logged). The
+   kernels' times are ``python3 -m oadp_torch.profile_kernels``'s;
 4. main path, each part with the launch counts set to 0 just before it
    and checked just after (12 launches of each of its kernels a
    dispatch, but 11 of kernel 4 on the split wiring and 11 of
@@ -181,14 +116,14 @@ Phases, in order; any failure exits nonzero:
    an estimate (so labelled) of one trial over the 4,952 OV-COCO val
    images. All of it on the ``calibration`` line.
 
-The last two lines are the ``kernels`` JSON line and the result line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The last line is the result line ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
-import dataclasses
 import gzip
 import json
 import math
+import os
 import pathlib
 import pickle
 import re
@@ -201,13 +136,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-D, HEADS, HD = 768, 12, 64
-N_OBJ, N_GLOB = 197, 50
-OBJ_BATCH, GLOB_BATCH = 2048, 16  # crops per objects dispatch, images per globals
-BLOCKS_BATCH = 24 + 704  # wholes + flat blocks of a 24-image blocks dispatch
 SPLIT_BATCH = 999  # crops of the split-wiring objects_step (B % 8 != 0)
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
-PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores
 N_IMAGES, N_PROPOSALS = 4, 1000
 SIZES = [(640, 480), (480, 640), (640, 427), (500, 375)]
 
@@ -222,504 +151,6 @@ def card_info() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     return out
-
-
-def timed(fn, iters: int) -> float:
-    """Milliseconds per call on the card, by CUDA events after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int, part_of=None) -> float | tuple[float, dict]:
-    """Milliseconds of device time per call: the durations of the CUDA
-    kernels that ``iters`` calls launched, from ``torch.profiler``, after
-    a warm-up call. With ``part_of`` (a kernel's name -> the part it
-    belongs to), also each part's milliseconds per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):  # a profiling session once returned no kernel records
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        total_us = sum(e.self_device_time_total for e in events)
-        if total_us > 0:
-            break
-        log(f'device_ms: profiler session {attempt + 1} of 3 recorded no device time')
-    else:
-        raise AssertionError('torch.profiler recorded no device time in three sessions')
-    if part_of is None:
-        return total_us / iters / 1e3
-    split = {}
-    for e in events:
-        part = part_of(e.key)
-        split[part] = split.get(part, 0.0) + e.self_device_time_total / iters / 1e3
-    return total_us / iters / 1e3, split
-
-
-# the parts of a kernel's device time, by profile_kernels' name of each
-# kernel: kernels 1 and 3 (the LN pass, kernel 3's fused QKV product and
-# attention, the QKV product, attention, the out-projection: ln_gemm with
-# the residual epilogue), and ln_mlp_residual (the LN pass, fc with the
-# quick_gelu epilogue, proj with the residual epilogue)
-LAYER_PARTS = {'ln_qkv_attention_kernel': 'qkv_attention', 'layer_norm_kernel': 'ln',
-               'attention_kernel': 'attention', 'ln_gemm': 'qkv',
-               'ln_gemm_residual': 'out_projection'}
-MLP_PARTS = {'layer_norm_kernel': 'ln', 'ln_gemm_gelu': 'fc_gelu',
-             'ln_gemm_residual': 'proj_residual'}
-
-
-def parts_of(parts: dict):
-    """A kernel's name -> its part in ``parts``, or ``other``."""
-    from oadp_torch.profile_kernels import _kernel_part
-
-    return lambda name: parts.get(_kernel_part(name), 'other')
-
-
-def compare(got, want) -> tuple[float, float]:
-    got = got if isinstance(got, (tuple, list)) else (got,)
-    want = want if isinstance(want, (tuple, list)) else (want,)
-    err, cos = 0.0, 1.0
-    for g, w in zip(got, want):
-        g, w = g.float(), w.float()
-        if not torch.isfinite(g).all():
-            raise AssertionError('kernel output is not finite')
-        err = max(err, float((g - w).abs().max()))
-        cos = min(cos, float(F.cosine_similarity(
-            g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
-        ).min()))
-    return err, cos
-
-
-# the most that an output of rows with a large mean may differ from its
-# plain version beyond one bf16 unit in the last place: on random rows
-# the residual deltas of the H100's kernels differ by at most 0.0625,
-# where an MLP or attention delta left out or gone wrong differs by
-# several tenths to units
-LARGE_MEAN_EXCESS = 0.125
-
-
-def bf16_excess(got, want) -> float:
-    """The largest ``|got - want|`` beyond one bf16 unit in the last place
-    of the larger of the two: what is left of the error once each side's
-    rounding of ``x + delta`` to bf16 is taken out. On rows with a large
-    mean the residual ``x`` swamps a delta's error in a cosine; in this
-    measure the delta's error stands alone."""
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((g - w).abs() - ulp).max())
-
-
-def plans_of(A, fn) -> list[dict]:
-    """The ``ln_gemm`` plans (schedule and tile width) that one call
-    of ``fn`` launches, in order."""
-    taken, launch = [], A._ln_gemm
-
-    def recorded(*args, **kwargs):
-        taken.append(launch(*args, **kwargs))
-        return taken[-1]
-
-    A._ln_gemm = recorded
-    try:
-        fn()
-    finally:
-        A._ln_gemm = launch
-    return [p._asdict() for p in taken]
-
-
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
-
-
-# ---------------------------------------------------------------------------
-# Phase 3: each kernel against its plain version
-# ---------------------------------------------------------------------------
-
-
-def _split(t, b, n):
-    return t.reshape(b, n, HEADS, HD).transpose(1, 2)
-
-
-def _merge(t):
-    b, h, n, hd = t.shape
-    return t.transpose(1, 2).reshape(b, n, h * hd)
-
-
-def record_kernel(A, name, kernel, plain, library, flops, nbytes, iters, part_of=None,
-                  peak=PEAK_FLOPS, profile_library=True, **extra):
-    """One kernel's check and times: its output against its plain
-    version's (cosine >= 0.999), then CUDA-event and device ms of the
-    kernel and of the library call (None where no PyTorch call computes
-    the function; its device ms None too without ``profile_library``),
-    the plain version's ms, the bound (operations over ``peak``, or bytes)
-    and each ``ln_gemm`` launch's plan; logged as a ``kernel_check``
-    line."""
-    got, want = kernel(), plain()
-    err, cos = compare(got, want)
-    del got, want
-    if cos < 0.999:
-        raise AssertionError(f'{name}: cosine {cos} < 0.999 against the plain version')
-    b_ms, b_by = bound_ms(flops, nbytes, peak)
-    dev = device_ms(kernel, iters, part_of)
-    if part_of is not None:
-        dev, extra['kernel_device_ms_by_part'] = dev
-    res = dict(
-        name=name, max_abs_err=err, cosine=cos, plans=plans_of(A, kernel),
-        kernel_ms=timed(kernel, iters), plain_ms=timed(plain, max(2, iters // 4)),
-        library_ms=None if library is None else timed(library, iters),
-        bound_ms=b_ms, bound_by=b_by, kernel_device_ms=dev,
-        library_device_ms=(device_ms(library, iters)
-                           if library is not None and profile_library else None),
-        **extra,
-    )
-    log(json.dumps({'kernel_check': res}))
-    torch.cuda.empty_cache()
-    return res
-
-
-def check_kernels(A, gen) -> dict:
-    dev = torch.device('cuda')
-
-    def r(*shape, scale=1.0):
-        return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
-
-    ln_s, ln_b = 1 + r(D, scale=0.1), r(D, scale=0.1)
-    qkv_w, qkv_b = r(D, 3 * D, scale=D ** -0.5), r(3 * D, scale=0.02)
-    out_w, out_b = r(D, D, scale=D ** -0.5), r(D, scale=0.02)
-    fc_w, fc_b = r(D, 4 * D, scale=D ** -0.5), r(4 * D, scale=0.02)
-    proj_w, proj_b = r(4 * D, D, scale=(4 * D) ** -0.5), r(D, scale=0.02)
-    # K-major (out, in) copies, made once: the kernels' prepared weights
-    # (as models/clip.py:prepare_kernel_params makes them) and the library
-    # yardstick's F.linear weights are the same tensors
-    lib_w = {k: A.kmajor(v) for k, v in dict(
-        qkv=qkv_w, out=out_w, fc=fc_w, proj=proj_w).items()}
-    ln32 = A.ln_fp32(ln_s, ln_b)
-    w_bytes = 2 * (qkv_w.numel() + qkv_b.numel() + 2 * D)
-    results = {}
-
-    def offset(t):
-        """Rows as a CLIP residual stream carries them: a per-row offset in
-        [-50, 50] and a few columns at +-100, beside the random ones."""
-        return (t.float() + torch.empty(*t.shape[:-1], 1, device=dev).uniform_(
-            -50, 50, generator=gen) + 100 * (torch.arange(D, device=dev) % 256 == 3)).bfloat16()
-
-    def record(*args, **kwargs):
-        return record_kernel(A, *args, **kwargs)
-
-    # kernel 1: every objects layer, fold_out (11 of 12) and side-only (last)
-    b, n = OBJ_BATCH, N_OBJ
-    x, y = r(b, n, D), r(b, D)
-    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
-    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
-    args = (x, y, bias, ln_s, ln_b, qkv_w, qkv_b, HEADS, HD ** -0.5)
-    lib_mask = bias[:, None, None, :].bfloat16()
-
-    def lib_k1(with_main):
-        hx, hy = F.layer_norm(x, (D,), ln_s, ln_b), F.layer_norm(y, (D,), ln_s, ln_b)
-        q, k, v = (_split(t, b, n) for t in F.linear(hx, lib_w['qkv'], qkv_b).split(D, -1))
-        qy, ky, vy = (t.reshape(b, HEADS, 1, HD)
-                      for t in F.linear(hy, lib_w['qkv'], qkv_b).split(D, -1))
-        side = F.scaled_dot_product_attention(
-            qy, torch.cat([k[:, :, 1:], ky], 2), torch.cat([v[:, :, 1:], vy], 2),
-            attn_mask=lib_mask,
-        ).reshape(b, 1, D)
-        if not with_main:
-            return side
-        main = _merge(F.scaled_dot_product_attention(q, k, v))
-        proj = F.linear(torch.cat([main, side], 1), lib_w['out'], out_b)
-        return proj + torch.cat([x, y[:, None]], 1)
-
-    act_bytes = 2 * (x.numel() + y.numel()) + 4 * bias.numel()
-    fold = dict(out_w=out_w, out_b=out_b)
-    prep = dict(qkv_wt=lib_w['qkv'], ln32=ln32)
-    lm_args = (offset(x), offset(y), *args[2:])
-    lm_got = A.fused_surgery_layer(*lm_args, **fold, **prep, out_wt=lib_w['out'])
-    lm_want = A.fused_surgery_layer_plain(*lm_args, **fold)
-    (lm_err, lm_cos), lm_excess = compare(lm_got, lm_want), max(
-        bf16_excess(g, w) for g, w in zip(lm_got, lm_want))
-    if lm_cos < 0.999 or lm_excess > LARGE_MEAN_EXCESS:
-        raise AssertionError(f'fused_surgery_layer: cosine {lm_cos} < 0.999 or bf16 excess '
-                             f'{lm_excess} > {LARGE_MEAN_EXCESS} on large-mean rows')
-    del lm_args, lm_got, lm_want
-    k1 = record(
-        'fused_surgery_layer',
-        lambda: A.fused_surgery_layer(*args, **fold, **prep, out_wt=lib_w['out']),
-        lambda: A.fused_surgery_layer_plain(*args, **fold),
-        lambda: lib_k1(True),
-        flops=2 * b * (n + 1) * D * 3 * D + 4 * b * HEADS * n * n * HD
-        + 4 * b * HEADS * n * HD + 2 * b * (n + 1) * D * D,
-        nbytes=2 * act_bytes - 4 * bias.numel() + w_bytes + 2 * (D * D + D),
-        iters=5, part_of=parts_of(LAYER_PARTS), large_mean_max_abs_err=lm_err,
-        large_mean_cosine=lm_cos, large_mean_bf16_excess=lm_excess,
-    )
-    k1_side = record(
-        'fused_surgery_layer(with_main=False)',
-        lambda: A.fused_surgery_layer(*args, with_main=False, **prep),
-        lambda: A.fused_surgery_layer_plain(*args, with_main=False),
-        lambda: lib_k1(False),
-        flops=2 * b * n * D * 2 * D + 2 * b * D * 3 * D + 4 * b * HEADS * n * HD,
-        nbytes=act_bytes + 2 * y.numel() + w_bytes,
-        iters=5, part_of=parts_of(LAYER_PARTS),
-    )
-    del x, y, bias, mask, lib_mask, args
-    torch.cuda.empty_cache()
-
-    # kernel 2: the side-stream MLP of every objects layer
-    yy = r(OBJ_BATCH, D)
-    mlp = (yy, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
-
-    def lib_k2():
-        h = F.linear(F.layer_norm(yy, (D,), ln_s, ln_b), lib_w['fc'], fc_b)
-        return yy + F.linear(h * torch.sigmoid(1.702 * h), lib_w['proj'], proj_b)
-
-    k2 = record(
-        'fused_ln_mlp_rows',
-        lambda: A.fused_ln_mlp_rows(*mlp, fc_wt=lib_w['fc'], proj_wt=lib_w['proj'],
-                                    ln32=ln32),
-        lambda: A.fused_ln_mlp_rows_plain(*mlp),
-        lib_k2,
-        flops=4 * OBJ_BATCH * D * 4 * D,
-        nbytes=2 * (2 * yy.numel() + fc_w.numel() + proj_w.numel() + 6 * D),
-        iters=50,
-    )
-
-    # the fused layers' glue on ln_gemm: the x-stream MLP (ln_mlp_residual,
-    # 11 an objects dispatch, 12 a globals or blocks dispatch) at the
-    # objects, blocks and globals rows, and the stock encoder's
-    # out-projection (out_proj_residual, 12 a globals or blocks dispatch)
-    # at the blocks and globals rows; ln_gemm picks its tile width by M
-    mlp_prep = dict(fc_wt=lib_w['fc'], proj_wt=lib_w['proj'], ln32=ln32)
-    mlp_w_bytes = 2 * (fc_w.numel() + fc_b.numel() + proj_w.numel() + proj_b.numel()) + 8 * D
-    xs, op = {}, {}
-    for b5, n5 in ((OBJ_BATCH, N_OBJ), (BLOCKS_BATCH, N_GLOB), (GLOB_BATCH, N_GLOB)):
-        m5 = b5 * n5
-        iters5 = {OBJ_BATCH: 5, BLOCKS_BATCH: 20, GLOB_BATCH: 50}[b5]
-        xm, am = r(b5, n5, D), r(b5, n5, D)
-        mlp_args = (xm, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
-        entries = {'ln_mlp_residual': (lambda: A.ln_mlp_residual(*mlp_args, **mlp_prep),
-                                       lambda: A.ln_mlp_residual_plain(*mlp_args))}
-        if b5 != OBJ_BATCH:  # no objects layer takes out_proj_residual
-            entries['out_proj_residual'] = (
-                lambda: A.out_proj_residual(xm, am, out_w, out_b, out_wt=lib_w['out']),
-                lambda: A.out_proj_residual_plain(xm, am, out_w, out_b))
-
-        def lib_mlp():  # the route before ln_gemm took it: F.layer_norm, cuBLAS, quick_gelu, add
-            h = F.linear(F.layer_norm(xm, (D,), ln_s, ln_b), lib_w['fc'], fc_b)
-            return xm + F.linear(h * torch.sigmoid(1.702 * h), lib_w['proj'], proj_b)
-
-        # the residual deltas too: the output's x would hide the MLP's error
-        delta = {}
-        for name, (kernel, plain) in entries.items():
-            delta[name] = compare(kernel().float() - xm.float(), plain().float() - xm.float())
-            if delta[name][1] < 0.999:
-                raise AssertionError(f'{name}(M={m5}): residual delta cosine {delta[name][1]}')
-        # on large-mean rows the output's rounding swamps the delta: held
-        # beyond one bf16 unit in the last place instead
-        lm5 = (offset(xm), *mlp_args[1:])
-        lm_got, lm_want = A.ln_mlp_residual(*lm5, **mlp_prep), A.ln_mlp_residual_plain(*lm5)
-        (lm_err, lm_cos), lm_excess = compare(lm_got, lm_want), bf16_excess(lm_got, lm_want)
-        if lm_cos < 0.999 or lm_excess > LARGE_MEAN_EXCESS:
-            raise AssertionError(f'ln_mlp_residual(M={m5}): cosine {lm_cos} < 0.999 or bf16 '
-                                 f'excess {lm_excess} > {LARGE_MEAN_EXCESS} on large-mean rows')
-        del lm5, lm_got, lm_want
-        xs[b5] = record(
-            f'ln_mlp_residual(M={m5})', *entries['ln_mlp_residual'], lib_mlp,
-            flops=4 * m5 * D * 4 * D,
-            nbytes=2 * 2 * xm.numel() + mlp_w_bytes,  # x read, out written, the weights
-            iters=iters5, part_of=parts_of(MLP_PARTS),
-            residual_delta_max_abs_err=delta['ln_mlp_residual'][0],
-            residual_delta_cosine=delta['ln_mlp_residual'][1],
-            large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
-            large_mean_bf16_excess=lm_excess,
-        )
-        if 'out_proj_residual' in entries:
-            op[b5] = record(
-                f'out_proj_residual(M={m5})', *entries['out_proj_residual'],
-                lambda: xm + F.linear(am, lib_w['out'], out_b),
-                flops=2 * m5 * D * D,
-                nbytes=2 * (3 * xm.numel() + D * D + D),  # x and a read, out written, W and b
-                iters=iters5,
-                residual_delta_max_abs_err=delta['out_proj_residual'][0],
-                residual_delta_cosine=delta['out_proj_residual'][1],
-            )
-        del xm, am, mlp_args, entries
-        torch.cuda.empty_cache()
-
-    # kernel 3: every layer of the stock encoder, at the globals batch and
-    # at a production blocks batch (24 wholes + 704 blocks)
-    n3 = N_GLOB
-    k3 = {}
-    for b3 in (GLOB_BATCH, BLOCKS_BATCH):
-        x3 = r(b3, n3, D)
-        a3 = (x3, ln_s, ln_b, qkv_w, qkv_b, HEADS, HD ** -0.5)
-
-        def lib_k3():
-            hx = F.layer_norm(x3, (D,), ln_s, ln_b)
-            q, k, v = (_split(t, b3, n3) for t in F.linear(hx, lib_w['qkv'], qkv_b).split(D, -1))
-            return _merge(F.scaled_dot_product_attention(q, k, v))
-
-        lm3 = (offset(x3), *a3[1:])
-        lm_err, lm_cos = compare(A.fused_ln_qkv_attention(*lm3, **prep),
-                                 A.fused_ln_qkv_attention_plain(*lm3))
-        if lm_cos < 0.999:
-            raise AssertionError(
-                f'fused_ln_qkv_attention(B={b3}): cosine {lm_cos} < 0.999 on large-mean rows')
-        del lm3
-        k3[b3] = record(
-            f'fused_ln_qkv_attention(B={b3})',
-            lambda: A.fused_ln_qkv_attention(*a3, **prep),
-            lambda: A.fused_ln_qkv_attention_plain(*a3),
-            lib_k3,
-            flops=2 * b3 * n3 * D * 3 * D + 4 * b3 * HEADS * n3 * n3 * HD,
-            nbytes=2 * 2 * x3.numel() + w_bytes,
-            iters=50 if b3 == GLOB_BATCH else 10, part_of=parts_of(LAYER_PARTS),
-            large_mean_max_abs_err=lm_err, large_mean_cosine=lm_cos,
-        )
-        del x3, a3
-
-    # kernels 4 and 5: the split wiring's attention, on the packed qkv of
-    # a layer (K and V are column slices, row stride 3D) at the split
-    # path's batch and at the objects dispatch's
-    k4, k5 = {}, {}
-    for b in (SPLIT_BATCH, OBJ_BATCH):
-        n = N_OBJ
-        qkv, qkv_y = r(b, n, 3 * D), r(b, 3 * D)
-        mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
-        bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
-        q, k, v = qkv.split(D, -1)
-        qy, ky, vy = qkv_y.split(D, -1)
-        side_args = (k, v, qy, ky, vy, bias, HEADS)
-        lib_mask = bias[:, None, None, :].bfloat16()
-
-        def lib_k4():
-            return _merge(F.scaled_dot_product_attention(*(_split(t, b, n) for t in (q, k, v))))
-
-        def lib_k5():
-            heads_y = [t.reshape(b, HEADS, 1, HD) for t in (qy, ky, vy)]
-            kk, vv = (torch.cat([_split(t, b, n)[:, :, 1:], ty], 2)
-                      for t, ty in ((k, heads_y[1]), (v, heads_y[2])))
-            return F.scaled_dot_product_attention(heads_y[0], kk, vv, attn_mask=lib_mask)
-
-        k4[b] = record(
-            f'fused_mha_qkv(B={b})',
-            lambda: A.fused_mha_qkv(qkv, HEADS, HD ** -0.5),
-            lambda: A.fused_mha_qkv_plain(qkv, HEADS, HD ** -0.5),
-            lib_k4,
-            flops=4 * b * HEADS * n * n * HD,
-            nbytes=2 * 4 * b * n * D,  # q, k, v read, the output written
-            iters=5,
-        )
-        k5[b] = record(
-            f'fused_side_attention(B={b})',
-            lambda: A.fused_side_attention(*side_args),
-            lambda: A.fused_side_attention_plain(*side_args),
-            lib_k5,
-            flops=4 * b * n * D,
-            nbytes=2 * (2 * b * (n - 1) * D + 4 * b * D) + 4 * bias.numel(),
-            iters=20,
-        )
-        del qkv, qkv_y, bias, mask, q, k, v, qy, ky, vy, side_args, lib_mask
-        torch.cuda.empty_cache()
-
-    results.update({
-        'fused_surgery_layer': dict(k1, side_only=k1_side),
-        'fused_ln_mlp_rows': k2,
-        'fused_ln_qkv_attention': dict(k3[GLOB_BATCH], blocks_batch=k3[BLOCKS_BATCH]),
-        'fused_mha_qkv': dict(k4[SPLIT_BATCH], objects_batch=k4[OBJ_BATCH]),
-        'fused_side_attention': dict(k5[SPLIT_BATCH], objects_batch=k5[OBJ_BATCH]),
-        'ln_mlp_residual': dict(xs[OBJ_BATCH], blocks_batch=xs[BLOCKS_BATCH],
-                                globals_batch=xs[GLOB_BATCH]),
-        'out_proj_residual': dict(op[BLOCKS_BATCH], globals_batch=op[GLOB_BATCH]),
-    })
-    return results
-
-
-# ---------------------------------------------------------------------------
-# Phase 3, continued: attention past 256 tokens (CLIP ViT-L/14's surgery)
-# ---------------------------------------------------------------------------
-
-L14_D, L14_HEADS, N_L14 = 1024, 16, 1025  # width, heads, tokens of a surgery crop
-
-
-def _surgery_layer_args(gen, b: int, n: int, heads: int):
-    """Random bf16 inputs of one surgery layer (x, y, bias, LN, QKV) and
-    its out-projection, with -100 on a random half of the patches."""
-    dev, d = torch.device('cuda'), heads * HD
-
-    def r(*shape, scale=1.0):
-        return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
-
-    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
-    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
-    args = (r(b, n, d), r(b, d), bias, 1 + r(d, scale=0.1), r(d, scale=0.1),
-            r(d, 3 * d, scale=d ** -0.5), r(3 * d, scale=0.02), heads, HD ** -0.5)
-    return args, dict(out_w=r(d, d, scale=d ** -0.5), out_b=r(d, scale=0.02))
-
-
-def short_and_long_at_n_obj(A, gen) -> dict:
-    """Both attention kernels at B/32's objects dispatch (2048 crops x 197
-    tokens x 12 heads, main rows and side row in one launch): ``attention``,
-    which the route keeps up to 256 tokens, and ``long_attention`` (routed
-    there for this call by lowering the route's threshold), each against
-    the plain version a chunk of crops at a time, and their device times."""
-    dev = torch.device('cuda')
-    b, n, d, heads = OBJ_BATCH, N_OBJ, D, HEADS
-    scale = HD ** -0.5
-    qkv = (torch.randn(b, n, 3 * d, device=dev, generator=gen) * 2).bfloat16()
-    qkv_y = (torch.randn(b, 3 * d, device=dev, generator=gen) * 2).bfloat16()
-    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
-    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
-    q, k, v = qkv.split(d, -1)
-    qy, ky, vy = qkv_y.split(d, -1)
-    main = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
-    side = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
-
-    def kernel():
-        A._attention(q, k, v, heads, scale, out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
-
-    res = dict(name=f'attention vs long_attention(B={b}, N={n}, heads={heads})')
-    short_limit = A._MAX_TOKENS
-    try:
-        for route, limit in (('attention', short_limit), ('long_attention', 0)):
-            A._MAX_TOKENS = limit
-            A.reset_launches()
-            main.zero_()
-            side.zero_()
-            kernel()
-            torch.cuda.synchronize()
-            if A.ROUTES[route] != 1:
-                raise AssertionError(f'{route}: routes {A.ROUTES} at N = {n}')
-            err, cos = 0.0, 1.0
-            for c in range(0, b, 256):
-                sl = slice(c, c + 256)
-                e, co = compare((main[sl], side[sl]), (
-                    A._main_attention(qkv[sl], heads, scale),
-                    A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl], bias[sl], heads,
-                                      scale)))
-                err, cos = max(err, e), min(cos, co)
-            if cos < 0.999:
-                raise AssertionError(f'{route} at N = {n}: cosine {cos} against the plain version')
-            res[route] = dict(max_abs_err=err, cosine=cos, device_ms=device_ms(kernel, 5))
-    finally:
-        A._MAX_TOKENS = short_limit
-    res['long_over_short'] = res['long_attention']['device_ms'] / res['attention']['device_ms']
-    log(json.dumps({'short_and_long_at_n_obj': res}))
-    torch.cuda.empty_cache()
-    return res
 
 
 def ptxas_report(log_text: str, source: str, kernel: str) -> dict:
@@ -777,406 +208,6 @@ def long_attention_build() -> dict:
     return report
 
 
-def check_long_attention(A, gen) -> dict:
-    """``long_attention`` (``csrc/long_attention.cu``) at an L/14 objects
-    dispatch (2048 crops x 1,025 tokens x 16 heads): first its ptxas
-    report (no serialised wgmma, no spill: :func:`long_attention_build`);
-    the main rows and the side row of one launch against the plain version
-    a chunk of crops at a time (its fp32 logits of the whole dispatch would
-    take 137 GB), its time beside the bound of the launch's work and
-    ``F.scaled_dot_product_attention`` at the same shapes (main rows, and
-    the side row with its mask, on contiguous per-head copies made
-    beforehand); the side row alone (the last layer) checked and timed;
-    one whole L/14 surgery layer's device time by part; then an L/14 layer
-    and its side-only last layer traced and held to the benchmark's launch
-    check (``benchmark/trace.py:check_launches``), and a B/32 layer that
-    launches the short kernel alone; last, both kernels at B/32's shapes
-    (:func:`short_and_long_at_n_obj`). Logged as a ``long_attention_check``
-    line."""
-    from benchmark import trace as T
-    from benchmark.metrics import kernel_parts
-
-    build = long_attention_build()
-    dev = torch.device('cuda')
-    b, n, d, heads = OBJ_BATCH, N_L14, L14_D, L14_HEADS
-    scale = HD ** -0.5
-    qkv = (torch.randn(b, n, 3 * d, device=dev, generator=gen) * 2).bfloat16()
-    qkv_y = (torch.randn(b, 3 * d, device=dev, generator=gen) * 2).bfloat16()
-    mask = torch.rand(b, n - 1, device=dev, generator=gen) > 0.5
-    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
-    q, k, v = qkv.split(d, -1)
-    qy, ky, vy = qkv_y.split(d, -1)
-    main = torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
-    side = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
-
-    def kernel():
-        A._attention(q, k, v, heads, scale, out=main, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
-
-    A.reset_launches()
-    kernel()
-    torch.cuda.synchronize()
-    if A.ROUTES != {'attention': 0, 'long_attention': 1}:
-        raise AssertionError(f'long_attention: routes {A.ROUTES} at N = {n}')
-    # two bf16 units in the last place of the largest output: both round
-    # fp32 sums taken in another order, so a rounding may fall either way
-    err, cos, ulps = 0.0, 1.0, 0.0
-    for c in range(0, b, 64):
-        sl = slice(c, c + 64)
-        want = (A._main_attention(qkv[sl], heads, scale),
-                A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl], bias[sl], heads, scale))
-        e, co = compare((main[sl], side[sl]), want)
-        top = max(float(w.abs().max()) for w in want)
-        err, cos = max(err, e), min(cos, co)
-        ulps = max(ulps, e / 2.0 ** (math.floor(math.log2(top)) - 7))
-    if cos < 0.999 or ulps > 2:
-        raise AssertionError(f'long_attention: cosine {cos}, max error {err} ({ulps} units) '
-                             'against the plain version')
-    flops = 4 * b * heads * n * n * HD + 4 * b * heads * n * HD
-    nbytes = 2 * (4 * b * n * d + 4 * b * d) + 4 * b * n
-    b_ms, b_by = bound_ms(flops, nbytes)
-    res = dict(name=f'long_attention(B={b}, N={n}, heads={heads})', max_abs_err=err,
-               max_bf16_units=ulps, cosine=cos, bound_ms=b_ms, bound_by=b_by,
-               kernel_ms=timed(kernel, 3), kernel_device_ms=device_ms(kernel, 3))
-    res['bound_share'] = res['bound_ms'] / res['kernel_device_ms']
-    res['build'] = build
-    del main
-
-    # the side row alone (the last layer): K and V streamed once an item
-    def side_only():
-        A._attention(None, k, v, heads, scale, qy=qy, ky=ky, vy=vy, bias=bias, side=side)
-
-    side.zero_()
-    side_only()
-    torch.cuda.synchronize()
-    err, cos = 0.0, 1.0
-    for c in range(0, b, 256):
-        sl = slice(c, c + 256)
-        e, co = compare(side[sl], A._side_attention(k[sl], v[sl], qy[sl], ky[sl], vy[sl],
-                                                    bias[sl], heads, scale))
-        err, cos = max(err, e), min(cos, co)
-    if cos < 0.999:
-        raise AssertionError(f'long_attention, side row alone: cosine {cos}')
-    s_ms, s_by = bound_ms(4 * b * heads * n * HD, 2 * (2 * b * n * d + 4 * b * d) + 4 * b * n)
-    res['side_only'] = dict(max_abs_err=err, cosine=cos, bound_ms=s_ms, bound_by=s_by,
-                            kernel_ms=timed(side_only, 5), kernel_device_ms=device_ms(side_only, 5))
-    res['side_only']['bound_share'] = s_ms / res['side_only']['kernel_device_ms']
-    del side
-    # the library yardstick on contiguous (B, heads, N, 64) copies
-    q4, k4, v4 = (t.reshape(b, n, heads, HD).transpose(1, 2).contiguous() for t in (q, k, v))
-    ky4, vy4 = (t.reshape(b, heads, 1, HD) for t in (ky, vy))
-    kk, vv = torch.cat([k4[:, :, 1:], ky4], 2), torch.cat([v4[:, :, 1:], vy4], 2)
-    qy4, lib_mask = qy.reshape(b, heads, 1, HD), bias[:, None, None, :].bfloat16()
-    del qkv, qkv_y, q, k, v, qy, ky, vy
-    torch.cuda.empty_cache()
-
-    def library():
-        F.scaled_dot_product_attention(q4, k4, v4)
-        F.scaled_dot_product_attention(qy4, kk, vv, attn_mask=lib_mask)
-
-    res.update(library_ms=timed(library, 3), library_device_ms=device_ms(library, 3))
-    del q4, k4, v4, ky4, vy4, kk, vv, qy4, lib_mask
-    torch.cuda.empty_cache()
-
-    # one whole L/14 surgery layer (fold_out) at the dispatch, by part
-    args, fold = _surgery_layer_args(gen, b, n, heads)
-    layer_ms, by_part = device_ms(lambda: A.fused_surgery_layer(*args, **fold), 2,
-                                  parts_of(LAYER_PARTS))
-    res.update(layer_device_ms=layer_ms, layer_device_ms_by_part=by_part)
-    del args, fold
-    torch.cuda.empty_cache()
-
-    # the benchmark's launch check on traced layers: L/14 takes the new
-    # kernel, counted once a call; B/32 the short one alone
-    traced_names = {}
-    for name, tokens, h in (('l14', N_L14, L14_HEADS), ('b32', N_OBJ, HEADS)):
-        args, fold = _surgery_layer_args(gen, 16, tokens, h)
-        A.fused_surgery_layer(*args, **fold)
-        torch.cuda.synchronize()
-        session = T.Session().start()
-        A.fused_surgery_layer(*args, **fold)
-        A.fused_surgery_layer(*args, with_main=False)
-        with tempfile.TemporaryDirectory() as tmp:
-            traced = session.stop(pathlib.Path(tmp) / 'trace.json')
-        if traced.launches['attention_kernel'] != [2, 2]:
-            raise AssertionError(f'{name}: launch check {traced.launches}')
-        traced_names[name] = sorted({k[:96]
-                                     for k, _, _ in traced.kernels
-                                     if kernel_parts.part(k) == 'attention_kernel'})
-    if not (all('long_attention_kernel' in k for k in traced_names['l14'])
-            and not any('long_attention_kernel' in k for k in traced_names['b32'])):
-        raise AssertionError(f'attention kernels by width: {traced_names}')
-    res['traced_attention_kernels'] = traced_names
-    res['at_n_obj'] = short_and_long_at_n_obj(A, gen)
-    log(json.dumps({'long_attention_check': res}))
-    torch.cuda.empty_cache()
-    return res
-
-
-# ---------------------------------------------------------------------------
-# Phase 3, continued: the preprocessing and patch embedding kernels
-# ---------------------------------------------------------------------------
-
-OBJ_PAD, OBJ_K, GLOB_K = 640, 35, 13  # the objects CLI's pad and largest tap bucket
-#: the share of pixels that may sit one uint8 step from the plain version
-#: (none further): the two sum each pixel's exact products in one order
-RESIZE_STEP_SHARE = 1e-5
-
-
-def _objects_crops(rng, images: int = 2, rows: int = 1024, w: int = 640, h: int = 480):
-    """An objects dispatch's inputs: ``images`` random w x h images padded to
-    640 and ``rows`` crops each, as the objects CLI cuts them (proposals
-    expanded by ``ops/boxes.expand_boxes``), with adversarial crops in
-    each image's first rows: 224 x 224 (identity), past every edge, a pixel
-    wide, and sqrt(8)-expanded whole images (35 taps)."""
-    from oadp_torch.ops import boxes as B
-    from oadp_torch.ops import preprocess as P
-
-    imgs = np.zeros((images, OBJ_PAD, OBJ_PAD, 3), np.uint8)
-    imgs[:, :h, :w] = rng.randint(0, 256, (images, h, w, 3))
-    metas = []
-    for _ in range(images):
-        x0, y0 = rng.uniform(0, w * .8, rows), rng.uniform(0, h * .8, rows)
-        props = np.stack([x0, y0, np.minimum(x0 + rng.uniform(8, w * .5, rows), w),
-                          np.minimum(y0 + rng.uniform(8, h * .5, rows), h)], -1)
-        crops = B.expand_boxes(props.astype(np.float32), w, h).astype(np.float64)
-        side = np.sqrt(8.0) * OBJ_PAD
-        crops[:12] = [[10, 20, 234, 244], [-30, -20, 194, 204], [-50, -40, w + 30, h + 60],
-                      [w - 20, h - 30, w + 90, h + 40], [-90, 100, 5, 300], [100.5, 50, 101.5, 150],
-                      [300, 10.2, 301.2, 400], [0, 0, w, h],
-                      [w / 2 - side / 2, h / 2 - side / 2, w / 2 + side / 2, h / 2 + side / 2],
-                      [w / 2 - side * .45, h / 2 - side / 2, w / 2 + side * .45, h / 2 + side * .4],
-                      [-side / 2, -side / 3, side / 2, side / 2], [0, 0, 8, 300]]
-        metas.append(P.clip_transform_meta(w, h, crops))
-    return imgs, np.concatenate(metas)
-
-
-def _tap_work(taps, ph: int, pw: int) -> float:
-    """The fp32 operations a resize's inputs need: a multiply and an add a
-    nonzero tap that reads the image, over the horizontal pass's needed
-    source rows (those the vertical taps reach inside the image) and the
-    vertical pass's outputs, three channels each, and the normalisation's
-    subtract and divide."""
-    wx_w, wx_s, wy_w, wy_s = (t.cpu().numpy() for t in taps)
-    k = wx_w.shape[-1]
-    cols = wx_s[..., None] + np.arange(k)
-    x_taps = ((wx_w != 0) & (cols >= 0) & (cols < pw)).sum((1, 2))  # (crops,)
-    rows = wy_s[..., None] + np.arange(k)
-    y_live = (wy_w != 0) & (rows >= 0) & (rows < ph)
-    work = 0.0
-    for c in range(len(wx_w)):
-        needed = np.unique(rows[c][y_live[c]]).size
-        work += 2 * 3 * (needed * x_taps[c] + y_live[c].sum() * wx_w.shape[1])
-    return work + 2 * 3 * len(wx_w) * wx_w.shape[1] * wy_w.shape[1]
-
-
-def check_embed(gen) -> dict:
-    """The objects and globals dispatches' preprocessing and patch embedding
-    kernels against their plain versions on the card: ``resize_crops`` (its
-    taps bit-identical to ``device_coeffs``, its pixels equal but for at
-    most ``RESIZE_STEP_SHARE`` of them one uint8 step off), ``patch_rows``
-    (bit-identical), the patch product on ``ln_gemm`` and ``embed_ln_pre``
-    (cosine >= 0.999), and the whole embedding before layer 0 against the
-    block-product route (cosine >= 0.999); each timed beside its plain
-    version, the library route and its bound."""
-    from oadp_torch.models import clip as C
-    from oadp_torch.oake import encoders as E
-    from oadp_torch.ops import attention as A
-    from oadp_torch.ops import embed as EM
-    from oadp_torch.ops import preprocess as P
-    from oadp_torch.profile_kernels import _dense_crops
-
-    dev = torch.device('cuda')
-    rng = np.random.RandomState(0)
-    results = {}
-    t_phase = time.perf_counter()
-
-    # resize_crops: an objects dispatch (2 images x 1024 crops, k_pad 35)
-    # and a globals dispatch (16 paired 640 x 480 images, whole, k_pad 13)
-    imgs, meta = _objects_crops(rng)
-    gimgs = np.zeros((GLOB_BATCH, OBJ_PAD, OBJ_PAD, 3), np.uint8)
-    gimgs[:, :480] = rng.randint(0, 256, (GLOB_BATCH, 480, 640, 3))
-    gmeta = np.repeat(P.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]])),
-                      GLOB_BATCH, 0)
-    resize = {}
-    for label, images, m, k in (('objects', imgs, meta, OBJ_K), ('globals', gimgs, gmeta, GLOB_K)):
-        images, m = torch.from_numpy(images).to(dev), torch.from_numpy(m).to(dev)
-        crops, taps = P.resize_crops(images, m, k, return_taps=True)
-        want_taps = P.device_coeffs(m, k)
-        cpu_taps = P.device_coeffs(m.cpu(), k)
-        for got, want, cpu in zip(taps, want_taps, cpu_taps):
-            if not torch.equal(got, want) or not torch.equal(got.cpu(), cpu):
-                raise AssertionError(f'resize_crops({label}): taps differ from device_coeffs in '
-                                     f'{int((got != want).sum())} (card) / '
-                                     f'{int((got.cpu() != cpu).sum())} (CPU) places')
-        zero, one = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
-        px = P.resize_crops(images, m, k, zero, one).float()
-        px_plain = P.resize_crops_plain(images, m, k, zero, one).float()
-        steps = (px - px_plain).abs()
-        off = int((steps > 0).sum())
-        if float(steps.max()) > 1 or off > RESIZE_STEP_SHARE * steps.numel():
-            raise AssertionError(f'resize_crops({label}): {off} pixels off the plain version, '
-                                 f'the most by {float(steps.max())} steps')
-        del px, px_plain, steps
-        nbytes = images.numel() + m.numel() * 4 + crops.numel() * 2
-        resize[label] = record_kernel(
-            A, f'resize_crops({label}: {len(m)} crops, k_pad {k})',
-            lambda: P.resize_crops(images, m, k), lambda: P.resize_crops_plain(images, m, k),
-            lambda: _dense_crops(images, m, k),
-            _tap_work(taps, images.shape[1], images.shape[2]), nbytes,
-            iters=10 if label == 'objects' else 50, peak=PEAK_FP32,
-            taps_identical=True, pixels_one_step_off=off, pixels=crops.numel())
-        results.setdefault('crops', {})[label] = crops
-        del images, m, taps, want_taps, crops
-
-    # patch_rows, the product and embed_ln_pre at the surgery encoder's
-    # half stride (the objects crops) and the stock encoder's stride (the
-    # globals crops), random ViT-B/32 weights from seed 0, bf16
-    model = E.load_clip(None, 'bfloat16', device=dev)
-    embed = {}
-    for label, params, cfg in (('objects', model.surgery_params, model.surgery_config),
-                               ('globals', model.params, model.config)):
-        crops = results['crops'][label]
-        p, s, d, g = cfg.patch_size, cfg.stride, cfg.width, cfg.grid
-        b = crops.shape[0]
-        kern = params['kernel']
-        rows = EM.patch_rows(crops, p, s)
-        if not torch.equal(rows, EM.patch_rows_plain(crops, p, s)):
-            raise AssertionError(f'patch_rows({label}): differs from its plain version')
-        iters = 10 if label == 'objects' else 50
-        pad, _ = EM.patch_geometry(crops.shape[1], p, s)
-        # the library call: F.unfold's (B, 3 * P * P, L) columns, in the
-        # same (c, i, j) order, as (B * L, 3 * P * P) rows; CUDA events
-        # only, as its im2col is a launch a crop (2048 a call), whose
-        # profile left the next torch.profiler sessions empty
-        def unfold():
-            cols = F.unfold(crops.permute(0, 3, 1, 2), p, padding=pad, stride=s)
-            return cols.transpose(1, 2).reshape(-1, 3 * p * p)
-
-        if not torch.equal(unfold(), rows):
-            raise AssertionError(f'patch_rows({label}): F.unfold gives other rows')
-        r_rows = record_kernel(
-            A, f'patch_rows({label}: {b} crops, stride {s})', lambda: EM.patch_rows(crops, p, s),
-            lambda: EM.patch_rows_plain(crops, p, s), unfold,
-            0.0, crops.numel() * 2 + rows.numel() * 2, iters, profile_library=False,
-            identical=True)
-        x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
-        r_prod = record_kernel(
-            A, f'patch_embed({label}: M={rows.shape[0]}, K={rows.shape[1]}, N={d})',
-            lambda: EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b']),
-            lambda: EM.patch_embed_plain(rows, kern['conv1_wt']),
-            lambda: F.linear(rows, kern['conv1_wt']),
-            2.0 * rows.shape[0] * rows.shape[1] * d,
-            rows.numel() * 2 + kern['conv1_wt'].numel() * 2 + x.numel() * 2, iters)
-        del rows
-        x = x.view(b, g * g, d)
-        ln = params['ln_pre']
-        ln_args = (x, params['class_embedding'], params['positional_embedding'], ln['scale'],
-                   ln['bias'])
-        r_ln = record_kernel(
-            A, f'embed_ln_pre({label}: {b} x {g * g + 1} x {d})',
-            lambda: EM.embed_ln_pre(*ln_args, ln32=kern['ln_pre']),
-            lambda: EM.embed_ln_pre_plain(*ln_args), lambda: EM.embed_ln_pre_plain(*ln_args),
-            0.0, x.numel() * 2 + b * (g * g + 1) * d * 2 + (g * g + 2) * d * 2 + 8 * d, iters)
-        del x, ln_args
-
-        # the whole embedding before layer 0: the kernels against the
-        # block-product route (_embed_patches + ln_pre) and F.conv2d's
-        def conv_route():
-            y = F.conv2d(crops.permute(0, 3, 1, 2), params['conv1'], stride=s, padding=pad)
-            y = y.flatten(2).transpose(1, 2)
-            y = torch.cat([params['class_embedding'].expand(b, 1, d), y], 1)
-            y = y + params['positional_embedding']
-            return F.layer_norm(y, (d,), ln['scale'], ln['bias'], 1e-5)
-
-        r_whole = record_kernel(
-            A, f'embedding({label}: patch_rows + ln_gemm + embed_ln_pre)',
-            lambda: C._embed_ln_pre(crops, params, cfg),
-            lambda: C._layer_norm(C._embed_patches(crops, params, cfg), params['ln_pre']),
-            conv_route, 2.0 * b * g * g * 3 * p * p * d,
-            crops.numel() * 2 + b * (g * g + 1) * d * 2 + params['conv1'].numel() * 2, iters)
-        embed[label] = dict(patch_rows=r_rows, patch_embed=r_prod, embed_ln_pre=r_ln,
-                            embedding=r_whole)
-        del crops
-        torch.cuda.empty_cache()
-    del results['crops'], model
-    torch.cuda.empty_cache()
-    log(json.dumps({'check_embed_s': time.perf_counter() - t_phase}))
-    return {
-        'resize_crops': dict(resize['objects'], globals_batch=resize['globals']),
-        **{k: dict(embed['objects'][k], globals_batch=embed['globals'][k])
-           for k in ('patch_rows', 'patch_embed', 'embed_ln_pre')},
-        'embedding': dict(embed['objects']['embedding'],
-                          globals_batch=embed['globals']['embedding']),
-    }
-
-
-def check_plans(A, gen) -> dict:
-    """Every ``ln_gemm`` plan (``A.GEMM_RATES``: the cooperative widths
-    and ping-pong) on the few-tile or deep-K launches: the
-    patch product (K = 3072, N = 768, no epilogue) at the globals (784
-    rows) and objects (401,408) dispatches, the globals x-stream proj (800
-    rows) and kernel 2's proj (2048 rows; K = 3072 with the residual),
-    each forced through ``_ln_gemm(plan=...)`` and held to its plain
-    version (cosine >= 0.999), the residual launches also on their deltas
-    ``out - x``; each plan's CUDA-event ms, beside the plan
-    ``ln_gemm_plan`` picks. Raises on the first plan that fails."""
-    dev = torch.device('cuda')
-    launches = {'patch_embed(globals)': (GLOB_BATCH * 49, 0),
-                'patch_embed(objects)': (OBJ_BATCH * 196, 0),
-                'ln_mlp_residual proj(globals)': (GLOB_BATCH * N_GLOB, 2),
-                'fused_ln_mlp_rows proj': (OBJ_BATCH, 2)}
-    k = 4 * D
-    w = (torch.randn(k, D, device=dev, generator=gen) * k ** -0.5).bfloat16()
-    wt, wb = A.kmajor(w), (0.02 * torch.randn(D, device=dev, generator=gen)).bfloat16()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {}
-    for name, (m, epi) in launches.items():
-        x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
-        res = torch.randn(m, D, device=dev, generator=gen).bfloat16() if epi == 2 else None
-        want = A._proj(x, w, wb) + (0 if res is None else res.float())
-        got = torch.empty(m, D, device=dev, dtype=torch.bfloat16)
-        by_plan = {}
-        for plan in A.GEMM_RATES:
-            run = lambda: A._ln_gemm(x, wt, wb, got, epilogue=epi, residual=res,  # noqa: E731
-                                     plan=plan)
-            run()
-            err, cos = compare(got, want)
-            row = dict(max_abs_err=err, cosine=cos)
-            if res is not None:
-                row['residual_delta_cosine'] = compare(got.float() - res.float(),
-                                                       want - res.float())[1]
-            if min(cos, row.get('residual_delta_cosine', 1.0)) < 0.999:
-                raise AssertionError(f'ln_gemm {name} plan {plan}: cosine {row} < 0.999')
-            row['ms'] = timed(run, 3 if m > 100_000 else 20)
-            by_plan[f'{plan.schedule}{plan.tile_n}'] = row
-        picked = A.ln_gemm_plan([(m, D)], k, epi, sms)
-        out[name] = dict(rows=m, depth=k, epilogue=epi, picked=picked._asdict(),
-                         by_plan=by_plan)
-        log(json.dumps({'plan_check': {name: out[name]}}))
-        del x, res, want, got
-        torch.cuda.empty_cache()
-    return out
-
-
-def unfold_device_ms() -> dict:
-    """``F.unfold``'s device ms (``patch_rows``' library call) at the
-    objects (2048 crops, stride 16) and globals (16, stride 32) shapes,
-    from ``profile_kernels.py --only unfold`` run in a child process."""
-    proc = subprocess.run(
-        [sys.executable, '-m', 'oadp_torch.profile_kernels', '--only', 'unfold'],
-        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=600, check=True)
-    found = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith('{"unfold"'):
-            row = json.loads(line)['unfold']
-            found[row['crops']] = row
-    if set(found) != {OBJ_BATCH, GLOB_BATCH}:
-        raise AssertionError(f'profile_kernels --only unfold printed {sorted(found)}')
-    log(json.dumps({'unfold': found}))
-    return found
-
-
 def reset_launches() -> None:
     """Every kernel's launch count to 0: ``ops/attention.py``'s five and its
     ``ln_gemm`` routes, ``ops/nms.py``'s ``greedy_nms``, ``ops/preprocess.py``'s
@@ -1193,261 +224,24 @@ def launch_counts() -> dict:
     return {**attention.LAUNCHES, **nms.LAUNCHES, **preprocess.LAUNCHES, **embed.LAUNCHES}
 
 
-# greedy_nms: the IoU of a pair and its comparison, in fp32 outside the
-# tensor cores: 2 max, 2 min, 2 subtractions and 2 clamps (the overlap), 1
-# product (inter), 1 addition and 1 subtraction (union), 1 clamp, 1
-# division, 1 comparison
-IOU_FLOP = 14
-RPN_CANVAS, RPN_HW = (832, 1344), [(800, 1199), (800, 1333)]
-RPN_PRE, RPN_MAX, RPN_IOU = 2000, 1000, 0.7  # the OV-COCO train config's RPN NMS
-
-
-def _captured_keep(fn):
-    """``fn()`` (an entry point of ``ops/nms.py``) and the arguments of each
-    ``greedy_keep_sorted`` call it made."""
-    from oadp_torch.ops import nms as NMS
-
-    seen = []
-    keep_fn = NMS.greedy_keep_sorted
-
-    def capture(*a, **k):
-        seen.append((a, k))
-        return keep_fn(*a, **k)
-
-    NMS.greedy_keep_sorted = capture
-    try:
-        out = fn()
-    finally:
-        NMS.greedy_keep_sorted = keep_fn
-    return out, seen
-
-
-def _needed_pairs(keep, alive, max_keep: int) -> int:
-    """The IoU pairs these inputs need: each kept candidate against the
-    alive ones after it, up to the scan's end (the max_keep-th kept, else
-    the last alive)."""
-    n = alive.shape[1]
-    pos = torch.arange(n, device=alive.device)
-    last_kept = torch.where(keep, pos, -1).amax(1)
-    last_alive = torch.where(alive, pos, -1).amax(1)
-    end = torch.where(keep.sum(1) >= max_keep, last_kept, last_alive) + 1
-    acum = alive.long().cumsum(1)
-    total = acum.gather(1, (end - 1).clamp(min=0)[:, None]) * (end > 0)[:, None]
-    return int(((total - acum) * keep).sum())
-
-
-def _rpn_inputs(gen, dev):
-    """RPN head outputs at the train canvas (random logits and deltas, two
-    images) with the canvas's anchors: ``rpn_proposals`` takes the top 2000
-    of each level, 8,819 candidates an image."""
-    from oadp_torch.ops.anchors import AnchorGenerator
-
-    sizes = [(-(-RPN_CANVAS[0] // s), -(-RPN_CANVAS[1] // s)) for s in (4, 8, 16, 32, 64)]
-    anchors = [torch.from_numpy(a).float().to(dev)
-               for a in AnchorGenerator().grid_anchors(sizes)]
-    scores = [torch.randn(2, len(a), device=dev, generator=gen) for a in anchors]
-    deltas = [0.2 * torch.randn(2, len(a), 4, device=dev, generator=gen) for a in anchors]
-    return scores, deltas, anchors, torch.tensor(RPN_HW, device=dev)
-
-
-def _det_inputs(gen, dev, classes: int, per_class: bool, n: int = 1000):
-    """A detector's ``n`` decoded boxes on an 800 x 1199 image, clustered
-    round 40 objects, and softmax scores over ``classes`` + background,
-    zero on 5% of the rows (proposals that were not valid)."""
-    centre = torch.rand(40, 2, device=dev, generator=gen) * torch.tensor([1199., 800.], device=dev)
-    size = 30 + 270 * torch.rand(40, 2, device=dev, generator=gen)
-    k = torch.randint(0, 40, (n,), device=dev, generator=gen)
-    jitter = 1 + 0.15 * torch.randn(n, 2, device=dev, generator=gen)
-    c, s = centre[k], size[k] * jitter
-    boxes = torch.cat([c - s / 2, c + s / 2], 1).clamp(min=0)
-    if per_class:
-        boxes = (boxes[:, None] + 4 * torch.randn(n, classes, 4, device=dev, generator=gen)
-                 ).clamp(min=0).reshape(n, classes * 4)
-    scores = torch.softmax(2 * torch.randn(n, classes + 1, device=dev, generator=gen), -1)
-    scores = scores * (torch.rand(n, 1, device=dev, generator=gen) > 0.05)
-    return boxes, scores
-
-
-def _adversarial(gen, dev) -> dict:
-    """``nms`` inputs (boxes, scores, iou, max_out) that stress the scan."""
-    from oadp_torch.ops import nms as NMS
-
-    def clustered(n):
-        b, _ = _det_inputs(gen, dev, 1, False, n)
-        return b
-
-    def rand(n):
-        return torch.rand(n, device=dev, generator=gen)
-
-    chain_x = 4 * torch.arange(2000, device=dev, dtype=torch.float32)[:, None]
-    chain = torch.cat([chain_x, 0 * chain_x, chain_x + 10, 0 * chain_x + 10], 1)
-    mixed = clustered(1000)
-    mixed[::2, 2] = mixed[::2, 0]  # zero width
-    mixed[1::4] = mixed[1]  # one box, many times
-    mixed[3::8] = mixed[3, :1]  # points
-    nan = float('nan')
-    nan_boxes = clustered(1000)
-    rows = torch.arange(3, 1000, 7, device=dev)
-    nan_boxes[rows, rows % 4] = nan  # one coordinate of every 7th box
-    nan_boxes[500] = nan
-    cases = {
-        # the highest-scored box is NaN: its IoU with every box is NaN, so
-        # it suppresses nothing and all three are kept
-        'nan_box': (torch.tensor([[nan] * 4, [0, 0, 10, 10], [20, 20, 30, 30]], device=dev),
-                    torch.tensor([0.9, 0.8, 0.7], device=dev), 0.5, 3),
-        'nan_boxes': (nan_boxes, rand(1000), 0.5, 1000),
-        'ties': (clustered(1000), torch.round(4 * rand(1000)) / 4, 0.5, 1000),
-        'chain_2000': (chain, torch.linspace(1, 0, 2000, device=dev), 0.3, 2000),
-        'identical_zero_area': (mixed, rand(1000), 0.5, 1000),
-        'all_dead': (clustered(1000), torch.full((1000,), NMS.NEG_INF, device=dev), 0.5, 300),
-        'all_alive_capped': (clustered(1000), rand(1000), 0.5, 50),
-    }
-    for n in (1, 63, 64, 65):
-        cases[f'n_{n}'] = (clustered(n), rand(n), 0.5, n)
-    return cases
-
-
-def check_nms(gen) -> dict:
-    """``greedy_nms`` against its plain version on the card (identical keep
-    sets) at the main path's shapes, each through its entry point and as
-    its callers batch it: ``rpn_proposals``' one ``batched_nms`` call over
-    a train step's two images at the train canvas, and each image alone;
-    ``multiclass_nms`` at OV-COCO width on one image and on a 32-image
-    ``rescore`` batch, at OV-LVIS width on one and two images (shared and
-    per-class boxes). Each entry's outputs are held to the same entry with
-    the plain version on the card and, for one image or the RPN's two, on
-    the CPU; and adversarial cases. Each main-path shape timed beside the
-    plain version, with its plan, its bound and the kernel's cycles by
-    part."""
-    from oadp_torch.models import rpn as RPN
-    from oadp_torch.ops import nms as NMS
-
-    dev = torch.device('cuda')
-
-    def equal(x, y) -> bool:  # a NaN box equal to itself
-        x, y = x.cpu(), y.cpu()
-        return torch.equal(x, y) or (x.shape == y.shape and x.dtype == y.dtype and bool(
-            ((x == y) | (x.isnan() & y.isnan())).all()))
-
-    def same(a, b) -> bool:
-        return all(equal(x, y) for x, y in zip(a, b))
-
-    def held(name, entry, args, timed_shape=True, cpu=True):
-        """The entry point on the card against itself with the plain
-        version on the card and (``cpu``) on the CPU, on the same inputs,
-        and its kernel call against the plain version."""
-        out, ((a, k),) = _captured_keep(lambda: entry(*args))
-        keep_fn = NMS.greedy_keep_sorted
-        NMS.greedy_keep_sorted = NMS.greedy_keep_sorted_plain
-        try:
-            plain_out = entry(*args)
-        finally:
-            NMS.greedy_keep_sorted = keep_fn
-        if not same(out, plain_out) or cpu and not same(
-                out, entry(*(t.cpu() if torch.is_tensor(t) else t for t in args))):
-            raise AssertionError(f'greedy_nms {name}: the outputs differ')
-        keep = NMS.greedy_keep_sorted(*a, **k)
-        plain = NMS.greedy_keep_sorted_plain(*a, **k)
-        if not torch.equal(keep, plain):
-            raise AssertionError(f'greedy_nms {name}: keep sets differ in '
-                                 f'{int((keep != plain).sum())} places')
-        return _nms_row(name, a, k, keep, timed_shape)
-
-    results = {}
-    # the RPN's batched_nms call at the train canvas, one for both images,
-    # as rpn_proposals makes it
-    rpn_args = []
-    rpn_nms = RPN.batched_nms
-    RPN.batched_nms = lambda *a: rpn_args.append(a) or rpn_nms(*a)
-    try:
-        RPN.rpn_proposals(*_rpn_inputs(gen, dev), nms_pre=RPN_PRE, max_per_img=RPN_MAX,
-                          iou_threshold=RPN_IOU)
-    finally:
-        RPN.batched_nms = rpn_nms
-    (boxes, scores, ids, thr, max_out), = rpn_args
-    results['rpn_train'] = held('rpn_train', NMS.batched_nms, rpn_args[0])
-    for i in range(boxes.shape[0]):
-        results[f'rpn_train_image_{i}'] = held(f'rpn_train_image_{i}', NMS.batched_nms,
-                                               (boxes[i], scores[i], ids[i], thr, max_out))
-    if min(results[k]['plan']['cluster'] for k in results) < 2:
-        raise AssertionError(f'greedy_nms: the RPN\'s few problems not in clusters: {results}')
-    for name, classes, per_class, images in (
-            ('ov_coco', 65, False, 1), ('ov_coco_batch_32', 65, False, 32),
-            ('ov_lvis', 1203, False, 1), ('ov_lvis_batch_2', 1203, False, 2),
-            ('ov_lvis_per_class', 1203, True, 1), ('ov_lvis_per_class_batch_2', 1203, True, 2)):
-        boxes, sc = (torch.stack(t) for t in zip(*(
-            _det_inputs(gen, dev, classes, per_class) for _ in range(images))))
-        if images == 1:
-            boxes, sc = boxes[0], sc[0]
-        # the CPU holds one OV-COCO image; the plain passes of 32 images,
-        # or of OV-LVIS's 1203 x 1000 x 1000, take the CPU minutes
-        results[name] = held(name, NMS.multiclass_nms, (boxes, sc, 0.0, 0.5, 300, classes),
-                             cpu=name == 'ov_coco')
-    adversarial = {}
-    for name, args in _adversarial(gen, dev).items():
-        row = held(name, NMS.nms, args, timed_shape=False)
-        adversarial[name] = {k: row[k] for k in ('problems', 'candidates', 'kept', 'plan')}
-    if adversarial['nan_box']['kept'] != 3:
-        raise AssertionError(f'greedy_nms nan_box: {adversarial["nan_box"]["kept"]} kept, not 3')
-    # NaN boxes with finite scores among OV-COCO's multiclass candidates, in
-    # one image of a batch of three
-    batch = [_det_inputs(gen, dev, 65, False) for _ in range(3)]
-    rows = torch.arange(0, 1000, 11, device=dev)
-    batch[1][0][rows, rows % 4] = float('nan')
-    boxes, sc = (torch.stack(t) for t in zip(*batch))
-    row = held('ov_coco_nan_boxes', NMS.multiclass_nms, (boxes, sc, 0.0, 0.5, 300, 65),
-               timed_shape=False)
-    adversarial['ov_coco_nan_boxes'] = {
-        k: row[k] for k in ('problems', 'candidates', 'kept', 'plan')}
-    results['adversarial'] = adversarial
-    log(json.dumps({'nms_adversarial': adversarial}))
-    return results
-
-
-#: ``greedy_nms``'s clock cycles by part (csrc/nms.cu: thread 0 of a
-#: problem's first block): (a) its tests against the kept list, (b) its
-#: warp's column words, the barriers before (b) and (c) (waiting for the
-#: other warps and blocks), (c) the decision, the appends and the block
-#: barrier
-NMS_PARTS = ('kept_tests', 'iou_words', 'barriers', 'decisions')
-
-
-def _nms_row(name, a, k, keep, timed_shape) -> dict:
-    """One kernel call's shape, plan and keep count and, for a main-path
-    shape, its times (device, events), the plain version's, its bound and
-    its cycles by part."""
-    from oadp_torch.ops import nms as NMS
-
-    boxes, alive, thr, max_keep = a
-    order = k.get('order')
-    p, n = alive.shape
-    plan = NMS.nms_plan(p, n, torch.cuda.get_device_properties(alive.device).multi_processor_count)
-    row = dict(name=f'greedy_nms({name})', problems=p, candidates=n, iou=thr, max_keep=max_keep,
-               shared_boxes=order is not None, kept=int(keep.sum()), identical=True,
-               max_abs_err=0.0, plan=dataclasses.asdict(plan))
-    if not timed_shape:
-        return row
-
-    def kernel():
-        return NMS.greedy_keep_sorted(*a, **k)
-
-    def plain():
-        return NMS.greedy_keep_sorted_plain(*a, **k)
-
-    nbytes = boxes.numel() * 4 + (order.numel() * 8 if order is not None else 0) + 2 * p * n
-    pairs = _needed_pairs(keep, alive, max_keep)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, IOU_FLOP * pairs / PEAK_FP32
-    cycles = torch.zeros(p, 4, dtype=torch.int64, device=alive.device)
-    NMS._greedy_nms(boxes, alive, thr, max_keep, order, cycles=cycles)
-    parts = cycles.sum(0).tolist()
-    row.update(
-        kernel_device_ms=device_ms(kernel, 20), kernel_ms=timed(kernel, 20),
-        plain_ms=timed(plain, 3), library_ms=None, bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by='operations' if t_ops >= t_bytes else 'bytes', bytes=nbytes, iou_pairs=pairs,
-        cycles_per_problem={part: c / p for part, c in zip(NMS_PARTS, parts)},
-        cycle_share={part: c / max(1, sum(parts)) for part, c in zip(NMS_PARTS, parts)})
-    log(json.dumps({'nms_check': row}))
-    return row
+def cuda_tests() -> dict:
+    """Phase 3: every ``cuda``-marked test of ``tests/test_torch_*.py`` in a
+    child ``pytest``; raises unless it exits 0."""
+    repo = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pytest', '-m', 'cuda', '-q', '-p', 'no:cacheprovider',
+         *sorted(str(f.relative_to(repo)) for f in (repo / 'tests').glob('test_torch_*.py'))],
+        cwd=repo, capture_output=True, text=True, timeout=3000)
+    summary = proc.stdout.strip().splitlines()[-1:]
+    counts = {word: int(n) for line in summary
+              for n, word in re.findall(r'(\d+) (passed|failed|skipped|deselected|errors?)', line)}
+    res = dict(returncode=proc.returncode, counts=counts, seconds=time.perf_counter() - t0)
+    log(json.dumps({'cuda_tests': res}))
+    if proc.returncode != 0:
+        log(proc.stdout[-20000:] + proc.stderr[-4000:])
+        raise AssertionError(f'pytest -m cuda exited {proc.returncode}: {counts}')
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2199,8 +993,6 @@ def dp_path(card: str, prompts: pathlib.Path, root: pathlib.Path) -> dict:
     of one ``simple_test`` call timed; the card against the CPU on one
     image; one bf16 pass against fp32. A third fp32 run writes DUMP records
     (phase 8's input)."""
-    import os
-
     from oadp_torch.base import coco, lvis
     from oadp_torch.dp import builder as B
     from oadp_torch.dp import test as dp_test
@@ -2774,8 +1566,6 @@ def dp_train_path(card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib
     from the same params, image and draws (the RCNN side on the CPU's
     proposals; the card's own proposals held to the CPU's and to the CPU's
     proposal code replayed on the card's RPN outputs), and in bf16."""
-    import os
-
     from oadp_torch.base import coco, lvis
     from oadp_torch.dp import builder as B
     from oadp_torch.dp import test as dp_test
@@ -2791,6 +1581,7 @@ def dp_train_path(card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib
     from oadp_torch.models import rpn as RPN
     from oadp_torch.ops import nms as NMS
     from oadp_torch.ops import roi_align as RA
+    from oadp_torch.profile_kernels import measure
     from oadp_torch.utils import Config
 
     repo = pathlib.Path(__file__).resolve().parent
@@ -2963,7 +1754,8 @@ def dp_train_path(card: str, root: pathlib.Path, oake: pathlib.Path, dp: pathlib
     def roi_fwd_bwd():
         torch.autograd.grad(RA.roi_align_fpn(pyramid, rois), pyramid[:4], grad_out)
 
-    fwd_ms, fwd_bwd_ms = timed(roi_fwd, 5), timed(roi_fwd_bwd, 5)
+    fwd_ms, fwd_bwd_ms = (measure(fn, 5, profiled=False)['events_ms']
+                          for fn in (roi_fwd, roi_fwd_bwd))
     roi_align = dict(rois=2 * n_rois, forward_ms=fwd_ms, backward_ms=fwd_bwd_ms - fwd_ms)
     del pyramid, grad_out
 
@@ -3270,7 +2062,6 @@ def main() -> int:
     card = card_info()
     log(f'card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}')
 
-    from oadp_torch.ops import attention as A
     from oadp_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
@@ -3278,24 +2069,15 @@ def main() -> int:
     log(json.dumps({'build_s': time.perf_counter() - t0,
                     'library_dir': str(cuda_lib.build_dir())}))
 
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    checks = check_kernels(A, gen)
-    long_check = check_long_attention(A, gen)
-    embed_checks = check_embed(gen)
-    embedding = embed_checks.pop('embedding')
-    checks.update(embed_checks)
-    unfold = unfold_device_ms()
-    checks['patch_rows']['library_device_ms'] = unfold[OBJ_BATCH]['device_ms']
-    checks['patch_rows']['globals_batch']['library_device_ms'] = unfold[GLOB_BATCH]['device_ms']
-    nms_check = check_nms(gen)
-    plan_checks = check_plans(A, gen)
+    log(json.dumps({'long_attention_build': long_attention_build()}))
+    cuda_tests()
     # one directory for phases 4-7: phase 7 trains on phase 4's images and
     # OAKE records, from phase 6's checkpoint, with phase 5's prompts
     with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent / 'build') as tmp:
         tmp = pathlib.Path(tmp)
         for sub in ('oake', 'dp', 'train'):
             (tmp / sub).mkdir()
-        path = main_path(card, tmp / 'oake')
+        main_path(card, tmp / 'oake')
         prompts = tmp / 'vild.pth'
         vild_path(prompts)
         dp = dp_path(card, prompts, tmp / 'dp')
@@ -3307,98 +2089,7 @@ def main() -> int:
                                        pathlib.Path(dp['dump_dir']), tmp / 'calibration')
     log(json.dumps({'calibration': calibration}))
 
-    both = 'oadp_torch/csrc/ln_gemm.cu, oadp_torch/csrc/attention.cu'
-    kernel_info = {  # TPU kernel replaced, sources, dispatches whose launches count
-        'fused_surgery_layer': ('oadp_tpu/ops/attention.py:425', both, ['objects']),
-        'fused_ln_mlp_rows': ('oadp_tpu/ops/attention.py:672',
-                              'oadp_torch/csrc/ln_gemm.cu', ['objects']),
-        'fused_ln_qkv_attention': ('oadp_tpu/ops/attention.py:218',
-                                   'oadp_torch/csrc/ln_qkv_attention.cu',
-                                   ['globals', 'blocks']),
-        'fused_mha_qkv': ('oadp_tpu/ops/attention.py:105',
-                          'oadp_torch/csrc/attention.cu', ['split']),
-        'fused_side_attention': ('oadp_tpu/ops/attention.py:587',
-                                 'oadp_torch/csrc/attention.cu', ['split']),
-        'ln_mlp_residual': ('oadp_tpu/models/clip.py:289 _mlp (XLA, not a Pallas kernel)',
-                            'oadp_torch/csrc/ln_gemm.cu', ['objects', 'globals', 'blocks']),
-        'out_proj_residual': ('oadp_tpu/models/clip.py:318 _block_fused out-projection '
-                              '(XLA, not a Pallas kernel)', 'oadp_torch/csrc/ln_gemm.cu',
-                              ['globals', 'blocks']),
-        'resize_crops': ('oadp_tpu/oake/encoders.py:401-432 prep_one + normalize_clip '
-                         '(ops/preprocess.py:304, 410, 511, 542; XLA, not a Pallas kernel)',
-                         'oadp_torch/csrc/preprocess.cu', ['objects', 'globals', 'split']),
-        'patch_rows': ('oadp_tpu/models/clip.py:350 conv (its im2col rows; XLA, not a Pallas '
-                       'kernel)', 'oadp_torch/csrc/embed.cu',
-                       ['objects', 'globals', 'blocks', 'split']),
-        'patch_embed': ('oadp_tpu/models/clip.py:350 conv (its product; XLA, not a Pallas '
-                        'kernel)', 'oadp_torch/csrc/ln_gemm.cu',
-                        ['objects', 'globals', 'blocks', 'split']),
-        'embed_ln_pre': ('oadp_tpu/models/clip.py:358-364 CLS + positional embedding, :423 '
-                         'ln_pre (XLA, not a Pallas kernel)', 'oadp_torch/csrc/embed.cu',
-                         ['objects', 'globals', 'blocks', 'split']),
-    }
-    kernels = []
-    for name, res in checks.items():
-        replaces, source, paths = kernel_info[name]
-        launches = path['launches'][name]
-        entry = dict(
-            name=name, route='cuda', source=source, replaces=replaces,
-            launches=launches,
-            launches_per_dispatch=launches / sum(path['dispatches'][d] for d in paths),
-            max_abs_err=res['max_abs_err'], cosine=res['cosine'],
-            ms=res['kernel_ms'], plain_ms=res['plain_ms'], bound_ms=res['bound_ms'],
-            bound_by=res['bound_by'], library_ms=res['library_ms'],
-            device_ms=res['kernel_device_ms'], library_device_ms=res['library_device_ms'],
-        )
-        if 'kernel_device_ms_by_part' in res:
-            entry['device_ms_by_part'] = res['kernel_device_ms_by_part']
-        for key in ('residual_delta_cosine', 'large_mean_bf16_excess', 'plans',
-                    'taps_identical', 'pixels_one_step_off', 'pixels', 'identical'):
-            if key in res:
-                entry[key] = res[key]
-        if name == 'patch_embed':  # the whole embedding before layer 0, the three kernels
-            entry['embedding'] = embedding
-        # every ln_gemm plan on the launches of this entry (check_plans)
-        entry.update({'every_plan' + launch[len(name):]: plan_checks[launch]
-                      for launch in plan_checks if launch.split(' ')[0].split('(')[0] == name})
-        for shape in ('side_only', 'blocks_batch', 'globals_batch', 'objects_batch'):
-            if shape in res:
-                entry[shape] = {k: res[shape][k] for k in (
-                    'name', 'kernel_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-                    'kernel_device_ms', 'library_device_ms', 'max_abs_err', 'cosine',
-                    'residual_delta_cosine', 'large_mean_bf16_excess',
-                    'kernel_device_ms_by_part', 'plans', 'pixels_one_step_off',
-                    'pixels') if k in res[shape]}
-        kernels.append(entry)
-    nms_launches = {'dp': dp['launches']['greedy_nms'],
-                    'dp_train': train['launches']['greedy_nms'],
-                    'calibration': calibration['launches']['greedy_nms']}
-    rpn = nms_check['rpn_train']
-    kernels.append(dict(
-        name='greedy_nms', route='cuda', source='oadp_torch/csrc/nms.cu',
-        replaces='oadp_tpu/ops/nms.py:38 / :187 (lax.while_loop NMS, not a Pallas kernel)',
-        launches=sum(nms_launches.values()), launches_by_phase=nms_launches,
-        max_abs_err=0.0, ms=rpn['kernel_ms'], plain_ms=rpn['plain_ms'], bound_ms=rpn['bound_ms'],
-        bound_by=rpn['bound_by'], library_ms=None, device_ms=rpn['kernel_device_ms'],
-        library_device_ms=None, shape=rpn['name'],
-        plan=rpn['plan'], cycle_share=rpn['cycle_share'],
-        **{name: {k: nms_check[name][k] for k in (
-            'name', 'problems', 'candidates', 'kept', 'plan', 'kernel_ms', 'kernel_device_ms',
-            'plain_ms', 'bound_ms', 'bound_by', 'cycle_share')}
-           for name in ('rpn_train_image_0', 'rpn_train_image_1', 'ov_coco', 'ov_coco_batch_32',
-                        'ov_lvis', 'ov_lvis_batch_2', 'ov_lvis_per_class',
-                        'ov_lvis_per_class_batch_2')}))
-    kernels.append(dict(
-        name='long_attention', route='cuda', source='oadp_torch/csrc/long_attention.cu',
-        replaces='oadp_tpu/ops/attention.py:425 (_surgery_layer_kernel\'s attention, past '
-                 '256 tokens: CLIP ViT-L/14 under OADP\'s surgery)',
-        launches=None, max_abs_err=long_check['max_abs_err'], cosine=long_check['cosine'],
-        ms=long_check['kernel_ms'], plain_ms=None, bound_ms=long_check['bound_ms'],
-        bound_by=long_check['bound_by'], library_ms=long_check['library_ms'],
-        device_ms=long_check['kernel_device_ms'],
-        library_device_ms=long_check['library_device_ms'], shape=long_check['name']))
     log(f'card: {card}')
-    log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count(),

@@ -3,10 +3,12 @@
 ``oadp_tpu.ops.attention`` run in interpret mode, on the same numpy
 inputs in fp32 (atol 1e-4, rtol 1e-3), and the wrappers' device routing.
 The CUDA kernels themselves are held against these plain versions on the
-card by ``chip_smoke.py`` and by the ``cuda``-marked tests below (edge
-shapes of every kernel; they skip without a card)."""
+card by the ``cuda``-marked tests below (the main path's shapes and the
+edge shapes of every kernel; they skip without a card)."""
 
+import importlib.util
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -20,6 +22,20 @@ from oadp_torch.ops import attention as ta
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CC = _sibling('card_checks')
 
 
 def _layer(rng, b, n, heads, hd=64, w_scale=0.05):
@@ -415,57 +431,75 @@ def test_ln_gemm_plan_by_launch(launch, segs, k, epilogue, plan):
         assert all(sorted(set(c)) == [0, 1] for c in turns.values())
 
 
+def _card_layer(dev, b, n, heads, seed, large_mean=False):
+    """A surgery layer's bf16 inputs on the card, drawn there (the objects
+    dispatch's 2048 crops would take seconds in numpy): ``x, y, bias, ln
+    scale, ln bias, qkv_w, qkv_b`` as :func:`_layer` scales them, with
+    -100 on a random half of the patches, and the out-projection's
+    ``out_w``, ``out_b``; with ``large_mean`` the rows of ``x`` and ``y``
+    offset as :func:`_offset_rows` offsets them."""
+    d = heads * 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    x, y = r(b, n, d), r(b, d)
+    if large_mean:
+        sign = torch.randint(0, 2, (3,), device=dev, generator=g) * 2 - 1
+        for t in (x, y):
+            t += torch.empty(*t.shape[:-1], 1, device=dev).uniform_(-50, 50, generator=g)
+            t[..., [3, 40, 77]] += 100 * sign
+    mask = torch.rand(b, n - 1, device=dev, generator=g) > 0.5
+    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
+    args = [x.bfloat16(), y.bfloat16(), bias] + [t.bfloat16() for t in (
+        r(d), r(d), r(d, 3 * d, scale=0.03), r(3 * d, scale=0.05))]
+    return args, dict(out_w=r(d, d, scale=0.05).bfloat16(), out_b=r(d, scale=0.05).bfloat16())
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain version, bf16, on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
-    rng = np.random.default_rng(11)
-    dev = torch.device('cuda')
-    heads, b, n = 12, 8, 197
-    p = _layer(rng, b, n, heads, w_scale=0.03)
-
-    def conv(a):
-        t = torch.from_numpy(a).to(dev)
-        return t if (a.ndim == 2 and a.shape == (b, n)) else t.bfloat16()
-
-    args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
-    kw = dict(out_w=conv(p['ow']), out_b=conv(p['ob']))
-    got = ta.fused_surgery_layer(*args, heads, 0.125, **kw)
-    want = ta.fused_surgery_layer_plain(*args, heads, 0.125, **kw)
-    pk = _packed(rng, b, n, heads)
-    qkv = torch.from_numpy(pk['qkv']).to(dev).bfloat16()
+@pytest.mark.parametrize('b', [8, 999, 2048])
+def test_kernels_match_plain_on_card(b):
+    """Each CUDA kernel against its plain version, bf16, on the card, at
+    N = 197 and 12 heads: kernel 1 (fold_out) and kernel 2 where the fused
+    wiring takes them (B % 8 == 0), kernel 4, and kernel 5 on K and V as
+    views of a packed qkv (row stride 3D) and of a kv (2D); at 8 crops,
+    the split wiring's 999 and the objects dispatch's 2048."""
+    dev = CC.card()
+    heads, n, d = 12, 197, 768
+    got, want = (), ()
+    if b % 8 == 0:
+        args, fold = _card_layer(dev, b, n, heads, seed=b)
+        got += ta.fused_surgery_layer(*args, heads, 0.125, **fold)
+        want += ta.fused_surgery_layer_plain(*args, heads, 0.125, **fold)
+        y, s, t = args[1], args[3], args[4]
+        g = torch.Generator(device=dev).manual_seed(b + 1)
+        mlp = (y, s, t) + tuple((torch.randn(*shape, device=dev, generator=g) * sc).bfloat16()
+                                for shape, sc in (((d, 4 * d), d ** -0.5), ((4 * d,), 0.02),
+                                                  ((4 * d, d), (4 * d) ** -0.5), ((d,), 0.02)))
+        got += (ta.fused_ln_mlp_rows(*mlp),)
+        want += (ta.fused_ln_mlp_rows_plain(*mlp),)
+        del args, fold, mlp
+    g = torch.Generator(device=dev).manual_seed(b + 2)
+    qkv = torch.randn(b, n, 3 * d, device=dev, generator=g).bfloat16()
+    qkv_y = torch.randn(b, 3 * d, device=dev, generator=g).bfloat16()
+    mask = torch.rand(b, n - 1, device=dev, generator=g) > 0.5
+    bias = torch.cat([mask.float() * -100.0, torch.zeros(b, 1, device=dev)], 1)
     got += (ta.fused_mha_qkv(qkv, heads, 0.125),)
     want += (ta.fused_mha_qkv_plain(qkv, heads, 0.125),)
-
-    def conv_side(a):
-        t = torch.from_numpy(a).to(dev)
-        return t if a.shape == (b, n) else t.bfloat16()
-
-    for kv_only in (False, True):
-        args = _side_args(pk, conv_side, kv_only)
+    for kv in (qkv[..., d:], qkv[..., d:].contiguous()):
+        args = (*kv.split(d, -1), *qkv_y.split(d, -1), bias)
         got += (ta.fused_side_attention(*args, heads),)
         want += (ta.fused_side_attention_plain(*args, heads),)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        cos = torch.nn.functional.cosine_similarity(
-            g.float().flatten(1), w.float().flatten(1)
-        )
-        assert float(cos.min()) > 0.999
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
-    return torch.device('cuda')
+    for gt, w in zip(got, want):
+        assert CC.compare(gt, w)[1] > 0.999
 
 
 def _assert_close_on_card(got, want, atol):
-    got, want = got.float(), want.float()
-    assert torch.isfinite(got).all()
-    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1))
-    assert float(cos.min()) > 0.999
-    assert float((got - want).abs().max()) <= atol
+    err, cos = CC.compare(got, want)
+    assert cos > 0.999
+    assert err <= atol
 
 
 @pytest.mark.cuda
@@ -477,7 +511,7 @@ def test_attention_main_rows_on_card(n, b, layout):
     the objects (197), globals (50) and a one-tile (16) sequence, odd
     crop counts, Q/K/V as column slices of a packed qkv (row stride 3D),
     or Q on its own and K/V as slices of a kv (row stride 2D)."""
-    dev = _card()
+    dev = CC.card()
     heads = 4
     d = heads * 64
     rng = np.random.default_rng(20 + n + b)
@@ -496,19 +530,14 @@ def test_attention_main_rows_on_card(n, b, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('b', [5, 8])
+@pytest.mark.parametrize('b', [5, 8, 2048])
 def test_attention_main_and_side_rows_on_card(b):
     """Main rows and the side row of one launch (kernel 1 without the
-    out-projection), from the same staged K and V, at N = 197."""
-    dev = _card()
+    out-projection), from the same staged K and V, at N = 197, up to the
+    objects dispatch's 2048 crops."""
+    dev = CC.card()
     heads, n = 12, 197
-    p = _layer(np.random.default_rng(30 + b), b, n, heads, w_scale=0.03)
-
-    def conv(a):
-        t = torch.from_numpy(a).to(dev)
-        return t if (a.ndim == 2 and a.shape == (b, n)) else t.bfloat16()
-
-    args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
+    args, _ = _card_layer(dev, b, n, heads, seed=30 + b)
     got = ta.fused_surgery_layer(*args, heads, 0.125)
     want = ta.fused_surgery_layer_plain(*args, heads, 0.125)
     torch.cuda.synchronize()
@@ -540,14 +569,12 @@ def _ln_gemm_want(x, w, wb, col0, epilogue, res, ln=None):
     (333, 0, 768, 3072, 1, 0, True, 'auto'),
     (333, 0, 3072, 768, 2, 0, False, 'auto'),
     (2048, 0, 768, 3072, 1, 0, True, 'c128'),
-    (2048, 0, 3072, 768, 2, 0, False, 'c64'),
     (1000, 0, 768, 2304, 0, 0, True, 'c256'),
     (130, 0, 768, 1536, 0, 768, True, 'auto'),
     (77, 0, 768, 768, 2, 0, False, 'c64'),
     # ping-pong: the globals rows (M = 800), M off both tile heights, two
     # row sets, a column slice
     (800, 0, 768, 3072, 1, 0, True, 'p256'),
-    (800, 0, 3072, 768, 2, 0, False, 'p256'),
     (800, 0, 768, 768, 2, 0, False, 'p256'),
     (197 * 5 + 3, 0, 768, 3072, 1, 0, True, 'p256'),
     (197 * 5 + 3, 0, 3072, 768, 2, 0, False, 'p256'),
@@ -559,18 +586,28 @@ def _ln_gemm_want(x, w, wb, col0, epilogue, res, ln=None):
     (197 * 5 + 3, 77, 768, 768, 2, 0, False, 'p256'),
     (800, 77, 768, 1536, 0, 768, True, 'p256'),
     (800, 77, 768, 1536, 0, 768, True, 'c128'),
+    # every plan on the main path's few-tile or deep-K launches (K = 3072,
+    # N = 768): the patch product at the globals (784 rows) and objects
+    # (401,408) dispatches, the globals x-stream proj (800 rows) and kernel
+    # 2's proj (2048 rows), both with the residual
+    *[(rows, 0, 3072, 768, epilogue, 0, False, f'{p.schedule[0]}{p.tile_n}')
+      for rows, epilogue in ((784, 0), (2048 * 196, 0), (800, 2), (2048, 2))
+      for p in ta.GEMM_RATES],
 ])
 def test_ln_gemm_on_card(m, m2, k, n, epilogue, col0, ln, plan):
     """``ln_gemm`` against its plain version in bf16: M not a multiple of
     either tile height, N = 768 and 3072 with each epilogue, a column slice
     (``col0``) of a prepared weight, each schedule and tile width, and a
     second row set (``m2`` rows, the whole weight from column
-    0) in the same launch; the launch takes the plan it was given."""
-    dev = _card()
-    rng = np.random.default_rng(40 + m + n + m2)
+    0) in the same launch; the launch takes the plan it was given. With
+    the residual epilogue the residual deltas (``out - residual``) are held
+    to the plain version's too: the residual would hide a product's
+    error."""
+    dev = CC.card()
+    gen = torch.Generator(device=dev).manual_seed(40 + m + n + m2)
 
     def r(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+        return torch.randn(*shape, device=dev, generator=gen) * scale
 
     x, x2 = r(m, k).bfloat16(), r(max(m2, 1), k).bfloat16()
     w = r(k, col0 + n, scale=k ** -0.5).bfloat16()
@@ -585,9 +622,11 @@ def test_ln_gemm_on_card(m, m2, k, n, epilogue, col0, ln, plan):
                        col0=col0, plan=_plan(plan), rows2=rows2)
     torch.cuda.synchronize()
     assert plan == 'auto' or took == _plan(plan)
-    _assert_close_on_card(out, _ln_gemm_want(x, w, wb, col0, epilogue, res, lnp), atol=0.05)
-    if m2:
-        _assert_close_on_card(out2, _ln_gemm_want(x2, w, wb, 0, epilogue, res2, lnp), atol=0.05)
+    for got, x_, res_, c0 in ((out, x, res, col0),) + (((out2, x2, res2, 0),) if m2 else ()):
+        want = _ln_gemm_want(x_, w, wb, c0, epilogue, res_, lnp)
+        _assert_close_on_card(got, want, atol=0.05)
+        if epilogue == 2:
+            assert CC.compare(got.float() - res_.float(), want.float() - res_.float())[1] > 0.999
 
 
 @pytest.mark.cuda
@@ -611,7 +650,7 @@ def test_ln_gemm_residual_on_card(m, n, col0, plan):
     added there, against its plain version in bf16: M off both tile
     heights, N = 768 and 2304, a column slice (``col0``) of a prepared
     weight, each schedule and tile width."""
-    dev = _card()
+    dev = CC.card()
     rng = np.random.default_rng(60 + m + n + col0 + len(plan))
 
     def r(*shape, scale=1.0):
@@ -646,7 +685,7 @@ def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, plan):
     K = 768 and 1024, rows with a per-row offset of +-50 and +-100 outlier
     columns (a CLIP residual stream), each schedule and tile width, with
     and without quick_gelu."""
-    dev = _card()
+    dev = CC.card()
     m, n = 197 * 5 + 3, 2304
     rng = np.random.default_rng(80 + k + len(plan) + epilogue)
     xs = rng.standard_normal((m, k)).astype(np.float32)
@@ -668,25 +707,18 @@ def test_ln_gemm_ln_rows_on_card(k, rows, epilogue, plan):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('b', [5, 8])
+@pytest.mark.parametrize('b', [5, 8, 2048])
 @pytest.mark.parametrize('rows', ['random', 'large_mean'])
 def test_surgery_layer_merged_rows_on_card(b, rows):
     """Kernel 1 with the y rows riding in the x rows' launches (the QKV
     product, and with ``out_w`` the out-projection), folded and side-only,
-    against its plain version in bf16, on random and large-mean rows."""
-    dev = _card()
+    against its plain version in bf16, on random and large-mean rows, up
+    to the objects dispatch's 2048 crops; on large-mean rows the folded
+    streams also within ``LARGE_MEAN_EXCESS`` beyond one bf16 unit in the
+    last place, where the residual swamps the delta in a cosine."""
+    dev = CC.card()
     heads, n = 12, 197
-    rng = np.random.default_rng(90 + b)
-    p = _layer(rng, b, n, heads, w_scale=0.03)
-    if rows == 'large_mean':
-        p = _large_mean(rng, p)
-
-    def conv(a):
-        t = torch.from_numpy(a).to(dev)
-        return t if (a.ndim == 2 and a.shape == (b, n)) else t.bfloat16()
-
-    args = [conv(p[k]) for k in ('x', 'y', 'bias', 's', 't', 'w', 'wb')]
-    kw = dict(out_w=conv(p['ow']), out_b=conv(p['ob']))
+    args, kw = _card_layer(dev, b, n, heads, seed=90 + b, large_mean=rows == 'large_mean')
     ta.reset_launches()
     got = ta.fused_surgery_layer(*args, heads, 0.125, **kw)
     got += (ta.fused_surgery_layer(*args, heads, 0.125, with_main=False),)
@@ -699,6 +731,9 @@ def test_surgery_layer_merged_rows_on_card(b, rows):
     step = 1.0 if rows == 'large_mean' else 0.0625
     for g, w, atol in zip(got, want, (step, step, 0.05)):
         _assert_close_on_card(g, w, atol=atol)
+    if rows == 'large_mean':
+        assert max(CC.bf16_excess(g, w) for g, w in zip(got[:2], want[:2])) <= \
+            CC.LARGE_MEAN_EXCESS
 
 
 def _k3_on_card(dev, b, n, heads, rng, w_scale=0.03, large_mean=False):
@@ -724,25 +759,27 @@ def test_ln_qkv_attention_on_card(b, n):
     five, a ragged sixth, the globals batch and the blocks batch, at the
     stock encoder's N = 50 and at a short N = 32 (five crop slots, two ring
     stages)."""
-    dev = _card()
+    dev = CC.card()
     got, want, _ = _k3_on_card(dev, b, n, 12, np.random.default_rng(100 + b + n))
     # one bf16 step at the outputs' magnitude (2-4)
     _assert_close_on_card(got, want, atol=2 ** -5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', ['large_mean', 'clamp'])
-def test_ln_qkv_attention_edge_rows_on_card(case):
+@pytest.mark.parametrize('case, b', [('large_mean', 16), ('large_mean', 728), ('clamp', 6)])
+def test_ln_qkv_attention_edge_rows_on_card(case, b):
     """The fused kernel 3 on rows with a per-row offset of +-50 and +-100
-    outlier columns (a CLIP residual stream), and with logits past the
-    clamp of 80."""
-    dev = _card()
+    outlier columns (a CLIP residual stream) at the globals (16) and
+    blocks (728) batches, and with logits past the clamp of 80."""
+    dev = CC.card()
     rng = np.random.default_rng(120)
     if case == 'large_mean':
-        got, want, _ = _k3_on_card(dev, 16, 50, 12, rng, large_mean=True)
-        _assert_close_on_card(got, want, atol=0.03)
+        got, want, _ = _k3_on_card(dev, b, 50, 12, rng, large_mean=True)
+        # a bf16 step at the outputs' magnitude: below 4 at the globals
+        # batch; the blocks batch's 45x more outputs reach past 4
+        _assert_close_on_card(got, want, atol=0.03 if b == 16 else 2 ** -5)
         return
-    got, want, (x, s, t, w, wb) = _k3_on_card(dev, 6, 50, 4, rng, w_scale=0.5)
+    got, want, (x, s, t, w, wb) = _k3_on_card(dev, b, 50, 4, rng, w_scale=0.5)
     qkv = ta._proj(ta.layer_norm(x, s, t), w, wb)
     q, k = qkv[..., :64], qkv[..., 256:320]
     assert float((q @ k.transpose(-1, -2)).max()) / 8 > ta.LOGIT_CLAMP
@@ -758,7 +795,7 @@ def test_ln_qkv_attention_route_on_card(n):
     launch those instead. Each matches the plain version and counts one."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = _card()
+    dev = CC.card()
     got, want, (x, s, t, w, wb) = _k3_on_card(dev, 3, n, 12, np.random.default_rng(130 + n))
     _assert_close_on_card(got, want, atol=0.03)
     prepared = dict(qkv_wt=ta.kmajor(w), ln32=ta.ln_fp32(s, t))

@@ -743,7 +743,7 @@ def test_greedy_nms_kernel_matches_plain_on_card():
     for sorted and shared (``order``, one set or one an image) boxes, under
     every plan it is built for, and the three entry points on batches."""
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+        pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
     rng = np.random.default_rng(5)
     for case in SCAN_CASES:
@@ -799,6 +799,155 @@ def test_greedy_nms_kernel_matches_plain_on_card():
             assert g.shape == w.shape and g.dtype == w.dtype, case
             assert torch.equal(g, w) or bool(((g == w) | (g.isnan() & w.isnan())).all()), case
     torch.cuda.synchronize()
+
+
+def _rpn_card_call(gen, dev):
+    """The arguments of ``rpn_proposals``' one ``batched_nms`` call over a
+    train step's two images at the OV-COCO train canvas (832 x 1344),
+    from random logits and deltas: the top 2000 of each level, 8,819
+    candidates an image, IoU 0.7, 1000 kept."""
+    canvas = (832, 1344)
+    sizes = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in (4, 8, 16, 32, 64)]
+    anchors = [torch.from_numpy(a).float().to(dev)
+               for a in tanchors.AnchorGenerator().grid_anchors(sizes)]
+    scores = [torch.randn(2, len(a), device=dev, generator=gen) for a in anchors]
+    deltas = [0.2 * torch.randn(2, len(a), 4, device=dev, generator=gen) for a in anchors]
+    calls, entry = [], trpn.batched_nms
+    trpn.batched_nms = lambda *a: calls.append(a) or entry(*a)
+    try:
+        trpn.rpn_proposals(scores, deltas, anchors, torch.tensor([(800, 1199), (800, 1333)],
+                                                                 device=dev),
+                           nms_pre=2000, max_per_img=1000, iou_threshold=0.7)
+    finally:
+        trpn.batched_nms = entry
+    (call,) = calls
+    return call
+
+
+def _det_card_inputs(gen, dev, classes: int, per_class: bool, n: int = 1000):
+    """A detector's ``n`` decoded boxes on an 800 x 1199 image, clustered
+    round 40 objects, and softmax scores over ``classes`` + background,
+    zero on 5% of the rows (proposals that were not valid)."""
+    centre = torch.rand(40, 2, device=dev, generator=gen) * torch.tensor([1199., 800.], device=dev)
+    size = 30 + 270 * torch.rand(40, 2, device=dev, generator=gen)
+    k = torch.randint(0, 40, (n,), device=dev, generator=gen)
+    jitter = 1 + 0.15 * torch.randn(n, 2, device=dev, generator=gen)
+    c, sz = centre[k], size[k] * jitter
+    boxes = torch.cat([c - sz / 2, c + sz / 2], 1).clamp(min=0)
+    if per_class:
+        boxes = (boxes[:, None] + 4 * torch.randn(n, classes, 4, device=dev, generator=gen)
+                 ).clamp(min=0).reshape(n, classes * 4)
+    scores = torch.softmax(2 * torch.randn(n, classes + 1, device=dev, generator=gen), -1)
+    scores = scores * (torch.rand(n, 1, device=dev, generator=gen) > 0.05)
+    return boxes, scores
+
+
+def _nms_adversarial_call(name, gen, dev):
+    """``nms`` arguments (boxes, scores, iou, max_out) that stress the scan."""
+    def clustered(n):
+        return _det_card_inputs(gen, dev, 1, False, n)[0]
+
+    def rand(n):
+        return torch.rand(n, device=dev, generator=gen)
+
+    nan = float('nan')
+    if name == 'nan_box':  # its IoU with every box is NaN: it suppresses nothing
+        return (torch.tensor([[nan] * 4, [0, 0, 10, 10], [20, 20, 30, 30]], device=dev),
+                torch.tensor([0.9, 0.8, 0.7], device=dev), 0.5, 3)
+    if name == 'nan_boxes':  # one coordinate of every 7th box, and one box whole
+        boxes = clustered(1000)
+        rows = torch.arange(3, 1000, 7, device=dev)
+        boxes[rows, rows % 4] = nan
+        boxes[500] = nan
+        return boxes, rand(1000), 0.5, 1000
+    if name == 'chain_2000':  # each box suppresses the next
+        x = 4 * torch.arange(2000, device=dev, dtype=torch.float32)[:, None]
+        return (torch.cat([x, 0 * x, x + 10, 0 * x + 10], 1),
+                torch.linspace(1, 0, 2000, device=dev), 0.3, 2000)
+    if name == 'identical_zero_area':
+        boxes = clustered(1000)
+        boxes[::2, 2] = boxes[::2, 0]  # zero width
+        boxes[1::4] = boxes[1]  # one box, many times
+        boxes[3::8] = boxes[3, :1]  # points
+        return boxes, rand(1000), 0.5, 1000
+    if name.startswith('n_'):
+        n = int(name[2:])
+        return clustered(n), rand(n), 0.5, n
+    return {'ties': lambda: (clustered(1000), torch.round(4 * rand(1000)) / 4, 0.5, 1000),
+            'all_dead': lambda: (clustered(1000), torch.full((1000,), tnms.NEG_INF, device=dev),
+                                 0.5, 300),
+            'all_alive_capped': lambda: (clustered(1000), rand(1000), 0.5, 50)}[name]()
+
+
+#: (classes, boxes a class, images) of the ``multiclass_nms`` cases
+_MULTICLASS = {'ov_coco': (65, False, 1), 'ov_coco_batch_32': (65, False, 32),
+               'ov_lvis': (1203, False, 1), 'ov_lvis_batch_2': (1203, False, 2),
+               'ov_lvis_per_class': (1203, True, 1), 'ov_lvis_per_class_batch_2': (1203, True, 2)}
+_NMS_CARD = (['rpn_train', 'rpn_train_image_0', 'rpn_train_image_1', *_MULTICLASS,
+              'ov_coco_nan_boxes', 'nan_box', 'nan_boxes', 'ties', 'chain_2000',
+              'identical_zero_area', 'all_dead', 'all_alive_capped', 'n_1', 'n_63', 'n_64',
+              'n_65'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', _NMS_CARD)
+def test_greedy_nms_at_main_path_shapes_on_card(name, monkeypatch):
+    """Each entry point of ``ops/nms.py`` at the main path's shapes, as
+    its callers batch it, on the card: ``rpn_proposals``' one
+    ``batched_nms`` call over a train step's two images and each image
+    alone (the few long problems on clusters of blocks), ``multiclass_nms``
+    at OV-COCO (one image, a 32-image ``rescore`` batch; one image of a
+    batch of three with NaN boxes) and OV-LVIS (one and two images, boxes
+    shared and per class), and ``nms`` on adversarial cases. The entry's
+    outputs equal the same entry's with the plain version on the card
+    and on the CPU (but for the batches and OV-LVIS, whose plain passes
+    take the CPU minutes), and its kernel call keeps the plain version's
+    keep sets."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(_NMS_CARD.index(name))
+    cpu = name not in _MULTICLASS or name == 'ov_coco'
+    if name.startswith('rpn_train'):
+        entry, args = tnms.batched_nms, _rpn_card_call(gen, dev)
+        if name != 'rpn_train':
+            i = int(name[-1])
+            args = tuple(t[i] for t in args[:3]) + args[3:]
+    elif name in _MULTICLASS or name == 'ov_coco_nan_boxes':
+        classes, per_class, images = _MULTICLASS.get(name, (65, False, 3))
+        boxes, scores = (torch.stack(t) for t in zip(*(
+            _det_card_inputs(gen, dev, classes, per_class) for _ in range(images))))
+        if name == 'ov_coco_nan_boxes':  # NaN boxes with finite scores in the middle image
+            rows = torch.arange(0, 1000, 11, device=dev)
+            boxes[1, rows, rows % 4] = float('nan')
+        if images == 1:
+            boxes, scores = boxes[0], scores[0]
+        entry, args = tnms.multiclass_nms, (boxes, scores, 0.0, 0.5, 300, classes)
+    else:
+        entry, args = tnms.nms, _nms_adversarial_call(name, gen, dev)
+
+    def same(a, b):  # a NaN box equal to itself
+        for x, y in zip(a, b):
+            x, y = x.cpu(), y.cpu()
+            assert x.shape == y.shape and x.dtype == y.dtype
+            assert torch.equal(x, y) or bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+    calls, kernel = [], tnms.greedy_keep_sorted
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted',
+                        lambda *a, **k: calls.append((a, k)) or kernel(*a, **k))
+    out = entry(*args)
+    monkeypatch.setattr(tnms, 'greedy_keep_sorted', tnms.greedy_keep_sorted_plain)
+    same(out, entry(*args))
+    if cpu:
+        same(out, entry(*(t.cpu() if torch.is_tensor(t) else t for t in args)))
+    (a, k), = calls
+    keep = kernel(*a, **k)
+    assert torch.equal(keep, tnms.greedy_keep_sorted_plain(*a, **k))
+    if name.startswith('rpn_train'):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tnms.nms_plan(*a[1].shape, sms).cluster >= 2
+    if name == 'nan_box':
+        assert int(keep.sum()) == 3
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ batch unpacking."""
 
 import dataclasses
 import functools
+import importlib.util
+import pathlib
 import threading
 
 import jax
@@ -31,7 +33,21 @@ from oadp_torch.dp import datasets as tdatasets
 from oadp_torch.dp.evaluator import DetEvaluator as TEvaluator
 from oadp_torch.models import detector as tdet
 from oadp_torch.utils import Config
-from tests.test_torch_det_ops import jax_tree, randomize_bn
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_det_ops = _sibling('test_torch_det_ops')
+jax_tree, randomize_bn = _det_ops.jax_tree, _det_ops.randomize_bn
 
 torch.set_num_threads(1)
 

@@ -274,14 +274,16 @@ def test_patch_product_split_after_patch_rows(encoders, fill):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('stride', [16, 32])
-def test_embedding_kernels_on_card(stride):
+@pytest.mark.parametrize('stride, crops', [(16, 24), (32, 24), (16, 2048), (32, 16)])
+def test_embedding_kernels_on_card(stride, crops):
     """The three launches against their plain versions on the card at ViT-B/32
     width: ``patch_rows`` bit for bit, the product and ``embed_ln_pre``
     (cosine >= 0.999 row by row), the whole embedding against the
-    block-product route (cosine >= 0.999); one launch of each."""
+    block-product route (cosine >= 0.999); one launch of each. Also at an
+    objects dispatch (2048 crops at the surgery's stride 16) and a globals
+    dispatch (16 at the stock stride 32)."""
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+        pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(stride)
     cfg = tclip.ViTConfig(stride=stride)
@@ -291,14 +293,14 @@ def test_embedding_kernels_on_card(stride):
     params = tclip.prepare_kernel_params(tclip.map_params(
         params, lambda t: t.to(device=dev, dtype=torch.bfloat16)))
     kern = params['kernel']
-    crops = torch.randn(24, 224, 224, 3, device=dev, generator=gen).bfloat16()
+    images = torch.randn(crops, 224, 224, 3, device=dev, generator=gen).bfloat16()
     EM.reset_launches()
-    rows = EM.patch_rows(crops, 32, stride)
-    assert torch.equal(rows, EM.patch_rows_plain(crops, 32, stride))
+    rows = EM.patch_rows(images, 32, stride)
+    assert torch.equal(rows, EM.patch_rows_plain(images, 32, stride))
     x = EM.patch_embed(rows, kern['conv1_wt'], kern['conv1_b'])
     want = EM.patch_embed_plain(rows, kern['conv1_wt'])
     assert float(F.cosine_similarity(x.float(), want.float(), -1).min()) >= 0.999
-    x = x.view(24, cfg.grid ** 2, cfg.width)
+    x = x.view(crops, cfg.grid ** 2, cfg.width)
     ln = params['ln_pre']
     args = (x, params['class_embedding'], params['positional_embedding'], ln['scale'], ln['bias'])
     got = EM.embed_ln_pre(*args, ln32=kern['ln_pre'])
@@ -306,6 +308,6 @@ def test_embedding_kernels_on_card(stride):
     assert EM.LAUNCHES == {'patch_rows': 1, 'patch_embed': 1, 'embed_ln_pre': 1}
     want = EM.embed_ln_pre_plain(*args)
     assert float(F.cosine_similarity(got.float(), want.float(), -1).min()) >= 0.999
-    whole = tclip._embed_ln_pre(crops, params, cfg)
-    block = tclip._layer_norm(tclip._embed_patches(crops, params, cfg), params['ln_pre'])
+    whole = tclip._embed_ln_pre(images, params, cfg)
+    block = tclip._layer_norm(tclip._embed_patches(images, params, cfg), params['ln_pre'])
     assert float(F.cosine_similarity(whole.float(), block.float(), -1).min()) >= 0.999

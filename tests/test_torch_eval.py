@@ -5,7 +5,9 @@ the search samplers, the DetPro repackager, the category splits,
 ``build_annotations`` and the ODPS shim."""
 
 import copy
+import importlib.util
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,7 +19,21 @@ from oadp_tpu.ops import masks as jmasks
 from oadp_torch.dp import coco_eval as tcoco
 from oadp_torch.dp import lvis_eval as tlvis
 from oadp_torch.ops import masks as tmasks
-from tests.test_coco_eval import _dataset, _det
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_coco_eval = _sibling('test_coco_eval')
+_dataset, _det = _coco_eval._dataset, _coco_eval._det
 
 torch.set_num_threads(1)
 

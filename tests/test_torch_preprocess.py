@@ -778,27 +778,46 @@ def test_resize_smem_is_the_kernels():
                         == tpp.resize_smem(ring, 224, band, cap, k))
 
 
+def _card_resize_inputs(shape, rng):
+    """Padded uint8 images and their crops' metas: ``small``, two 300 x
+    240 images at pad 320, eight crops of each kind an image (six past
+    the edges); ``objects``, an objects dispatch, two 640 x 480 images at
+    pad 640 and 1024 crops each (eight identity, six past the edges, eight
+    a pixel wide, the rest random with three sqrt(8)-expanded whole
+    images, 35 taps); ``globals``, a globals dispatch, 16 640 x 480
+    images, each whole."""
+    if shape == 'globals':
+        images = np.stack([_image(rng, 480, 640, 640) for _ in range(16)])
+        whole = tpp.clip_transform_meta(640, 480, np.asarray([[0.0, 0, 640, 480]]))
+        return images, np.repeat(whole, 16, 0)
+    h, w, pad, n = (480, 640, 640, 1002) if shape == 'objects' else (240, 300, PAD, 8)
+    images = np.stack([_image(rng, h, w, pad) for _ in range(2)])
+    metas = np.concatenate([tpp.clip_transform_meta(w, h, np.concatenate(
+        [_boxes(kind, rng, 8, h, w) for kind in ('identity', 'past_edges', 'one_pixel_wide')]
+        + ([_boxes('random', rng, 8, h, w)] if shape == 'small' else [])
+        + [_boxes('largest_k', rng, n, h, w)])) for _ in range(2)])
+    return images, metas
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('k', [5, 13, 35, 64])
-def test_resize_crops_on_card(k):
+@pytest.mark.parametrize('k, shape', [(5, 'small'), (13, 'small'), (35, 'small'), (64, 'small'),
+                                      (35, 'objects'), (13, 'globals')])
+def test_resize_crops_on_card(k, shape):
     """The kernel against its plain version on the card: taps bit for bit
     ``device_coeffs``' (on the card and on the CPU), pixels equal (at most
     1e-5 of them one uint8 step off, none more), normalized crops equal;
-    two chunks of one packed buffer (a view) in one launch, and paired
-    images."""
+    the chunks of one packed buffer (a view) in one launch, and paired
+    images. At small images, and at an objects and a globals dispatch."""
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+        pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
-    rng = np.random.RandomState(k)
-    images = np.stack([_image(rng), _image(rng)])
-    metas = np.concatenate([tpp.clip_transform_meta(300, 240, np.concatenate(
-        [_boxes(kind, rng, 8) for kind in ('identity', 'past_edges', 'one_pixel_wide',
-                                            'random', 'largest_k')])) for _ in range(2)])
-    n_img = PAD * PAD * 3
-    buf = torch.zeros((2, n_img + 40), dtype=torch.uint8)
-    buf[:, :n_img] = torch.from_numpy(images.reshape(2, -1))
+    images, metas = _card_resize_inputs(shape, np.random.RandomState(k))
+    g, pad = len(images), images.shape[1]
+    n_img = pad * pad * 3
+    buf = torch.zeros((g, n_img + 40), dtype=torch.uint8)
+    buf[:, :n_img] = torch.from_numpy(images.reshape(g, -1))
     buf = buf.to(dev)
-    imgs = buf[:, :n_img].reshape(2, PAD, PAD, 3)
+    imgs = buf[:, :n_img].reshape(g, pad, pad, 3)
     meta = torch.from_numpy(metas).to(dev)
     tpp.reset_launches()
     crops, taps = tpp.resize_crops(imgs, meta, k, return_taps=True)
@@ -814,8 +833,10 @@ def test_resize_crops_on_card(k):
     plain = tpp.resize_crops_plain(imgs, meta, k)
     assert float((crops.float() - plain.float()).abs().max()) <= (
         0.0 if int((steps > 0).sum()) == 0 else 0.02)
-    paired = tpp.resize_crops(imgs, meta[::8].contiguous(), k)  # a crop an image
-    assert torch.equal(paired, tpp.resize_crops_plain(imgs, meta[::8].contiguous(), k))
+    if len(meta) > g:  # a crop an image
+        paired = meta[::len(meta) // g].contiguous()
+        assert torch.equal(tpp.resize_crops(imgs, paired, k),
+                           tpp.resize_crops_plain(imgs, paired, k))
 
 
 @pytest.mark.cuda
@@ -825,7 +846,7 @@ def test_resize_crops_on_card_own_buckets():
     with ``k_own`` (the 21-tap image's equal to ``oadp_tpu``'s at 21 on the
     CPU test), the pixels within one uint8 step of the plain version."""
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
+        pytest.skip('needs a CUDA device')
     dev = torch.device('cuda')
     rng = np.random.RandomState(21)
     images = torch.from_numpy(np.stack([_image(rng, 480, 640, 640),

@@ -7,6 +7,8 @@ rtol 1e-3) for the encoder and atol 2e-5 for the prompt embeddings."""
 
 import functools
 import gzip
+import importlib.util
+import pathlib
 import string
 
 import numpy as np
@@ -19,7 +21,20 @@ from oadp_tpu.prompts import vild as jvild
 from oadp_torch.models import clip as tclip
 from oadp_torch.models import tokenizer as ttok
 from oadp_torch.prompts import vild as tvild
-from tests.test_torch_clip import _leaves
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_leaves = _sibling('test_torch_clip')._leaves
 
 torch.set_num_threads(1)
 

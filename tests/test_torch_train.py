@@ -5,6 +5,9 @@ new statistics, ``lr_at`` and ``sgd_update``, and a deterministic resume
 (``tests/test_torch_forward_train.py`` holds ``forward_train`` and one full
 step)."""
 
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +23,23 @@ from oadp_torch.dp import trainer as ttrainer
 from oadp_torch.models import detector as tdet
 from oadp_torch.models import layers as tlayers
 from oadp_torch.ops import assign as tassign
-from tests.test_torch_forward_train import (
-    EMB_DIM, _items, _mini_config, _train_batch, rel_close, t,
-)
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_forward_train = _sibling('test_torch_forward_train')
+EMB_DIM, _items, _mini_config, _train_batch, rel_close, t = (
+    getattr(_forward_train, k) for k in ('EMB_DIM', '_items', '_mini_config', '_train_batch',
+                                         'rel_close', 't'))
 
 torch.set_num_threads(1)
 

@@ -7,8 +7,12 @@ out-projection on ``ln_gemm`` (``oadp_torch.ops.attention``:
 counts at 12 layers; and, ``cuda``-marked (they skip without a card),
 both kernel routes against their plain versions on the card at the
 objects (2048 x 197), blocks (728 x 50) and globals (16 x 50) shapes of
-ViT-B/32, and on rows with a large mean by ``chip_smoke``'s bf16 excess,
-which a dropped or wrong MLP fails (shown on the CPU)."""
+ViT-B/32, and on rows with a large mean by the bf16 excess of
+``tests/card_checks.py``, which a dropped or wrong MLP fails (shown on the
+CPU)."""
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -24,6 +28,20 @@ torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=0)
 D, HIDDEN = 128, 512
+
+
+def _sibling(name: str):
+    """A module of this directory, loaded by path: on a host where an
+    installed package is also called ``tests``, ``import tests.x`` finds
+    that one (this directory has no ``__init__.py``)."""
+    spec = importlib.util.spec_from_file_location(f'_{name}', pathlib.Path(__file__).with_name(
+        f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CC = _sibling('card_checks')
 
 
 def _mlp_case(rng, shape):
@@ -137,12 +155,6 @@ def _card_weights(dev, gen, d=768):
                 out_w=r(d, d, scale=d ** -0.5), out_b=r(d, scale=0.02))
 
 
-def _min_cos(got, want):
-    assert torch.isfinite(got).all()
-    return float(torch.nn.functional.cosine_similarity(
-        got.float().flatten(1), want.float().flatten(1)).min())
-
-
 def _large_mean(x, rng):
     """``x`` with a per-row offset in [-50, 50] and column 3 at +100."""
     x = x + rng(x.shape[:-1] + (1,))
@@ -152,13 +164,11 @@ def _large_mean(x, rng):
 
 @pytest.mark.parametrize('fault', [None, 'dropped_mlp', 'mlp_off_by_a_fifth'])
 def test_large_mean_gate_sees_the_mlp(fault):
-    """``chip_smoke.bf16_excess`` on rows with a large mean: the kernel's
+    """``bf16_excess`` on rows with a large mean: the kernel's
     rounding (the LN pass and the hidden written in bf16, quick_gelu and
     both products in fp32, one rounding of ``x + delta``) stays within
     ``LARGE_MEAN_EXCESS`` of the bf16 plain version; an MLP dropped, or
     off by a fifth, does not, though its output keeps a cosine >= 0.999."""
-    import chip_smoke
-
     rng = np.random.default_rng(11)
     c = _mlp_case(rng, (8, 197, D))
     x = _large_mean(torch.from_numpy(c['x']),
@@ -174,12 +184,12 @@ def test_large_mean_gate_sees_the_mlp(fault):
     delta = h.float() @ f['proj_w'] + f['proj_b']
     share = {None: 1.0, 'dropped_mlp': 0.0, 'mlp_off_by_a_fifth': 0.8}[fault]
     got = (x.float() + share * delta).bfloat16()
-    excess = chip_smoke.bf16_excess(got, want)
+    excess = CC.bf16_excess(got, want)
     if fault is None:
-        assert excess <= chip_smoke.LARGE_MEAN_EXCESS
+        assert excess <= CC.LARGE_MEAN_EXCESS
     else:
-        assert _min_cos(got, want) >= 0.999
-        assert excess > chip_smoke.LARGE_MEAN_EXCESS
+        assert CC.compare(got, want)[1] >= 0.999
+        assert excess > CC.LARGE_MEAN_EXCESS
 
 
 @pytest.mark.cuda
@@ -188,12 +198,10 @@ def test_large_mean_gate_sees_the_mlp(fault):
 def test_ln_mlp_residual_on_card(shape, rows):
     """The three launches against the plain version (cosine >= 0.999 of
     the outputs, row by row; on random rows also of their residual
-    deltas, on large-mean rows within ``chip_smoke.LARGE_MEAN_EXCESS``
+    deltas, on large-mean rows within ``LARGE_MEAN_EXCESS``
     beyond one bf16 unit in the last place), with the prepared weights
     and with copies made per call; one launch counted per call."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
-    dev = torch.device('cuda')
+    dev = CC.card()
     gen = torch.Generator(device=dev).manual_seed(7)
     w = _card_weights(dev, gen)
     b, n = SHAPES[shape]
@@ -212,21 +220,17 @@ def test_ln_mlp_residual_on_card(shape, rows):
     assert ta.LAUNCHES['ln_mlp_residual'] == 2
     assert torch.equal(got, again)
     want = ta.ln_mlp_residual_plain(*args)
-    assert _min_cos(got, want) >= 0.999
+    assert CC.compare(got, want)[1] >= 0.999
     if rows == 'random':
-        assert _min_cos(got.float() - x.float(), want.float() - x.float()) >= 0.999
+        assert CC.compare(got.float() - x.float(), want.float() - x.float())[1] >= 0.999
     else:  # the output's rounding swamps the delta: held beyond it
-        import chip_smoke
-
-        assert chip_smoke.bf16_excess(got, want) <= chip_smoke.LARGE_MEAN_EXCESS
+        assert CC.bf16_excess(got, want) <= CC.LARGE_MEAN_EXCESS
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', ['objects', 'blocks', 'globals'])
 def test_out_proj_residual_on_card(shape):
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device; chip_smoke.py runs the full check')
-    dev = torch.device('cuda')
+    dev = CC.card()
     gen = torch.Generator(device=dev).manual_seed(8)
     w = _card_weights(dev, gen)
     b, n = SHAPES[shape]
@@ -236,8 +240,8 @@ def test_out_proj_residual_on_card(shape):
     torch.cuda.synchronize()
     assert ta.LAUNCHES['out_proj_residual'] == 1
     want = ta.out_proj_residual_plain(x, a, w['out_w'], w['out_b'])
-    assert _min_cos(got, want) >= 0.999
-    assert _min_cos(got.float() - x.float(), want.float() - x.float()) >= 0.999
+    assert CC.compare(got, want)[1] >= 0.999
+    assert CC.compare(got.float() - x.float(), want.float() - x.float())[1] >= 0.999
 
 
 @pytest.mark.parametrize('name, part', [
